@@ -31,16 +31,19 @@ from ._error import (
     KernelExecutionError, CUDANotInstalledError, KernelToolchainError,
     NvccNotFoundError, KernelLoadError, KernelRegistrationError,
 )
-from .fcn import event_capacity
+from .fcn import binary_fcnmv, binary_fcnmv_p_call, event_capacity
 from .ops import (
     KernelOp, launch_counts, reset_launch_counts, event_scatter_add,
-    event_scatter_add_multi,
+    event_scatter_add_multi, GatherPlan, build_gather_plan, plan_from_csr,
+    plan_from_ell, gather_matvec, plan_matvec_dw, plan_inverse_perm,
+    plan_matvec_vjp,
 )
 from .models import (
     LIFRefParams, LIFRefState, lifref_init, lifref_step, surrogate_spike,
-    EINet, EINetState, einet_pallas_sim, mxu6_conn_table,
+    EINet, EINetState, einet_pallas_sim, mxu6_conn_table, SNNParams,
+    SurrogateSNN, snn_loss, train_step,
 )
-from .interop import einet_from_arrays
+from .interop import einet_from_arrays, surrogate_snn_from_arrays
 
 __all__ = [
     '__version__', '__version_info__', 'config',
@@ -49,9 +52,13 @@ __all__ = [
     'CompilationError', 'KernelExecutionError', 'CUDANotInstalledError',
     'KernelToolchainError', 'NvccNotFoundError', 'KernelLoadError',
     'KernelRegistrationError',
-    'event_capacity', 'KernelOp', 'launch_counts', 'reset_launch_counts',
-    'event_scatter_add', 'event_scatter_add_multi',
+    'event_capacity', 'binary_fcnmv', 'binary_fcnmv_p_call', 'KernelOp',
+    'launch_counts', 'reset_launch_counts', 'event_scatter_add',
+    'event_scatter_add_multi', 'GatherPlan', 'build_gather_plan',
+    'plan_from_csr', 'plan_from_ell', 'gather_matvec', 'plan_matvec_dw',
+    'plan_inverse_perm', 'plan_matvec_vjp',
     'LIFRefParams', 'LIFRefState', 'lifref_init', 'lifref_step',
     'surrogate_spike', 'EINet', 'EINetState', 'einet_pallas_sim',
-    'mxu6_conn_table', 'einet_from_arrays',
+    'mxu6_conn_table', 'SNNParams', 'SurrogateSNN', 'snn_loss', 'train_step',
+    'einet_from_arrays', 'surrogate_snn_from_arrays',
 ]

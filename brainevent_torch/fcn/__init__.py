@@ -1,8 +1,8 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Fixed-number (ELL) connectivity. So far only ``event_capacity``."""
+"""Fixed-number (ELL) connectivity: the event-driven ``binary_fcnmv``."""
 
-from .binary import event_capacity
+from .binary import binary_fcnmv, binary_fcnmv_p_call, event_capacity
 
-__all__ = ['event_capacity']
+__all__ = ['binary_fcnmv', 'binary_fcnmv_p_call', 'event_capacity']

@@ -17,8 +17,9 @@
 
 The port does not re-implement JAX's random generator, so to simulate the
 network the JAX package drew, take its arrays (``np.asarray(net.conn_all)``,
-``np.asarray(state.neurons.v)``, ...) and build the port's objects from
-them. This module sees numpy arrays only, never a JAX object.
+``np.asarray(state.neurons.v)``, ``np.asarray(model.rec_indices)``, ...)
+and build the port's objects from them. This module sees numpy arrays
+only, never a JAX object.
 """
 
 import numpy as np
@@ -26,8 +27,9 @@ import torch
 
 from .models.networks import EINet, EINetState
 from .models.neurons import LIFRefState
+from .models.training import SNNParams, SurrogateSNN
 
-__all__ = ['einet_from_arrays']
+__all__ = ['einet_from_arrays', 'surrogate_snn_from_arrays']
 
 
 def _tensor(x, dtype, device):
@@ -63,3 +65,37 @@ def einet_from_arrays(conn_all, n_exc, v, t_last, g_e, g_i, spike_count, *,
             f'arrays do not fit scale={scale}: n_exc {n_exc} vs {net.n_exc}, '
             f'v {tuple(state.neurons.v.shape)} vs ({net.num},)')
     return net, state
+
+
+def surrogate_snn_from_arrays(rec_indices, w_in, w_rec, w_out, *,
+                              device=None, **fields):
+    """Build the port's ``(SurrogateSNN, SNNParams)`` from numpy arrays.
+
+    Parameters
+    ----------
+    rec_indices : ``(n_hidden, n_conn)`` int array, the recurrent ELL table
+    w_in : ``(n_in, n_hidden)`` float array
+    w_rec : ``(n_hidden, n_conn)`` float array
+    w_out : ``(n_hidden, n_out)`` float array
+    device : where the model and parameters live
+    fields : other :class:`SurrogateSNN` fields (``tau``, ``dt``, ``v_th``,
+        ``forward``, ...); the sizes come from the arrays' shapes.
+    """
+    idx = np.asarray(rec_indices)
+    f = np.float32
+    params = SNNParams(w_in=_tensor(w_in, f, device),
+                       w_rec=_tensor(w_rec, f, device),
+                       w_out=_tensor(w_out, f, device))
+    n_in, n_hidden = params.w_in.shape
+    if (params.w_rec.shape != idx.shape
+            or params.w_out.shape[0] != n_hidden):
+        raise ValueError(
+            f'arrays do not fit: rec_indices {idx.shape}, w_in '
+            f'{tuple(params.w_in.shape)}, w_rec {tuple(params.w_rec.shape)}, '
+            f'w_out {tuple(params.w_out.shape)}')
+    model = SurrogateSNN(
+        n_in=n_in, n_hidden=n_hidden, n_out=params.w_out.shape[1],
+        n_conn=idx.shape[1], device=device,
+        rec_indices=torch.from_numpy(idx.astype(np.int32)),
+        initial_params=params, **fields)
+    return model, params

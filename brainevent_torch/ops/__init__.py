@@ -1,10 +1,20 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Op registry, the CUDA build, and the event scatter ops."""
+"""Op registry, the CUDA build, the event scatter ops and the gather
+plans."""
 
 from .core import KernelOp, launch_counts, reset_launch_counts
 from .scatter import event_scatter_add, event_scatter_add_multi
+from .mxu_gather import (
+    GatherPlan, build_gather_plan, plan_from_csr, plan_from_ell,
+    gather_matvec, gather_matvec_xla, plan_matvec_dw, matvec_dw_xla,
+    plan_inverse_perm, plan_aux, plan_matvec_vjp,
+)
 
 __all__ = ['KernelOp', 'launch_counts', 'reset_launch_counts',
-           'event_scatter_add', 'event_scatter_add_multi']
+           'event_scatter_add', 'event_scatter_add_multi', 'GatherPlan',
+           'build_gather_plan', 'plan_from_csr', 'plan_from_ell',
+           'gather_matvec', 'gather_matvec_xla', 'plan_matvec_dw',
+           'matvec_dw_xla', 'plan_inverse_perm', 'plan_aux',
+           'plan_matvec_vjp']

@@ -15,11 +15,13 @@
 
 """Build the package's CUDA kernels and load them with ctypes.
 
-``nvcc`` compiles every ``brainevent_torch/csrc/*.cu`` into one shared
-library with a plain C interface, for Hopper (``sm_90a``)::
+``nvcc`` compiles each ``brainevent_torch/csrc/*.cu`` into an object for
+Hopper (``sm_90a``), all sources at once in parallel processes, and links
+the objects into one shared library with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
-         -shared -Xcompiler -fPIC -o <lib> csrc/*.cu
+         -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu      (one per source)
+    nvcc -shared -o <lib> <obj> ...
 
 The library is keyed by a hash of the sources and the flags, lives under
 ``build/brainevent_torch/`` at the root of the checkout (or under
@@ -46,10 +48,11 @@ from pathlib import Path
 from .._error import CompilationError, KernelLoadError, NvccNotFoundError
 
 __all__ = ['NVCC_FLAGS', 'csrc_dir', 'sources', 'build_dir', 'find_nvcc',
-           'build_command', 'library', 'function', 'last_build_seconds']
+           'compile_command', 'link_command', 'library', 'function',
+           'last_build_seconds']
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-fmad=false', '-Xcompiler', '-fPIC')
 
 _lock = threading.Lock()
 _lib = None
@@ -105,25 +108,48 @@ def _key() -> str:
     return h.hexdigest()[:16]
 
 
-def build_command(nvcc: str, output, srcs) -> list:
-    """The ``nvcc`` command line that builds *output* from *srcs*."""
-    return [nvcc, *NVCC_FLAGS, '-o', str(output), *map(str, srcs)]
+def compile_command(nvcc: str, obj, src) -> list:
+    """The ``nvcc`` command line that compiles *src* into the object *obj*."""
+    return [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+
+
+def link_command(nvcc: str, output, objs) -> list:
+    """The ``nvcc`` command line that links *objs* into the library."""
+    return [nvcc, '-shared', '-o', str(output), *map(str, objs)]
+
+
+def _spawn(cmd) -> tuple:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(procs) -> None:
+    """Wait for every ``(cmd, Popen)`` in *procs*; then raise for the
+    first that failed, with its output."""
+    results = [(cmd, proc.communicate()[0], proc.returncode)
+               for cmd, proc in procs]
+    for cmd, out, code in results:
+        if code != 0:
+            raise CompilationError(
+                f'nvcc failed (exit {code}):\n  {" ".join(cmd)}\n{out}')
 
 
 def _build(path: Path, srcs) -> None:
     global _build_seconds
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f'{path.name}.{os.getpid()}.tmp')
-    cmd = build_command(find_nvcc(), tmp, srcs)
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise CompilationError(
-            f'nvcc failed (exit {proc.returncode}):\n  {" ".join(cmd)}\n'
-            f'{proc.stdout}{proc.stderr}')
-    os.replace(tmp, path)
-    _build_seconds = time.perf_counter() - t0
+    nvcc = find_nvcc()
+    tmpdir = path.with_name(f'{path.name}.{os.getpid()}.tmp')
+    tmpdir.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        objs = [tmpdir / f'{Path(src).stem}.o' for src in srcs]
+        _wait([_spawn(compile_command(nvcc, obj, src))
+               for obj, src in zip(objs, srcs)])
+        lib = tmpdir / path.name
+        _wait([_spawn(link_command(nvcc, lib, objs))])
+        os.replace(lib, path)
+        _build_seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
 
 
 def library() -> ctypes.CDLL:

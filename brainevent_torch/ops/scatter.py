@@ -22,7 +22,9 @@ GPU the scatter is atomics, in the two forms of kernel K2
 
 - :data:`event_scatter_float` (``event_scatter_add`` and
   ``event_scatter_add_multi`` on CUDA tensors): float32 atomics, exact for
-  0/1 values at any add order;
+  0/1 values at any add order. It ports the JAX package's XLA
+  ``event_scatter_add`` (``brainevent_tpu/ops/scatter.py:252``), not a
+  Pallas kernel;
 - :data:`event_count_scatter` (the EI network's propagation): int32 hit
   counts per target on two channels, read from the device-side spike list
   that kernel K1 writes.
@@ -81,7 +83,7 @@ def _event_scatter_float_cuda(op, targets, values, out):
 event_scatter_float = KernelOp(
     'event_scatter_float', twin=event_scatter_float_twin,
     cuda=_event_scatter_float_cuda, source=_SOURCE,
-    replaces='brainevent_tpu/fcn/pallas_kernels.py:260')
+    replaces='brainevent_tpu/ops/scatter.py:252')
 
 
 def event_scatter_add(targets: torch.Tensor, values, n_out: int, *,

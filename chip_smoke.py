@@ -8,8 +8,11 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``brainevent_torch/csrc`` and drives the
-port's main path, the COBA EI network (Brette et al. 2007) at 4,000
-neurons, through ``einet_pallas_sim``. Phases:
+port's two paths: the COBA EI network (Brette et al. 2007) at 4,000
+neurons through ``einet_pallas_sim`` (kernels K1, K2), and the
+surrogate-gradient train step of a 100k-neuron, 10M-synapse recurrent
+network through ``train_step`` (K3, K4; K5 with ``forward='event'``),
+beside the 10M-synapse event product ``binary_fcnmv`` (K5, K6). Phases:
 
 1. the device (``torch.cuda.get_device_name`` and ``nvidia-smi``);
 2. the kernel build, with its seconds;
@@ -18,20 +21,43 @@ neurons, through ``einet_pallas_sim``. Phases:
    neurons: bitwise equal;
 4. K2 (``event_count_scatter``, and its float form) against its twin on
    random spike lists, up to every neuron spiking at once: equal;
-5. the slice: COBA and CUBA at 4k for 2,000 steps through the kernels,
-   against the twin loop on the same card and inputs: equal spike counts;
-   K1 launched once per step (plus one final fold) and K2 once per step;
-   firing rate within 5-200 Hz;
-6. timing, for the record: 4k COBA over 100k steps and 400k COBA over
-   5,000 steps in us/step (host clock); each kernel's device time (CUDA
-   events around launches queued back to back), its host-paced time per
-   launch, and its twin's time per call.
+5. the EI slice: COBA and CUBA at 4k and COBA at 40k (the size from which
+   the JAX package takes its mxu6 route) for 2,000 steps through the
+   kernels, against the twin loop on the same card and inputs: equal spike
+   counts; K1 launched once per step (plus one final fold) and K2 once per
+   step; firing rate within 5-200 Hz;
+6. EI timing, for the record: 4k COBA over 100k steps and 400k COBA over
+   5,000 steps in us/step (host clock); K1's and K2's device time (CUDA
+   events around launches queued back to back), host-paced time per
+   launch, and their twins' time per call;
+7. K3 (``plan_gather_mv``) and K4 (``plan_matvec_dw``) against their twins
+   on both plans of the 100k x 100 model, x normal and 0/1 at 18%: y
+   within 1e-5 * sum|w x| per row, K4's dw bitwise, repeats bitwise;
+8. K5 (``fcn_event_scatter``) and K6 (``fcn_event_gather``) against their
+   twins at 100k x 100, rates 0, 0.1%, 1% and 100%, homogeneous and
+   heterogeneous weights, bool and float spikes: homogeneous exact, K5
+   heterogeneous within 1e-5 * sum|w| per target, K6 within 1e-6 * sum|w|
+   per row; then ``binary_fcnmv`` driven at 0.1% and 1% in both
+   directions;
+9. the training slice, small (12-128-4, T 20), ``forward='plan'`` and
+   ``'event'``: spikes, loss, gradients and 10 train steps through the
+   kernels against the twin route on the same card;
+10. the training slice at full width (100k hidden, 100 connections, T 50):
+    one warm-up and five timed train steps, 50 K3 and 50 K4 launches per
+    step, loss and gradients bitwise equal over two runs, one profiled
+    step (device busy time and the largest kernels), and one step with
+    ``forward='event'`` (50 K5 launches);
+11. learning: the 2,000-neuron net of 4 class-templated inputs, 30 epochs
+    at lr 0.5, must lower its loss;
+12. K3-K6 timing at full width: device ms per launch and twin ms per call
+    (K5 and K6 at 0.1% and 1%).
 
 Any failure exits non-zero; so does a host without CUDA. The line before
-the last is ``{"kernels": [...]}``; the last is
+the last is ``{"kernels": [...]}`` (K1-K6); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import copy
 import json
 import subprocess
 import sys
@@ -155,15 +181,17 @@ def check_k2(nets, device):
 
 
 def check_slice(device):
-    phase('5 the slice: einet_pallas_sim at 4k, 2000 steps (spike counts '
-          'equal to the twin loop)')
+    phase('5 the slice: einet_pallas_sim at 4k (COBA, CUBA) and 40k (COBA), '
+          '2000 steps (spike counts equal to the twin loop)')
     import brainevent_torch as bt
     from brainevent_torch.models import networks as nw
     from brainevent_torch.ops import scatter as sc
     n_steps = 2000
     launches = None
-    for coba in (True, False):
-        net = bt.EINet(scale=1.0, coba=coba, device=device)
+    # 40k neurons is the size from which the JAX package switches to mxu6
+    for label, scale, coba in (('4k', 1.0, True), ('4k', 1.0, False),
+                               ('40k', 10.0, True)):
+        net = bt.EINet(scale=scale, coba=coba, device=device)
         state = net.init_state()
         bt.reset_launch_counts()
         t0 = time.perf_counter()
@@ -171,7 +199,7 @@ def check_slice(device):
         torch.cuda.synchronize()
         t_kernel = time.perf_counter() - t0
         counts = bt.launch_counts()
-        if coba:
+        if label == '4k' and coba:
             launches = counts
         check(counts['einet_step'] == n_steps + 1, counts)
         check(counts['event_count_scatter'] == n_steps, counts)
@@ -186,13 +214,14 @@ def check_slice(device):
             check(x.shape == (net.num,) and bool(torch.isfinite(x).all()),
                   'finite (num,) state')
         check(spike_count.dtype == torch.int32, spike_count.dtype)
-        check(torch.equal(spike_count, ref.spike_count), coba)
+        check(torch.equal(spike_count, ref.spike_count), (label, coba))
         dv = float((v - ref.neurons.v).abs().max())
         rate = float(spike_count.float().mean()) / (n_steps * net.dt * 1e-3)
         check(5.0 < rate < 200.0, rate)
-        print(f'{"COBA" if coba else "CUBA"} 4k: spike counts equal '
+        print(f'{"COBA" if coba else "CUBA"} {label}: spike counts equal '
               f'({int(spike_count.sum())} spikes), max|dv| {dv!r}, '
-              f'rate {rate!r} Hz, launches {counts}, kernels '
+              f'rate {rate!r} Hz, launches {counts["einet_step"]} K1 + '
+              f'{counts["event_count_scatter"]} K2, kernels '
               f'{t_kernel / n_steps * 1e6!r} us/step, twin loop '
               f'{t_twin / n_steps * 1e6!r} us/step (host clock)')
     return launches
@@ -295,6 +324,312 @@ def time_kernels(nets, finals, device):
     return out
 
 
+# -- the training slice and binary_fcnmv (K3-K6) ---------------------------------
+
+BIG = dict(n_in=100, n_hidden=100_000, n_out=10, n_conn=100)
+SMALL = dict(n_in=12, n_hidden=128, n_out=4, n_conn=8)
+
+
+def check_plans(model, device):
+    """K3 and K4 on both plans of the full-width model: y within
+    1e-5 * sum|w x| of the twin's per row, dw bitwise, and two launches on
+    the same inputs bitwise equal."""
+    phase('7 K3 plan_gather_mv / K4 plan_matvec_dw vs twin at 100k x 100 '
+          '(tolerance: |dy| <= 1e-5 * sum|w x| per row; dw bitwise)')
+    from brainevent_torch.ops import mxu_gather as mg
+    gen = torch.Generator(device='cpu').manual_seed(7)
+    n = model.n_hidden
+    w_rec = model.init_params().w_rec
+    worst = {'plan_gather_mv': 0.0, 'plan_matvec_dw': 0.0}
+    for label, plan, w_sorted in (
+            ('outgoing', model._plan, model._plan.sort_data(w_rec)),
+            ('incoming', model._plan_T, model._plan_T.sort_data(w_rec))):
+        s = (torch.rand(n, generator=gen) < 0.18).float().to(device)
+        for xkind in ('normal', 'spikes 18%'):
+            x = (torch.randn(n, generator=gen).to(device)
+                 if xkind == 'normal'
+                 else (torch.rand(n, generator=gen) < 0.18).float().to(device))
+            bound = 1e-5 * mg.gather_matvec_xla(plan, w_sorted.abs(), x.abs())
+            y = mg.gather_matvec(plan, w_sorted, x)
+            y_twin = mg.gather_matvec_xla(plan, w_sorted, x)
+            y4, dw = mg.plan_matvec_dw(plan, w_sorted, s, x)
+            y4_twin, dw_twin = mg.matvec_dw_xla(plan, w_sorted, s, x)
+            y_again = mg.gather_matvec(plan, w_sorted, x)
+            y4_again, dw_again = mg.plan_matvec_dw(plan, w_sorted, s, x)
+            torch.cuda.synchronize()
+            check(bool(((y - y_twin).abs() <= bound).all()), ('K3', label))
+            check(bool(((y4 - y4_twin).abs() <= bound).all()), ('K4', label))
+            check(torch.equal(dw, dw_twin), ('K4 dw', label))
+            check(torch.equal(y, y_again), ('K3 repeat', label))
+            check(torch.equal(y4, y4_again) and torch.equal(dw, dw_again),
+                  ('K4 repeat', label))
+            e3 = float((y - y_twin).abs().max())
+            e4 = float((y4 - y4_twin).abs().max())
+            worst['plan_gather_mv'] = max(worst['plan_gather_mv'], e3)
+            worst['plan_matvec_dw'] = max(worst['plan_matvec_dw'], e4)
+            print(f'{label} plan ({plan.nse} slots, {plan.n_chunks} chunks), '
+                  f'x {xkind}: K3 max|dy| {e3!r}, K4 max|dy| {e4!r}, dw '
+                  f'equal, repeats bitwise equal')
+    return worst
+
+
+def fcn_inputs(n, k, rate, homo, spikes, gen, device):
+    idx = torch.randint(0, n, (n, k), generator=gen, dtype=torch.int32)
+    w = (torch.tensor([0.5]) if homo
+         else torch.randn(n, k, generator=gen))
+    on = torch.rand(n, generator=gen) < rate
+    s = on if spikes == 'bool' else torch.where(
+        on, 1.0, -0.5 * torch.rand(n, generator=gen))
+    return [t.to(device) for t in (w, idx, s)]
+
+
+def check_fcn(device):
+    """K5 and K6 at 10M synapses against their twins."""
+    phase('8 K5 fcn_event_scatter / K6 fcn_event_gather vs twin at 100k x '
+          '100 (tolerance: homogeneous exact; K5 hetero 1e-5 * sum|w| per '
+          'target; K6 hetero 1e-6 * sum|w| per row)')
+    from brainevent_torch.fcn import binary as fb
+    gen = torch.Generator(device='cpu').manual_seed(8)
+    n, k = 100_000, 100
+    worst = {'fcn_event_scatter': 0.0, 'fcn_event_gather': 0.0}
+    for rate in (0.0, 0.001, 0.01, 1.0):
+        for homo in (True, False):
+            for spikes in ('bool', 'float'):
+                w, idx, s = fcn_inputs(n, k, rate, homo, spikes, gen, device)
+                for op, tol in ((fb.fcn_event_scatter, 1e-5),
+                                (fb.fcn_event_gather, 1e-6)):
+                    got = op(w, idx, s, n)
+                    want = op.twin(w, idx, s, n)
+                    bound = op.twin(w.abs(), idx, s, n)
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    worst[op.name] = max(worst[op.name], err)
+                    if homo:
+                        check(torch.equal(got, want), (op.name, rate, spikes))
+                    else:
+                        check(bool(((got - want).abs() <= tol * bound).all()),
+                              (op.name, rate, spikes, err))
+                print(f'rate {rate}, {"homo" if homo else "hetero"}, '
+                      f'{spikes} spikes: K5 and K6 within tolerance')
+    return worst
+
+
+def drive_fcnmv(device):
+    """The 10M-synapse event product through ``binary_fcnmv``, as its users
+    call it: homogeneous weight 0.5, bool spikes at 0.1% and 1%, both
+    directions."""
+    import brainevent_torch as bt
+    gen = torch.Generator(device='cpu').manual_seed(12)
+    n, k = 100_000, 100
+    runs = []
+    for rate in (0.001, 0.01):
+        runs.append((rate, fcn_inputs(n, k, rate, True, 'bool', gen, device)))
+    bt.reset_launch_counts()
+    for rate, (w, idx, s) in runs:
+        for transpose in (True, False):
+            y = bt.binary_fcnmv(w, idx, s, shape=(n, n), transpose=transpose)
+            check(y.shape == (n,) and bool(torch.isfinite(y).all()), rate)
+    torch.cuda.synchronize()
+    counts = bt.launch_counts()
+    check(counts['fcn_event_scatter'] == 2 and counts['fcn_event_gather'] == 2,
+          counts)
+    print(f'binary_fcnmv at 10M synapses, 0.1% and 1%, both directions: '
+          f'launches {counts["fcn_event_scatter"]} K5 + '
+          f'{counts["fcn_event_gather"]} K6')
+    return runs, counts
+
+
+def twin_model(model):
+    """The same network with the recurrent product on the twins."""
+    from brainevent_torch.models import training as tr
+    twin = copy.copy(model)
+    twin._ops = tr._RecOps(*(op.twin for op in tr._KERNEL_OPS))
+    return twin
+
+
+def loss_and_grads(model, params, x, label):
+    import brainevent_torch as bt
+    leaves = [p.clone().requires_grad_(True) for p in params]
+    loss = bt.snn_loss(model, bt.SNNParams(*leaves), x, label)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def check_training_small(device):
+    phase('9 the training slice, small: 12-128-4, n_conn 8, T 20, kernels '
+          'vs twin route on the card (spikes equal, loss rtol 1e-5, grads '
+          'rtol 1e-4 atol 1e-6)')
+    import brainevent_torch as bt
+    x = torch.from_numpy(np.random.default_rng(9).random((20, 12)).astype(
+        F32)).to(device)
+    for forward in ('plan', 'event'):
+        model = bt.SurrogateSNN(**SMALL, seed=3, forward=forward,
+                                device=device)
+        twin = twin_model(model)
+        p = model.init_params()
+        spikes = model._spikes(p, x)
+        check(torch.equal(spikes, twin._spikes(p, x)), (forward, 'spikes'))
+        (la, ga), (lb, gb) = (loss_and_grads(m, p, x, 1)
+                              for m in (model, twin))
+        torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
+        for a, b in zip(ga, gb):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+        pa, pb = p, p
+        for _ in range(10):
+            pa, la = bt.train_step(model, pa, x, 1)
+            pb, lb = bt.train_step(twin, pb, x, 1)
+            torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
+        for a, b in zip(pa, pb):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+        print(f'forward={forward}: rate {float(spikes.mean())!r}, spike '
+              f'trains equal, loss {float(la)!r} after 10 train steps, '
+              f'loss, grads and params within tolerance of the twin route')
+
+
+def profile_step(fn):
+    """Device busy time of one call of *fn* (``torch.profiler``: the sum of
+    kernel times), the call's wall time under the profiler, and the five
+    largest kernels by total time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return busy_us, wall_us, [(e.key[:60], e.count, e.self_device_time_total)
+                              for e in top]
+
+
+def check_training_full(model, device):
+    phase('10 the training slice at full width: 100k hidden x 100 conn '
+          '(10M synapses), T 50, label 3, lr 1e-3')
+    import brainevent_torch as bt
+    gen = torch.Generator(device='cpu').manual_seed(10)
+    x = torch.rand(50, 100, generator=gen).to(device)
+    p = model.init_params()
+    bt.reset_launch_counts()
+    p1, loss = bt.train_step(model, p, x, 3, lr=1e-3)
+    torch.cuda.synchronize()
+    counts = bt.launch_counts()
+    check({k: v for k, v in counts.items() if v} == {
+        'plan_gather_mv': 50, 'plan_matvec_dw': 50}, counts)
+    check(bool(torch.isfinite(loss)), loss)
+    print(f'warm-up train step: loss {float(loss)!r}, launches '
+          f'{counts["plan_gather_mv"]} K3 + {counts["plan_matvec_dw"]} K4')
+    times = []
+    q = p1
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, loss = bt.train_step(model, q, x, 3, lr=1e-3)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(loss)), loss)
+    ms = sorted(times)[2] * 1e3
+    la, ga = loss_and_grads(model, p, x, 3)
+    lb, gb = loss_and_grads(model, p, x, 3)
+    torch.cuda.synchronize()
+    check(torch.equal(la, lb) and all(map(torch.equal, ga, gb)),
+          'bitwise repeat')
+    g_rec = ga[1]
+    check(bool(torch.isfinite(g_rec).all()) and bool((g_rec != 0).any()),
+          'w_rec gradient finite and non-zero')
+    busy_us, wall_us, top = profile_step(
+        lambda: bt.train_step(model, q, x, 3, lr=1e-3))
+    print(f'train step: {ms!r} ms (median of 5: '
+          f'{[t * 1e3 for t in times]!r}), {ms / 50 * 1e3!r} us per '
+          f'simulated step (host clock); loss and grads bitwise equal over '
+          f'two runs, |grad w_rec| max {float(g_rec.abs().max())!r}')
+    print(f'profiled train step: kernels {busy_us!r} us of {wall_us!r} us '
+          f'wall under the profiler (device idle {1 - busy_us / wall_us!r} '
+          f'there; {1 - busy_us / (ms * 1e3)!r} of the unprofiled median); '
+          f'largest kernels (name, launches, us): {top!r}')
+    event = copy.copy(model)
+    event.forward = 'event'
+    bt.reset_launch_counts()
+    _, loss = bt.train_step(event, p, x, 3, lr=1e-3)
+    torch.cuda.synchronize()
+    event_counts = bt.launch_counts()
+    check(event_counts['fcn_event_scatter'] == 50
+          and event_counts['plan_matvec_dw'] == 50
+          and event_counts['plan_gather_mv'] == 0, event_counts)
+    check(bool(torch.isfinite(loss)), loss)
+    print(f"forward='event' train step: loss {float(loss)!r}, launches "
+          f"{event_counts['fcn_event_scatter']} K5 + "
+          f"{event_counts['plan_matvec_dw']} K4")
+    return counts, event_counts, ms
+
+
+def check_learning(device):
+    phase('11 learning on the card: 40-2000-4, n_conn 32, 4 class-templated '
+          'inputs (50, 40), 30 epochs at lr 0.5')
+    import brainevent_torch as bt
+    model = bt.SurrogateSNN(n_in=40, n_hidden=2000, n_out=4, n_conn=32,
+                            seed=1, device=device)
+    rng = np.random.default_rng(0)
+    xn = 0.2 * rng.random((4, 50, 40)).astype(F32)
+    for c in range(4):
+        xn[c, :, 10 * c:10 * c + 10] += 1.0
+    xs = torch.from_numpy(xn).to(device)
+
+    def mean_loss(p):
+        with torch.no_grad():
+            return float(sum(bt.snn_loss(model, p, xs[c], c)
+                             for c in range(4)) / 4)
+
+    p = model.init_params()
+    l0 = mean_loss(p)
+    t0 = time.perf_counter()
+    for _ in range(30):
+        for c in range(4):
+            p, _ = bt.train_step(model, p, xs[c], c, lr=0.5)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    l1 = mean_loss(p)
+    check(l1 < l0, (l0, l1))
+    print(f'loss {l0!r} -> {l1!r} after 30 epochs ({seconds!r} s); the JAX '
+          f'script\'s target < 0.2: {"met" if l1 < 0.2 else "not met"}')
+
+
+def time_new_kernels(model, runs, device):
+    phase('12 timing at full width: device ms per launch (launches queued '
+          'back to back) and the twin\'s ms per call')
+    from brainevent_torch.fcn import binary as fb
+    from brainevent_torch.ops import mxu_gather as mg
+    gen = torch.Generator(device='cpu').manual_seed(11)
+    n = model.n_hidden
+    p = model.init_params()
+    spk = (torch.rand(n, generator=gen) < 0.18).float().to(device)
+    ct = torch.randn(n, generator=gen).to(device)
+    fwd_w = model._plan_T.sort_data(p.w_rec)
+    w_sorted = model._plan.sort_data(p.w_rec)
+    out = {}
+    for name, op, args in (
+            ('plan_gather_mv', mg.plan_gather_mv, (model._plan_T, fwd_w, spk)),
+            ('plan_matvec_dw', mg.plan_matvec_dw_op,
+             (model._plan, w_sorted, spk, ct))):
+        out[name] = dict(ms=device_ms(lambda: op(*args), 50),
+                         plain_ms=host_ms(lambda: op.twin(*args), 5))
+        print(f'{name} (18% spikes): device {out[name]["ms"]!r} ms, twin '
+              f'{out[name]["plain_ms"]!r} ms')
+    for rate, (w, idx, s) in runs:
+        for op in (fb.fcn_event_scatter, fb.fcn_event_gather):
+            args = (w, idx, s, n)
+            r = dict(ms=device_ms(lambda: op(*args), 100),
+                     plain_ms=host_ms(lambda: op.twin(*args), 5))
+            out[(op.name, rate)] = r
+            print(f'{op.name} (rate {rate}, homogeneous, bool): device '
+                  f'{r["ms"]!r} ms, twin {r["plain_ms"]!r} ms')
+    for name in ('fcn_event_scatter', 'fcn_event_gather'):
+        out[name] = out[(name, 0.01)]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this needs an '
@@ -332,9 +667,24 @@ def main():
         print(f'COBA {label}: {us!r} us/step over {n_steps} steps after '
               f'{warm} warm-up steps, rate {rate!r} Hz')
     times = time_kernels(nets, finals, device)
+    del nets, finals
+
+    t0 = time.perf_counter()
+    model = bt.SurrogateSNN(**BIG, seed=2, device=device)
+    torch.cuda.synchronize()
+    print(f'100k x 100 model built in {time.perf_counter() - t0!r} s')
+    plan_err = check_plans(model, device)
+    fcn_err = check_fcn(device)
+    runs, fcn_counts = drive_fcnmv(device)
+    check_training_small(device)
+    plan_counts, event_counts, _ = check_training_full(model, device)
+    check_learning(device)
+    new_times = time_new_kernels(model, runs, device)
 
     from brainevent_torch.models.networks import einet_step
     from brainevent_torch.ops.scatter import event_count_scatter
+    from brainevent_torch.ops.mxu_gather import plan_gather_mv, plan_matvec_dw_op
+    from brainevent_torch.fcn.binary import fcn_event_scatter, fcn_event_gather
     kernels = []
     for op, err, key in ((einet_step, k1_err, 'k1'),
                          (event_count_scatter, k2_err, 'k2')):
@@ -343,6 +693,16 @@ def main():
             'replaces': op.replaces, 'launches': launches[op.name],
             'max_abs_err': err, 'ms': times['4k'][f'{key}_ms'],
             'plain_ms': times['4k'][f'{key}_twin_ms']})
+    errs = {**plan_err, **fcn_err}
+    for op, counts in ((plan_gather_mv, plan_counts),
+                       (plan_matvec_dw_op, plan_counts),
+                       (fcn_event_scatter, event_counts),
+                       (fcn_event_gather, fcn_counts)):
+        kernels.append({
+            'name': op.name, 'route': 'cuda', 'source': op.source,
+            'replaces': op.replaces, 'launches': counts[op.name],
+            'max_abs_err': errs[op.name], 'ms': new_times[op.name]['ms'],
+            'plain_ms': new_times[op.name]['plain_ms']})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

@@ -1,7 +1,7 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Kernels K1 and K2 against their PyTorch twins on a CUDA device.
+"""Kernels K1-K6 against their PyTorch twins on a CUDA device.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so that it also runs where JAX is not installed. ``tests/conftest.py``
@@ -10,8 +10,13 @@ imports JAX; on such a host run it without that file::
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
 
-The bar is bitwise equality: K1 writes the twin's FMAs with
+K1 and K2 are held to bitwise equality: K1 writes the twin's FMAs with
 ``__fmaf_rn`` and is built with ``-fmad=false``; K2's sums are integers.
+K3/K4 (gather plans) sum each row in another order than the twin's
+``index_add_``: ``|y - twin| <= 1e-5 * sum|w x|`` per row, and K4's ``dw``
+(one product per slot) bitwise. K5/K6 (``binary_fcnmv``): homogeneous
+weights exact; heterogeneous K5 (float atomics) within ``1e-5 * sum|w|``
+per target, K6 within ``1e-6 * sum|w|`` per row.
 """
 
 import numpy as np
@@ -19,7 +24,10 @@ import pytest
 import torch
 
 import brainevent_torch as bt
+from brainevent_torch.fcn import binary as fb
 from brainevent_torch.models import networks as nw
+from brainevent_torch.models import training as tr
+from brainevent_torch.ops import mxu_gather as mg
 from brainevent_torch.ops import scatter as sc
 
 pytestmark = pytest.mark.cuda
@@ -31,7 +39,7 @@ ORDER = ('v', 't_last', 'g_e', 'g_i', 'counts', 'spike_count', 'ids', 'n_ids')
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device: K1 and K2 have no CPU form')
+        pytest.skip('needs a CUDA device: the CUDA kernels have no CPU form')
     return torch.device('cuda')
 
 
@@ -149,3 +157,95 @@ def test_step_on_card_matches_cpu_step(cuda_device):
     assert torch.equal(s_gpu.spike_count.cpu(), s_cpu.spike_count)
     assert torch.equal(s_gpu.neurons.v.cpu(), s_cpu.neurons.v)
     assert torch.equal(s_gpu.g_e.cpu(), s_cpu.g_e)
+
+
+def _row_bound(plan, w_sorted, x):
+    """Per-row sum of |w x| over the plan (the K3/K4 tolerance's scale)."""
+    return mg.gather_matvec_xla(plan, w_sorted.abs(), x.abs())
+
+
+@pytest.mark.parametrize('incoming', [False, True], ids=['out', 'in'])
+def test_plan_kernels_vs_twin(cuda_device, gen, incoming):
+    n, k = 20_000, 50
+    idx = gen.integers(0, n, (n, k))
+    if incoming:       # targets as rows: uneven row lengths
+        plan = mg.build_gather_plan(idx.reshape(-1), np.repeat(np.arange(n), k),
+                                    (n, n))
+    else:
+        plan = mg.plan_from_ell(idx, (n, n))
+    plan = plan.to(cuda_device)
+    w = torch.from_numpy(gen.normal(size=n * k).astype(F32)).to(cuda_device)
+    w_sorted = plan.sort_data(w)
+    x = torch.from_numpy(gen.normal(size=n).astype(F32)).to(cuda_device)
+    s = torch.from_numpy((gen.random(n) < 0.18).astype(F32)).to(cuda_device)
+    bound = 1e-5 * _row_bound(plan, w_sorted, x) + 1e-30
+    y = bt.gather_matvec(plan, w_sorted, x)
+    y_twin = mg.gather_matvec_xla(plan, w_sorted, x)
+    assert bool(((y - y_twin).abs() <= bound).all())
+    assert torch.equal(y, bt.gather_matvec(plan, w_sorted, x))
+    y4, dw = bt.plan_matvec_dw(plan, w_sorted, s, x)
+    y4_twin, dw_twin = mg.matvec_dw_xla(plan, w_sorted, s, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y4, y)
+    assert torch.equal(dw, dw_twin)
+    y4b, dwb = bt.plan_matvec_dw(plan, w_sorted, s, x)
+    assert torch.equal(y4b, y4) and torch.equal(dwb, dw)
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.001, 0.01, 1.0])
+@pytest.mark.parametrize('spikes', ['bool', 'float'])
+@pytest.mark.parametrize('homo', [True, False], ids=['homo', 'hetero'])
+@pytest.mark.parametrize('transpose', [True, False], ids=['T', 'NT'])
+def test_fcn_event_kernels_vs_twin(cuda_device, gen, rate, spikes, homo,
+                                   transpose):
+    n, k = 50_000, 100
+    idx = torch.from_numpy(gen.integers(0, n, (n, k)).astype(np.int32))
+    w = torch.from_numpy((gen.normal(size=1) if homo
+                          else gen.normal(size=(n, k))).astype(F32))
+    on = gen.random(n) < rate
+    s = torch.from_numpy(on if spikes == 'bool'
+                         else np.where(on, 1.0, -0.5 * gen.random(n))
+                         .astype(F32))
+    args = [t.to(cuda_device) for t in (w, idx, s)]
+    op = fb.fcn_event_scatter if transpose else fb.fcn_event_gather
+    before = op.launches
+    got = bt.binary_fcnmv(*args, shape=(n, n), transpose=transpose)
+    want = op.twin(*args, n)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    if homo:
+        assert torch.equal(got, want)
+        return
+    wabs = args[0].abs()
+    bound = op.twin(wabs, args[1], args[2], n)
+    tol = 1e-5 if transpose else 1e-6
+    assert bool(((got - want).abs() <= tol * bound + 1e-30).all())
+    if not transpose:      # no atomics: the same bits on every run
+        assert torch.equal(got, bt.binary_fcnmv(*args, shape=(n, n),
+                                                transpose=transpose))
+
+
+@pytest.mark.parametrize('forward', ['plan', 'event'])
+def test_training_kernels_vs_twin_route(cuda_device, forward):
+    model = bt.SurrogateSNN(n_in=12, n_hidden=128, n_out=4, n_conn=8,
+                            seed=3, forward=forward, device=cuda_device)
+    twin = bt.SurrogateSNN(n_in=12, n_hidden=128, n_out=4, n_conn=8, seed=3,
+                           forward=forward, device=cuda_device)
+    twin._ops = tr._RecOps(*(op.twin for op in tr._KERNEL_OPS))
+    x = torch.from_numpy(np.random.default_rng(0).random((20, 12))
+                         .astype(F32)).to(cuda_device)
+    p = model.init_params()
+    bt.reset_launch_counts()
+    assert torch.equal(model._spikes(p, x), twin._spikes(p, x))
+    counts = bt.launch_counts()
+    key = 'fcn_event_scatter' if forward == 'event' else 'plan_gather_mv'
+    assert counts[key] == 20
+    grads = []
+    for m in (model, twin):
+        leaves = [q.clone().requires_grad_(True) for q in p]
+        loss = bt.snn_loss(m, bt.SNNParams(*leaves), x, 1)
+        grads.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    (la, ga), (lb, gb) = grads
+    torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
+    for a, b in zip(ga, gb):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)

@@ -30,6 +30,9 @@ def test_import_with_jax_blocked():
         "import brainevent_torch as bt\n"
         "net = bt.EINet(scale=0.05)\n"
         "bt.einet_pallas_sim(net, net.init_state(), 3)\n"
+        "m = bt.SurrogateSNN(n_in=4, n_hidden=64, n_out=2, n_conn=4)\n"
+        "import torch\n"
+        "bt.train_step(m, m.init_params(), torch.rand(3, 4), 1)\n"
         "assert sys.modules['jax'] is None\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'brainevent_tpu') and sys.modules[m] is not None]\n"
@@ -80,13 +83,45 @@ def test_mixed_devices_raise():
 
 
 def test_build_command_targets_hopper_without_fma_contraction():
-    cmd = cuda_build.build_command('/usr/local/cuda/bin/nvcc', 'out.so',
-                                   cuda_build.sources())
-    joined = ' '.join(cmd)
-    assert 'arch=compute_90a,code=sm_90a' in joined
-    assert '-fmad=false' in cmd and '-shared' in cmd and '-O3' in cmd
-    assert {Path(s).name for s in cmd if s.endswith('.cu')} == {
-        'einet_step.cu', 'event_scatter.cu'}
+    nvcc = '/usr/local/cuda/bin/nvcc'
+    srcs = cuda_build.sources()
+    assert {Path(s).name for s in srcs} == {
+        'einet_step.cu', 'event_scatter.cu', 'fcn_event.cu', 'plan_gather.cu'}
+    for src in srcs:
+        cmd = cuda_build.compile_command(nvcc, 'x.o', src)
+        assert 'arch=compute_90a,code=sm_90a' in ' '.join(cmd)
+        assert '-fmad=false' in cmd and '-O3' in cmd and '-c' in cmd
+        assert cmd[-1] == str(src)
+    link = cuda_build.link_command(nvcc, 'out.so', ['a.o', 'b.o'])
+    assert '-shared' in link and link[-2:] == ['a.o', 'b.o']
+
+
+def test_build_starts_every_compile_before_waiting(monkeypatch, tmp_path):
+    """One nvcc per source, all running at once, then one link."""
+    started, waited = [], []
+
+    class FakeProc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            started.append(cmd)
+            if '-shared' in cmd:
+                Path(cmd[cmd.index('-o') + 1]).write_bytes(b'lib')
+
+        def communicate(self):
+            waited.append(len(started))
+            return '', None
+
+    monkeypatch.setattr(cuda_build, 'find_nvcc', lambda: 'nvcc')
+    monkeypatch.setattr(cuda_build.subprocess, 'Popen', FakeProc)
+    srcs = cuda_build.sources()
+    out = tmp_path / 'lib.so'
+    cuda_build._build(out, srcs)
+    assert [c[-1] for c in started[:-1]] == [str(s) for s in srcs]
+    assert '-shared' in started[-1]
+    assert waited[:len(srcs)] == [len(srcs)] * len(srcs)
+    assert out.read_bytes() == b'lib'
+    assert list(tmp_path.iterdir()) == [out]
 
 
 def test_build_dir_is_under_build(monkeypatch):
@@ -116,7 +151,8 @@ def test_cu_sources_ship_as_package_data():
     data = tool['package-data']['brainevent_torch']
     assert set(data) == {'csrc/*.cu', 'csrc/*.cuh'}
     shipped = {p.name for pat in data for p in PKG.glob(pat)}
-    assert shipped == {'common.cuh', 'einet_step.cu', 'event_scatter.cu'}
+    assert shipped == {'common.cuh', 'einet_step.cu', 'event_scatter.cu',
+                       'fcn_event.cu', 'plan_gather.cu'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 
@@ -148,7 +184,9 @@ def test_launch_counts_only_successful_launches(monkeypatch):
     assert op.launches == before + 1
     counts = bt.launch_counts()
     assert set(counts) >= {'einet_step', 'event_count_scatter',
-                           'event_scatter_float'}
+                           'event_scatter_float', 'plan_gather_mv',
+                           'plan_matvec_dw', 'fcn_event_scatter',
+                           'fcn_event_gather'}
     bt.reset_launch_counts()
     assert set(bt.launch_counts().values()) == {0}
 
@@ -159,7 +197,26 @@ def test_registry_names_are_unique_and_document_their_kernel():
     for op in core.REGISTRY.values():
         assert (ROOT / op.source).is_file()
         path, line = op.replaces.split(':')
-        assert 'pallas_call' in (ROOT / path).read_text() and int(line) > 0
+        # the float form of K2 ports the JAX package's XLA scatter
+        if op.name != 'event_scatter_float':
+            assert 'pallas_call' in (ROOT / path).read_text(), op.name
+        assert int(line) > 0
+
+
+def test_replaces_names_a_def_and_no_line_twice():
+    by_line = {}
+    for op in core.REGISTRY.values():
+        path, line = op.replaces.split(':')
+        text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        assert text.lstrip().startswith('def '), (op.name, text)
+        by_line.setdefault(op.replaces, set()).add(op.name)
+    shared = {k: v for k, v in by_line.items() if len(v) > 1}
+    # K1 and K2 split one TPU kernel (einet_pallas_sim_mxu3) into the two
+    # launches of a step; no other line is named twice
+    assert shared == {'brainevent_tpu/models/pallas_sim.py:639': {
+        'einet_step', 'event_count_scatter'}}
+    assert by_line['brainevent_tpu/fcn/pallas_kernels.py:260'] == {
+        'fcn_event_scatter'}
 
 
 def test_params_struct_matches_header():
