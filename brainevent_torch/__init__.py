@@ -36,14 +36,23 @@ from .ops import (
     KernelOp, launch_counts, reset_launch_counts, event_scatter_add,
     event_scatter_add_multi, GatherPlan, build_gather_plan, plan_from_csr,
     plan_from_ell, gather_matvec, plan_matvec_dw, plan_inverse_perm,
-    plan_matvec_vjp,
+    plan_matvec_vjp, build_mm_plan, gather_matmat, plan_matmat_vjp,
+    pair_gather_product,
+)
+from .events import BinaryArray, EventRepresentation
+from .csr import (
+    CSR, CSC, csrmv, csrmm, binary_csrmv, binary_csrmm,
+    binary_csrmv_indexed, binary_csrmm_indexed, update_csr_on_binary_pre,
+    update_csr_on_binary_post, update_csc_on_binary_pre,
+    update_csc_on_binary_post,
 )
 from .models import (
     LIFRefParams, LIFRefState, lifref_init, lifref_step, surrogate_spike,
     EINet, EINetState, einet_pallas_sim, mxu6_conn_table, SNNParams,
     SurrogateSNN, snn_loss, train_step,
 )
-from .interop import einet_from_arrays, surrogate_snn_from_arrays
+from .interop import (einet_from_arrays, surrogate_snn_from_arrays,
+                      csr_from_arrays, csc_from_arrays)
 
 __all__ = [
     '__version__', '__version_info__', 'config',
@@ -56,9 +65,15 @@ __all__ = [
     'launch_counts', 'reset_launch_counts', 'event_scatter_add',
     'event_scatter_add_multi', 'GatherPlan', 'build_gather_plan',
     'plan_from_csr', 'plan_from_ell', 'gather_matvec', 'plan_matvec_dw',
-    'plan_inverse_perm', 'plan_matvec_vjp',
+    'plan_inverse_perm', 'plan_matvec_vjp', 'build_mm_plan', 'gather_matmat',
+    'plan_matmat_vjp', 'pair_gather_product', 'BinaryArray',
+    'EventRepresentation', 'CSR', 'CSC', 'csrmv', 'csrmm', 'binary_csrmv',
+    'binary_csrmm', 'binary_csrmv_indexed', 'binary_csrmm_indexed',
+    'update_csr_on_binary_pre', 'update_csr_on_binary_post',
+    'update_csc_on_binary_pre', 'update_csc_on_binary_post',
     'LIFRefParams', 'LIFRefState', 'lifref_init', 'lifref_step',
     'surrogate_spike', 'EINet', 'EINetState', 'einet_pallas_sim',
     'mxu6_conn_table', 'SNNParams', 'SurrogateSNN', 'snn_loss', 'train_step',
-    'einet_from_arrays', 'surrogate_snn_from_arrays',
+    'einet_from_arrays', 'surrogate_snn_from_arrays', 'csr_from_arrays',
+    'csc_from_arrays',
 ]

@@ -42,6 +42,41 @@ constexpr int BE_BLOCK = 256;
 // H100 (132 SMs).
 constexpr int BE_MAX_BLOCKS = 4 * 132;
 
+// The op a CSR kernel applies to each operand value it reads
+// (brainevent_torch/ops/operand.py): 0 the event gate of a bool operand
+// (one byte per value), 1 the event gate of a float operand (> 0),
+// 2 the identity of a float product.
+template <int kOp>
+__device__ __forceinline__ float be_load_op(const void* x, long long i) {
+    if (kOp == 0) return static_cast<const unsigned char*>(x)[i] ? 1.0f : 0.0f;
+    const float v = static_cast<const float*>(x)[i];
+    if (kOp == 1) return v > 0.0f ? 1.0f : 0.0f;
+    return v;
+}
+
+// Run the statement given last with the kernel template arguments O (op),
+// H (homogeneous) and P (permuted slots) set from runtime flags: the nine
+// instances of a CSR kernel (a homogeneous weight reads no permutation).
+#define BE_CSR_DISPATCH(op, homo, perm, ...)                               \
+    do {                                                                   \
+        const bool be_h = (homo) != 0, be_p = (perm) != nullptr && !be_h;  \
+        BE_CSR_CASE(0, true, false, op, be_h, be_p, __VA_ARGS__)           \
+        BE_CSR_CASE(0, false, false, op, be_h, be_p, __VA_ARGS__)          \
+        BE_CSR_CASE(0, false, true, op, be_h, be_p, __VA_ARGS__)           \
+        BE_CSR_CASE(1, true, false, op, be_h, be_p, __VA_ARGS__)           \
+        BE_CSR_CASE(1, false, false, op, be_h, be_p, __VA_ARGS__)          \
+        BE_CSR_CASE(1, false, true, op, be_h, be_p, __VA_ARGS__)           \
+        BE_CSR_CASE(2, true, false, op, be_h, be_p, __VA_ARGS__)           \
+        BE_CSR_CASE(2, false, false, op, be_h, be_p, __VA_ARGS__)          \
+        BE_CSR_CASE(2, false, true, op, be_h, be_p, __VA_ARGS__)           \
+    } while (0)
+#define BE_CSR_CASE(O_, H_, P_, op, h, p, ...)                             \
+    if ((op) == O_ && (h) == H_ && (p) == P_) {                           \
+        constexpr int O = O_;                                              \
+        constexpr bool H = H_, P = P_;                                     \
+        __VA_ARGS__;                                                       \
+    }
+
 static inline int be_begin(int device) {
     cudaError_t err = cudaSetDevice(device);
     return static_cast<int>(err);

@@ -1,0 +1,183 @@
+// Copyright 2026 The brainevent-tpu Authors.
+// Licensed under the Apache License, Version 2.0.
+//
+// K7 and K8: the CSR matvecs of brainevent_torch/csr (pallas_kernels.py),
+// over a structure (ptr (n_rows + 1,), col (nse,)) of int32, weights w of
+// shape (1,) (homogeneous) or one per entry, an optional slot permutation
+// perm (the weight of entry j is w[perm[j]]; without it, w[j]) and an
+// operand x whose values pass through an op: the event gate of a binary
+// product (bool x, read as bytes, or float x gated at > 0) or the identity
+// of a float product.
+//
+// K7 `csr_gather_mv` replaces brainevent_tpu/csr/pallas_kernels.py:
+// csr_event_gather_kernel (:55):
+//     y[r] = sum over j in [ptr[r], ptr[r+1]) of w[slot(j)] * op(x[col[j]]).
+// One warp per row; its lanes walk the row 32 entries apart, a lane reads
+// a weight only for an active event (binary products), and a fixed
+// xor-shuffle tree combines the lanes: no atomics, the same bits on every
+// run (K3's scheme). Homogeneous binary products count in int32 and scale
+// once by w[0], so they are exact.
+//
+// K8 `csr_scatter_mv` replaces the XLA transpose branch of
+// brainevent_tpu/csr/binary.py:_binary_csrmv_jax_kernel (:57, :72-74):
+//     y[col[j]] += w[slot(j)] * op(x[r]) for the rows r with op(x[r]) != 0.
+// A warp reads the operand of 32 rows at once, takes a ballot of the
+// active ones, and walks each active row's range in turn, its lanes 32
+// entries apart (K5's scheme, over ragged rows): only the rows of active
+// events are read. Homogeneous binary products add int32 counts (exact at
+// any order of the atomics) and a second kernel scales them once;
+// otherwise float32 atomics add in the order they land.
+//
+// Ids outside [0, n_cols) (K7) or [0, n_out) (K8) are dropped. The TPU
+// kernel compacts the active ids and reduces rows with one-hot MXU
+// contractions because a TPU has no gather; none of that is needed here.
+//
+// Bound: K7 by the index and weight reads of every entry (8 bytes each,
+// 80 MB at 10M entries) and the random operand gather (x stays in L2);
+// K8 by its atomics, one per entry of an active row.
+#include "common.cuh"
+
+namespace {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+template <int kOp, bool kHomo, bool kPerm>
+__global__ void csr_gather_mv_kernel(const int* __restrict__ ptr,
+                                     const int* __restrict__ col,
+                                     const int* __restrict__ perm,
+                                     const float* __restrict__ w,
+                                     const void* __restrict__ x,
+                                     const int n_rows, const int n_cols,
+                                     float* __restrict__ y) {
+    constexpr bool kCount = kHomo && kOp != 2;
+    const int lane = threadIdx.x & 31;
+    const long long row =
+        (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+    if (row >= n_rows) return;                  // the whole warp leaves
+    const int begin = ptr[row];
+    const int end = ptr[row + 1];
+    int cnt = 0;
+    float acc = 0.0f;
+    for (int j = begin + lane; j < end; j += 32) {
+        const unsigned c = static_cast<unsigned>(col[j]);
+        if (c >= static_cast<unsigned>(n_cols)) continue;
+        const float v = be_load_op<kOp>(x, c);
+        if (kCount) {
+            cnt += v != 0.0f;
+        } else if (kOp != 2) {
+            if (v != 0.0f) acc += w[kHomo ? 0 : (kPerm ? perm[j] : j)];
+        } else {
+            acc += w[kHomo ? 0 : (kPerm ? perm[j] : j)] * v;
+        }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+        if (kCount)
+            cnt += __shfl_xor_sync(kFullMask, cnt, off);
+        else
+            acc += __shfl_xor_sync(kFullMask, acc, off);
+    }
+    if (lane == 0) y[row] = kCount ? static_cast<float>(cnt) * w[0] : acc;
+}
+
+template <int kOp, bool kHomo, bool kPerm>
+__global__ void csr_scatter_mv_kernel(const int* __restrict__ ptr,
+                                      const int* __restrict__ col,
+                                      const int* __restrict__ perm,
+                                      const float* __restrict__ w,
+                                      const void* __restrict__ x,
+                                      const int n_rows, const int n_out,
+                                      int* __restrict__ counts,
+                                      float* __restrict__ y) {
+    constexpr bool kCount = kHomo && kOp != 2;
+    const int lane = threadIdx.x & 31;
+    const long long warp =
+        (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+    const long long n_warps =
+        (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+    // the loop bound is the same for every lane, so the ballot sees all 32
+    for (long long base = warp * 32; base < n_rows; base += n_warps * 32) {
+        const long long i = base + lane;
+        const float v = i < n_rows ? be_load_op<kOp>(x, i) : 0.0f;
+        unsigned mask = __ballot_sync(kFullMask, v != 0.0f);
+        while (mask) {
+            const int src = __ffs(mask) - 1;
+            mask &= mask - 1;
+            const float vr = __shfl_sync(kFullMask, v, src);
+            const long long r = base + src;
+            const int end = ptr[r + 1];
+            for (int j = ptr[r] + lane; j < end; j += 32) {
+                const unsigned c = static_cast<unsigned>(col[j]);
+                if (c >= static_cast<unsigned>(n_out)) continue;
+                if (kCount) {
+                    atomicAdd(counts + c, 1);
+                } else {
+                    const float wv = w[kHomo ? 0 : (kPerm ? perm[j] : j)];
+                    atomicAdd(y + c, kOp == 2 ? wv * vr : wv);
+                }
+            }
+        }
+    }
+}
+
+__global__ void scale_counts_kernel(const int* __restrict__ counts,
+                                    const float* __restrict__ w,
+                                    const int n, float* __restrict__ y) {
+    const float w0 = w[0];
+    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
+         j += gridDim.x * blockDim.x)
+        y[j] = static_cast<float>(counts[j]) * w0;
+}
+
+int blocks_for_warps(long long warps, long long cap) {
+    const long long blocks = (warps * 32 + BE_BLOCK - 1) / BE_BLOCK;
+    return static_cast<int>(blocks < cap ? blocks : cap);
+}
+
+}  // namespace
+
+// op: 0 bool x (one byte per value), 1 float x gated at > 0, 2 float x.
+// perm may be null; it is not read for homogeneous weights. y (n_rows,)
+// is written in full.
+BE_EXPORT int csr_gather_mv_launch(const int* ptr, const int* col,
+                                   const int* perm, const float* w,
+                                   const void* x, int op, int homo,
+                                   int n_rows, int n_cols, float* y,
+                                   int device, void* stream) {
+    int err = be_begin(device);
+    if (err) return err;
+    if (n_rows <= 0) return be_end();
+    const int blocks = blocks_for_warps(n_rows, 1LL << 30);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    BE_CSR_DISPATCH(op, homo, perm,
+                    csr_gather_mv_kernel<O, H, P><<<blocks, BE_BLOCK, 0, st>>>(
+                        ptr, col, perm, w, x, n_rows, n_cols, y));
+    return be_end();
+}
+
+// As above, over the rows of x (n_rows,). Homogeneous binary products
+// (homo = 1, op < 2): counts (n_out,) int32 zeroed by the caller, y written
+// in full. Otherwise y (n_out,) zeroed by the caller.
+BE_EXPORT int csr_scatter_mv_launch(const int* ptr, const int* col,
+                                    const int* perm, const float* w,
+                                    const void* x, int op, int homo,
+                                    int n_rows, int n_out, int* counts,
+                                    float* y, int device, void* stream) {
+    int err = be_begin(device);
+    if (err) return err;
+    if (n_out <= 0) return be_end();
+    const int blocks = blocks_for_warps((n_rows + 31) / 32,
+                                        4 * BE_MAX_BLOCKS);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (blocks > 0)
+        BE_CSR_DISPATCH(op, homo, perm,
+                        csr_scatter_mv_kernel<O, H, P><<<blocks, BE_BLOCK, 0,
+                                                         st>>>(
+                            ptr, col, perm, w, x, n_rows, n_out, counts, y));
+    if (homo && op != 2) {
+        int sblocks = (n_out + BE_BLOCK - 1) / BE_BLOCK;
+        if (sblocks > BE_MAX_BLOCKS) sblocks = BE_MAX_BLOCKS;
+        scale_counts_kernel<<<sblocks, BE_BLOCK, 0, st>>>(counts, w, n_out,
+                                                          y);
+    }
+    return be_end();
+}

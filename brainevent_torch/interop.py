@@ -13,23 +13,25 @@
 # limitations under the License.
 # ==============================================================================
 
-"""Carry a network and its state across from arrays.
+"""Carry a network, its state or a sparse matrix across from arrays.
 
 The port does not re-implement JAX's random generator, so to simulate the
 network the JAX package drew, take its arrays (``np.asarray(net.conn_all)``,
-``np.asarray(state.neurons.v)``, ``np.asarray(model.rec_indices)``, ...)
-and build the port's objects from them. This module sees numpy arrays
-only, never a JAX object.
+``np.asarray(state.neurons.v)``, ``np.asarray(model.rec_indices)``,
+``np.asarray(csr.data)``, ...) and build the port's objects from them.
+This module sees numpy arrays only, never a JAX object.
 """
 
 import numpy as np
 import torch
 
+from .csr.main import CSC, CSR
 from .models.networks import EINet, EINetState
 from .models.neurons import LIFRefState
 from .models.training import SNNParams, SurrogateSNN
 
-__all__ = ['einet_from_arrays', 'surrogate_snn_from_arrays']
+__all__ = ['einet_from_arrays', 'surrogate_snn_from_arrays',
+           'csr_from_arrays', 'csc_from_arrays']
 
 
 def _tensor(x, dtype, device):
@@ -99,3 +101,20 @@ def surrogate_snn_from_arrays(rec_indices, w_in, w_rec, w_out, *,
         rec_indices=torch.from_numpy(idx.astype(np.int32)),
         initial_params=params, **fields)
     return model, params
+
+
+def csr_from_arrays(data, indices, indptr, *, shape, device=None) -> CSR:
+    """The port's :class:`~brainevent_torch.CSR` from a CSR matrix's arrays
+    (``data`` ``(1,)`` or ``(nse,)``, float32; ``indices``, ``indptr``
+    int32), on *device*."""
+    return CSR((_tensor(np.atleast_1d(data), np.float32, device),
+                _tensor(indices, np.int32, device),
+                _tensor(indptr, np.int32, device)), shape=tuple(shape))
+
+
+def csc_from_arrays(data, indices, indptr, *, shape, device=None) -> CSC:
+    """The port's :class:`~brainevent_torch.CSC` from a CSC matrix's arrays
+    (the CSR arrays of its transpose; ``shape`` is the logical one)."""
+    return CSC((_tensor(np.atleast_1d(data), np.float32, device),
+                _tensor(indices, np.int32, device),
+                _tensor(indptr, np.int32, device)), shape=tuple(shape))

@@ -13,9 +13,9 @@
 # limitations under the License.
 # ==============================================================================
 
-"""Gather plans: float sparse matvecs over a fixed sparsity structure.
+"""Gather plans: float sparse products over a fixed sparsity structure.
 
-Counterpart of ``brainevent_tpu.ops.mxu_gather`` (its matvec half). There
+Counterpart of ``brainevent_tpu.ops.mxu_gather``. There
 is no MXU here; the module keeps the JAX name so that each function is easy
 to find beside its original.
 
@@ -30,7 +30,8 @@ interface the two packages share: weights go in through
 On a GPU the plan is read row by row. At build time, in numpy, each plan
 also gets a row index: ``row_ptr (M+1,)`` and ``row_slots (nse,)``, the
 plan slots of row ``r`` in increasing slot order at
-``row_slots[row_ptr[r]:row_ptr[r+1]]``. The two kernels
+``row_slots[row_ptr[r]:row_ptr[r+1]]``, and ``row_cols (nse,)``, their
+columns. The two matvec kernels
 (``csrc/plan_gather.cu``) give each row one warp, which walks the row's
 slots, decodes their columns from ``meta`` and ``b0``, and sums in a fixed
 order (lane-strided partial sums, then a fixed shuffle tree). No float
@@ -40,11 +41,18 @@ atomics: the same inputs give bitwise-equal outputs on every run.
   ``y[r] = sum_{slots e of row r} w_sorted[e] * x[col_e]``;
 - K4 :data:`plan_matvec_dw_op` (:func:`plan_matvec_dw`): K3's ``y`` plus
   ``dw[e] = s[row_e] * x[col_e]`` for every valid slot (0 at padding), in
-  one launch: the surrogate-training backward.
+  one launch: the surrogate-training backward;
+- K10 :data:`csr_gather_mm` (``csrc/csr_gather_mm.cu``, :func:`gather_matmat`):
+  ``Y[r, :] = sum_j w[slot(j)] * op(X[col_j, :])`` over any CSR-like row
+  index with an optional slot permutation: a plan's (``row_ptr``,
+  ``row_cols``, ``row_slots``), or a CSR matrix's own arrays
+  (``csr/float.py:csrmm``, ``csr/binary.py:binary_csrmm``). One warp per
+  row and 128-column tile; the lanes span the columns, so each read of an
+  ``X`` row is coalesced, and the row's entries are added in order.
 
 Each has a plain PyTorch twin (:func:`gather_matvec_xla`,
-:func:`matvec_dw_xla`) that decodes the plan with gathers and sums with
-``index_add_``; it runs for CPU tensors. The JAX functions' TPU keywords
+:func:`matvec_dw_xla`, :func:`csr_gather_mm_twin`) that gathers and sums
+with ``index_add_``; it runs for CPU tensors. The JAX functions' TPU keywords
 ``passes`` (the bf16 split depth) and ``force_xla`` (a VMEM guard) are
 accepted and ignored: float32 on the card needs no split, and nothing on
 the card routes a CUDA tensor to the twin.
@@ -57,14 +65,18 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import _misc
 from . import cuda_build
 from .core import KernelOp, check_cuda_tensors, cuda_stream
+from .operand import fits, op_code, op_values, take
 
 __all__ = [
     'GatherPlan', 'build_gather_plan', 'plan_from_csr', 'plan_from_ell',
     'gather_matvec', 'gather_matvec_xla', 'plan_matvec_dw', 'matvec_dw_xla',
     'plan_inverse_perm', 'plan_aux', 'plan_matvec_vjp', 'plan_gather_mv',
-    'plan_matvec_dw_op',
+    'plan_matvec_dw_op', 'build_mm_plan', 'gather_matmat_xla',
+    'gather_matmat', 'plan_matmat_vjp', 'csr_gather_mm',
+    'csr_gather_mm_twin',
 ]
 
 _LANES = 128
@@ -91,8 +103,9 @@ class GatherPlan:
     Tensors: ``meta (n_chunks, C) int32`` packed per-slot metadata, ``b0
     (n_chunks,)`` window starts (in 128-column blocks), ``rb (n_chunks,)``
     row-block ids (non-decreasing), ``perm (n_chunks, C) int32`` flat-nse
-    source index (-1 = padding), and the row index ``row_ptr (M+1,)``,
-    ``row_slots (nse,)`` the kernels walk. The other fields are static.
+    source index (-1 = padding), and the row index the kernels walk:
+    ``row_ptr (M+1,)``, ``row_slots (nse,)`` and ``row_cols (nse,)``, the
+    column of each listed slot. The other fields are static.
     """
     meta: torch.Tensor
     b0: torch.Tensor
@@ -100,6 +113,7 @@ class GatherPlan:
     perm: torch.Tensor
     row_ptr: torch.Tensor
     row_slots: torch.Tensor
+    row_cols: torch.Tensor
     shape: Tuple[int, int]
     nse: int
     chunk: int
@@ -108,7 +122,8 @@ class GatherPlan:
     n_rb: int
     nbp: int              # padded number of 128-column blocks
 
-    _TENSORS = ('meta', 'b0', 'rb', 'perm', 'row_ptr', 'row_slots')
+    _TENSORS = ('meta', 'b0', 'rb', 'perm', 'row_ptr', 'row_slots',
+                'row_cols')
 
     @property
     def n_chunks(self) -> int:
@@ -134,27 +149,33 @@ class GatherPlan:
         return torch.where(valid, flat[self.perm.clamp(min=0).long()], zero)
 
 
-def _row_index(meta, rb, perm, row_block: int, n_rows: int):
-    """``row_ptr``, ``row_slots``: the valid slots of each row, in
-    increasing slot order (numpy, at build time)."""
+def _row_index(meta, b0, rb, perm, row_block: int, n_rows: int):
+    """``row_ptr``, ``row_slots``, ``row_cols``: the valid slots of each
+    row, in increasing slot order, and their columns (numpy, at build
+    time)."""
     flat_perm = perm.reshape(-1)
     slots = np.flatnonzero(flat_perm >= 0)
     chunk = meta.shape[1]
-    local = (meta.reshape(-1)[slots] >> _COL_BITS) & ((1 << _ROW_BITS) - 1)
+    m = meta.reshape(-1)[slots]
+    local = (m >> _COL_BITS) & ((1 << _ROW_BITS) - 1)
     rows = rb[slots // chunk].astype(np.int64) * row_block + local
+    blk = (m >> (_COL_BITS + _ROW_BITS)) & ((1 << _BLK_BITS) - 1)
+    cols = ((b0[slots // chunk].astype(np.int64) + blk) * _LANES
+            + (m & ((1 << _COL_BITS) - 1)))
     order = np.argsort(rows, kind='stable')
     row_ptr = np.zeros(n_rows + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=n_rows), out=row_ptr[1:])
-    return row_ptr.astype(np.int32), slots[order].astype(np.int32)
+    return (row_ptr.astype(np.int32), slots[order].astype(np.int32),
+            cols[order].astype(np.int32))
 
 
 def _plan(meta, b0, rb, perm, shape, nse, chunk, row_block, win_blocks,
           n_rb, nbp) -> GatherPlan:
-    row_ptr, row_slots = _row_index(meta, rb, perm, row_block, shape[0])
+    index = _row_index(meta, b0, rb, perm, row_block, shape[0])
     t = torch.from_numpy
-    return GatherPlan(t(meta), t(b0), t(rb), t(perm), t(row_ptr),
-                      t(row_slots), tuple(shape), nse, chunk, row_block,
-                      win_blocks, n_rb, nbp)
+    return GatherPlan(t(meta), t(b0), t(rb), t(perm), *map(t, index),
+                      tuple(shape), nse, chunk, row_block, win_blocks, n_rb,
+                      nbp)
 
 
 def build_gather_plan(rows, cols, shape: Tuple[int, int], *,
@@ -445,3 +466,128 @@ def plan_matvec_vjp(plan_f: GatherPlan, plan_b: GatherPlan, w_f, w_b, v, *,
     """
     del passes
     return _PlanMatvecVjp.apply(v, plan_f, plan_b, w_f, w_b)
+
+
+# -- the mat-mat half: K10 -------------------------------------------------------
+
+_MM_CHUNK = 256
+_MM_RB = 128
+_MM_WB = 1
+
+_MM_SOURCE = 'brainevent_torch/csrc/csr_gather_mm.cu'
+
+# twin work per chunk of entries: about this many gathered values
+_TWIN_ELEMS = 1 << 24
+
+
+def build_mm_plan(rows, cols, shape, *, chunk: int = _MM_CHUNK,
+                  row_block: int = _MM_RB,
+                  win_blocks: int = _MM_WB) -> GatherPlan:
+    """Gather plan with the JAX package's mat-mat knobs (``chunk=256,
+    row_block=128, win_blocks=1``), bitwise its plan."""
+    return build_gather_plan(rows, cols, shape, chunk=chunk,
+                             row_block=row_block, win_blocks=win_blocks)
+
+
+def gather_matmat_xla(plan: GatherPlan, w_sorted: torch.Tensor,
+                      X: torch.Tensor) -> torch.Tensor:
+    """The JAX package's mat-mat oracle: decode the plan with gathers and
+    sum with ``index_add_``."""
+    grow, gcol = _decode(plan)
+    xv = take(X, torch.where(plan.perm >= 0, gcol, -1))
+    out = torch.zeros(plan.n_rb * plan.row_block, X.shape[1],
+                      dtype=torch.float32, device=X.device)
+    out.index_add_(0, grow.reshape(-1),
+                   (w_sorted[..., None] * xv).reshape(-1, X.shape[1]))
+    return out[:plan.shape[0]]
+
+
+def csr_gather_mm_twin(indptr, indices, perm, w, X, binary: bool):
+    """Plain PyTorch twin of K10: ``Y[r, :] = sum_j w[slot(j)] *
+    op(X[indices[j], :])`` with gathers and ``index_add_``, a chunk of
+    entries at a time; homogeneous binary products sum 0/1 gates (exact)
+    and scale once."""
+    n_rows, B = indptr.shape[0] - 1, X.shape[1]
+    nse = indices.shape[0]
+    rows = _misc.csr_to_coo_index(indptr, indices)[0]
+    homo = tuple(w.shape) == (1,)
+    ws = None if homo else (w if perm is None else w[perm])
+    Xv = op_values(X, binary)
+    Y = torch.zeros(n_rows, B, dtype=torch.float32, device=X.device)
+    step = max(1, _TWIN_ELEMS // max(B, 1))
+    for a in range(0, nse, step):
+        v = take(Xv, indices[a:a + step])
+        if not (homo and binary):
+            v = (w[0] if homo else ws[a:a + step, None]) * v
+        Y.index_add_(0, rows[a:a + step], v)
+    return Y * w[0] if homo and binary else Y
+
+
+def _csr_gather_mm_cuda(op, indptr, indices, perm, w, X, binary):
+    code = op_code(X, binary)
+    pairs = [(indptr, torch.int32), (indices, torch.int32),
+             (w, torch.float32), (X, X.dtype)]
+    if perm is not None:
+        pairs.append((perm, torch.int32))
+    device = check_cuda_tensors(op.name, *pairs)
+    n_rows = indptr.shape[0] - 1
+    if X.ndim != 2 or not fits(w, indices, perm):
+        raise ValueError(f'{op.name}: X {tuple(X.shape)}, weights '
+                         f'{tuple(w.shape)} or perm do not fit '
+                         f'{indices.shape[0]} entries')
+    Y = torch.empty(n_rows, X.shape[1], dtype=torch.float32, device=device)
+    fn = cuda_build.function('csr_gather_mm_launch', [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    op.launch(fn, indptr.data_ptr(), indices.data_ptr(),
+              None if perm is None else perm.data_ptr(), w.data_ptr(),
+              X.data_ptr(), code, int(tuple(w.shape) == (1,)), n_rows,
+              X.shape[0], X.shape[1], Y.data_ptr(), device.index or 0,
+              cuda_stream(device))
+    return Y
+
+
+csr_gather_mm = KernelOp(
+    'csr_gather_mm', twin=csr_gather_mm_twin, cuda=_csr_gather_mm_cuda,
+    source=_MM_SOURCE, replaces='brainevent_tpu/ops/mxu_gather.py:854')
+
+
+def gather_matmat(plan: GatherPlan, w_sorted, X, *,
+                  force_xla: Optional[bool] = None, passes=3):
+    """``out[r, :] = sum_{e in row r} w[e] * X[col[e], :]`` over the plan,
+    through K10 on the plan's row index (``row_ptr``, ``row_cols``, and
+    ``row_slots`` into ``w_sorted``); the twin for CPU tensors.
+    ``force_xla`` and ``passes`` are accepted and ignored: K10 takes any
+    width of ``X``."""
+    del force_xla, passes
+    if X.ndim != 2 or X.shape[0] != plan.shape[1]:
+        raise ValueError(f'X {tuple(X.shape)} for a plan of shape {plan.shape}')
+    return csr_gather_mm(plan.row_ptr, plan.row_cols, plan.row_slots,
+                         _f32(w_sorted).reshape(-1), _f32(X), False)
+
+
+class _PlanMatmatVjp(torch.autograd.Function):
+    """Mat-mat over a plan pair, differentiable with respect to ``X``: the
+    backward is K10 over the transposed plan."""
+
+    @staticmethod
+    def forward(ctx, X, plan_f, plan_b, w_f, w_b):
+        ctx.plan_b = plan_b
+        ctx.save_for_backward(w_b)
+        ctx.x_dtype = X.dtype
+        return gather_matmat(plan_f, w_f, X)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (w_b,) = ctx.saved_tensors
+        X_bar = gather_matmat(ctx.plan_b, w_b, ct).to(ctx.x_dtype)
+        return X_bar, None, None, None, None
+
+
+def plan_matmat_vjp(plan_f: GatherPlan, plan_b: GatherPlan, w_f, w_b, X, *,
+                    passes=3):
+    """Mat-mat over a cached plan pair, differentiable with respect to
+    ``X`` (``plan_b``/``w_b``: the transposed structure). The weights get
+    no gradient, as in the JAX package. Any width of ``X`` works: there is
+    no fallback to fail. ``passes`` is accepted and ignored."""
+    del passes
+    return _PlanMatmatVjp.apply(X, plan_f, plan_b, w_f, w_b)

@@ -8,11 +8,13 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``brainevent_torch/csrc`` and drives the
-port's two paths: the COBA EI network (Brette et al. 2007) at 4,000
-neurons through ``einet_pallas_sim`` (kernels K1, K2), and the
+port's three paths: the COBA EI network (Brette et al. 2007) at 4,000
+neurons through ``einet_pallas_sim`` (kernels K1, K2); the
 surrogate-gradient train step of a 100k-neuron, 10M-synapse recurrent
 network through ``train_step`` (K3, K4; K5 with ``forward='event'``),
-beside the 10M-synapse event product ``binary_fcnmv`` (K5, K6). Phases:
+beside the 10M-synapse event product ``binary_fcnmv`` (K5, K6); and the
+CSR slice (``CSR``, ``BinaryArray``, STDP, mat-mat products) at 10k x 10k
+with 10% connectivity, 10M entries (K7-K10). Phases:
 
 1. the device (``torch.cuda.get_device_name`` and ``nvidia-smi``);
 2. the kernel build, with its seconds;
@@ -50,13 +52,33 @@ beside the 10M-synapse event product ``binary_fcnmv`` (K5, K6). Phases:
 11. learning: the 2,000-neuron net of 4 class-templated inputs, 30 epochs
     at lr 0.5, must lower its loss;
 12. K3-K6 timing at full width: device ms per launch and twin ms per call
-    (K5 and K6 at 0.1% and 1%).
+    (K5 and K6 at 0.1% and 1%);
+13. K7 (``csr_gather_mv``) and K8 (``csr_scatter_mv``) against their twins
+    at (10k, 10k, 10%): rates 0, 0.1%, 1%, 10% and 100%, homogeneous and
+    heterogeneous weights, bool and float spikes, the indexed (``perm``)
+    and float variants; homogeneous binary exact, the others within
+    1e-5 * sum|w op(x)| per output, K7 bitwise on a repeat;
+14. K9 (``pair_gather``) against its twin at 10M entries: both sides, one
+    side, ``-1`` sentinels, and the STDP updates with clip: bitwise;
+15. K10 (``csr_gather_mm``) against its twin at (10k, 10k, 1%, B = 256):
+    ``csrmm`` and ``binary_csrmm`` both directions, and ``gather_matmat``
+    over an mm plan: within 1e-5 * sum|w x|, bitwise on a repeat; the
+    per-call CSC mirror of a functional transposed product, timed;
+16. the CSR slice at 10M entries: 100 steps of ``BinaryArray @ W``,
+    ``W @ BinaryArray``, trace decay, ``update_on_pre``/``update_on_post``
+    with clip, ``W @ X`` and ``X @ W``, through the kernels and through the
+    twins on the card: ``W.data`` bitwise, products within 1e-5 relative,
+    K7, K8 once and K9, K10 twice per step; a backward through ``W @ v``;
+    ``W @ X`` at B = 256;
+17. K7-K10 timing: device ms per launch and twin ms per call (K7 and K8
+    at 0.1% and 1%).
 
 Any failure exits non-zero; so does a host without CUDA. The line before
-the last is ``{"kernels": [...]}`` (K1-K6); the last is
+the last is ``{"kernels": [...]}`` (K1-K10); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -630,6 +652,348 @@ def time_new_kernels(model, runs, device):
     return out
 
 
+# -- the CSR slice (K7-K10) ------------------------------------------------------
+
+# the reference grid's largest CSR event-SpMV shape, (10k, 10k, 10%), and
+# the csrmm cell (10k, 10k, 1%, B = 256)
+CSR_N, CSR_DENSITY = 10_000, 0.1
+MM_N, MM_DENSITY, MM_B = 10_000, 0.01, 256
+SLICE_STEPS, SLICE_RATE, SLICE_B = 100, 0.01, 16
+
+
+def random_csr(n, density, seed, device):
+    """A seeded random ``n x n`` CSR on the card: each entry present with
+    probability *density*, weights uniform in [0, 1)."""
+    import brainevent_torch as bt
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows, cols = torch.nonzero(
+        torch.rand(n, n, generator=gen, device=device) < density,
+        as_tuple=True)
+    indptr = torch.zeros(n + 1, dtype=torch.int32, device=device)
+    indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    data = torch.rand(rows.shape[0], generator=gen, device=device)
+    return bt.CSR((data, cols.to(torch.int32), indptr), shape=(n, n))
+
+
+@contextlib.contextmanager
+def twins_on_card(ops):
+    """Run *ops* through their twins on CUDA tensors for the length of the
+    block (the reference run of a phase; twin calls are not launches)."""
+    saved = {op: op.cuda for op in ops}
+    for op in ops:
+        op.cuda = lambda op_, *a, **k: op_.twin(*a, **k)
+    try:
+        yield
+    finally:
+        for op, fn in saved.items():
+            op.cuda = fn
+
+
+def within(got, want, bound, what):
+    """Check ``|got - want| <= 1e-5 * bound`` elementwise; the max error."""
+    torch.cuda.synchronize()
+    check(bool(((got - want).abs() <= 1e-5 * bound + 1e-30).all()), what)
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def event_operand(n, rate, kind, gen, device, batch=None):
+    shape = (n,) if batch is None else (n, batch)
+    on = torch.rand(shape, generator=gen, device=device) < rate
+    if kind == 'bool':
+        return on
+    if kind == 'float':
+        return torch.where(on, 1.0, -0.5 * torch.rand(
+            shape, generator=gen, device=device))
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def check_csr_event(W, device):
+    phase(f'13 K7 csr_gather_mv / K8 csr_scatter_mv vs twin at {CSR_N} x '
+          f'{CSR_N}, {CSR_DENSITY:.0%} ({W.nse} entries) (tolerance: '
+          f'homogeneous binary exact; others |d| <= 1e-5 * sum|w op(x)|; '
+          f'K7 repeats bitwise)')
+    from brainevent_torch.csr import pallas_kernels as pk
+    gen = torch.Generator(device=device).manual_seed(13)
+    n, ptr, idx = CSR_N, W.indptr, W.indices
+    homo_w = torch.tensor([0.5], device=device)
+    perm = torch.randperm(W.nse, generator=gen, device=device).to(torch.int32)
+    worst = {'csr_gather_mv': 0.0, 'csr_scatter_mv': 0.0}
+    cases = [(rate, kind, homo, None) for rate in (0.0, 0.001, 0.01, 0.1, 1.0)
+             for kind in ('bool', 'float') for homo in (True, False)]
+    cases += [(0.01, 'bool', False, perm), (0.01, 'float', False, perm),
+              (1.0, 'identity', True, None), (1.0, 'identity', False, None),
+              (1.0, 'identity', False, perm)]
+    for rate, kind, homo, p in cases:
+        x = event_operand(n, rate, kind, gen, device)
+        w = homo_w if homo else W.data
+        binary = kind != 'identity'
+        xb = x.abs() if kind == 'identity' else x
+        for op, extra in ((pk.csr_gather_mv, ()), (pk.csr_scatter_mv, (n,))):
+            got = op(ptr, idx, p, w, x, binary, *extra)
+            want = op.twin(ptr, idx, p, w, x, binary, *extra)
+            if homo and binary:
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), (op.name, rate, kind))
+                err = 0.0
+            else:
+                err = within(got, want, op.twin(ptr, idx, p, w.abs(), xb,
+                                                binary, *extra),
+                             (op.name, rate, kind, homo))
+            worst[op.name] = max(worst[op.name], err)
+            if op is pk.csr_gather_mv:
+                again = op(ptr, idx, p, w, x, binary)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), ('K7 repeat', rate, kind))
+        print(f'rate {rate}, {kind}, {"homo" if homo else "hetero"}'
+              f'{", perm" if p is not None else ""}: K7 and K8 within '
+              f'tolerance')
+    return worst
+
+
+def check_pair_gather(W, device):
+    phase(f'14 K9 pair_gather vs twin at {W.nse} entries, and STDP on-pre / '
+          f'on-post with clip (tolerance: bitwise)')
+    import brainevent_torch as bt
+    from brainevent_torch.csr._common import event_gate, row_ids_from_indptr
+    from brainevent_torch.ops import pair_gather as pg
+    gen = torch.Generator(device=device).manual_seed(14)
+    n = CSR_N
+    rows = row_ids_from_indptr(W.indptr, W.nse)
+    s = torch.randn(n, generator=gen, device=device)
+    x = torch.randn(n, generator=gen, device=device)
+    sentinel = rows.clone()
+    sentinel[::7] = -1
+    for label, args in (('both', (rows, W.indices, s, x)),
+                        ('rows', (rows, None, s, None)),
+                        ('cols', (None, W.indices, None, x)),
+                        ('sentinels', (sentinel, W.indices, s, x))):
+        got = bt.pair_gather_product(*args)
+        want = pg.pair_gather_twin(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), ('K9', label))
+        print(f'{label}: bitwise equal')
+    spk = torch.rand(n, generator=gen, device=device) < 0.01
+    trace = torch.rand(n, generator=gen, device=device)
+    got = W.update_on_pre(spk, trace, 0.0, 1.0).data
+    want = (W.data + pg.pair_gather_twin(rows, W.indices, event_gate(spk),
+                                         trace)).clamp(0.0, 1.0)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), 'STDP on-pre')
+    got = W.update_on_post(trace, spk, 0.0, 1.0).data
+    want = (W.data + pg.pair_gather_twin(rows, W.indices, trace,
+                                         event_gate(spk))).clamp(0.0, 1.0)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), 'STDP on-post')
+    print('STDP on-pre and on-post (1% spikes, clip [0, 1]): bitwise equal')
+    return 0.0
+
+
+def check_csr_mm(device):
+    phase(f'15 K10 csr_gather_mm vs twin at ({MM_N}, {MM_N}, '
+          f'{MM_DENSITY:.0%}, B = {MM_B}), NT and T, float and binary, and '
+          f'gather_matmat over an mm plan (tolerance: |d| <= 1e-5 * '
+          f'sum|w x|; repeats bitwise)')
+    import brainevent_torch as bt
+    from brainevent_torch import _misc
+    from brainevent_torch.ops import mxu_gather as mg
+    gen = torch.Generator(device=device).manual_seed(15)
+    A = random_csr(MM_N, MM_DENSITY, 150, device)
+    shape = A.shape
+    worst = 0.0
+    mirror = _misc.csr_to_csc_index(A.indptr, A.indices, shape=shape)
+    mirror_ms = host_ms(lambda: _misc.csr_to_csc_index(
+        A.indptr, A.indices, shape=shape), 5)
+    for kind in ('identity', 'bool', 'float'):
+        X = event_operand(MM_N, 0.1, kind, gen, device, batch=MM_B)
+        binary = kind != 'identity'
+        fn = bt.binary_csrmm if binary else bt.csrmm
+        Xb = X.abs() if kind == 'identity' else X
+        for transpose in (False, True):
+            ptr, idx, perm = ((*mirror,) if transpose
+                              else (A.indptr, A.indices, None))
+            got = fn(A.data, A.indices, A.indptr, X, shape=shape,
+                     transpose=transpose)
+            want = mg.csr_gather_mm_twin(ptr, idx, perm, A.data, X, binary)
+            bound = mg.csr_gather_mm_twin(ptr, idx, perm, A.data, Xb, binary)
+            worst = max(worst, within(got, want, bound,
+                                      ('K10', kind, transpose)))
+            again = fn(A.data, A.indices, A.indptr, X, shape=shape,
+                       transpose=transpose)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), ('K10 repeat', kind, transpose))
+            print(f'{kind}, {"T" if transpose else "NT"}: within tolerance, '
+                  f'repeats bitwise')
+    t0 = time.perf_counter()
+    rows = np.repeat(np.arange(MM_N), np.diff(A.indptr.cpu().numpy()))
+    plan = mg.build_mm_plan(rows, A.indices.cpu().numpy(), shape).to(device)
+    plan_s = time.perf_counter() - t0
+    w_sorted = plan.sort_data(A.data)
+    X = torch.randn(MM_N, MM_B, generator=gen, device=device)
+    got = bt.gather_matmat(plan, w_sorted, X)
+    worst = max(worst, within(got, mg.gather_matmat_xla(plan, w_sorted, X),
+                              mg.gather_matmat_xla(plan, w_sorted, X.abs()),
+                              'gather_matmat'))
+    torch.cuda.synchronize()
+    check(torch.equal(got, bt.gather_matmat(plan, w_sorted, X)),
+          'gather_matmat repeat')
+    print(f'gather_matmat over the mm plan ({plan.nse} slots, built in '
+          f'{plan_s!r} s in numpy): within tolerance, repeats bitwise; the '
+          f'per-call CSC mirror of a functional transposed csrmm takes '
+          f'{mirror_ms!r} ms (host clock)')
+    return A, plan, w_sorted, worst, mirror_ms
+
+
+def csr_step_loop(W, n_steps, device):
+    """The CSR slice: per step the event products both ways, trace decay,
+    STDP with clip, and the mat-mat products both ways; returns the final
+    matrix and every step's products."""
+    import brainevent_torch as bt
+    gen = torch.Generator(device=device).manual_seed(16)
+    n = W.shape[0]
+    X = torch.randn(n, SLICE_B, generator=gen, device=device)
+    Z = torch.randn(SLICE_B, n, generator=gen, device=device)
+    pre = torch.zeros(n, device=device)
+    post = torch.zeros(n, device=device)
+    outs = []
+    for _ in range(n_steps):
+        spk = torch.rand(n, generator=gen, device=device) < SLICE_RATE
+        pspk = torch.rand(n, generator=gen, device=device) < SLICE_RATE
+        a = bt.BinaryArray(spk) @ W
+        b = W @ bt.BinaryArray(pspk)
+        pre = pre * 0.95 + spk
+        post = post * 0.95 + pspk
+        W = W.update_on_pre(spk, post, 0.0, 1.0)
+        W = W.update_on_post(pre, pspk, 0.0, 1.0)
+        outs.append((a, b, W @ X, Z @ W))
+    return W, outs
+
+
+CSR_OPS = ('csr_gather_mv', 'csr_scatter_mv', 'pair_gather', 'csr_gather_mm')
+
+
+def check_csr_slice(W, device):
+    phase(f'16 the CSR slice on the card at {W.nse} entries: {SLICE_STEPS} '
+          f'steps of event products both ways, trace decay, STDP with clip, '
+          f'W @ X and X @ W (B = {SLICE_B}), through the kernels and through '
+          f'the twins (W.data bitwise; products within 1e-5 relative)')
+    import brainevent_torch as bt
+    from brainevent_torch.ops.core import REGISTRY
+    ops = [REGISTRY[name] for name in CSR_OPS]
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    W_k, outs_k = csr_step_loop(W, SLICE_STEPS, device)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / SLICE_STEPS * 1e3
+    counts = bt.launch_counts()
+    want = {'csr_gather_mv': SLICE_STEPS, 'csr_scatter_mv': SLICE_STEPS,
+            'pair_gather': 2 * SLICE_STEPS, 'csr_gather_mm': 2 * SLICE_STEPS}
+    check({k: counts[k] for k in CSR_OPS} == want, counts)
+    t0 = time.perf_counter()
+    with twins_on_card(ops):
+        W_t, outs_t = csr_step_loop(W, SLICE_STEPS, device)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) / SLICE_STEPS * 1e3
+    check(torch.equal(W_k.data, W_t.data), 'final W.data')
+    check(bool(torch.isfinite(W_k.data).all()) and W_k.data.shape == (
+        W.nse,), 'W.data finite')
+    worst = 0.0
+    for ok, ot in zip(outs_k, outs_t):
+        for a, b in zip(ok, ot):
+            check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+                  'product shape')
+            scale = b.abs().max().clamp(min=1.0)
+            worst = max(worst, float((a - b).abs().max() / scale))
+    check(worst <= 1e-5, ('products', worst))
+    print(f'{SLICE_STEPS} steps: W.data bitwise equal to the twin run, '
+          f'products within {worst!r} relative; launches per step: '
+          f'{ {k: counts[k] / SLICE_STEPS for k in CSR_OPS} }; '
+          f'{step_ms!r} ms/step through the kernels, {twin_ms!r} ms/step '
+          f'through the twins (host clock)')
+    # a backward through W @ v, with respect to v and W.data
+    gen = torch.Generator(device=device).manual_seed(161)
+    v = torch.randn(W.shape[1], generator=gen, device=device)
+    ct = torch.randn(W.shape[0], generator=gen, device=device)
+    grads = []
+    for twin in (False, True):
+        data = W_k.data.clone().requires_grad_(True)
+        Wg = W_k.with_data(data)
+        vv = v.clone().requires_grad_(True)
+        with twins_on_card(ops if twin else []):
+            y = Wg @ vv
+            grads.append((y.detach(), *torch.autograd.grad(
+                y, (vv, data), ct)))
+    (yk, gvk, gwk), (yt, gvt, gwt) = grads
+    torch.cuda.synchronize()
+    check(torch.equal(gwk, gwt), 'dW bitwise')
+    for a, b in ((yk, yt), (gvk, gvt)):
+        check(float((a - b).abs().max() / b.abs().max()) <= 1e-5, 'grad')
+    # W @ X at the mm cell's width
+    X = torch.randn(W.shape[1], MM_B, generator=gen, device=device)
+    bt.reset_launch_counts()
+    Y = W_k @ X
+    check(bt.launch_counts()['csr_gather_mm'] == 1, 'W @ X launch')
+    with twins_on_card(ops):
+        Yt = W_k @ X
+    rel = float((Y - Yt).abs().max() / Yt.abs().max())
+    check(Y.shape == (W.shape[0], MM_B) and rel <= 1e-5, ('W @ X', rel))
+    print(f'backward through W @ v: dW bitwise, dv within 1e-5 relative; '
+          f'W @ X at B = {MM_B}: within {rel!r} relative')
+    busy_us, wall_us, top = profile_step(
+        lambda: csr_step_loop(W_k, 10, device))
+    print(f'10 profiled steps: kernels {busy_us / 10!r} us of '
+          f'{wall_us / 10!r} us wall per step under the profiler (device '
+          f'idle {1 - busy_us / wall_us!r} there; '
+          f'{1 - busy_us / 10 / (step_ms * 1e3)!r} of the unprofiled '
+          f'steps); largest kernels (name, launches, us): {top!r}')
+    return counts, W_k
+
+
+def time_csr_kernels(W, A, plan, w_sorted, device):
+    phase('17 CSR timing: device ms per launch (launches queued back to '
+          'back) and the twin\'s ms per call')
+    from brainevent_torch.csr import pallas_kernels as pk
+    from brainevent_torch.csr._common import event_gate, row_ids_from_indptr
+    from brainevent_torch.ops import mxu_gather as mg
+    from brainevent_torch.ops import pair_gather as pg
+    gen = torch.Generator(device=device).manual_seed(17)
+    n = CSR_N
+    homo = torch.tensor([0.5], device=device)
+    out = {}
+    for rate in (0.001, 0.01):
+        s = torch.rand(n, generator=gen, device=device) < rate
+        for op, extra in ((pk.csr_gather_mv, ()), (pk.csr_scatter_mv, (n,))):
+            args = (W.indptr, W.indices, None, homo, s, True, *extra)
+            r = dict(ms=device_ms(lambda: op(*args), 100),
+                     plain_ms=host_ms(lambda: op.twin(*args), 10))
+            out[(op.name, rate)] = r
+            print(f'{op.name} (rate {rate}, homogeneous, bool, {W.nse} '
+                  f'entries): device {r["ms"]!r} ms, twin '
+                  f'{r["plain_ms"]!r} ms')
+    rows = row_ids_from_indptr(W.indptr, W.nse)
+    gate = event_gate(torch.rand(n, generator=gen, device=device) < 0.01)
+    trace = torch.rand(n, generator=gen, device=device)
+    args = (rows, W.indices, gate, trace)
+    out['pair_gather'] = dict(ms=device_ms(lambda: pg.pair_gather(*args), 100),
+                              plain_ms=host_ms(
+                                  lambda: pg.pair_gather_twin(*args), 10))
+    X = torch.randn(MM_N, MM_B, generator=gen, device=device)
+    args = (A.indptr, A.indices, None, A.data, X, False)
+    out['csr_gather_mm'] = dict(
+        ms=device_ms(lambda: mg.csr_gather_mm(*args), 20),
+        plain_ms=host_ms(lambda: mg.csr_gather_mm_twin(*args), 3))
+    flat = w_sorted.reshape(-1).contiguous()
+    plan_args = (plan.row_ptr, plan.row_cols, plan.row_slots, flat, X, False)
+    out['gather_matmat'] = dict(
+        ms=device_ms(lambda: mg.csr_gather_mm(*plan_args), 20),
+        plain_ms=host_ms(lambda: mg.gather_matmat_xla(plan, w_sorted, X), 3))
+    for name in ('pair_gather', 'csr_gather_mm', 'gather_matmat'):
+        print(f'{name}: device {out[name]["ms"]!r} ms, twin '
+              f'{out[name]["plain_ms"]!r} ms')
+    for name in ('csr_gather_mv', 'csr_scatter_mv'):
+        out[name] = out[(name, 0.01)]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this needs an '
@@ -680,11 +1044,24 @@ def main():
     plan_counts, event_counts, _ = check_training_full(model, device)
     check_learning(device)
     new_times = time_new_kernels(model, runs, device)
+    del model
+
+    t0 = time.perf_counter()
+    W = random_csr(CSR_N, CSR_DENSITY, 130, device)
+    torch.cuda.synchronize()
+    print(f'{CSR_N} x {CSR_N} CSR at {CSR_DENSITY:.0%} built in '
+          f'{time.perf_counter() - t0!r} s: {W.nse} entries')
+    csr_err = check_csr_event(W, device)
+    csr_err['pair_gather'] = check_pair_gather(W, device)
+    A, plan, w_sorted, csr_err['csr_gather_mm'], _ = check_csr_mm(device)
+    csr_counts, W = check_csr_slice(W, device)
+    csr_times = time_csr_kernels(W, A, plan, w_sorted, device)
 
     from brainevent_torch.models.networks import einet_step
     from brainevent_torch.ops.scatter import event_count_scatter
     from brainevent_torch.ops.mxu_gather import plan_gather_mv, plan_matvec_dw_op
     from brainevent_torch.fcn.binary import fcn_event_scatter, fcn_event_gather
+    from brainevent_torch.ops.core import REGISTRY
     kernels = []
     for op, err, key in ((einet_step, k1_err, 'k1'),
                          (event_count_scatter, k2_err, 'k2')):
@@ -703,6 +1080,14 @@ def main():
             'replaces': op.replaces, 'launches': counts[op.name],
             'max_abs_err': errs[op.name], 'ms': new_times[op.name]['ms'],
             'plain_ms': new_times[op.name]['plain_ms']})
+    for op in map(REGISTRY.get, CSR_OPS):
+        kernels.append({
+            'name': op.name, 'route': 'cuda', 'source': op.source,
+            'replaces': op.replaces, 'launches': csr_counts[op.name],
+            'max_abs_err': csr_err[op.name], 'ms': csr_times[op.name]['ms'],
+            'plain_ms': csr_times[op.name]['plain_ms']})
+    for k in kernels:
+        check(k['launches'] > 0, (k['name'], 'not launched on its path'))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

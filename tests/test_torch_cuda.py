@@ -1,7 +1,7 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Kernels K1-K6 against their PyTorch twins on a CUDA device.
+"""Kernels K1-K10 against their PyTorch twins on a CUDA device.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so that it also runs where JAX is not installed. ``tests/conftest.py``
@@ -16,7 +16,10 @@ K3/K4 (gather plans) sum each row in another order than the twin's
 ``index_add_``: ``|y - twin| <= 1e-5 * sum|w x|`` per row, and K4's ``dw``
 (one product per slot) bitwise. K5/K6 (``binary_fcnmv``): homogeneous
 weights exact; heterogeneous K5 (float atomics) within ``1e-5 * sum|w|``
-per target, K6 within ``1e-6 * sum|w|`` per row.
+per target, K6 within ``1e-6 * sum|w|`` per row. K7-K10 (the CSR slice):
+homogeneous binary products exact (int32 counts, scaled once); the others
+within ``1e-5 * sum|w op(x)|`` per output, K7 and K10 bitwise on a repeat
+(no atomics); K9 bitwise (one rounding).
 """
 
 import numpy as np
@@ -249,3 +252,187 @@ def test_training_kernels_vs_twin_route(cuda_device, forward):
     torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
     for a, b in zip(ga, gb):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+# -- the CSR slice: K7-K10 ---------------------------------------------------------
+
+def _random_csr(gen, m, k, density, device):
+    """A random CSR structure with empty rows, on *device*."""
+    counts = gen.binomial(k, density, m)
+    counts[::97] = 0
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    indices = gen.integers(0, k, indptr[-1]).astype(np.int32)
+    return (torch.from_numpy(indptr).to(device),
+            torch.from_numpy(indices).to(device))
+
+
+def _operand(gen, n, kind, rate, device, batch=None):
+    shape = (n,) if batch is None else (n, batch)
+    on = gen.random(shape) < rate
+    if kind == 'bool':
+        x = on
+    elif kind == 'gate':
+        x = np.where(on, 1.0, -0.5 * gen.random(shape)).astype(F32)
+    else:
+        x = gen.normal(size=shape).astype(F32)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.01, 1.0])
+@pytest.mark.parametrize('kind', ['bool', 'gate', 'identity'])
+@pytest.mark.parametrize('homo', [True, False], ids=['homo', 'hetero'])
+@pytest.mark.parametrize('perm', [False, True], ids=['plain', 'perm'])
+@pytest.mark.parametrize('transpose', [True, False], ids=['K8', 'K7'])
+def test_csr_matvec_kernels_vs_twin(cuda_device, gen, rate, kind, homo, perm,
+                                    transpose):
+    from brainevent_torch.csr import pallas_kernels as pk
+    m, k = 6_000, 5_000
+    indptr, indices = _random_csr(gen, m, k, 0.02, cuda_device)
+    nse = indices.shape[0]
+    w = torch.from_numpy(gen.normal(size=1 if homo else nse).astype(F32))
+    w = w.to(cuda_device)
+    p = (torch.from_numpy(gen.permutation(nse).astype(np.int32))
+         .to(cuda_device) if perm else None)
+    binary = kind != 'identity'
+    x = _operand(gen, m if transpose else k, kind,
+                 rate if binary else 1.0, cuda_device)
+    op = pk.csr_scatter_mv if transpose else pk.csr_gather_mv
+    extra = (k,) if transpose else ()
+    before = op.launches
+    got = op(indptr, indices, p, w, x, binary, *extra)
+    want = op.twin(indptr, indices, p, w, x, binary, *extra)
+    bound = op.twin(indptr, indices, p, w.abs(),
+                    x.abs() if kind == 'identity' else x, binary, *extra)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    if homo and binary:         # integer counts, scaled once: exact
+        assert torch.equal(got, want)
+    else:
+        assert bool(((got - want).abs() <= 1e-5 * bound + 1e-30).all())
+    if not transpose:           # no atomics: the same bits on every run
+        assert torch.equal(got, op(indptr, indices, p, w, x, binary))
+
+
+@pytest.mark.parametrize('sides', ['both', 'rows', 'cols'])
+def test_pair_gather_kernel_vs_twin(cuda_device, gen, sides):
+    from brainevent_torch.ops import pair_gather as pg
+    n, nse = 30_000, 2_000_003
+    rows = gen.integers(-1, n, nse).astype(np.int32)
+    cols = gen.integers(0, n + 5, nse).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (
+        rows, cols, gen.normal(size=n).astype(F32),
+        gen.normal(size=n).astype(F32))]
+    if sides == 'rows':
+        args[1] = args[3] = None
+    elif sides == 'cols':
+        args[0] = args[2] = None
+    before = pg.pair_gather.launches
+    got = bt.pair_gather_product(*args)
+    want = pg.pair_gather_twin(*args)
+    torch.cuda.synchronize()
+    assert pg.pair_gather.launches == before + 1
+    assert torch.equal(got, want)           # one rounding: bitwise
+
+
+@pytest.mark.parametrize('kind', ['bool', 'gate', 'identity'])
+@pytest.mark.parametrize('homo', [True, False], ids=['homo', 'hetero'])
+@pytest.mark.parametrize('transpose', [False, True], ids=['NT', 'T'])
+def test_csr_gather_mm_kernel_vs_twin(cuda_device, gen, kind, homo,
+                                      transpose):
+    m, k, B = 3_000, 2_500, 200
+    indptr, indices = _random_csr(gen, m, k, 0.02, cuda_device)
+    nse = indices.shape[0]
+    w = torch.from_numpy(gen.normal(size=1 if homo else nse).astype(F32))
+    w = w.to(cuda_device)
+    binary = kind != 'identity'
+    X = _operand(gen, m if transpose else k, kind, 0.1 if binary else 1.0,
+                 cuda_device, batch=B)
+    fn = bt.binary_csrmm if binary else bt.csrmm
+    before = mg.csr_gather_mm.launches
+    got = fn(w, indices, indptr, X, shape=(m, k), transpose=transpose)
+    torch.cuda.synchronize()
+    assert mg.csr_gather_mm.launches == before + 1
+    ptr, idx, perm = indptr, indices, None
+    if transpose:
+        ptr, idx, perm = bt._misc.csr_to_csc_index(indptr, indices,
+                                                   shape=(m, k))
+    want = mg.csr_gather_mm_twin(ptr, idx, None if homo else perm, w, X,
+                                 binary)
+    bound = mg.csr_gather_mm_twin(ptr, idx, None if homo else perm, w.abs(),
+                                  X.abs() if kind == 'identity' else X,
+                                  binary)
+    if homo and binary:
+        assert torch.equal(got, want)
+    else:
+        assert bool(((got - want).abs() <= 1e-5 * bound + 1e-30).all())
+    assert torch.equal(got, fn(w, indices, indptr, X, shape=(m, k),
+                               transpose=transpose))
+
+
+def test_gather_matmat_kernel_vs_twin(cuda_device, gen):
+    M, N, B, nse = 4_000, 3_000, 256, 120_000
+    rows, cols = gen.integers(0, M, nse), gen.integers(0, N, nse)
+    plan = mg.build_mm_plan(rows, cols, (M, N)).to(cuda_device)
+    w_sorted = plan.sort_data(torch.from_numpy(
+        gen.normal(size=nse).astype(F32)).to(cuda_device))
+    X = torch.from_numpy(gen.normal(size=(N, B)).astype(F32)).to(cuda_device)
+    got = bt.gather_matmat(plan, w_sorted, X)
+    want = mg.gather_matmat_xla(plan, w_sorted, X)
+    bound = mg.gather_matmat_xla(plan, w_sorted.abs(), X.abs())
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-5 * bound + 1e-30).all())
+    assert torch.equal(got, bt.gather_matmat(plan, w_sorted, X))
+
+
+def test_csr_slice_on_card_matches_cpu(cuda_device, gen):
+    n = 2_000
+    dense = ((gen.random((n, n)) < 0.05) * gen.random((n, n))).astype(F32)
+    W_cpu = bt.CSR.fromdense(torch.from_numpy(dense))
+    W = bt.CSR((W_cpu.data.to(cuda_device), W_cpu.indices, W_cpu.indptr),
+               shape=W_cpu.shape)
+    pre, post = torch.zeros(n), torch.zeros(n)
+    for _ in range(5):
+        spk = torch.from_numpy(gen.random(n) < 0.05)
+        pspk = torch.from_numpy(gen.random(n) < 0.05)
+        pre, post = pre * 0.9 + spk, post * 0.9 + pspk
+        for M, dev in ((W_cpu, 'cpu'), (W, cuda_device)):
+            a = bt.BinaryArray(spk.to(dev)) @ M
+            b = M @ bt.BinaryArray(pspk.to(dev))
+            assert a.shape == (n,) and b.shape == (n,)
+        W_cpu = W_cpu.update_on_pre(spk, post, 0.0, 1.0).update_on_post(
+            pre, pspk, 0.0, 1.0)
+        W = W.update_on_pre(spk.to(cuda_device), post.to(cuda_device), 0.0,
+                            1.0).update_on_post(pre.to(cuda_device),
+                                                pspk.to(cuda_device), 0.0,
+                                                1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(W.data.cpu(), W_cpu.data)     # K9 bitwise
+
+
+def test_new_ops_raise_without_kernel_library(cuda_device, monkeypatch,
+                                              tmp_path):
+    """A CUDA tensor reaching a new op with no kernel library raises; the
+    twin does not run."""
+    from brainevent_torch.csr import pallas_kernels as pk
+    from brainevent_torch.ops import cuda_build
+    from brainevent_torch.ops import pair_gather as pg
+    monkeypatch.setattr(cuda_build, '_lib', None)
+    monkeypatch.setattr(cuda_build, '_functions', {})
+    monkeypatch.setenv('BRAINEVENT_TORCH_BUILD_DIR', str(tmp_path))
+
+    def no_nvcc():
+        raise bt.NvccNotFoundError('no nvcc')
+
+    monkeypatch.setattr(cuda_build, 'find_nvcc', no_nvcc)
+    calls = []
+    for op in (pk.csr_gather_mv, pk.csr_scatter_mv, pg.pair_gather,
+               mg.csr_gather_mm):
+        monkeypatch.setattr(op, 'twin', lambda *a, **k: calls.append(a))
+    A = bt.CSR.fromdense(torch.eye(4, device=cuda_device))
+    v = torch.ones(4, device=cuda_device)
+    for call in (lambda: A @ v, lambda: bt.BinaryArray(v > 0) @ A,
+                 lambda: A @ torch.ones(4, 3, device=cuda_device),
+                 lambda: A.update_on_pre(v > 0, v)):
+        with pytest.raises(bt.NvccNotFoundError):
+            call()
+    assert calls == []

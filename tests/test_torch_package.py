@@ -33,6 +33,9 @@ def test_import_with_jax_blocked():
         "m = bt.SurrogateSNN(n_in=4, n_hidden=64, n_out=2, n_conn=4)\n"
         "import torch\n"
         "bt.train_step(m, m.init_params(), torch.rand(3, 4), 1)\n"
+        "A = bt.CSR.fromdense(torch.eye(5))\n"
+        "A = A.update_on_pre(torch.ones(5) > 0, torch.ones(5))\n"
+        "(bt.BinaryArray(torch.ones(5) > 0) @ A, A @ torch.ones(5, 2))\n"
         "assert sys.modules['jax'] is None\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'brainevent_tpu') and sys.modules[m] is not None]\n"
@@ -74,6 +77,21 @@ def test_cuda_request_raises_without_running_twin(monkeypatch):
     v = torch.zeros(1, 4, device='meta')
     with pytest.raises(bt.KernelNotAvailableError):
         ts.event_scatter_float(t, v, torch.zeros(1, 8, device='meta'))
+    # the CSR ops: K7-K10
+    from brainevent_torch.csr import pallas_kernels as pk
+    from brainevent_torch.ops import mxu_gather as mg
+    from brainevent_torch.ops import pair_gather as pg
+    for op in (pk.csr_gather_mv, pk.csr_scatter_mv, pg.pair_gather,
+               mg.csr_gather_mm):
+        monkeypatch.setattr(op, 'twin', lambda *a, **k: calls.append(a))
+    ptr = torch.zeros(3, dtype=torch.int32, device='meta')
+    w = torch.zeros(1, device='meta')
+    for call in (lambda: pk.csr_gather_mv(ptr, t, None, w, v[0], True),
+                 lambda: pk.csr_scatter_mv(ptr, t, None, w, v[0], True, 8),
+                 lambda: pg.pair_gather(t, None, v[0], None),
+                 lambda: mg.csr_gather_mm(ptr, t, None, w, v.T, False)):
+        with pytest.raises(bt.KernelNotAvailableError):
+            call()
     assert calls == []
 
 
@@ -86,7 +104,8 @@ def test_build_command_targets_hopper_without_fma_contraction():
     nvcc = '/usr/local/cuda/bin/nvcc'
     srcs = cuda_build.sources()
     assert {Path(s).name for s in srcs} == {
-        'einet_step.cu', 'event_scatter.cu', 'fcn_event.cu', 'plan_gather.cu'}
+        'einet_step.cu', 'event_scatter.cu', 'fcn_event.cu', 'plan_gather.cu',
+        'csr_event.cu', 'pair_gather.cu', 'csr_gather_mm.cu'}
     for src in srcs:
         cmd = cuda_build.compile_command(nvcc, 'x.o', src)
         assert 'arch=compute_90a,code=sm_90a' in ' '.join(cmd)
@@ -152,7 +171,8 @@ def test_cu_sources_ship_as_package_data():
     assert set(data) == {'csrc/*.cu', 'csrc/*.cuh'}
     shipped = {p.name for pat in data for p in PKG.glob(pat)}
     assert shipped == {'common.cuh', 'einet_step.cu', 'event_scatter.cu',
-                       'fcn_event.cu', 'plan_gather.cu'}
+                       'fcn_event.cu', 'plan_gather.cu', 'csr_event.cu',
+                       'pair_gather.cu', 'csr_gather_mm.cu'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 
@@ -186,7 +206,8 @@ def test_launch_counts_only_successful_launches(monkeypatch):
     assert set(counts) >= {'einet_step', 'event_count_scatter',
                            'event_scatter_float', 'plan_gather_mv',
                            'plan_matvec_dw', 'fcn_event_scatter',
-                           'fcn_event_gather'}
+                           'fcn_event_gather', 'csr_gather_mv',
+                           'csr_scatter_mv', 'pair_gather', 'csr_gather_mm'}
     bt.reset_launch_counts()
     assert set(bt.launch_counts().values()) == {0}
 
@@ -197,8 +218,8 @@ def test_registry_names_are_unique_and_document_their_kernel():
     for op in core.REGISTRY.values():
         assert (ROOT / op.source).is_file()
         path, line = op.replaces.split(':')
-        # the float form of K2 ports the JAX package's XLA scatter
-        if op.name != 'event_scatter_float':
+        # the float form of K2 and K8 port the JAX package's XLA routes
+        if op.name not in ('event_scatter_float', 'csr_scatter_mv'):
             assert 'pallas_call' in (ROOT / path).read_text(), op.name
         assert int(line) > 0
 
@@ -217,6 +238,57 @@ def test_replaces_names_a_def_and_no_line_twice():
         'einet_step', 'event_count_scatter'}}
     assert by_line['brainevent_tpu/fcn/pallas_kernels.py:260'] == {
         'fcn_event_scatter'}
+    for line, name in (('csr/pallas_kernels.py:55', 'csr_gather_mv'),
+                       ('csr/binary.py:57', 'csr_scatter_mv'),
+                       ('ops/pair_gather.py:72', 'pair_gather'),
+                       ('ops/mxu_gather.py:854', 'csr_gather_mm')):
+        assert by_line[f'brainevent_tpu/{line}'] == {name}
+
+
+def _c_params(name):
+    """Number of parameters of the C entry point *name* in csrc/."""
+    for src in (PKG / 'csrc').glob('*.cu'):
+        text = src.read_text()
+        key = f' {name}('
+        if key in text:
+            sig = text[text.index(key) + len(key):]
+            return sig[:sig.index(')')].count(',') + 1
+    raise AssertionError(f'{name} not found')
+
+
+def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
+    """Each CSR wrapper declares as many ctypes arguments as its C entry
+    point has parameters, and passes that many (checked without a card:
+    the entry points are replaced by a recorder)."""
+    from brainevent_torch.csr import pallas_kernels as pk
+    from brainevent_torch.ops import mxu_gather as mg
+    from brainevent_torch.ops import pair_gather as pg
+    seen = {}
+
+    def function(name, argtypes, restype=ctypes.c_int):
+        def fn(*cargs):
+            assert len(cargs) == len(argtypes), name
+            seen[name] = len(argtypes)
+            return 0
+        return fn
+
+    monkeypatch.setattr(cuda_build, 'function', function)
+    for mod in (pk, mg, pg):
+        monkeypatch.setattr(mod, 'cuda_stream', lambda device: None)
+    i32 = torch.int32
+    ptr = torch.tensor([0, 2, 3], dtype=i32)
+    idx = torch.tensor([0, 1, 1], dtype=i32)
+    w, x = torch.ones(3), torch.ones(2)
+    for op, args in ((pk.csr_gather_mv, (ptr, idx, idx, w, x, False)),
+                     (pk.csr_scatter_mv, (ptr, idx, None, w, x > 0, True, 2)),
+                     (pg.pair_gather, (idx, idx, x, x)),
+                     (mg.csr_gather_mm, (ptr, idx, None, w,
+                                         torch.ones(2, 3), False))):
+        op.cuda(op, *args)
+    assert set(seen) == {'csr_gather_mv_launch', 'csr_scatter_mv_launch',
+                         'pair_gather_launch', 'csr_gather_mm_launch'}
+    for name, n in seen.items():
+        assert _c_params(name) == n, name
 
 
 def test_params_struct_matches_header():
