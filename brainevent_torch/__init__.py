@@ -20,7 +20,9 @@ The port of ``brainevent_tpu`` (JAX/Pallas), module for module and under
 the same names. It imports ``torch`` and ``numpy``, never ``jax``. Each op
 has a plain PyTorch twin, which runs for CPU tensors, and a CUDA kernel,
 which runs for CUDA tensors; the kernels are compiled by ``nvcc`` at first
-use (:mod:`brainevent_torch.ops.cuda_build`).
+use (:mod:`brainevent_torch.ops.cuda_build`). Entry points that create
+tensors (``EINet``, ``JITCNet``, ``SurrogateSNN``, the JITC matrices, the
+``interop`` builders) place them on the card unless given ``device='cpu'``.
 """
 
 from ._version import __version__, __version_info__
@@ -49,10 +51,18 @@ from .csr import (
 from .models import (
     LIFRefParams, LIFRefState, lifref_init, lifref_step, surrogate_spike,
     EINet, EINetState, einet_pallas_sim, mxu6_conn_table, SNNParams,
-    SurrogateSNN, snn_loss, train_step,
+    SurrogateSNN, snn_loss, train_step, JITCNet, JITCNetState,
+)
+from .jitc import (
+    JITCModeView, JITCWalkPlan, JITCScalarMatrix, JITCScalarR, JITCScalarC,
+    jits, jitsmv, jitsmm, binary_jitsmv, binary_jitsmm, jitsmv_plan,
+    jitsmm_plan, JITCNormalMatrix, JITCNormalR, JITCNormalC, jitn, jitnmv,
+    jitnmm, binary_jitnmv, binary_jitnmm, jitnmv_plan, jitnmm_plan,
+    JITCUniformMatrix, JITCUniformR, JITCUniformC, jitu, jitumv, jitumm,
+    binary_jitumv, binary_jitumm, jitumv_plan, jitumm_plan,
 )
 from .interop import (einet_from_arrays, surrogate_snn_from_arrays,
-                      csr_from_arrays, csc_from_arrays)
+                      csr_from_arrays, csc_from_arrays, jitc_net_from_arrays)
 
 __all__ = [
     '__version__', '__version_info__', 'config',
@@ -75,5 +85,12 @@ __all__ = [
     'surrogate_spike', 'EINet', 'EINetState', 'einet_pallas_sim',
     'mxu6_conn_table', 'SNNParams', 'SurrogateSNN', 'snn_loss', 'train_step',
     'einet_from_arrays', 'surrogate_snn_from_arrays', 'csr_from_arrays',
-    'csc_from_arrays',
+    'csc_from_arrays', 'jitc_net_from_arrays', 'JITCNet', 'JITCNetState',
+    'JITCModeView', 'JITCWalkPlan', 'JITCScalarMatrix', 'JITCScalarR',
+    'JITCScalarC', 'jits', 'jitsmv', 'jitsmm', 'binary_jitsmv',
+    'binary_jitsmm', 'jitsmv_plan', 'jitsmm_plan', 'JITCNormalMatrix',
+    'JITCNormalR', 'JITCNormalC', 'jitn', 'jitnmv', 'jitnmm',
+    'binary_jitnmv', 'binary_jitnmm', 'jitnmv_plan', 'jitnmm_plan',
+    'JITCUniformMatrix', 'JITCUniformR', 'JITCUniformC', 'jitu', 'jitumv',
+    'jitumm', 'binary_jitumv', 'binary_jitumm', 'jitumv_plan', 'jitumm_plan',
 ]

@@ -13,12 +13,13 @@
 # limitations under the License.
 # ==============================================================================
 
-"""Base class of the sparse data representations.
+"""Base classes of the sparse data representations.
 
 Counterpart of ``brainevent_tpu._data.DataRepresentation``: named tensor
 buffers, a static logical ``shape``, and elementwise algebra lifted onto
 the stored values. There are no pytrees in PyTorch, so the buffers are a
-plain dict; the subclasses implement ``@``.
+plain dict; the subclasses implement ``@``. :class:`JITCMatrix` is the base
+of the implicit-connectivity matrices (``brainevent_torch.jitc``).
 """
 
 import operator
@@ -28,7 +29,7 @@ import torch
 
 from ._error import UnsupportedOperationError
 
-__all__ = ['DataRepresentation']
+__all__ = ['DataRepresentation', 'JITCMatrix']
 
 
 class DataRepresentation:
@@ -122,3 +123,27 @@ class DataRepresentation:
 
     def __repr__(self):
         return f'{type(self).__name__}(shape={self.shape})'
+
+
+class JITCMatrix(DataRepresentation):
+    """Base class of the implicit (just-in-time connectivity) matrices.
+
+    The matrix is never stored: connectivity and weights are regenerated
+    in the kernels from ``(weight params..., prob, seed)`` by the light-RNG
+    sampler. Scalar algebra acts on the weight parameters; structure
+    changes are not supported.
+    """
+
+    @classmethod
+    def fromdense(cls, dense, **kwargs):
+        raise UnsupportedOperationError(
+            'JITC matrices are generative: they cannot be built from a dense '
+            'array. Construct them from (weight params, prob, seed).')
+
+    def update_on_pre(self, *args, **kwargs):
+        raise UnsupportedOperationError(
+            'JITC matrices have no stored weights to update.')
+
+    def update_on_post(self, *args, **kwargs):
+        raise UnsupportedOperationError(
+            'JITC matrices have no stored weights to update.')

@@ -13,7 +13,7 @@
 # limitations under the License.
 # ==============================================================================
 
-"""Sparse index-structure conversions.
+"""Sparse index-structure conversions and the JITC layout constants.
 
 The two CSR conversions of ``brainevent_tpu._misc``, on tensors (on any
 device) with the structure's integer dtype kept. The CSC mirror
@@ -21,13 +21,56 @@ device) with the structure's integer dtype kept. The CSC mirror
 sort of the column ids, so entries of one column keep their CSR order.
 The kernels that read a matrix through its mirror (``csr_gather_mv`` and
 ``csr_gather_mm``) rely on that order for their summation order.
+
+The stream layout of the implicit-connectivity walk (``_MV_STRIDE``,
+``_MM_STRIDE``, :func:`_normalize_chunk_size`) and the connection length
+(:func:`_initialize_conn_length`) are part of the sampled matrix: they are
+the JAX package's values, computed the same way.
 """
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ['csr_to_coo_index', 'csr_to_csc_index']
+
+# Lane layout of the implicit-connectivity sampler. mv and mm modes use
+# different strides, so they draw DIFFERENT matrices.
+_MV_STRIDE = 32
+_MM_STRIDE = 4
+
+
+def _normalize_chunk_size(n_cols: int, chunk_size: Optional[int],
+                          target_chunks: int = 4) -> int:
+    """Chunk width of the light-RNG walk: ``ceil(n_cols / 4)`` unless
+    given. The chunk id keys the streams, so every op of a family must
+    chunk alike."""
+    if chunk_size is None:
+        target_chunks = int(target_chunks)
+        if target_chunks <= 0:
+            raise ValueError('target_chunks must be positive')
+        chunk_size = max(1, (int(n_cols) + target_chunks - 1) // target_chunks)
+    chunk_size = int(chunk_size)
+    if chunk_size <= 0:
+        raise ValueError('chunk_size must be positive')
+    return chunk_size
+
+
+def _normalize_matrix_mode(mode: str) -> str:
+    mode = str(mode).lower()
+    if mode not in ('mv', 'mm'):
+        raise ValueError(f"matrix_mode must be 'mv' or 'mm', got {mode!r}")
+    return mode
+
+
+def _initialize_conn_length(conn_prob: float) -> int:
+    """Connection probability -> the sampler's connection length
+    ``clen = max(ceil(2 / prob), 2)``. The quotient is rounded to float32
+    before the ceiling, as the JAX package computes it (in float32 unless
+    x64 is enabled)."""
+    return max(int(math.ceil(np.float32(2.0 / float(conn_prob)))), 2)
 
 
 def csr_to_coo_index(indptr: torch.Tensor, indices: torch.Tensor):

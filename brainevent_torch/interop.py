@@ -26,16 +26,23 @@ import numpy as np
 import torch
 
 from .csr.main import CSC, CSR
+from .models.jitc_net import JITCNet, JITCNetState
 from .models.networks import EINet, EINetState
 from .models.neurons import LIFRefState
 from .models.training import SNNParams, SurrogateSNN
+from .ops.core import check_device
 
 __all__ = ['einet_from_arrays', 'surrogate_snn_from_arrays',
-           'csr_from_arrays', 'csc_from_arrays']
+           'csr_from_arrays', 'csc_from_arrays', 'jitc_net_from_arrays']
 
 
 def _tensor(x, dtype, device):
     return torch.from_numpy(np.array(x, dtype=dtype, copy=True)).to(device)
+
+
+def _device(device) -> torch.device:
+    """*device*, default the card; raises without one."""
+    return check_device(device or 'cuda')
 
 
 def einet_from_arrays(conn_all, n_exc, v, t_last, g_e, g_i, spike_count, *,
@@ -49,9 +56,10 @@ def einet_from_arrays(conn_all, n_exc, v, t_last, g_e, g_i, spike_count, *,
     v, t_last, g_e, g_i : ``(num,)`` float arrays
     spike_count : ``(num,)`` int array
     scale, coba : as :class:`EINet`
-    device : where the network and state live
+    device : where the network and state live (default the card)
     kwargs : other :class:`EINet` fields (``dt``, ``w_e``, ...)
     """
+    device = _device(device)
     conn = np.asarray(conn_all)
     f = np.float32
     state = EINetState(
@@ -79,10 +87,11 @@ def surrogate_snn_from_arrays(rec_indices, w_in, w_rec, w_out, *,
     w_in : ``(n_in, n_hidden)`` float array
     w_rec : ``(n_hidden, n_conn)`` float array
     w_out : ``(n_hidden, n_out)`` float array
-    device : where the model and parameters live
+    device : where the model and parameters live (default the card)
     fields : other :class:`SurrogateSNN` fields (``tau``, ``dt``, ``v_th``,
         ``forward``, ...); the sizes come from the arrays' shapes.
     """
+    device = _device(device)
     idx = np.asarray(rec_indices)
     f = np.float32
     params = SNNParams(w_in=_tensor(w_in, f, device),
@@ -107,6 +116,7 @@ def csr_from_arrays(data, indices, indptr, *, shape, device=None) -> CSR:
     """The port's :class:`~brainevent_torch.CSR` from a CSR matrix's arrays
     (``data`` ``(1,)`` or ``(nse,)``, float32; ``indices``, ``indptr``
     int32), on *device*."""
+    device = _device(device)
     return CSR((_tensor(np.atleast_1d(data), np.float32, device),
                 _tensor(indices, np.int32, device),
                 _tensor(indptr, np.int32, device)), shape=tuple(shape))
@@ -115,6 +125,37 @@ def csr_from_arrays(data, indices, indptr, *, shape, device=None) -> CSR:
 def csc_from_arrays(data, indices, indptr, *, shape, device=None) -> CSC:
     """The port's :class:`~brainevent_torch.CSC` from a CSC matrix's arrays
     (the CSR arrays of its transpose; ``shape`` is the logical one)."""
+    device = _device(device)
     return CSC((_tensor(np.atleast_1d(data), np.float32, device),
                 _tensor(indices, np.int32, device),
                 _tensor(indptr, np.int32, device)), shape=tuple(shape))
+
+
+def jitc_net_from_arrays(v, t_last, g_e, g_i, spike_count, *, scale: float,
+                         weight_law: str, coba: bool, seed: int = 42,
+                         device=None, **fields):
+    """Build the port's ``(JITCNet, JITCNetState)`` from a state's numpy
+    arrays. The connectivity needs no carrying: it regenerates from the
+    weight law's parameters, ``prob`` and ``seed``.
+
+    Parameters
+    ----------
+    v, t_last, g_e, g_i : ``(num,)`` float arrays
+    spike_count : ``(num,)`` int array
+    scale, weight_law, coba, seed : as :class:`JITCNet`
+    device : where the network and state live (default the card)
+    fields : other :class:`JITCNet` fields (``dt``, ``w_e``, ...)
+    """
+    device = _device(device)
+    f = np.float32
+    state = JITCNetState(
+        neurons=LIFRefState(v=_tensor(v, f, device),
+                            t_last=_tensor(t_last, f, device)),
+        g_e=_tensor(g_e, f, device), g_i=_tensor(g_i, f, device),
+        spike_count=_tensor(spike_count, np.int32, device))
+    net = JITCNet(scale=scale, weight_law=weight_law, coba=coba, seed=seed,
+                  initial_state=state, device=device, **fields)
+    if state.neurons.v.shape != (net.num,):
+        raise ValueError(f'arrays do not fit scale={scale}: v '
+                         f'{tuple(state.neurons.v.shape)} vs ({net.num},)')
+    return net, state

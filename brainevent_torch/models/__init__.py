@@ -1,18 +1,20 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""SNN model components: LIF neurons, the CUBA/COBA EI networks and
-surrogate-gradient training."""
+"""SNN model components: LIF neurons, the CUBA/COBA EI networks (stored
+and implicit connectivity) and surrogate-gradient training."""
 
 from .neurons import (
     LIFRefParams, LIFRefState, lifref_init, lifref_step, surrogate_spike,
 )
+from .jitc_net import JITCNet, JITCNetState
 from .networks import EINet, EINetState
 from .sim import einet_pallas_sim, mxu6_conn_table
 from .training import SNNParams, SurrogateSNN, snn_loss, train_step
 
 __all__ = [
     'LIFRefParams', 'LIFRefState', 'lifref_init', 'lifref_step',
-    'surrogate_spike', 'EINet', 'EINetState', 'einet_pallas_sim',
+    'surrogate_spike', 'EINet', 'EINetState', 'JITCNet', 'JITCNetState',
+    'einet_pallas_sim',
     'mxu6_conn_table', 'SNNParams', 'SurrogateSNN', 'snn_loss', 'train_step',
 ]

@@ -164,9 +164,10 @@ class EINet:
         draw; use :mod:`brainevent_torch.interop` to share one).
     initial_state : optional :class:`EINetState`
         What :meth:`init_state` returns; drawn from ``seed + 1`` if absent.
-    device : torch device, default CPU
-        Where the table and states live. CPU tensors run the twins, CUDA
-        tensors the kernels.
+    device : torch device, default the card (``'cuda'``)
+        Where the table and states live. CUDA tensors run the kernels;
+        ``device='cpu'`` runs the twins. Without a card the default
+        raises :class:`~brainevent_torch.CUDANotInstalledError`.
     """
     scale: float = 1.0
     coba: bool = True
@@ -190,7 +191,7 @@ class EINet:
         self.n_inh = int(800 * self.scale)
         self.num = self.n_exc + self.n_inh
         self.params = LIFRefParams()
-        self.device = check_device(self.device or 'cpu')
+        self.device = check_device(self.device or 'cuda')
         if self.conn_all is None:
             gen = torch.Generator().manual_seed(self.seed)
             n_conn = min(self.n_conn, self.num)

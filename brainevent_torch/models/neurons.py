@@ -32,6 +32,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops.core import check_device
+
 __all__ = ['LIFRefParams', 'LIFRefState', 'lifref_init', 'lifref_step',
            'surrogate_spike']
 
@@ -67,9 +69,11 @@ def lifref_init(generator: Optional[torch.Generator], n: int,
     """Membrane potentials ~ N(v_mean, v_std); no neuron has spiked yet.
 
     The draw is made on the CPU with *generator* (a ``torch.Generator``),
-    then moved to *device*. It is not JAX's draw: to share a state with
-    the JAX package, use :func:`brainevent_torch.interop.einet_from_arrays`.
+    then moved to *device* (default the card; ``'cpu'`` keeps it). It is
+    not JAX's draw: to share a state with the JAX package, use
+    :func:`brainevent_torch.interop.einet_from_arrays`.
     """
+    device = check_device(device or 'cuda')
     v = v_mean + v_std * torch.randn(n, generator=generator, dtype=dtype)
     t_last = torch.full((n,), -1e7, dtype=dtype)
     return LIFRefState(v=v.to(device), t_last=t_last.to(device))
@@ -84,10 +88,13 @@ def lifref_step(state: LIFRefState, current: torch.Tensor, t, dt: float,
     """
     p = params
     v = state.v
-    t = torch.as_tensor(t, dtype=v.dtype, device=v.device)
+    # scalars made with torch.full: a fill launch, where torch.tensor on a
+    # card copies from pageable host memory and waits for the stream
+    if not isinstance(t, torch.Tensor):
+        t = torch.full((), t, dtype=v.dtype, device=v.device)
     refractory = (t - state.t_last) < p.tau_ref
     x = (p.v_rest - v) + p.r * current
-    dt_tau = torch.tensor(f32(dt / p.tau), dtype=v.dtype, device=v.device)
+    dt_tau = torch.full((), f32(dt / p.tau), dtype=v.dtype, device=v.device)
     v = torch.where(refractory, v, torch.addcmul(v, x, dt_tau))
     spike = v >= p.v_th
     v = torch.where(spike, p.v_reset, v)

@@ -140,7 +140,8 @@ class SurrogateSNN:
     :func:`~brainevent_torch.interop.surrogate_snn_from_arrays`); by
     default they are drawn from a ``torch.Generator`` seeded with
     ``seed``. ``bwd_passes`` and ``fwd_passes`` (the JAX package's bf16
-    split depths) are accepted and ignored.
+    split depths) are accepted and ignored. ``device`` defaults to the
+    card (``'cuda'``); ``device='cpu'`` runs the twins.
     """
     n_in: int = 100
     n_hidden: int = 1000
@@ -164,7 +165,7 @@ class SurrogateSNN:
             raise ValueError(f"forward must be 'plan' or 'event', got "
                              f"{self.forward!r}")
         self.device = check_device(self.device if self.device is not None
-                                   else 'cpu')
+                                   else 'cuda')
         gen = torch.Generator().manual_seed(self.seed)
         n = self.n_hidden
         if self.rec_indices is None:

@@ -12,9 +12,11 @@ port's three paths: the COBA EI network (Brette et al. 2007) at 4,000
 neurons through ``einet_pallas_sim`` (kernels K1, K2); the
 surrogate-gradient train step of a 100k-neuron, 10M-synapse recurrent
 network through ``train_step`` (K3, K4; K5 with ``forward='event'``),
-beside the 10M-synapse event product ``binary_fcnmv`` (K5, K6); and the
+beside the 10M-synapse event product ``binary_fcnmv`` (K5, K6); the
 CSR slice (``CSR``, ``BinaryArray``, STDP, mat-mat products) at 10k x 10k
-with 10% connectivity, 10M entries (K7-K10). Phases:
+with 10% connectivity, 10M entries (K7-K10); and the JITC slice, the
+80k-neuron ``JITCNet`` over implicit connectivity and the JITC matrix
+classes (K11-K14). Phases:
 
 1. the device (``torch.cuda.get_device_name`` and ``nvidia-smi``);
 2. the kernel build, with its seconds;
@@ -71,10 +73,29 @@ with 10% connectivity, 10M entries (K7-K10). Phases:
     K7, K8 once and K9, K10 twice per step; a backward through ``W @ v``;
     ``W @ X`` at B = 256;
 17. K7-K10 timing: device ms per launch and twin ms per call (K7 and K8
-    at 0.1% and 1%).
+    at 0.1% and 1%);
+18. K11-K14 (``jitc_walk_setup``, ``jitc_walk_mv``, ``jitc_walk_mm``/
+    ``jitc_walk_mm4``, ``jitc_walk_todense``/``jitc_walk_todense4``)
+    against their twins at (5120, 5120, 1%), each weight law, strides 32
+    and 4, ``corder`` True and False, event and float operands, B = 16 and
+    256: K11 and K14 bitwise, products within 1e-5 * sum|w x|, gathers
+    bitwise on a repeat; then the class surface (``M @ v``, ``v @ M``,
+    ``plan @ B``, ``M @ B``, ``X @ M``, ``todense``) against the dense
+    matrices;
+19. the JITC slice: ``JITCNet`` at 80k (scale 20) and 4k, normal law,
+    COBA, 2,000 steps through K12 (one launch per projection per step),
+    20 sampled steps against the twin route (spikes bitwise, drives within
+    1e-5 relative), the rate in 1-200 Hz; the scalar law at 80k over 1,000
+    steps, spike counts equal to the twin loop on the card;
+20. JITC timing: us/step at 4k and 80k, device ms per launch of K11-K14
+    and their twins' ms per call, and 10 profiled steps at 80k.
 
-Any failure exits non-zero; so does a host without CUDA. The line before
-the last is ``{"kernels": [...]}`` (K1-K10); the last is
+Each kernel's line also carries its bound (the larger of its bytes over
+the HBM rate and its operations over the float32 rate) and the time of one
+PyTorch call computing the same function (``torch.sparse.mm``,
+``index_add_``) where one exists. Any failure exits non-zero; so does a
+host without CUDA. The line before the last is ``{"kernels": [...]}``
+(K1-K14); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -297,6 +318,21 @@ def host_ms(fn, reps):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+# The H100 SXM's published peaks (NVIDIA's H100 datasheet): HBM at
+# 3.35 TB/s and float32 outside the tensor cores at 67 TFLOP/s, the rate
+# also used here for the kernels' 32-bit integer work.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+
+
+def bound(n_bytes, n_ops):
+    """The least time the card could take for work that moves *n_bytes*
+    and does *n_ops*: ``(ms, 'bytes' or 'operations')``."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
 def time_kernels(nets, finals, device):
     """K1 and K2 against their twins at the main path's shapes: the state
     each timed run ended in, and the spike list of one more step from it."""
@@ -337,6 +373,20 @@ def time_kernels(nets, finals, device):
             k2_host_ms=host_ms(lambda: k2(sc.event_count_scatter), reps),
             k2_twin_ms=host_ms(lambda: k2(sc.event_count_scatter_twin),
                                reps_twin))
+        # the library yardstick of K2: one index_add_ of ones into the two
+        # channels (E hits at [0, num), I hits at [num, 2 num)) over the
+        # same events' targets, gathered beforehand
+        src = ids[:n_events].long()
+        tgt = (net.conn_all[src].long() + num * (src >= net.n_exc).long()[
+            :, None]).reshape(-1)
+        ones = torch.ones(tgt.numel(), dtype=torch.int32, device=device)
+        flat = torch.zeros(2 * num, dtype=torch.int32, device=device)
+        n_conn = net.conn_all.shape[1]
+        res.update(
+            k2_library_ms=device_ms(lambda: flat.index_add_(0, tgt, ones),
+                                    reps),
+            k1_bytes=56 * num, k2_bytes=4 * n_events * (1 + n_conn) + 16 * num,
+            k2_events=n_events)
         out[label] = res
         print(f'{label} ({num} neurons), ms per call: K1 device '
               f'{res["k1_ms"]!r}, host-paced {res["k1_host_ms"]!r}, twin '
@@ -649,6 +699,35 @@ def time_new_kernels(model, runs, device):
                   f'{r["ms"]!r} ms, twin {r["plain_ms"]!r} ms')
     for name in ('fcn_event_scatter', 'fcn_event_gather'):
         out[name] = out[(name, 0.01)]
+    # the library yardsticks (cuSPARSE through torch.sparse.mm, or one
+    # index_add_) on the same inputs, and the bytes each kernel must move
+    nse, k = model._plan.nse, model.n_conn
+    src = torch.arange(n, device=device).repeat_interleave(k)
+    tgt = model.rec_indices.reshape(-1).long()
+    rec = torch.sparse_coo_tensor(torch.stack([tgt, src]),
+                                  p.w_rec.reshape(-1), (n, n)).coalesce()
+    rec_csr = rec.to_sparse_csr()
+    x = spk[:, None]
+    out['plan_gather_mv'].update(
+        library_ms=device_ms(lambda: torch.sparse.mm(rec_csr, x), 50),
+        bytes=8 * nse + 8 * n, ops=2 * nse)
+    out['plan_matvec_dw'].update(bytes=12 * nse + 12 * n, ops=3 * nse)
+    w, idx, s = dict(runs)[0.01]
+    active = idx[s].reshape(-1).long()
+    vals = w.expand(active.numel())
+    y = torch.zeros(n, device=device)
+    ell = torch.sparse_csr_tensor(
+        torch.arange(0, n * k + 1, k, device=device), idx.reshape(-1).long(),
+        w.expand(n * k).contiguous(), (n, n))
+    sf = s.float()[:, None]
+    out['fcn_event_scatter'].update(
+        library_ms=device_ms(lambda: y.index_add_(0, active, vals), 100),
+        bytes=n + 4 * active.numel() + 4 * n, ops=active.numel())
+    out['fcn_event_gather'].update(
+        library_ms=device_ms(lambda: torch.sparse.mm(ell, sf), 100),
+        bytes=4 * n * k + 5 * n, ops=n * k)
+    for name in ('plan_gather_mv', 'fcn_event_scatter', 'fcn_event_gather'):
+        print(f'{name}: library call {out[name]["library_ms"]!r} ms')
     return out
 
 
@@ -991,7 +1070,421 @@ def time_csr_kernels(W, A, plan, w_sorted, device):
               f'{out[name]["plain_ms"]!r} ms')
     for name in ('csr_gather_mv', 'csr_scatter_mv'):
         out[name] = out[(name, 0.01)]
+    # the library yardsticks on the same inputs, and the bytes moved
+    s = s.float()                       # the 1% spikes of the last rate
+    rows_w = row_ids_from_indptr(W.indptr, W.nse)
+    Wh = torch.sparse_csr_tensor(W.indptr.long(), W.indices.long(),
+                                 homo.expand(W.nse).contiguous(), (n, n))
+    act = s[rows_w] != 0
+    tgt, vals = W.indices[act].long(), homo.expand(int(act.sum()))
+    y = torch.zeros(n, device=device)
+    sf = s[:, None]
+    A_csr = torch.sparse_csr_tensor(A.indptr.long(), A.indices.long(), A.data,
+                                    A.shape)
+    out['csr_gather_mv'].update(
+        library_ms=device_ms(lambda: torch.sparse.mm(Wh, sf), 100),
+        bytes=4 * (n + 1) + 4 * W.nse + 5 * n, ops=W.nse)
+    out['csr_scatter_mv'].update(
+        library_ms=device_ms(lambda: y.index_add_(0, tgt, vals), 100),
+        bytes=5 * n + 4 * tgt.numel(), ops=tgt.numel())
+    out['pair_gather'].update(bytes=12 * W.nse + 8 * n, ops=W.nse)
+    out['csr_gather_mm'].update(
+        library_ms=device_ms(lambda: torch.sparse.mm(A_csr, X), 20),
+        bytes=4 * (MM_N + 1) + 8 * A.nse + 8 * MM_N * MM_B,
+        ops=2 * A.nse * MM_B)
+    for name in ('csr_gather_mv', 'csr_scatter_mv', 'csr_gather_mm'):
+        print(f'{name}: library call {out[name]["library_ms"]!r} ms')
     return out
+
+
+# -- the JITC slice (K11-K14) ----------------------------------------------------
+
+# BENCH_PRIMS_r05.json's JITC rows: (5120, 5120) at 1%
+JITC_N, JITC_PROB, JITC_SEED = 5120, 0.01, 2024
+JITC_LAWS = {'scalar': (0, 0.5, 0.0), 'normal': (1, 0.6, 0.06),
+             'uniform': (2, 0.48, 0.24)}        # law code, a, b
+JITC_STEPS, JITC_SCALAR_STEPS, JITC_SAMPLES = 2000, 1000, 20
+JITC_SCALES = {'80k': 20.0, '4k': 1.0}          # JITCNet(scale=...)
+JITC_OPS = ('jitc_walk_setup', 'jitc_walk_mv', 'jitc_walk_mm',
+            'jitc_walk_mm4', 'jitc_walk_todense', 'jitc_walk_todense4')
+# operations per visit of a stream (the walk's draw, bound and loop, plus
+# the weight law: none, Acklam's normal, the uniform hash) and per stream
+# set up (its seed hash and ~2 rejection rounds of 2 draws): estimates
+# from the code of csrc/light_rng.cuh, 32-bit integer and float32 work
+VISIT_OPS = {0: 12, 1: 12 + 60, 2: 12 + 20}
+SETUP_OPS = 54
+
+
+def jitc_operand(shape, kind, gen, device):
+    if kind == 'bool':
+        return torch.rand(shape, generator=gen, device=device) < 0.05
+    if kind == 'events':
+        on = torch.rand(shape, generator=gen, device=device) < 0.05
+        return torch.where(on, 1.0, -0.5 * torch.rand(
+            shape, generator=gen, device=device))
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def jitc_gate(x, event):
+    if x.dtype == torch.bool:
+        return x.float()
+    return (x > 0).float() if event else x.abs()
+
+
+def check_jitc_kernels(device, n=JITC_N, prob=JITC_PROB):
+    phase(f'18 K11-K14 (the JITC walk) vs twin at ({n}, {n}, {prob:.0%}): '
+          f'3 laws, strides 32 and 4, corder True/False, event and float, '
+          f'B in {{16, 256}} (tolerance: K11, K14 bitwise; products |d| <= '
+          f'1e-5 * sum|w x|; gathers bitwise on a repeat)')
+    from brainevent_torch._misc import _initialize_conn_length
+    from brainevent_torch.jitc import pallas_kernels as jk
+    gen = torch.Generator(device=device).manual_seed(18)
+    clen = _initialize_conn_length(prob)
+    chunk = -(-n // 4)
+    worst = dict.fromkeys(JITC_OPS, 0.0)
+    plans = {}
+    for stride, fn in ((32, jk.walk_plan_setup), (4, jk.walk_plan_setup_mm)):
+        s, q, cl = fn(JITC_SEED, clen, n, n, chunk, device=device)
+        s2, q2 = jk.jitc_walk_setup.twin(
+            torch.empty_like(s), torch.empty_like(q), seed=JITC_SEED, cl=cl,
+            n_rows=n, n_cols=n, chunk_size=chunk, stride=stride)
+        torch.cuda.synchronize()
+        check(torch.equal(s, s2) and torch.equal(q, q2), ('K11', stride))
+        plans[stride] = (s, q)
+    print(f'K11: both plans ({n} x {plans[32][0].shape[1]} and '
+          f'{n} x {plans[4][0].shape[1]} streams) bitwise equal')
+    visits = {}
+    for law, (code, a, b) in JITC_LAWS.items():
+        dense = {}
+        for corder in (True, False):
+            for op, stride in ((jk.jitc_walk_todense, 32),
+                               (jk.jitc_walk_todense4, 4)):
+                got = torch.zeros(n, n, device=device)
+                op(got, None, None, law=code, a=a, b=b, seed=JITC_SEED,
+                   cl=clen, corder=corder)
+                want = op.twin(torch.zeros_like(got), None, None, law=code,
+                               a=a, b=b, seed=JITC_SEED, cl=clen,
+                               corder=corder)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), ('K14', law, corder, stride))
+                dense[corder, stride] = got.abs()
+        visits[law] = int((dense[True, 32] != 0).sum())
+        law_kw = dict(law=code, a=a, b=b, seed=JITC_SEED, cl=clen, n_rows=n,
+                      n_cols=n, logical_cols=n)
+        for corder in (True, False):
+            for kind in ('bool', 'events', 'float'):
+                event = kind != 'float'
+                kw = dict(law_kw, corder=corder, event=event)
+                x = jitc_operand(n, kind, gen, device)
+                for plan in (plans[32], (None, None)):
+                    got = jk.jitc_walk_mv(*plan, x, **kw)
+                    want = jk.jitc_walk_mv.twin(*plan, x, **kw)
+                    bound = dense[corder, 32] @ jitc_gate(x, event)
+                    err = within(got, want, bound, ('K12', law, corder, kind))
+                    worst['jitc_walk_mv'] = max(worst['jitc_walk_mv'], err)
+                    if corder:
+                        again = jk.jitc_walk_mv(*plan, x, **kw)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, again), ('K12 repeat', law))
+                if kind == 'events':
+                    continue
+                for nb in (16, 256):
+                    B = jitc_operand((n, nb), kind, gen, device)
+                    for op, stride, plan in (
+                            (jk.jitc_walk_mm, 32, plans[32]),
+                            (jk.jitc_walk_mm4, 4, (None, None))):
+                        got = op(*plan, B, **kw)
+                        want = op.twin(*plan, B, **kw)
+                        bound = dense[corder, stride] @ jitc_gate(B, event)
+                        err = within(got, want, bound,
+                                     (op.name, law, corder, kind, nb))
+                        worst[op.name] = max(worst[op.name], err)
+                        if corder:
+                            again = op(*plan, B, **kw)
+                            torch.cuda.synchronize()
+                            check(torch.equal(got, again),
+                                  (op.name, 'repeat', law))
+        print(f'{law}: K14 bitwise in both strides and orders '
+              f'({visits[law]} entries, {visits[law] / n / n:.4%}); K12 '
+              f'(plan and own setup) and K13 (B = 16, 256) within '
+              f'tolerance; gathers bitwise on a repeat')
+    return worst, plans, visits, clen
+
+
+def drive_jitc_surface(device, n=JITC_N, prob=JITC_PROB):
+    """The class surface at (n, n, prob): M @ v and v @ M (K11 once, then
+    K12 over the cached plan), plan @ B (K13, stride 32), M @ B and X @ M
+    (K13, stride 4), M.todense() and M.mm.todense() (K14); each against the
+    dense matrix of its mode."""
+    import brainevent_torch as bt
+    gen = torch.Generator(device=device).manual_seed(19)
+    M = bt.JITCNormalR((0.6, 0.06, prob, JITC_SEED), shape=(n, n),
+                       corder=True, device=device)
+    v = torch.randn(n, generator=gen, device=device)
+    B = torch.randn(n, 256, generator=gen, device=device)
+    bt.reset_launch_counts()
+    D, D4 = M.todense(), M.mm.todense()
+    outs = {'M @ v': (M @ v, D @ v), 'v @ M': (v @ M, v @ D),
+            'plan @ B': (M.build_walk_plan() @ B, D @ B),
+            'M @ B': (M @ B, D4 @ B), 'B.T @ M': (B.T @ M, B.T @ D4)}
+    torch.cuda.synchronize()
+    counts = bt.launch_counts()
+    for what, (got, want) in outs.items():
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(got.shape == want.shape and rel <= 1e-5, (what, rel))
+    want = {'jitc_walk_setup': 2, 'jitc_walk_mv': 2, 'jitc_walk_mm': 1,
+            'jitc_walk_mm4': 2, 'jitc_walk_todense': 1,
+            'jitc_walk_todense4': 1}
+    check({k: counts[k] for k in JITC_OPS} == want, counts)
+    print(f'the class surface at ({n}, {n}, {prob:.0%}): M @ v, v @ M, '
+          f'plan @ B, M @ B and X @ M within 1e-5 relative of the dense '
+          f'products; launches {want}')
+    return counts
+
+
+def jitc_run(net, state, n_steps, start=0, keep=()):
+    """*n_steps* JITCNet steps from *state*; the states before the steps
+    in *keep* are returned too."""
+    kept = []
+    for i, t in enumerate(net.times(n_steps, start)):
+        if i in keep:
+            kept.append((t, state))
+        state = net.step(state, t)
+    return state, kept
+
+
+def check_jitc_slice(device):
+    phase(f'19 the JITC slice: JITCNet(scale=20) (80k neurons, normal law, '
+          f'COBA) and scale=1 (4k), {JITC_STEPS} steps through K12 (20 '
+          f'sampled steps against the twin route: spikes bitwise, drives '
+          f'within 1e-5 relative), and the scalar law at 80k over '
+          f'{JITC_SCALAR_STEPS} steps against the twin loop (spike counts '
+          f'equal)')
+    import brainevent_torch as bt
+    from brainevent_torch.jitc import pallas_kernels as jk
+    out = {}
+    for label, scale in JITC_SCALES.items():
+        bt.reset_launch_counts()
+        t0 = time.perf_counter()
+        net = bt.JITCNet(scale=scale, weight_law='normal', coba=True,
+                         device=device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        setup_counts = bt.launch_counts()
+        check(setup_counts['jitc_walk_setup'] == 2, setup_counts)
+        state = net.init_state()
+        keep = set(range(0, JITC_STEPS, JITC_STEPS // JITC_SAMPLES))
+        bt.reset_launch_counts()
+        t0 = time.perf_counter()
+        final, kept = jitc_run(net, state, JITC_STEPS, keep=keep)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / JITC_STEPS * 1e6
+        counts = bt.launch_counts()
+        check({k: counts[k] for k in JITC_OPS} == dict(
+            dict.fromkeys(JITC_OPS, 0), jitc_walk_mv=2 * JITC_STEPS), counts)
+        for x in (final.neurons.v, final.g_e, final.g_i):
+            check(x.shape == (net.num,) and bool(torch.isfinite(x).all()),
+                  'finite (num,) state')
+        rate = float(net.firing_rate_hz(final, JITC_STEPS))
+        check(1.0 < rate < 200.0, (label, rate))
+        worst = 0.0
+        for t, st in kept:
+            a = net.step(st, t)
+            with twins_on_card([jk.jitc_walk_mv]):
+                b = net.step(st, t)
+            torch.cuda.synchronize()
+            check(torch.equal(a.spike_count, b.spike_count)
+                  and torch.equal(a.neurons.v, b.neurons.v), ('spikes', t))
+            for ga, gb in ((a.g_e, b.g_e), (a.g_i, b.g_i)):
+                rel = float((ga - gb).abs().max() / gb.abs().max().clamp(
+                    min=1e-30))
+                worst = max(worst, rel)
+        check(worst <= 1e-5, ('drives', worst))
+        out[label] = dict(net=net, final=final, us=us, rate=rate,
+                          counts=counts, setup_counts=setup_counts,
+                          build_s=build_s)
+        print(f'{label} ({net.num} neurons): plans built in {build_s!r} s '
+              f'({setup_counts["jitc_walk_setup"]} K11), {JITC_STEPS} steps '
+              f'in {us!r} us/step (host clock), rate {rate!r} Hz, '
+              f'{int(final.spike_count.sum())} spikes, '
+              f'{counts["jitc_walk_mv"]} K12 launches; {len(kept)} sampled '
+              f'steps equal to the twin route, drives within {worst!r} '
+              f'relative')
+    net = bt.JITCNet(scale=JITC_SCALES['80k'], weight_law='scalar',
+                     coba=True, device=device)
+    state = net.init_state()
+    a, _ = jitc_run(net, state, JITC_SCALAR_STEPS)
+    t0 = time.perf_counter()
+    with twins_on_card([jk.jitc_walk_mv]):
+        b, _ = jitc_run(net, state, JITC_SCALAR_STEPS)
+    torch.cuda.synchronize()
+    twin_us = (time.perf_counter() - t0) / JITC_SCALAR_STEPS * 1e6
+    check(torch.equal(a.spike_count, b.spike_count), 'scalar-law spikes')
+    print(f'scalar law at 80k: {JITC_SCALAR_STEPS} steps through K12 and '
+          f'through the twin loop on the card give equal spike counts '
+          f'({int(a.spike_count.sum())} spikes); the twin loop '
+          f'{twin_us!r} us/step')
+    return out
+
+
+def time_plan_routes(net, spk, mv_kw, device):
+    """K12 over the 80k E plan against K12 drawing each stream's setup
+    itself, in the three directions of the class surface's 1-D products:
+    device ms per launch (the gathers also compared bitwise)."""
+    from brainevent_torch.jitc import pallas_kernels as jk
+    s2, q2, _ = net.plan_e.setup
+    gen = torch.Generator(device=device).manual_seed(21)
+    cases = {
+        'event scatter (spk @ M)': (spk, dict(corder=False, event=True)),
+        'gather (M @ v)': (torch.randn(net.num, generator=gen,
+                                       device=device),
+                           dict(corder=True, event=False)),
+        'scatter (u @ M)': (torch.randn(s2.shape[0], generator=gen,
+                                        device=device),
+                            dict(corder=False, event=False))}
+    for what, (x, kw) in cases.items():
+        kw = dict(mv_kw, **kw)
+        ms = {}
+        for route, plan in (('plan', (s2, q2)), ('own setup', (None, None))):
+            ms[route] = device_ms(lambda: jk.jitc_walk_mv(*plan, x, **kw), 50)
+        if kw['corder']:
+            check(torch.equal(jk.jitc_walk_mv(s2, q2, x, **kw),
+                              jk.jitc_walk_mv(None, None, x, **kw)),
+                  'K12 gather, plan vs own setup')
+        print(f'K12 {what} at the 80k E matrix: over the plan {ms["plan"]!r} '
+              f'ms, drawing its own setup {ms["own setup"]!r} ms')
+
+
+def time_jitc_host(net, state, spike, t, n_rep=1000, n_prof=200):
+    """Where a JITCNet step's host time goes at 80k: us per step and per
+    propagation (the two K12 wrappers), and cProfile's functions by own
+    time over *n_prof* steps."""
+    import cProfile
+    import pstats
+    step_us = host_ms(lambda: net.step(state, t), n_rep) * 1e3
+    prop_us = host_ms(lambda: net._propagate(spike), n_rep) * 1e3
+    print(f'80k host path: {step_us!r} us per step, of which '
+          f'{prop_us!r} us per propagation (two K12 wrappers), '
+          f'{n_rep} calls each')
+    prof = cProfile.Profile()
+    prof.enable()
+    jitc_run(net, state, n_prof, JITC_STEPS + 1100)
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])
+    total = sum(v[2] for v in stats.values()) / n_prof * 1e6
+    top = [(f'{f.rsplit("/", 1)[-1]}:{line}:{name}'[-60:], v[1] // n_prof,
+            round(v[2] / n_prof * 1e6, 2)) for (f, line, name), v in rows[:15]]
+    print(f'80k host path under cProfile: {total!r} us per step; by own '
+          f'time (function, calls per step, us per step): {top!r}')
+
+
+def time_jitc(slice_out, plans, visits, clen, device, n=JITC_N):
+    phase('20 JITC timing: device ms per launch (launches queued back to '
+          'back) and the twin\'s ms per call; the todense call; K12 over a '
+          'plan and drawing its own setup; us/step and where the host '
+          'time goes; 10 profiled steps at 80k')
+    import brainevent_torch as bt
+    from brainevent_torch.jitc import pallas_kernels as jk
+    from brainevent_torch.jitc.family import _seed
+    res = {}
+    for label in ('4k', '80k'):
+        o = slice_out[label]
+        net, state = o['net'], o['final']
+        jitc_run(net, state, 100, JITC_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = jitc_run(net, state, 1000, JITC_STEPS + 100)
+        torch.cuda.synchronize()
+        o['us_timed'] = (time.perf_counter() - t0) / 1000 * 1e6
+        print(f'{label}: {o["us_timed"]!r} us/step over 1000 steps after '
+              f'100 warm-up steps (host clock)')
+        o['last_state'] = state
+    # K11 and K12 at the main path's shapes: the 80k E plan, and the
+    # spikes of the next step from the last timed state
+    o = slice_out['80k']
+    net, state = o['net'], o['last_state']
+    plan = net.plan_e
+    s2, q2, cl = plan.setup
+    n_rows, L = s2.shape
+    chunk = -(-net.num // 4)
+    t = net.times(1, JITC_STEPS + 1100)[0]
+    spike = net.step(state, t).spike_count != state.spike_count
+    spk = spike[:net.n_exc].contiguous()
+    law, (a, b) = 1, jk.law_params(1, plan.matrix.data)
+    mv_kw = dict(law=law, a=a, b=b, seed=_seed(plan.matrix.seed), cl=cl,
+                 n_rows=n_rows, n_cols=net.num, logical_cols=net.num,
+                 corder=False, event=True)
+    n_act = int(spk.sum())
+    k12_visits = int(jk.jitc_walk_mv.twin(
+        s2, q2, spk, **dict(mv_kw, law=0, a=1.0)).sum())
+    setup_kw = dict(seed=_seed(plan.matrix.seed), cl=cl, n_rows=n_rows,
+                    n_cols=net.num, chunk_size=chunk, stride=32)
+    se, qe = torch.empty_like(s2), torch.empty_like(q2)
+    res['jitc_walk_setup'] = dict(
+        ms=device_ms(lambda: jk.jitc_walk_setup(se, qe, **setup_kw), 10),
+        plain_ms=host_ms(lambda: jk.jitc_walk_setup.twin(se, qe, **setup_kw),
+                         1),
+        bytes=8 * s2.numel(), ops=SETUP_OPS * s2.numel(),
+        shape=f'80k E plan, {n_rows} x {L} streams')
+    res['jitc_walk_mv'] = dict(
+        ms=device_ms(lambda: jk.jitc_walk_mv(s2, q2, spk, **mv_kw), 200),
+        plain_ms=host_ms(lambda: jk.jitc_walk_mv.twin(s2, q2, spk, **mv_kw),
+                         10),
+        bytes=n_rows + 8 * n_act * L + 4 * net.num,
+        ops=VISIT_OPS[law] * k12_visits,
+        shape=f'80k E projection, {n_act} spikes, {k12_visits} visits')
+    # K13 and K14 at (n, n, 1%), B = 256, the normal law
+    gen = torch.Generator(device=device).manual_seed(20)
+    code, a, b = JITC_LAWS['normal']
+    B = torch.randn(n, 256, generator=gen, device=device)
+    kw = dict(law=code, a=a, b=b, seed=JITC_SEED, cl=clen, n_rows=n,
+              n_cols=n, logical_cols=n, corder=True, event=False)
+    nv = visits['normal']
+    for op, plan in ((jk.jitc_walk_mm, plans[32]),
+                     (jk.jitc_walk_mm4, (None, None))):
+        res[op.name] = dict(
+            ms=device_ms(lambda: op(*plan, B, **kw), 10),
+            plain_ms=host_ms(lambda: op.twin(*plan, B, **kw), 2),
+            bytes=8 * n * 256 + (8 * plan[0].numel() if plan[0] is not None
+                                 else 0),
+            ops=nv * (VISIT_OPS[code] + 2 * 256) + (
+                0 if plan[0] is not None else SETUP_OPS * n * 16),
+            shape=f'({n}, {n}, 1%), B = 256, gather, normal law')
+    out = torch.zeros(n, n, device=device)
+    for op in (jk.jitc_walk_todense, jk.jitc_walk_todense4):
+        dkw = dict(law=code, a=a, b=b, seed=JITC_SEED, cl=clen, corder=True)
+        res[op.name] = dict(
+            ms=device_ms(lambda: op(out, None, None, **dkw), 10),
+            plain_ms=host_ms(lambda: op.twin(out.zero_(), None, None, **dkw),
+                             2),
+            # the kernel stores the nv weights; the zeros of the output
+            # are the wrapper's fill, outside the timed call
+            bytes=4 * nv, ops=nv * VISIT_OPS[code] + SETUP_OPS * n * (
+                128 if op is jk.jitc_walk_todense else 16),
+            shape=f'({n}, {n}, 1%), normal law')
+    for name, r in res.items():
+        print(f'{name} ({r["shape"]}): device {r["ms"]!r} ms, twin '
+              f'{r["plain_ms"]!r} ms')
+    # the todense call as a user makes it: the wrapper's fill of the
+    # output and K14, against the bound of writing the whole output
+    for mode in ('mv', 'mm'):
+        ms = device_ms(lambda: bt.jitn(a, b, JITC_PROB, JITC_SEED,
+                                       shape=(n, n), matrix_mode=mode,
+                                       device=device), 10)
+        print(f'jitn todense ({mode} mode, fill + K14, ({n}, {n})): device '
+              f'{ms!r} ms, bound {bound(4 * n * n, 0)[0]!r} ms (the '
+              f'{4 * n * n / 1e6:.0f} MB output)')
+    time_plan_routes(net, spk, mv_kw, device)
+    time_jitc_host(net, state, spike, t)
+    busy_us, wall_us, top = profile_step(
+        lambda: jitc_run(net, state, 10, JITC_STEPS + 1100))
+    print(f'80k, 10 profiled steps: kernels {busy_us / 10!r} us of '
+          f'{wall_us / 10!r} us wall per step under the profiler (device '
+          f'idle {1 - busy_us / wall_us!r}); largest kernels (name, '
+          f'launches, us): {top!r}')
+    return res
 
 
 def main():
@@ -999,7 +1492,7 @@ def main():
         print('chip_smoke: torch.cuda.is_available() is false; this needs an '
               'NVIDIA GPU', file=sys.stderr)
         return 2
-    name = device_info()
+    kind = device_info()
     device = torch.device('cuda:0')
 
     import brainevent_torch as bt
@@ -1057,40 +1550,55 @@ def main():
     csr_counts, W = check_csr_slice(W, device)
     csr_times = time_csr_kernels(W, A, plan, w_sorted, device)
 
-    from brainevent_torch.models.networks import einet_step
-    from brainevent_torch.ops.scatter import event_count_scatter
-    from brainevent_torch.ops.mxu_gather import plan_gather_mv, plan_matvec_dw_op
-    from brainevent_torch.fcn.binary import fcn_event_scatter, fcn_event_gather
+    jitc_err, jitc_plans, jitc_visits, jitc_clen = check_jitc_kernels(device)
+    surface_counts = drive_jitc_surface(device)
+    jitc_slice = check_jitc_slice(device)
+    jitc_times = time_jitc(jitc_slice, jitc_plans, jitc_visits, jitc_clen,
+                           device)
+
     from brainevent_torch.ops.core import REGISTRY
-    kernels = []
-    for op, err, key in ((einet_step, k1_err, 'k1'),
-                         (event_count_scatter, k2_err, 'k2')):
-        kernels.append({
-            'name': op.name, 'route': 'cuda', 'source': op.source,
-            'replaces': op.replaces, 'launches': launches[op.name],
-            'max_abs_err': err, 'ms': times['4k'][f'{key}_ms'],
-            'plain_ms': times['4k'][f'{key}_twin_ms']})
+
+    def entry(op_name, launches, err, t):
+        op = REGISTRY[op_name]
+        bound_ms, bound_by = bound(t['bytes'], t.get('ops', 0))
+        return {'name': op_name, 'route': 'cuda', 'source': op.source,
+                'replaces': op.replaces, 'launches': launches,
+                'max_abs_err': err, 'ms': t['ms'], 'plain_ms': t['plain_ms'],
+                'bound_ms': bound_ms, 'bound_by': bound_by,
+                'library_ms': t.get('library_ms')}
+
+    t4k = times['4k']
+    kernels = [
+        entry('einet_step', launches['einet_step'], k1_err, dict(
+            ms=t4k['k1_ms'], plain_ms=t4k['k1_twin_ms'],
+            bytes=t4k['k1_bytes'], ops=20 * 4000)),
+        entry('event_count_scatter', launches['event_count_scatter'], k2_err,
+              dict(ms=t4k['k2_ms'], plain_ms=t4k['k2_twin_ms'],
+                   bytes=t4k['k2_bytes'], library_ms=t4k['k2_library_ms']))]
     errs = {**plan_err, **fcn_err}
-    for op, counts in ((plan_gather_mv, plan_counts),
-                       (plan_matvec_dw_op, plan_counts),
-                       (fcn_event_scatter, event_counts),
-                       (fcn_event_gather, fcn_counts)):
-        kernels.append({
-            'name': op.name, 'route': 'cuda', 'source': op.source,
-            'replaces': op.replaces, 'launches': counts[op.name],
-            'max_abs_err': errs[op.name], 'ms': new_times[op.name]['ms'],
-            'plain_ms': new_times[op.name]['plain_ms']})
-    for op in map(REGISTRY.get, CSR_OPS):
-        kernels.append({
-            'name': op.name, 'route': 'cuda', 'source': op.source,
-            'replaces': op.replaces, 'launches': csr_counts[op.name],
-            'max_abs_err': csr_err[op.name], 'ms': csr_times[op.name]['ms'],
-            'plain_ms': csr_times[op.name]['plain_ms']})
+    for op_name, counts in (('plan_gather_mv', plan_counts),
+                            ('plan_matvec_dw', plan_counts),
+                            ('fcn_event_scatter', event_counts),
+                            ('fcn_event_gather', fcn_counts)):
+        kernels.append(entry(op_name, counts[op_name], errs[op_name],
+                             new_times[op_name]))
+    for op_name in CSR_OPS:
+        kernels.append(entry(op_name, csr_counts[op_name], csr_err[op_name],
+                             csr_times[op_name]))
+    o80 = jitc_slice['80k']
+    for op_name, counts in (('jitc_walk_setup', o80['setup_counts']),
+                            ('jitc_walk_mv', o80['counts']),
+                            ('jitc_walk_mm', surface_counts),
+                            ('jitc_walk_mm4', surface_counts),
+                            ('jitc_walk_todense', surface_counts),
+                            ('jitc_walk_todense4', surface_counts)):
+        kernels.append(entry(op_name, counts[op_name], jitc_err[op_name],
+                             jitc_times[op_name]))
     for k in kernels:
         check(k['launches'] > 0, (k['name'], 'not launched on its path'))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': name,
+        'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}))
     return 0
 

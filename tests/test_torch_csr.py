@@ -26,6 +26,8 @@ from brainevent_tpu import _misc as jmisc
 from brainevent_tpu.csr import binary as jb
 from brainevent_tpu.csr import float as jf
 
+from _torch_one_thread import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-5
 
 
@@ -154,7 +156,8 @@ def test_explicit_plan_routes_float_matvecs_through_k3(monkeypatch):
     w, indices, indptr, rng = _random_csr(4, 300, 260)
     J = be.CSR((jnp.asarray(w), jnp.asarray(indices), jnp.asarray(indptr)),
                shape=(300, 260)).build_mxu_plan()
-    T = bt.csr_from_arrays(w, indices, indptr, shape=(300, 260))
+    T = bt.csr_from_arrays(w, indices, indptr, shape=(300, 260),
+                           device='cpu')
     T.build_mxu_plan()
     calls = []
     twin = tmg.plan_gather_mv.twin
@@ -292,7 +295,7 @@ def _jax_csr(kind):
 def test_twenty_step_slice_matches_jax(kind):
     J = _jax_csr(kind)
     T = bt.csr_from_arrays(np.asarray(J.data), np.asarray(J.indices),
-                           np.asarray(J.indptr), shape=J.shape)
+                           np.asarray(J.indptr), shape=J.shape, device='cpu')
     m, k = J.shape
     rng = np.random.default_rng(13)
     decay = np.float32(0.9)
@@ -336,7 +339,7 @@ def test_twenty_step_slice_matches_jax(kind):
 def test_csc_from_arrays_and_stdp_match_jax():
     J = _jax_csr('random').tocsc()
     T = bt.csc_from_arrays(np.asarray(J.data), np.asarray(J.indices),
-                           np.asarray(J.indptr), shape=J.shape)
+                           np.asarray(J.indptr), shape=J.shape, device='cpu')
     rng = np.random.default_rng(14)
     m, k = J.shape
     spk, trace = rng.random(m) < 0.1, rng.random(k).astype(np.float32)

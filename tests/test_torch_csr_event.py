@@ -25,6 +25,8 @@ from brainevent_tpu.csr import binary as jb
 from brainevent_tpu.csr import float as jf
 from brainevent_tpu.csr.pallas_kernels import csr_event_gather_kernel
 
+from _torch_one_thread import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-5
 M, K = 120, 150
 RATES = [0.0, 0.05, 1.0]

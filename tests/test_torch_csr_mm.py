@@ -24,6 +24,8 @@ from brainevent_tpu.csr import binary as jb
 from brainevent_tpu.csr import float as jf
 from brainevent_tpu.ops import mxu_gather as jg
 
+from _torch_one_thread import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-5
 
 

@@ -1,7 +1,7 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Kernels K1-K10 against their PyTorch twins on a CUDA device.
+"""Kernels K1-K14 against their PyTorch twins on a CUDA device.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so that it also runs where JAX is not installed. ``tests/conftest.py``
@@ -19,7 +19,10 @@ weights exact; heterogeneous K5 (float atomics) within ``1e-5 * sum|w|``
 per target, K6 within ``1e-6 * sum|w|`` per row. K7-K10 (the CSR slice):
 homogeneous binary products exact (int32 counts, scaled once); the others
 within ``1e-5 * sum|w op(x)|`` per output, K7 and K10 bitwise on a repeat
-(no atomics); K9 bitwise (one rounding).
+(no atomics); K9 bitwise (one rounding). K11-K14 (the JITC walk): the
+stream setup and the dense matrix bitwise (the kernels compute the twin's
+float32 operations, with its FMAs and its float64 ``log``); the products
+within ``1e-5 * sum|w x|`` per output, the gathers bitwise on a repeat.
 """
 
 import numpy as np
@@ -151,7 +154,7 @@ def test_run_on_kernels_matches_twin_loop(cuda_device, coba):
 
 def test_step_on_card_matches_cpu_step(cuda_device):
     net = bt.EINet(scale=0.25, device=cuda_device)
-    cpu = bt.EINet(scale=0.25, conn_all=net.conn_all.cpu())
+    cpu = bt.EINet(scale=0.25, conn_all=net.conn_all.cpu(), device='cpu')
     s_cpu, s_gpu = cpu.init_state(), net.init_state()
     for t in cpu.times(50):
         s_cpu = cpu.step(s_cpu, t)
@@ -436,3 +439,115 @@ def test_new_ops_raise_without_kernel_library(cuda_device, monkeypatch,
         with pytest.raises(bt.NvccNotFoundError):
             call()
     assert calls == []
+
+
+# -- K11-K14: the JITC walk ------------------------------------------------------
+
+JITC_LAWS = [(0, 0.5, 0.0), (1, 0.6, 0.06), (2, 0.48, 0.24)]
+
+
+@pytest.mark.parametrize('law', JITC_LAWS, ids=['scalar', 'normal',
+                                                'uniform'])
+def test_jitc_setup_and_todense_kernels_bitwise(cuda_device, law):
+    from brainevent_torch.jitc import pallas_kernels as jk
+    code, a, b = law
+    m, k = 1000, 777
+    for corder in (True, False):
+        for op in (jk.jitc_walk_todense, jk.jitc_walk_todense4):
+            got = torch.zeros(m, k, device=cuda_device)
+            op(got, None, None, law=code, a=a, b=b, seed=5, cl=40,
+               corder=corder)
+            want = op.twin(torch.zeros_like(got), None, None, law=code, a=a,
+                           b=b, seed=5, cl=40, corder=corder)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (op.name, corder)
+    for stride in (32, 4):
+        n_rows, n_cols, chunk = 1000, 777, 195
+        L = -(-n_cols // chunk) * stride
+        s, q = (torch.empty(n_rows, L, dtype=torch.int32, device=cuda_device)
+                for _ in range(2))
+        kw = dict(seed=9, cl=40, n_rows=n_rows, n_cols=n_cols,
+                  chunk_size=chunk, stride=stride)
+        jk.jitc_walk_setup(s, q, **kw)
+        s2, q2 = jk.jitc_walk_setup.twin(torch.empty_like(s),
+                                         torch.empty_like(q), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(s, s2) and torch.equal(q, q2)
+
+
+@pytest.mark.parametrize('kind', ['bool', 'events', 'float'])
+@pytest.mark.parametrize('corder', [True, False], ids=['gather', 'scatter'])
+@pytest.mark.parametrize('law', JITC_LAWS, ids=['scalar', 'normal',
+                                                'uniform'])
+def test_jitc_products_kernel_vs_twin(cuda_device, gen, law, corder, kind):
+    """K12 and K13 within 1e-5 * sum|w x| of the twin; gathers bitwise on
+    a repeat."""
+    from brainevent_torch.jitc import pallas_kernels as jk
+    code, a, b = law
+    n_rows, n_cols = 2000, 1500
+    in_len = n_cols if corder else n_rows
+    chunk = -(-n_cols // 4)
+    s, q, _ = jk.walk_plan_setup(3, 100, n_rows, n_cols, chunk,
+                                 device=cuda_device)
+
+    def operand(shape):
+        if kind == 'bool':
+            return torch.from_numpy(gen.random(shape) < 0.1).to(cuda_device)
+        x = gen.normal(size=shape).astype(F32)
+        return torch.from_numpy(x).to(cuda_device)
+
+    kw = dict(law=code, a=a, b=b, seed=3, cl=100, n_rows=n_rows,
+              n_cols=n_cols, logical_cols=n_cols, corder=corder,
+              event=kind != 'float')
+    absw = dict(kw, a=abs(a), law=code if code != 1 else 0, b=b)
+    for op, x, plan in ((jk.jitc_walk_mv, operand(in_len), (s, q)),
+                        (jk.jitc_walk_mv, operand(in_len), (None, None)),
+                        (jk.jitc_walk_mm, operand((in_len, 40)), (s, q)),
+                        (jk.jitc_walk_mm4, operand((in_len, 40)),
+                         (None, None))):
+        got = op(*plan, x, **kw)
+        want = op.twin(*plan, x, **kw)
+        xa = x if x.dtype == torch.bool else x.abs()
+        scale = op.twin(*plan, xa, **(kw if code == 1 else absw))
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        tol = 1e-5 * scale.abs() + 1e-5 * float(want.abs().max())
+        assert bool(((got - want).abs() <= tol).all()), op.name
+        if corder:
+            again = op(*plan, x, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), op.name
+
+
+@pytest.mark.parametrize('law', ['scalar', 'normal'])
+def test_jitc_net_on_card_matches_twin(cuda_device, law):
+    """200 steps of a 4k JITCNet through K12 and through its twin on the
+    card: the scalar law's spike counts equal, the normal law's rate
+    within 2%; one K12 launch per projection per step."""
+    from contextlib import contextmanager
+    from brainevent_torch.jitc import pallas_kernels as jk
+
+    @contextmanager
+    def twin_route():
+        saved = jk.jitc_walk_mv.cuda
+        jk.jitc_walk_mv.cuda = lambda op_, *a, **k: op_.twin(*a, **k)
+        try:
+            yield
+        finally:
+            jk.jitc_walk_mv.cuda = saved
+
+    net = bt.JITCNet(scale=1.0, weight_law=law, device=cuda_device)
+    state = net.init_state()
+    bt.reset_launch_counts()
+    got = net.run(200, state=state)
+    torch.cuda.synchronize()
+    assert bt.launch_counts()['jitc_walk_mv'] == 400
+    with twin_route():
+        want = net.run(200, state=state)
+    torch.cuda.synchronize()
+    if law == 'scalar':
+        assert torch.equal(got.spike_count, want.spike_count)
+    else:
+        r_got = float(net.firing_rate_hz(got, 200))
+        r_want = float(net.firing_rate_hz(want, 200))
+        assert abs(r_got - r_want) <= 0.02 * r_want

@@ -34,6 +34,8 @@ from brainevent_torch.models import EINet
 from brainevent_torch.models import networks as tnet
 from brainevent_torch.ops import scatter as ts
 
+from _torch_one_thread import one_torch_thread  # noqa: F401
+
 N_STEPS = 2000
 
 
@@ -42,7 +44,7 @@ def _pair(scale, coba, seed=42):
     s = jnet.init_state()
     net, state = einet_from_arrays(
         np.asarray(jnet.conn_all), jnet.n_exc, s.neurons.v, s.neurons.t_last,
-        s.g_e, s.g_i, s.spike_count, scale=scale, coba=coba)
+        s.g_e, s.g_i, s.spike_count, scale=scale, coba=coba, device='cpu')
     return jnet, s, net, state
 
 
@@ -93,7 +95,7 @@ def test_run_spike_counts_vs_jax_run(coba):
 
 
 def test_run_launches_twins_not_kernels_on_cpu():
-    net = EINet(scale=0.05)
+    net = EINet(scale=0.05, device='cpu')
     before = (tnet.einet_step.launches, ts.event_count_scatter.launches)
     net.run(20)
     assert (tnet.einet_step.launches,
@@ -104,20 +106,21 @@ def test_run_launches_twins_not_kernels_on_cpu():
 def test_firing_rate_regime_own_draws(coba):
     # the port's own torch.Generator draws (not JAX's), same band as
     # tests/test_models.py::TestEINet::test_firing_rate_regime
-    net = EINet(scale=0.25, coba=coba)
+    net = EINet(scale=0.25, coba=coba, device='cpu')
     state = net.run(3000)
     rate = float(net.firing_rate_hz(state, 3000))
     assert 5.0 < rate < 200.0, f'firing rate {rate} Hz out of regime'
 
 
 def test_own_draws_are_seeded():
-    a, b = EINet(scale=0.1, seed=9), EINet(scale=0.1, seed=9)
+    a, b = (EINet(scale=0.1, seed=9, device='cpu'),
+            EINet(scale=0.1, seed=9, device='cpu'))
     assert torch.equal(a.conn_all, b.conn_all)
     assert torch.equal(a.init_state().neurons.v, b.init_state().neurons.v)
     assert a.conn_all.dtype == torch.int32
     assert a.conn_all.shape == (400, 80)
     assert int(a.conn_all.min()) >= 0 and int(a.conn_all.max()) < 400
-    c = EINet(scale=0.1, seed=10)
+    c = EINet(scale=0.1, seed=10, device='cpu')
     assert not torch.equal(a.conn_all, c.conn_all)
 
 
@@ -129,7 +132,8 @@ def test_einet_from_arrays_checks_shapes():
     with pytest.raises(ValueError):
         einet_from_arrays(np.asarray(jnet.conn_all), jnet.n_exc + 1,
                           s.neurons.v, s.neurons.t_last, s.g_e, s.g_i,
-                          s.spike_count, scale=0.1, coba=True)
+                          s.spike_count, scale=0.1, coba=True,
+                          device='cpu')
 
 
 def test_cuda_device_on_cpu_host_raises(monkeypatch):

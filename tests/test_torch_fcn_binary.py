@@ -21,6 +21,8 @@ import brainevent_torch as bt
 from brainevent_torch.fcn import binary as tb
 from brainevent_tpu.fcn.binary import binary_fcnmv_p_call as jax_fcnmv
 
+from _torch_one_thread import one_torch_thread  # noqa: F401
+
 N_PRE, N_POST, K = 300, 260, 16
 
 

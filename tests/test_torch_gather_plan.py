@@ -21,6 +21,8 @@ import brainevent_torch as bt
 from brainevent_torch.ops import mxu_gather as tg
 from brainevent_tpu.ops import mxu_gather as jg
 
+from _torch_one_thread import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-6
 
 # (shape, nse, plan knobs): square, rectangular, sizes off the 128 grid,

@@ -18,6 +18,8 @@ import torch
 from brainevent_tpu.models import neurons as jn
 from brainevent_torch.models import neurons as tn
 
+from _torch_one_thread import one_torch_thread  # noqa: F401
+
 F32 = np.float32
 
 
@@ -83,8 +85,10 @@ def test_refractory_blocks_integration():
 
 def test_lifref_init_draws_from_generator():
     p = tn.LIFRefParams()
-    a = tn.lifref_init(torch.Generator().manual_seed(3), 10_000, p)
-    b = tn.lifref_init(torch.Generator().manual_seed(3), 10_000, p)
+    a = tn.lifref_init(torch.Generator().manual_seed(3), 10_000, p,
+                       device='cpu')
+    b = tn.lifref_init(torch.Generator().manual_seed(3), 10_000, p,
+                       device='cpu')
     np.testing.assert_array_equal(a.v.numpy(), b.v.numpy())
     assert a.v.dtype == torch.float32 and a.v.shape == (10_000,)
     assert abs(float(a.v.mean()) + 55.0) < 0.1

@@ -11,6 +11,7 @@ import sys
 import tomllib
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,6 +19,8 @@ import brainevent_torch as bt
 from brainevent_torch import config
 from brainevent_torch.ops import core, cuda_build
 from brainevent_torch.ops import scatter as ts
+
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'brainevent_torch'
@@ -28,9 +31,10 @@ def test_import_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import brainevent_torch as bt\n"
-        "net = bt.EINet(scale=0.05)\n"
+        "net = bt.EINet(scale=0.05, device='cpu')\n"
         "bt.einet_pallas_sim(net, net.init_state(), 3)\n"
-        "m = bt.SurrogateSNN(n_in=4, n_hidden=64, n_out=2, n_conn=4)\n"
+        "m = bt.SurrogateSNN(n_in=4, n_hidden=64, n_out=2, n_conn=4,\n"
+        "                    device='cpu')\n"
         "import torch\n"
         "bt.train_step(m, m.init_params(), torch.rand(3, 4), 1)\n"
         "A = bt.CSR.fromdense(torch.eye(5))\n"
@@ -105,7 +109,7 @@ def test_build_command_targets_hopper_without_fma_contraction():
     srcs = cuda_build.sources()
     assert {Path(s).name for s in srcs} == {
         'einet_step.cu', 'event_scatter.cu', 'fcn_event.cu', 'plan_gather.cu',
-        'csr_event.cu', 'pair_gather.cu', 'csr_gather_mm.cu'}
+        'csr_event.cu', 'pair_gather.cu', 'csr_gather_mm.cu', 'jitc_walk.cu'}
     for src in srcs:
         cmd = cuda_build.compile_command(nvcc, 'x.o', src)
         assert 'arch=compute_90a,code=sm_90a' in ' '.join(cmd)
@@ -172,7 +176,8 @@ def test_cu_sources_ship_as_package_data():
     shipped = {p.name for pat in data for p in PKG.glob(pat)}
     assert shipped == {'common.cuh', 'einet_step.cu', 'event_scatter.cu',
                        'fcn_event.cu', 'plan_gather.cu', 'csr_event.cu',
-                       'pair_gather.cu', 'csr_gather_mm.cu'}
+                       'pair_gather.cu', 'csr_gather_mm.cu', 'light_rng.cuh',
+                       'jitc_walk.cu'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 
@@ -300,3 +305,42 @@ def test_params_struct_matches_header():
               if line.strip() and not line.strip().startswith('//')]
     assert fields == [f for f, _ in EINetParams._fields_]
     assert ctypes.sizeof(EINetParams) == 4 * len(fields)
+
+
+_NO_DEVICE = {
+    'EINet': lambda: bt.EINet(scale=0.05),
+    'SurrogateSNN': lambda: bt.SurrogateSNN(n_in=4, n_hidden=64, n_out=2,
+                                            n_conn=4),
+    'JITCNet': lambda: bt.JITCNet(scale=0.05),
+    'lifref_init': lambda: bt.lifref_init(None, 8, bt.LIFRefParams()),
+    'einet_from_arrays': lambda: bt.einet_from_arrays(
+        np.zeros((200, 4), np.int32), 160, *(np.zeros(200, np.float32),) * 4,
+        np.zeros(200, np.int32), scale=0.05, coba=True),
+    'surrogate_snn_from_arrays': lambda: bt.surrogate_snn_from_arrays(
+        np.zeros((64, 4), np.int32), np.zeros((4, 64), np.float32),
+        np.zeros((64, 4), np.float32), np.zeros((64, 2), np.float32)),
+    'csr_from_arrays': lambda: bt.csr_from_arrays(
+        np.ones(1, np.float32), np.zeros(1, np.int32),
+        np.array([0, 1], np.int32), shape=(1, 1)),
+    'csc_from_arrays': lambda: bt.csc_from_arrays(
+        np.ones(1, np.float32), np.zeros(1, np.int32),
+        np.array([0, 1], np.int32), shape=(1, 1)),
+    'jitc_net_from_arrays': lambda: bt.jitc_net_from_arrays(
+        *(np.zeros(200, np.float32),) * 4, np.zeros(200, np.int32),
+        scale=0.05, weight_law='scalar', coba=True),
+    'JITCNormalR': lambda: bt.JITCNormalR((0.6, 0.06, 0.1, 1), shape=(4, 5)),
+    'jits': lambda: bt.jits(0.5, 0.1, 1, shape=(4, 5)),
+}
+
+
+@pytest.mark.parametrize('entry', sorted(_NO_DEVICE))
+def test_entry_point_without_device_means_the_card(monkeypatch, entry):
+    """With no ``device``, an entry point asks for the card: on a host
+    without one it raises, and runs nothing on the CPU."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    calls = []
+    monkeypatch.setattr(core.KernelOp, '__call__',
+                        lambda self, *a, **k: calls.append(self.name))
+    with pytest.raises(bt.CUDANotInstalledError):
+        _NO_DEVICE[entry]()
+    assert calls == []

@@ -22,6 +22,8 @@ from brainevent_torch.ops import pair_gather as tpg
 from brainevent_tpu.csr import plasticity as jp
 from brainevent_tpu.ops.pair_gather import pair_gather_product as jpair
 
+from _torch_one_thread import one_torch_thread  # noqa: F401
+
 
 def _ids(rng, n, nse, sentinel):
     ids = rng.integers(0, n, nse).astype(np.int32)

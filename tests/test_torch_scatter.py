@@ -27,6 +27,8 @@ from brainevent_torch.fcn import event_capacity
 from brainevent_torch.interop import einet_from_arrays
 from brainevent_torch.ops import scatter as ts
 
+from _torch_one_thread import one_torch_thread  # noqa: F401
+
 
 def _events(rng, n_events, n_out, binary, n_chan=None):
     targets = rng.integers(0, n_out, n_events).astype(np.int32)
@@ -130,7 +132,8 @@ def _nets(coba=True):
     s = jnet.init_state()
     net, _ = einet_from_arrays(np.asarray(jnet.conn_all), jnet.n_exc,
                                s.neurons.v, s.neurons.t_last, s.g_e, s.g_i,
-                               s.spike_count, scale=0.1, coba=coba)
+                               s.spike_count, scale=0.1, coba=coba,
+                               device='cpu')
     return jnet, net
 
 

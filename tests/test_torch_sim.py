@@ -24,13 +24,15 @@ from brainevent_torch.interop import einet_from_arrays
 from brainevent_torch.models import EINet, einet_pallas_sim, mxu6_conn_table
 from brainevent_torch.models.sim import STRATEGIES, _auto_strategy
 
+from _torch_one_thread import one_torch_thread  # noqa: F401
+
 
 def _pair(scale, coba=True, seed=42, key=None):
     jnet = JEINet(scale=scale, coba=coba, seed=seed)
     s = jnet.init_state(None if key is None else jax.random.PRNGKey(key))
     net, state = einet_from_arrays(
         np.asarray(jnet.conn_all), jnet.n_exc, s.neurons.v, s.neurons.t_last,
-        s.g_e, s.g_i, s.spike_count, scale=scale, coba=coba)
+        s.g_e, s.g_i, s.spike_count, scale=scale, coba=coba, device='cpu')
     return jnet, s, net, state
 
 
@@ -92,7 +94,7 @@ def test_auto_strategy(num, want):
 
 
 def test_every_strategy_and_knob_runs_the_same_kernels():
-    net = EINet(scale=0.1, seed=5)
+    net = EINet(scale=0.1, seed=5, device='cpu')
     state = net.init_state()
     ref = einet_pallas_sim(net, state, 25)
     knobs = dict(rpb=384, group=4, radix='auto', prefetch=True,
@@ -109,12 +111,12 @@ def test_every_strategy_and_knob_runs_the_same_kernels():
 
 
 def test_mxu6_conn_table_is_the_plain_table():
-    net = EINet(scale=0.1)
+    net = EINet(scale=0.1, device='cpu')
     assert mxu6_conn_table(net, rpb=3, group=2) is net.conn_all
 
 
 def test_zero_steps_returns_the_state():
-    net = EINet(scale=0.05)
+    net = EINet(scale=0.05, device='cpu')
     state = net.init_state()
     out = einet_pallas_sim(net, state, 0)
     assert torch.equal(out[0], state.neurons.v)

@@ -26,6 +26,8 @@ from brainevent_torch.models import training as tt
 from brainevent_tpu.models import training as jt
 from brainevent_tpu.models.neurons import surrogate_spike as jax_spike
 
+from _torch_one_thread import one_torch_thread  # noqa: F401
+
 KW = dict(n_in=12, n_hidden=128, n_out=4, n_conn=8, seed=3)
 T, LABEL = 20, 1
 RTOL, ATOL = 1e-4, 1e-6
@@ -59,7 +61,7 @@ def _jax_spikes(model, params, x):
 def _port(jm, forward):
     return bt.surrogate_snn_from_arrays(
         np.asarray(jm.rec_indices), *(np.asarray(a) for a in jm.init_params()),
-        forward=forward)
+        forward=forward, device='cpu')
 
 
 @pytest.fixture(scope='module', params=['plan', 'event'])
@@ -134,7 +136,7 @@ def test_event_forward_same_grads_as_plan():
 
 
 def test_plan_train_step_repeats_bitwise():
-    model = bt.SurrogateSNN(**KW)
+    model = bt.SurrogateSNN(**KW, device='cpu')
     x = torch.from_numpy(_inputs(4))
     a = bt.train_step(model, model.init_params(), x, 2)
     b = bt.train_step(model, model.init_params(), x, 2)
@@ -143,7 +145,7 @@ def test_plan_train_step_repeats_bitwise():
 
 
 def test_sorted_view_roundtrip_and_grad():
-    model = bt.SurrogateSNN(**KW)
+    model = bt.SurrogateSNN(**KW, device='cpu')
     w = torch.from_numpy(np.random.default_rng(5).normal(
         size=(128, 8)).astype(np.float32)).requires_grad_(True)
     c = model.consts()
@@ -166,7 +168,7 @@ def test_sorted_view_roundtrip_and_grad():
 
 def test_own_init_shapes_and_scales():
     model = bt.SurrogateSNN(n_in=40, n_hidden=2000, n_out=4, n_conn=32,
-                            seed=1)
+                            seed=1, device='cpu')
     p = model.init_params()
     assert p.w_in.shape == (40, 2000) and p.w_rec.shape == (2000, 32)
     assert p.w_out.shape == (2000, 4)
@@ -179,22 +181,23 @@ def test_own_init_shapes_and_scales():
     assert idx.shape == (2000, 32) and idx.dtype == torch.int32
     assert int(idx.min()) >= 0 and int(idx.max()) < 2000
     again = bt.SurrogateSNN(n_in=40, n_hidden=2000, n_out=4, n_conn=32,
-                            seed=1)
+                            seed=1, device='cpu')
     assert torch.equal(again.rec_indices, idx)
     assert all(torch.equal(a, b) for a, b in zip(again.init_params(), p))
     other = bt.SurrogateSNN(n_in=40, n_hidden=2000, n_out=4, n_conn=32,
-                            seed=2)
+                            seed=2, device='cpu')
     assert not torch.equal(other.rec_indices, idx)
 
 
 def test_consts_spike_counts_and_bad_arrays():
-    model = bt.SurrogateSNN(**KW)
+    model = bt.SurrogateSNN(**KW, device='cpu')
     assert set(model.consts()) == set(jt.SurrogateSNN(**KW).consts())
     x = torch.from_numpy(_inputs(6, 4))
     assert float(model.spike_counts(model.init_params(), x)) == 0.0
     p = model.init_params()
     with pytest.raises(ValueError, match='do not fit'):
         bt.surrogate_snn_from_arrays(np.zeros((128, 7), np.int32),
-                                     *(a.numpy() for a in p))
+                                     *(a.numpy() for a in p),
+                                     device='cpu')
     with pytest.raises(ValueError, match='forward'):
-        bt.SurrogateSNN(**KW, forward='dense')
+        bt.SurrogateSNN(**KW, forward='dense', device='cpu')
