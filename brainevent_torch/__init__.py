@@ -22,7 +22,8 @@ has a plain PyTorch twin, which runs for CPU tensors, and a CUDA kernel,
 which runs for CUDA tensors; the kernels are compiled by ``nvcc`` at first
 use (:mod:`brainevent_torch.ops.cuda_build`). Entry points that create
 tensors (``EINet``, ``JITCNet``, ``SurrogateSNN``, the JITC matrices, the
-``interop`` builders) place them on the card unless given ``device='cpu'``.
+``interop`` builders, ``dense_from_arrays`` among them) place them on the
+card unless given ``device='cpu'``.
 """
 
 from ._version import __version__, __version_info__
@@ -41,7 +42,19 @@ from .ops import (
     plan_matvec_vjp, build_mm_plan, gather_matmat, plan_matmat_vjp,
     pair_gather_product,
 )
-from .events import BinaryArray, EventRepresentation
+from .events import (
+    BinaryArray, EventRepresentation, BitPackedBinary, bitpack, CompactBinary,
+    binary_1d_array_index_p_call, binary_2d_compact_only_p_call,
+    binary_2d_array_index_p_call, binary_2d_pair_stream_encode_p_call,
+    binary_2d_row_sparse_encode_p_call, binary_2d_csr_row_count_p_call,
+    binary_2d_csr_fill_p_call, binary_2d_csc_encode_p_call,
+    binary_2d_csr_encode_p_call, binary_2d_csc_from_array,
+)
+from .dense import (
+    Dense, binary_densemv, binary_densemv_p_call, binary_densemm,
+    binary_densemm_p_call, update_dense_on_binary_pre,
+    update_dense_on_binary_post,
+)
 from .csr import (
     CSR, CSC, csrmv, csrmm, binary_csrmv, binary_csrmm,
     binary_csrmv_indexed, binary_csrmm_indexed, update_csr_on_binary_pre,
@@ -62,7 +75,8 @@ from .jitc import (
     binary_jitumv, binary_jitumm, jitumv_plan, jitumm_plan,
 )
 from .interop import (einet_from_arrays, surrogate_snn_from_arrays,
-                      csr_from_arrays, csc_from_arrays, jitc_net_from_arrays)
+                      csr_from_arrays, csc_from_arrays, jitc_net_from_arrays,
+                      dense_from_arrays)
 
 __all__ = [
     '__version__', '__version_info__', 'config',
@@ -77,8 +91,17 @@ __all__ = [
     'plan_from_csr', 'plan_from_ell', 'gather_matvec', 'plan_matvec_dw',
     'plan_inverse_perm', 'plan_matvec_vjp', 'build_mm_plan', 'gather_matmat',
     'plan_matmat_vjp', 'pair_gather_product', 'BinaryArray',
-    'EventRepresentation', 'CSR', 'CSC', 'csrmv', 'csrmm', 'binary_csrmv',
-    'binary_csrmm', 'binary_csrmv_indexed', 'binary_csrmm_indexed',
+    'EventRepresentation', 'BitPackedBinary', 'bitpack', 'CompactBinary',
+    'binary_1d_array_index_p_call', 'binary_2d_compact_only_p_call',
+    'binary_2d_array_index_p_call', 'binary_2d_pair_stream_encode_p_call',
+    'binary_2d_row_sparse_encode_p_call', 'binary_2d_csr_row_count_p_call',
+    'binary_2d_csr_fill_p_call', 'binary_2d_csc_encode_p_call',
+    'binary_2d_csr_encode_p_call', 'binary_2d_csc_from_array', 'Dense',
+    'binary_densemv', 'binary_densemv_p_call', 'binary_densemm',
+    'binary_densemm_p_call', 'update_dense_on_binary_pre',
+    'update_dense_on_binary_post', 'dense_from_arrays', 'CSR', 'CSC',
+    'csrmv', 'csrmm', 'binary_csrmv', 'binary_csrmm', 'binary_csrmv_indexed',
+    'binary_csrmm_indexed',
     'update_csr_on_binary_pre', 'update_csr_on_binary_post',
     'update_csc_on_binary_pre', 'update_csc_on_binary_post',
     'LIFRefParams', 'LIFRefState', 'lifref_init', 'lifref_step',

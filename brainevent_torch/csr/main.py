@@ -24,8 +24,9 @@ or on the first transposed mat-mat product, and kept: a float product in
 the transposed direction then reads the mirror through ``perm``, with no
 float atomics. Dispatch of ``@``:
 
-- a :class:`~brainevent_torch.BinaryArray` operand: the event products
-  (``binary_csrmv``, K7 or K8; ``binary_csrmm``, K10);
+- a :class:`~brainevent_torch.BinaryArray` or
+  :class:`~brainevent_torch.CompactBinary` operand (its ``value``): the
+  event products (``binary_csrmv``, K7 or K8; ``binary_csrmm``, K10);
 - a float tensor: ``csrmv`` (K7, or K8/the mirror transposed) and
   ``csrmm`` (K10), or, for a 1-D operand after :meth:`build_mxu_plan`,
   the gather plans through K3 (``plan_matvec_vjp``), as in the JAX
@@ -45,7 +46,7 @@ import torch
 from .._data import DataRepresentation
 from .._error import MathError, UnsupportedOperationError
 from .._misc import csr_to_coo_index, csr_to_csc_index
-from ..events.base import EventRepresentation, extract_raw_value
+from ..events.compact_binary import event_value, is_event
 from .float import ProductSpec, csr_product, prepare
 from .plasticity import (update_csc_on_binary_post, update_csc_on_binary_pre,
                          update_csr_on_binary_post, update_csr_on_binary_pre)
@@ -209,8 +210,8 @@ class CompressedSparseData(DataRepresentation):
     def _matmul(self, other, *, transpose: bool, left: bool):
         """``self @ other`` (``left=False``) or ``other @ self``; a 2-D
         left operand is transposed in and the result out."""
-        binary = isinstance(other, EventRepresentation)
-        x = torch.as_tensor(extract_raw_value(other), device=self.device)
+        binary = is_event(other)
+        x = torch.as_tensor(event_value(other), device=self.device)
         if x.ndim not in (1, 2):
             raise MathError(f'CSR products take a 1-D or 2-D operand, got '
                             f'{x.ndim}-D.')
@@ -279,7 +280,7 @@ class CSR(CompressedSparseData):
                       w_max=None) -> 'CSR':
         new_data = update_csr_on_binary_pre(
             self.data, self.indices, self.indptr,
-            extract_raw_value(pre_spike), post_trace, w_min, w_max,
+            event_value(pre_spike), post_trace, w_min, w_max,
             shape=self.shape)
         return self._new(new_data)
 
@@ -287,7 +288,7 @@ class CSR(CompressedSparseData):
                        w_max=None) -> 'CSR':
         new_data = update_csr_on_binary_post(
             self.data, self.indices, self.indptr, self.weight_indices,
-            pre_trace, extract_raw_value(post_spike), w_min, w_max,
+            pre_trace, event_value(post_spike), w_min, w_max,
             shape=self.shape)
         return self._new(new_data)
 
@@ -341,7 +342,7 @@ class CSC(CompressedSparseData):
                       w_max=None) -> 'CSC':
         new_data = update_csc_on_binary_pre(
             self.data, self.indices, self.indptr,
-            extract_raw_value(pre_spike), post_trace, w_min, w_max,
+            event_value(pre_spike), post_trace, w_min, w_max,
             shape=self.shape)
         return self._new(new_data)
 
@@ -349,7 +350,7 @@ class CSC(CompressedSparseData):
                        w_max=None) -> 'CSC':
         new_data = update_csc_on_binary_post(
             self.data, self.indices, self.indptr, pre_trace,
-            extract_raw_value(post_spike), w_min, w_max, shape=self.shape)
+            event_value(post_spike), w_min, w_max, shape=self.shape)
         return self._new(new_data)
 
     # A is (m, k); the stored arrays are the CSR of A.T (k, m)

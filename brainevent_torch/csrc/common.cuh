@@ -54,6 +54,16 @@ __device__ __forceinline__ float be_load_op(const void* x, long long i) {
     return v;
 }
 
+// The other event gate: an entry is an event where it is non-zero (a bool
+// byte that is set, or a float != 0, NaN and negatives included). The dense
+// STDP updates (K17) and the event encoders (K18) gate so; the products
+// gate at > 0 (be_load_op).
+template <bool kBool>
+__device__ __forceinline__ float be_load_nonzero(const void* x, long long i) {
+    if (kBool) return static_cast<const unsigned char*>(x)[i] ? 1.0f : 0.0f;
+    return static_cast<const float*>(x)[i] != 0.0f ? 1.0f : 0.0f;
+}
+
 // Run the statement given last with the kernel template arguments O (op),
 // H (homogeneous) and P (permuted slots) set from runtime flags: the nine
 // instances of a CSR kernel (a homogeneous weight reads no permutation).

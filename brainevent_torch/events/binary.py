@@ -15,31 +15,36 @@
 
 """``BinaryArray``: the spike-event wrapper (``brainevent_tpu.events.binary``).
 
-Against a sparse structure object (``CSR``, ``CSC``) the product is
-deferred to that object, which runs its own event kernels. The product
-against a dense tensor needs the dense event products
-(``dense/binary.py``, TPU kernel B9), which are not ported yet: it raises
-:class:`~brainevent_torch.UnsupportedOperationError`.
+``@`` against a dense weight tensor (or a numpy array) routes to the
+event-driven ``binary_densemv``/``binary_densemm`` (K15, K16), with the
+JAX package's orientation: ``s @ W`` is ``binary_densemv(W, s,
+transpose=True)`` and ``S @ W`` is ``binary_densemm(W, S.T,
+transpose=True).T``. Against a structure object (``Dense``, ``CSR``,
+``CSC``, the JITC matrices) the product is deferred to that object, which
+runs its own event kernels.
 """
 
-from .._error import UnsupportedOperationError
-from .base import EventRepresentation, is_known_type
+import torch
+
+from .._error import MathError
+from .base import EventRepresentation, extract_raw_value, is_known_type
 
 __all__ = ['BinaryArray']
-
-_DENSE = ('BinaryArray @ dense tensor needs the dense event products '
-          '(brainevent_tpu/dense/binary.py, kernel B9), which brainevent_torch '
-          'does not port yet; see ROADMAP.md, Queue A item 9.')
 
 
 class BinaryArray(EventRepresentation):
     """0/1 spike vector or matrix.
 
     >>> import torch, brainevent_torch as bt
-    >>> A = bt.CSR.fromdense(torch.tensor([[1., 0.], [0., 2.]]))
-    >>> bt.BinaryArray(torch.tensor([True, False])) @ A
-    tensor([1., 0.])
+    >>> s = bt.BinaryArray(torch.tensor([True, False, True]))
+    >>> s @ torch.tensor([[1., 2.], [3., 4.], [5., 6.]])
+    tensor([6., 8.])
     """
+
+    def bitpack(self):
+        """A :class:`~brainevent_torch.BitPackedBinary` of this array."""
+        from .bitpack import BitPackedBinary
+        return BitPackedBinary(self.value)
 
     @property
     def T(self):
@@ -50,12 +55,42 @@ class BinaryArray(EventRepresentation):
         """The raw tensor with its axes permuted."""
         return self.value.permute(*axes) if axes else self.value.T
 
+    def _dense_operand(self, oc, side: str) -> torch.Tensor:
+        oc = torch.as_tensor(extract_raw_value(oc), device=self.value.device)
+        if self.ndim not in (1, 2):
+            raise MathError(
+                f'Matrix multiplication is only supported for 1D and 2D '
+                f'event arrays; got {self.ndim}D.')
+        if oc.ndim != 2:
+            raise MathError(
+                f'{side} operand must be a 2D weight matrix, got {oc.ndim}D.')
+        return oc
+
     def __matmul__(self, oc):
-        if is_known_type(oc):
-            raise UnsupportedOperationError(_DENSE)
-        return oc.__rmatmul__(self)
+        from ..dense.binary import binary_densemm, binary_densemv
+        if not is_known_type(oc):
+            return oc.__rmatmul__(self)
+        oc = self._dense_operand(oc, 'Right')
+        if self.shape[-1] != oc.shape[0]:
+            raise MathError(f'Incompatible matmul dimensions: '
+                            f'{self.shape[-1]} vs {oc.shape[0]}.')
+        if self.ndim == 1:
+            # y[j] = sum over active i of oc[i, j]
+            return binary_densemv(oc, self.value, transpose=True)
+        return binary_densemm(oc, self.value.T, transpose=True).T
 
     def __rmatmul__(self, oc):
-        if is_known_type(oc):
-            raise UnsupportedOperationError(_DENSE)
-        return oc.__matmul__(self)
+        from ..dense.binary import binary_densemm, binary_densemv
+        if not is_known_type(oc):
+            return oc.__matmul__(self)
+        oc = self._dense_operand(oc, 'Left')
+        if oc.shape[-1] != self.shape[0]:
+            raise MathError(f'Incompatible matmul dimensions: '
+                            f'{oc.shape[-1]} vs {self.shape[0]}.')
+        if self.ndim == 1:
+            # y[i] = sum over active j of oc[i, j]
+            return binary_densemv(oc, self.value, transpose=False)
+        return binary_densemm(oc, self.value, transpose=False)
+
+    def __imatmul__(self, oc):
+        return self.__matmul__(oc)

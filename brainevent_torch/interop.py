@@ -18,7 +18,8 @@
 The port does not re-implement JAX's random generator, so to simulate the
 network the JAX package drew, take its arrays (``np.asarray(net.conn_all)``,
 ``np.asarray(state.neurons.v)``, ``np.asarray(model.rec_indices)``,
-``np.asarray(csr.data)``, ...) and build the port's objects from them.
+``np.asarray(csr.data)``, ``np.asarray(dense.data)``, ...) and build the
+port's objects from them.
 This module sees numpy arrays only, never a JAX object.
 """
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from .csr.main import CSC, CSR
+from .dense.main import Dense
 from .models.jitc_net import JITCNet, JITCNetState
 from .models.networks import EINet, EINetState
 from .models.neurons import LIFRefState
@@ -33,7 +35,8 @@ from .models.training import SNNParams, SurrogateSNN
 from .ops.core import check_device
 
 __all__ = ['einet_from_arrays', 'surrogate_snn_from_arrays',
-           'csr_from_arrays', 'csc_from_arrays', 'jitc_net_from_arrays']
+           'csr_from_arrays', 'csc_from_arrays', 'dense_from_arrays',
+           'jitc_net_from_arrays']
 
 
 def _tensor(x, dtype, device):
@@ -129,6 +132,13 @@ def csc_from_arrays(data, indices, indptr, *, shape, device=None) -> CSC:
     return CSC((_tensor(np.atleast_1d(data), np.float32, device),
                 _tensor(indices, np.int32, device),
                 _tensor(indptr, np.int32, device)), shape=tuple(shape))
+
+
+def dense_from_arrays(w, *, device=None) -> Dense:
+    """The port's :class:`~brainevent_torch.Dense` from a dense weight
+    matrix (``np.asarray(dense.data)``, float32), on *device* (default the
+    card)."""
+    return Dense(_tensor(w, np.float32, _device(device)))
 
 
 def jitc_net_from_arrays(v, t_last, g_e, g_i, spike_count, *, scale: float,

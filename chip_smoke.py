@@ -16,7 +16,9 @@ beside the 10M-synapse event product ``binary_fcnmv`` (K5, K6); the
 CSR slice (``CSR``, ``BinaryArray``, STDP, mat-mat products) at 10k x 10k
 with 10% connectivity, 10M entries (K7-K10); and the JITC slice, the
 80k-neuron ``JITCNet`` over implicit connectivity and the JITC matrix
-classes (K11-K14). Phases:
+classes (K11-K14); and the dense slice, a 10k x 10k ``Dense`` matrix
+(100M weights) with ``BinaryArray`` products, STDP and the event
+encoders (K15-K18). Phases:
 
 1. the device (``torch.cuda.get_device_name`` and ``nvidia-smi``);
 2. the kernel build, with its seconds;
@@ -88,14 +90,36 @@ classes (K11-K14). Phases:
     1e-5 relative), the rate in 1-200 Hz; the scalar law at 80k over 1,000
     steps, spike counts equal to the twin loop on the card;
 20. JITC timing: us/step at 4k and 80k, device ms per launch of K11-K14
-    and their twins' ms per call, and 10 profiled steps at 80k.
+    and their twins' ms per call, and 10 profiled steps at 80k;
+21. K15 (``dense_event_mv``) against its twin at (10k, 10k), both
+    directions, rates 0, 0.1%, 1%, 10% and 100%, bool and float spikes
+    (negatives and NaN among the silent ones), and K16
+    (``dense_event_mm``) at (5000, 5000, B = 128) and (10k, 10k, B = 128)
+    at 1%, both directions: within 1e-5 * sum|W| gate per output,
+    bitwise on a repeat;
+22. K17 (``dense_stdp_pre``/``dense_stdp_post``) at (10k, 10k), 1%
+    spikes, with and without the clip, and K18 (``event_row_count``) at
+    (10k, 128) and (16, 8192) at 1%, against their twins: bitwise; the
+    seven PyTorch encoders on the card equal to their CPU results;
+23. the dense slice at (10k, 10k): 100 steps of ``BinaryArray(pre) @ W``
+    and ``W @ BinaryArray(post)`` at 1%, trace decay, ``update_on_pre``/
+    ``update_on_post`` with clip [-1, 1], ``W @ BinaryArray(S)`` (B =
+    128) and the encoders of ``S``, through the kernels and through the
+    twins on the card: ``W.data`` bitwise, products within 1e-5 * sum|W|
+    gate, K15 twice and K16, K17 (each direction), K18 once per step; a
+    backward through ``W @ BinaryArray(float spikes)``; 10 profiled steps;
+24. dense timing: device ms per launch of K15-K18 at the slice's shapes,
+    their twins' ms per call, their bounds and the library calls
+    (``torch.matmul`` with TF32 off, ``torch.addr``,
+    ``torch.count_nonzero``).
 
 Each kernel's line also carries its bound (the larger of its bytes over
 the HBM rate and its operations over the float32 rate) and the time of one
 PyTorch call computing the same function (``torch.sparse.mm``,
-``index_add_``) where one exists. Any failure exits non-zero; so does a
-host without CUDA. The line before the last is ``{"kernels": [...]}``
-(K1-K14); the last is
+``index_add_``, ``torch.matmul``, ``torch.addr``, ``torch.count_nonzero``)
+where one exists. Any failure exits non-zero; so does a host without
+CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K18; K15's
+line is its ``s @ W`` direction); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -110,10 +134,12 @@ import numpy as np
 import torch
 
 F32 = np.float32
+_START = time.perf_counter()
 
 
 def phase(name):
-    print(f'== {name}', flush=True)
+    """Print a phase's header with the seconds since the script started."""
+    print(f'== {name} [{time.perf_counter() - _START:.1f} s]', flush=True)
 
 
 def check(ok, what):
@@ -1487,6 +1513,292 @@ def time_jitc(slice_out, plans, visits, clen, device, n=JITC_N):
     return res
 
 
+# -- the dense slice and the event encoders (K15-K18) ---------------------------
+
+# JAX dense/binary.py's benchmark sizes: the (10k, 10k) matvec at 1%, the
+# (5000, 5000, B = 128) matmul at 1%; the encoders' (16, 8192) at 1%
+# (_benchdata.py)
+DENSE_N, DENSE_RATE, DENSE_B = 10_000, 0.01, 128
+DENSE_MM = ((5000, 128), (10_000, 128))
+DENSE_STEPS = 100
+DENSE_OPS = ('dense_event_mv', 'dense_event_mm', 'dense_stdp_pre',
+             'dense_stdp_post', 'event_row_count')
+ENCODE_SHAPES = ((10_000, 128), (16, 8192))
+
+
+def dense_spikes(shape, rate, kind, gen, device):
+    """bool; or float32 with the active entries in (0.5, 2) and the silent
+    ones negative, zero or NaN (the products gate at > 0)."""
+    on = torch.rand(shape, generator=gen, device=device) < rate
+    if kind == 'bool':
+        return on
+    x = torch.where(on, 0.5 + 1.5 * torch.rand(shape, generator=gen,
+                                                 device=device),
+                    -torch.rand(shape, generator=gen, device=device))
+    x[::7] = torch.where(on[::7], x[::7], float('nan'))
+    return x
+
+
+def check_dense_products(W, device):
+    phase(f'21 K15 dense_event_mv / K16 dense_event_mm vs twin at '
+          f'({DENSE_N}, {DENSE_N}) and at {DENSE_MM} (tolerance: |d| <= '
+          f'1e-5 * sum|W| gate per output; repeats bitwise)')
+    from brainevent_torch.dense import pallas_kernels as dk
+    gen = torch.Generator(device=device).manual_seed(21)
+    worst = {'dense_event_mv': 0.0, 'dense_event_mm': 0.0}
+    W_abs = W.abs()
+
+    def held(op, w, w_abs, s, transpose, what):
+        got = op(w, s, transpose)
+        want = op.twin(w, s, transpose)
+        err = within(got, want, op.twin(w_abs, s, transpose), what)
+        again = op(w, s, transpose)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), (what, 'repeat'))
+        worst[op.name] = max(worst[op.name], err)
+
+    for rate in (0.0, 0.001, 0.01, 0.1, 1.0):
+        for kind in ('bool', 'float'):
+            s = dense_spikes(DENSE_N, rate, kind, gen, device)
+            for transpose in (True, False):
+                held(dk.dense_event_mv, W, W_abs, s, transpose,
+                     ('K15', rate, kind, transpose))
+        print(f'K15 rate {rate}, bool and float, T and NT: within '
+              f'tolerance, repeats bitwise')
+    for n, b in DENSE_MM:
+        w, w_abs = W[:n, :n].contiguous(), W_abs[:n, :n].contiguous()
+        for kind in ('bool', 'float'):
+            S = dense_spikes((n, b), DENSE_RATE, kind, gen, device)
+            for transpose in (True, False):
+                held(dk.dense_event_mm, w, w_abs, S, transpose,
+                     ('K16', n, kind, transpose))
+        print(f'K16 ({n}, {n}, B = {b}) at {DENSE_RATE:.0%}, bool and float, '
+              f'T and NT: within tolerance, repeats bitwise')
+    print(f'max |d|: {worst!r}')
+    return worst
+
+
+def check_dense_stdp_and_encoders(W, device):
+    phase(f'22 K17 dense_stdp_pre / dense_stdp_post at ({DENSE_N}, '
+          f'{DENSE_N}) and K18 event_row_count at {ENCODE_SHAPES} vs twin, '
+          f'and the PyTorch encoders on the card vs the CPU (tolerance: '
+          f'bitwise)')
+    import brainevent_torch as bt
+    from brainevent_torch.dense import pallas_kernels as dk
+    from brainevent_torch.events import pallas_kernels as ek
+    gen = torch.Generator(device=device).manual_seed(22)
+    trace = torch.rand(DENSE_N, generator=gen, device=device)
+    for kind in ('bool', 'float'):
+        on = torch.rand(DENSE_N, generator=gen, device=device) < DENSE_RATE
+        s = on if kind == 'bool' else torch.where(on, -1.0, 0.0)
+        if kind == 'float':
+            s[on.nonzero()[::3, 0]] = float('nan')      # != 0: an event
+        for clip in ((None, None), (-1.0, 1.0)):
+            for op, args in ((dk.dense_stdp_pre, (W, s, trace)),
+                             (dk.dense_stdp_post, (W, trace, s))):
+                got = op(*args, *clip)
+                want = op.twin(*args, *clip)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), (op.name, kind, clip))
+                del got, want
+        print(f'K17 pre and post, {kind} spikes at {DENSE_RATE:.0%}, clip '
+              f'none and [-1, 1]: bitwise')
+    encoders = (bt.binary_1d_array_index_p_call,
+                bt.binary_2d_compact_only_p_call,
+                bt.binary_2d_array_index_p_call,
+                bt.binary_2d_pair_stream_encode_p_call,
+                bt.binary_2d_row_sparse_encode_p_call,
+                bt.binary_2d_csr_fill_p_call, bt.binary_2d_csc_encode_p_call)
+    for shape in ENCODE_SHAPES:
+        for kind in ('bool', 'float'):
+            on = torch.rand(shape, generator=gen, device=device) < DENSE_RATE
+            x = on if kind == 'bool' else torch.where(
+                on, torch.tensor([-1.0, float('nan')], device=device)[
+                    torch.randint(2, shape, generator=gen, device=device)],
+                0.0)
+            got = ek.event_row_count(x)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ek.event_row_count_twin(x)),
+                  ('K18', shape, kind))
+            xc = x.cpu()
+            indptr = torch.cat([torch.zeros(1, dtype=torch.int32),
+                                torch.cumsum(got.cpu(), 0, dtype=torch.int32)])
+            for fn in encoders:
+                if fn is bt.binary_1d_array_index_p_call:
+                    args_d, args_c = (x[0],), (xc[0],)
+                elif fn is bt.binary_2d_csr_fill_p_call:
+                    args_d, args_c = (x, indptr.to(device)), (xc, indptr)
+                else:
+                    args_d, args_c = (x,), (xc,)
+                for a, b in zip(fn(*args_d), fn(*args_c)):
+                    check(torch.equal(a.cpu(), b), (fn.__name__, shape, kind))
+        print(f'K18 at {shape}, bool and float (negatives, NaN): equal to the '
+              f'twin; the seven PyTorch encoders on the card equal to the CPU')
+    return 0.0
+
+
+def dense_step_loop(W, n_steps, device, *, bounds=False):
+    """The dense slice: per step the event products both ways, the trace
+    decay, STDP on-pre and on-post with clip [-1, 1], ``W @ S`` with ``S``
+    (n, 128), and the encoders of ``S``. Returns the final matrix, every
+    step's products and, with *bounds*, their ``sum|W| gate`` bounds."""
+    import brainevent_torch as bt
+    from brainevent_torch.dense import pallas_kernels as dk
+    gen = torch.Generator(device=device).manual_seed(23)
+    n = W.shape[0]
+    pre_tr = torch.zeros(n, device=device)
+    post_tr = torch.zeros(n, device=device)
+    outs, bnds = [], []
+    for _ in range(n_steps):
+        pre = torch.rand(n, generator=gen, device=device) < DENSE_RATE
+        post = torch.rand(n, generator=gen, device=device) < DENSE_RATE
+        S = torch.rand(n, DENSE_B, generator=gen, device=device) < DENSE_RATE
+        a = bt.BinaryArray(pre) @ W
+        b = W @ bt.BinaryArray(post)
+        pre_tr = pre_tr * 0.95 + pre
+        post_tr = post_tr * 0.95 + post
+        W = W.update_on_pre(pre, post_tr, -1.0, 1.0)
+        W = W.update_on_post(pre_tr, post, -1.0, 1.0)
+        c = W @ bt.BinaryArray(S)
+        cb = bt.CompactBinary.from_array(S)
+        indices, indptr = bt.binary_2d_csr_encode_p_call(S)
+        outs.append((a, b, c, cb.n_active, indptr[-1:]))
+        if bounds:
+            w_abs = W.data.abs()
+            bnds.append((dk.dense_event_mv.twin(w_abs, pre, True),
+                         dk.dense_event_mv.twin(w_abs, post, False),
+                         dk.dense_event_mm.twin(w_abs, S, False)))
+            del w_abs
+    return W, outs, bnds
+
+
+def check_dense_slice(W0, device):
+    phase(f'23 the dense slice on the card at ({DENSE_N}, {DENSE_N}) '
+          f'(100M weights): {DENSE_STEPS} steps of s @ W and W @ s at '
+          f'{DENSE_RATE:.0%}, trace decay, STDP on-pre / on-post with clip '
+          f'[-1, 1], W @ S (B = {DENSE_B}) and the encoders of S, through '
+          f'the kernels and through the twins (W.data bitwise; products '
+          f'within 1e-5 * sum|W| gate)')
+    import brainevent_torch as bt
+    from brainevent_torch.ops.core import REGISTRY
+    ops = [REGISTRY[name] for name in DENSE_OPS]
+    W = bt.Dense(W0)
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    W_k, outs_k, _ = dense_step_loop(W, DENSE_STEPS, device)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / DENSE_STEPS * 1e3
+    counts = bt.launch_counts()
+    want = {'dense_event_mv': 2 * DENSE_STEPS, 'dense_event_mm': DENSE_STEPS,
+            'dense_stdp_pre': DENSE_STEPS, 'dense_stdp_post': DENSE_STEPS,
+            'event_row_count': DENSE_STEPS}
+    check({k: counts[k] for k in DENSE_OPS} == want, counts)
+    t0 = time.perf_counter()
+    with twins_on_card(ops):
+        W_t, outs_t, bnds = dense_step_loop(W, DENSE_STEPS, device,
+                                            bounds=True)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) / DENSE_STEPS * 1e3
+    check(torch.equal(W_k.data, W_t.data), 'final W.data')
+    check(bool(torch.isfinite(W_k.data).all()) and W_k.data.shape == (
+        DENSE_N, DENSE_N), 'W.data finite')
+    worst = 0.0
+    for ok, ot, bd in zip(outs_k, outs_t, bnds):
+        for a, b, bound_ in zip(ok[:3], ot[:3], bd):
+            check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+                  'product shape')
+            worst = max(worst, within(a, b, bound_, 'dense slice product'))
+        for a, b in zip(ok[3:], ot[3:]):
+            check(torch.equal(a, b), 'encoder counts')
+    clipped = float((W_k.data.abs() == 1.0).float().mean())
+    print(f'{DENSE_STEPS} steps: W.data bitwise equal to the twin run '
+          f'({clipped!r} of the weights on a clip bound), products within '
+          f'tolerance (max |d| {worst!r}); launches per step: '
+          f'{ {k: counts[k] / DENSE_STEPS for k in DENSE_OPS} }; '
+          f'{step_ms!r} ms/step through the kernels, {twin_ms!r} ms/step '
+          f'through the twins (host clock)')
+    del outs_k, outs_t, bnds, W_t
+    # a backward through W @ BinaryArray(float spikes), with respect to
+    # the weights and the spikes (the surrogate-linear rule)
+    gen = torch.Generator(device=device).manual_seed(231)
+    x = dense_spikes(DENSE_N, DENSE_RATE, 'float', gen, device)
+    x = torch.nan_to_num(x)
+    ct = torch.randn(DENSE_N, generator=gen, device=device)
+    grads = []
+    for twin in (False, True):
+        data = W_k.data.clone().requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        with twins_on_card(ops if twin else []):
+            y = bt.Dense(data) @ bt.BinaryArray(xx)
+            grads.append((y.detach(), *torch.autograd.grad(y, (data, xx),
+                                                           ct)))
+        del data
+    (yk, gwk, gxk), (yt, gwt, gxt) = grads
+    torch.cuda.synchronize()
+    check(torch.equal(gwk, gwt) and torch.equal(gxk, gxt), 'dW and dx')
+    within(yk, yt, bt.Dense(W_k.data.abs()) @ bt.BinaryArray(x), 'y')
+    print('backward through W @ BinaryArray(float spikes): dW (the outer '
+          'product with the gate) and dx (W.T @ ct) bitwise the twin '
+          'route\'s, y within tolerance')
+    del grads, gwk, gwt
+    busy_us, wall_us, top = profile_step(
+        lambda: dense_step_loop(W_k, 10, device))
+    print(f'10 profiled steps: kernels {busy_us / 10!r} us of '
+          f'{wall_us / 10!r} us wall per step under the profiler (device '
+          f'idle {1 - busy_us / wall_us!r} there; '
+          f'{1 - busy_us / 10 / (step_ms * 1e3)!r} of the unprofiled '
+          f'steps); largest kernels (name, launches, us): {top!r}')
+    return counts, step_ms, W_k
+
+
+def time_dense_kernels(W, device):
+    phase('24 dense and encoder timing: device ms per launch (launches '
+          'queued back to back), the twin\'s ms per call, the bound, and '
+          'one PyTorch call computing the same function (TF32 off)')
+    from brainevent_torch.dense import pallas_kernels as dk
+    from brainevent_torch.events import pallas_kernels as ek
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(24)
+    n, b = DENSE_N, DENSE_B
+    s = torch.rand(n, generator=gen, device=device) < DENSE_RATE
+    S = torch.rand(n, b, generator=gen, device=device) < DENSE_RATE
+    x = torch.rand(*ENCODE_SHAPES[0], generator=gen, device=device) < \
+        DENSE_RATE
+    trace = torch.rand(n, generator=gen, device=device)
+    n_act, nnz = int(s.sum()), int(S.sum())
+    g, G = s.float(), S.float()
+    out = {}
+
+    def timed(name, op, args, reps, reps_twin, library, n_bytes, n_ops):
+        r = dict(ms=device_ms(lambda: op(*args), reps),
+                 plain_ms=host_ms(lambda: op.twin(*args), reps_twin),
+                 library_ms=(device_ms(library, reps) if library else None),
+                 bytes=n_bytes, ops=n_ops)
+        out[name] = r
+        print(f'{name}: device {r["ms"]!r} ms, twin {r["plain_ms"]!r} ms, '
+              f'library {r["library_ms"]!r} ms, bound '
+              f'{bound(n_bytes, n_ops)!r}')
+
+    timed('dense_event_mv T', dk.dense_event_mv, (W, s, True), 200, 20,
+          lambda: torch.matmul(g, W), 4 * n * n_act + n + 4 * n, n * n_act)
+    timed('dense_event_mv NT', dk.dense_event_mv, (W, s, False), 200, 20,
+          lambda: torch.matmul(W, g), 32 * n * n_act + n + 4 * n, n * n_act)
+    timed('dense_event_mm', dk.dense_event_mm, (W, S, False), 10, 5,
+          lambda: torch.matmul(W, G), 4 * n * n + n * b + 4 * n * b,
+          2 * nnz * n)
+    for name, op, args, lib in (
+            ('dense_stdp_pre', dk.dense_stdp_pre, (W, s, trace, -1.0, 1.0),
+             lambda: torch.addr(W, g, trace)),
+            ('dense_stdp_post', dk.dense_stdp_post, (W, trace, s, -1.0, 1.0),
+             lambda: torch.addr(W, trace, g))):
+        timed(name, op, args, 50, 10, lib, 8 * n * n + 5 * n, 3 * n * n)
+    timed('event_row_count', ek.event_row_count, (x,), 200, 20,
+          lambda: torch.count_nonzero(x, dim=1), x.numel() + 4 * x.shape[0],
+          x.numel())
+    out['dense_event_mv'] = out['dense_event_mv T']
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this needs an '
@@ -1556,6 +1868,20 @@ def main():
     jitc_times = time_jitc(jitc_slice, jitc_plans, jitc_visits, jitc_clen,
                            device)
 
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(210)
+    W0 = torch.randn(DENSE_N, DENSE_N, generator=gen, device=device)
+    torch.cuda.synchronize()
+    print(f'{DENSE_N} x {DENSE_N} dense weights built in '
+          f'{time.perf_counter() - t0!r} s')
+    dense_err = check_dense_products(W0, device)
+    dense_err['dense_stdp_pre'] = dense_err['dense_stdp_post'] = \
+        dense_err['event_row_count'] = check_dense_stdp_and_encoders(
+            W0, device)
+    dense_counts, _, W_end = check_dense_slice(W0, device)
+    del W0
+    dense_times = time_dense_kernels(W_end.data, device)
+
     from brainevent_torch.ops.core import REGISTRY
 
     def entry(op_name, launches, err, t):
@@ -1594,6 +1920,9 @@ def main():
                             ('jitc_walk_todense4', surface_counts)):
         kernels.append(entry(op_name, counts[op_name], jitc_err[op_name],
                              jitc_times[op_name]))
+    for op_name in DENSE_OPS:
+        kernels.append(entry(op_name, dense_counts[op_name],
+                             dense_err[op_name], dense_times[op_name]))
     for k in kernels:
         check(k['launches'] > 0, (k['name'], 'not launched on its path'))
     print(json.dumps({'kernels': kernels}))

@@ -145,11 +145,30 @@ def test_elementwise_algebra_and_with_data():
 
 
 def test_binary_array_against_dense_raises():
-    s = bt.BinaryArray(torch.tensor([True, False]))
-    with pytest.raises(bt.UnsupportedOperationError, match='ROADMAP.md'):
-        s @ torch.ones(2, 3)
-    with pytest.raises(bt.UnsupportedOperationError, match='ROADMAP.md'):
-        torch.ones(3, 2) @ s
+    """``BinaryArray`` against a dense tensor was refused until the dense
+    event products were ported; it now equals ``binary_densemv``/
+    ``binary_densemm`` in the JAX package's orientation, and only a
+    shape that does not fit raises."""
+    rng = np.random.default_rng(21)
+    w = torch.from_numpy(rng.normal(size=(6, 5)).astype(np.float32))
+    s, u = torch.tensor([True, False, True, True, False, True]), torch.tensor(
+        [0.5, -1.0, 0.0, 2.0, 1.0])
+    S, U = torch.from_numpy(rng.random((3, 6)) < 0.5), torch.from_numpy(
+        rng.random((5, 4)) < 0.5)
+    for got, want in (
+            (bt.BinaryArray(s) @ w, bt.binary_densemv(w, s, transpose=True)),
+            (w @ bt.BinaryArray(u), bt.binary_densemv(w, u, transpose=False)),
+            (bt.BinaryArray(S) @ w,
+             bt.binary_densemm(w, S.T, transpose=True).T),
+            (w @ bt.BinaryArray(U), bt.binary_densemm(w, U, transpose=False))):
+        assert torch.equal(got, want)
+    assert torch.equal(bt.BinaryArray(s) @ w, s.float() @ w)
+    np.testing.assert_allclose((w @ bt.BinaryArray(u)).numpy(),
+                               (w @ (u > 0).float()).numpy(), rtol=1e-6)
+    with pytest.raises(bt.MathError):
+        bt.BinaryArray(s) @ torch.ones(2, 3)
+    with pytest.raises(bt.MathError):
+        torch.ones(3, 2) @ bt.BinaryArray(s)
 
 
 def test_explicit_plan_routes_float_matvecs_through_k3(monkeypatch):

@@ -1,7 +1,7 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Kernels K1-K14 against their PyTorch twins on a CUDA device.
+"""Kernels K1-K18 against their PyTorch twins on a CUDA device.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so that it also runs where JAX is not installed. ``tests/conftest.py``
@@ -23,6 +23,9 @@ within ``1e-5 * sum|w op(x)|`` per output, K7 and K10 bitwise on a repeat
 stream setup and the dense matrix bitwise (the kernels compute the twin's
 float32 operations, with its FMAs and its float64 ``log``); the products
 within ``1e-5 * sum|w x|`` per output, the gathers bitwise on a repeat.
+K15/K16 (the dense event products) within ``1e-5 * sum|W| * gate`` per
+output and bitwise on a repeat; K17 (dense STDP) bitwise (one rounding,
+the gate being 0 or 1); K18 (the row count) exact.
 """
 
 import numpy as np
@@ -551,3 +554,151 @@ def test_jitc_net_on_card_matches_twin(cuda_device, law):
         r_got = float(net.firing_rate_hz(got, 200))
         r_want = float(net.firing_rate_hz(want, 200))
         assert abs(r_got - r_want) <= 0.02 * r_want
+
+
+# -- the dense slice and the encoders: K15-K18 --------------------------------------
+
+def _dense_spikes(gen, shape, rate, kind, device):
+    """bool, or float32 with negatives and NaN among the silent entries
+    (the products gate at > 0)."""
+    on = gen.random(shape) < rate
+    if kind == 'bool':
+        return torch.from_numpy(on).to(device)
+    x = np.where(on, gen.uniform(0.5, 2.0, shape), -gen.random(shape))
+    x[(~on) & (gen.random(shape) < 0.2)] = np.nan
+    return torch.from_numpy(x.astype(F32)).to(device)
+
+
+@pytest.mark.parametrize('kind', ['bool', 'float'])
+@pytest.mark.parametrize('rate', [0.0, 0.01, 1.0])
+@pytest.mark.parametrize('transpose', [True, False], ids=['T', 'NT'])
+def test_dense_event_products_kernel_vs_twin(cuda_device, gen, transpose,
+                                             rate, kind):
+    """K15 and K16 within 1e-5 * sum|W| * gate per output of the twin, and
+    bitwise on a repeat."""
+    from brainevent_torch.dense import pallas_kernels as dk
+    W = torch.from_numpy(gen.normal(size=(1500, 1100)).astype(F32)).to(
+        cuda_device)
+    n_in = W.shape[0] if transpose else W.shape[1]
+    for op, s in ((dk.dense_event_mv, _dense_spikes(gen, (n_in,), rate, kind,
+                                                    cuda_device)),
+                  (dk.dense_event_mm, _dense_spikes(gen, (n_in, 70), rate,
+                                                    kind, cuda_device))):
+        got = op(W, s, transpose)
+        want = op.twin(W, s, transpose)
+        bound = op.twin(W.abs(), s, transpose)
+        again = op(W, s, transpose)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        assert bool(((got - want).abs() <= 1e-5 * bound + 1e-30).all()), \
+            op.name
+        assert torch.equal(got, again), op.name
+
+
+@pytest.mark.parametrize('shape', [(1000, 1200), (301, 257)], ids=str)
+@pytest.mark.parametrize('clip', [(None, None), (-1.0, 1.0), (None, 0.25)],
+                         ids=str)
+@pytest.mark.parametrize('kind', ['bool', 'float'])
+def test_dense_stdp_kernel_vs_twin(cuda_device, gen, kind, clip, shape):
+    """K17 on-pre and on-post bitwise the twins, with and without the clip,
+    on rows that take 16-byte accesses and rows that do not."""
+    from brainevent_torch.dense import pallas_kernels as dk
+    m, n = shape
+    W = torch.from_numpy(gen.normal(size=shape).astype(F32)).to(cuda_device)
+    t_n = torch.from_numpy(gen.normal(size=n).astype(F32)).to(cuda_device)
+    t_m = torch.from_numpy(gen.normal(size=m).astype(F32)).to(cuda_device)
+    for op, args in (
+            (dk.dense_stdp_pre, (W, _nonzero_spikes(gen, m, kind,
+                                                    cuda_device), t_n)),
+            (dk.dense_stdp_post, (W, t_m, _nonzero_spikes(gen, n, kind,
+                                                          cuda_device)))):
+        got = op(*args, *clip)
+        want = op.twin(*args, *clip)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), op.name
+
+
+def _nonzero_spikes(gen, n, kind, device):
+    """Spikes for the != 0 gate: bool, or float with negative and NaN
+    events."""
+    on = gen.random(n) < 0.1
+    if kind == 'bool':
+        return torch.from_numpy(on).to(device)
+    x = np.where(on, gen.choice([1.0, -1.0, np.nan], n), 0.0).astype(F32)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize('kind', ['bool', 'float'])
+@pytest.mark.parametrize('shape', [(10_000, 128), (16, 8192), (37, 33)],
+                         ids=str)
+def test_event_row_count_kernel_vs_twin(cuda_device, gen, shape, kind):
+    """K18 equal to its twin (integer counts); the encoders on the card
+    equal to their results on the CPU."""
+    from brainevent_torch.events import pallas_kernels as ek
+    on = gen.random(shape) < 0.05
+    x = (on if kind == 'bool' else
+         np.where(on, gen.choice([1.0, -1.0, np.nan], shape), 0.0).astype(F32))
+    xd = torch.from_numpy(x).to(cuda_device)
+    got = ek.event_row_count(xd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ek.event_row_count_twin(xd))
+    for fn in (bt.binary_2d_csr_encode_p_call, bt.binary_2d_csc_encode_p_call,
+               bt.binary_2d_pair_stream_encode_p_call,
+               bt.binary_2d_array_index_p_call,
+               bt.binary_2d_compact_only_p_call):
+        for a, b in zip(fn(xd), fn(torch.from_numpy(x))):
+            assert torch.equal(a.cpu(), b), fn.__name__
+
+
+def test_dense_slice_routes_through_k15_k18(cuda_device, gen):
+    """One step of the dense slice on the card launches K15 twice, K16
+    once, K17 twice and K18 once."""
+    n = 2000
+    W = bt.Dense(torch.from_numpy(gen.normal(size=(n, n)).astype(F32)).to(
+        cuda_device))
+    pre = torch.from_numpy(gen.random(n) < 0.01).to(cuda_device)
+    post = torch.from_numpy(gen.random(n) < 0.01).to(cuda_device)
+    S = torch.from_numpy(gen.random((n, 64)) < 0.01).to(cuda_device)
+    tr = torch.rand(n, device=cuda_device)
+    bt.reset_launch_counts()
+    bt.BinaryArray(pre) @ W
+    W @ bt.BinaryArray(post)
+    W = W.update_on_pre(pre, tr, -1.0, 1.0)
+    W = W.update_on_post(tr, post, -1.0, 1.0)
+    W @ bt.BinaryArray(S)
+    bt.CompactBinary.from_array(S)
+    bt.binary_2d_csr_encode_p_call(S)
+    torch.cuda.synchronize()
+    counts = bt.launch_counts()
+    assert {k: counts[k] for k in ('dense_event_mv', 'dense_event_mm',
+                                   'dense_stdp_pre', 'dense_stdp_post',
+                                   'event_row_count')} == {
+        'dense_event_mv': 2, 'dense_event_mm': 1, 'dense_stdp_pre': 1,
+        'dense_stdp_post': 1, 'event_row_count': 1}
+
+
+def test_event_operands_route_through_k15_k16_on_card(cuda_device, gen):
+    """``BinaryArray``, ``BitPackedBinary`` and ``CompactBinary`` against a
+    tensor or a ``Dense`` (either side) each launch K15 or K16 once."""
+    W = torch.from_numpy(gen.normal(size=(300, 200)).astype(F32)).to(
+        cuda_device)
+    D = bt.Dense(W)
+    s = torch.from_numpy(gen.random(300) < 0.1).to(cuda_device)
+    u = torch.from_numpy(gen.random(200) < 0.1).to(cuda_device)
+    S = torch.from_numpy(gen.random((4, 300)) < 0.1).to(cuda_device)
+    U = torch.from_numpy(gen.random((200, 4)) < 0.1).to(cuda_device)
+    for expr, name in (
+            (lambda: bt.BinaryArray(s) @ W, 'dense_event_mv'),
+            (lambda: W @ bt.BinaryArray(u), 'dense_event_mv'),
+            (lambda: bt.BinaryArray(S) @ W, 'dense_event_mm'),
+            (lambda: W @ bt.BinaryArray(U), 'dense_event_mm'),
+            (lambda: bt.BitPackedBinary(s) @ W, 'dense_event_mv'),
+            (lambda: W @ bt.BitPackedBinary(U), 'dense_event_mm'),
+            (lambda: bt.CompactBinary.from_array(s) @ D, 'dense_event_mv'),
+            (lambda: W @ bt.CompactBinary.from_array(U), 'dense_event_mm'),
+            (lambda: D @ bt.BinaryArray(u), 'dense_event_mv'),
+            (lambda: bt.BinaryArray(S) @ D, 'dense_event_mm')):
+        bt.reset_launch_counts()
+        expr()
+        counts = bt.launch_counts()
+        assert counts[name] == 1 and sum(counts.values()) == 1, counts

@@ -40,6 +40,11 @@ def test_import_with_jax_blocked():
         "A = bt.CSR.fromdense(torch.eye(5))\n"
         "A = A.update_on_pre(torch.ones(5) > 0, torch.ones(5))\n"
         "(bt.BinaryArray(torch.ones(5) > 0) @ A, A @ torch.ones(5, 2))\n"
+        "D = bt.Dense(torch.eye(5)).update_on_pre(torch.ones(5) > 0,\n"
+        "                                         torch.ones(5), -1.0, 1.0)\n"
+        "c = bt.CompactBinary.from_array(torch.ones(5, 3) > 0)\n"
+        "(D @ c, bt.BinaryArray(torch.ones(5) > 0) @ torch.eye(5),\n"
+        " bt.binary_2d_csr_encode_p_call(torch.ones(5, 3)))\n"
         "assert sys.modules['jax'] is None\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'brainevent_tpu') and sys.modules[m] is not None]\n"
@@ -81,19 +86,28 @@ def test_cuda_request_raises_without_running_twin(monkeypatch):
     v = torch.zeros(1, 4, device='meta')
     with pytest.raises(bt.KernelNotAvailableError):
         ts.event_scatter_float(t, v, torch.zeros(1, 8, device='meta'))
-    # the CSR ops: K7-K10
+    # the CSR ops: K7-K10; the dense ops and the row count: K15-K18
     from brainevent_torch.csr import pallas_kernels as pk
+    from brainevent_torch.dense import pallas_kernels as dk
+    from brainevent_torch.events import pallas_kernels as ek
     from brainevent_torch.ops import mxu_gather as mg
     from brainevent_torch.ops import pair_gather as pg
     for op in (pk.csr_gather_mv, pk.csr_scatter_mv, pg.pair_gather,
-               mg.csr_gather_mm):
+               mg.csr_gather_mm, dk.dense_event_mv, dk.dense_event_mm,
+               dk.dense_stdp_pre, dk.dense_stdp_post, ek.event_row_count):
         monkeypatch.setattr(op, 'twin', lambda *a, **k: calls.append(a))
     ptr = torch.zeros(3, dtype=torch.int32, device='meta')
     w = torch.zeros(1, device='meta')
+    W = torch.zeros(4, 4, device='meta')
     for call in (lambda: pk.csr_gather_mv(ptr, t, None, w, v[0], True),
                  lambda: pk.csr_scatter_mv(ptr, t, None, w, v[0], True, 8),
                  lambda: pg.pair_gather(t, None, v[0], None),
-                 lambda: mg.csr_gather_mm(ptr, t, None, w, v.T, False)):
+                 lambda: mg.csr_gather_mm(ptr, t, None, w, v.T, False),
+                 lambda: dk.dense_event_mv(W, v[0], True),
+                 lambda: dk.dense_event_mm(W, W, False),
+                 lambda: dk.dense_stdp_pre(W, v[0], v[0], None, None),
+                 lambda: dk.dense_stdp_post(W, v[0], v[0], -1.0, 1.0),
+                 lambda: ek.event_row_count(W)):
         with pytest.raises(bt.KernelNotAvailableError):
             call()
     assert calls == []
@@ -109,7 +123,8 @@ def test_build_command_targets_hopper_without_fma_contraction():
     srcs = cuda_build.sources()
     assert {Path(s).name for s in srcs} == {
         'einet_step.cu', 'event_scatter.cu', 'fcn_event.cu', 'plan_gather.cu',
-        'csr_event.cu', 'pair_gather.cu', 'csr_gather_mm.cu', 'jitc_walk.cu'}
+        'csr_event.cu', 'pair_gather.cu', 'csr_gather_mm.cu', 'jitc_walk.cu',
+        'dense_event.cu', 'dense_stdp.cu', 'event_encode.cu'}
     for src in srcs:
         cmd = cuda_build.compile_command(nvcc, 'x.o', src)
         assert 'arch=compute_90a,code=sm_90a' in ' '.join(cmd)
@@ -177,7 +192,8 @@ def test_cu_sources_ship_as_package_data():
     assert shipped == {'common.cuh', 'einet_step.cu', 'event_scatter.cu',
                        'fcn_event.cu', 'plan_gather.cu', 'csr_event.cu',
                        'pair_gather.cu', 'csr_gather_mm.cu', 'light_rng.cuh',
-                       'jitc_walk.cu'}
+                       'jitc_walk.cu', 'dense_event.cu', 'dense_stdp.cu',
+                       'event_encode.cu'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 
@@ -212,7 +228,10 @@ def test_launch_counts_only_successful_launches(monkeypatch):
                            'event_scatter_float', 'plan_gather_mv',
                            'plan_matvec_dw', 'fcn_event_scatter',
                            'fcn_event_gather', 'csr_gather_mv',
-                           'csr_scatter_mv', 'pair_gather', 'csr_gather_mm'}
+                           'csr_scatter_mv', 'pair_gather', 'csr_gather_mm',
+                           'dense_event_mv', 'dense_event_mm',
+                           'dense_stdp_pre', 'dense_stdp_post',
+                           'event_row_count'}
     bt.reset_launch_counts()
     assert set(bt.launch_counts().values()) == {0}
 
@@ -246,7 +265,12 @@ def test_replaces_names_a_def_and_no_line_twice():
     for line, name in (('csr/pallas_kernels.py:55', 'csr_gather_mv'),
                        ('csr/binary.py:57', 'csr_scatter_mv'),
                        ('ops/pair_gather.py:72', 'pair_gather'),
-                       ('ops/mxu_gather.py:854', 'csr_gather_mm')):
+                       ('ops/mxu_gather.py:854', 'csr_gather_mm'),
+                       ('dense/binary.py:81', 'dense_event_mv'),
+                       ('dense/binary.py:267', 'dense_event_mm'),
+                       ('dense/plasticity.py:55', 'dense_stdp_pre'),
+                       ('dense/plasticity.py:95', 'dense_stdp_post'),
+                       ('events/compact_ops.py:470', 'event_row_count')):
         assert by_line[f'brainevent_tpu/{line}'] == {name}
 
 
@@ -262,10 +286,13 @@ def _c_params(name):
 
 
 def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
-    """Each CSR wrapper declares as many ctypes arguments as its C entry
-    point has parameters, and passes that many (checked without a card:
-    the entry points are replaced by a recorder)."""
+    """Each CSR, dense and encoder wrapper declares as many ctypes
+    arguments as its C entry point has parameters, and passes that many
+    (checked without a card: the entry points are replaced by a
+    recorder)."""
     from brainevent_torch.csr import pallas_kernels as pk
+    from brainevent_torch.dense import pallas_kernels as dk
+    from brainevent_torch.events import pallas_kernels as ek
     from brainevent_torch.ops import mxu_gather as mg
     from brainevent_torch.ops import pair_gather as pg
     seen = {}
@@ -278,7 +305,7 @@ def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
         return fn
 
     monkeypatch.setattr(cuda_build, 'function', function)
-    for mod in (pk, mg, pg):
+    for mod in (pk, mg, pg, dk, ek):
         monkeypatch.setattr(mod, 'cuda_stream', lambda device: None)
     i32 = torch.int32
     ptr = torch.tensor([0, 2, 3], dtype=i32)
@@ -288,10 +315,18 @@ def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
                      (pk.csr_scatter_mv, (ptr, idx, None, w, x > 0, True, 2)),
                      (pg.pair_gather, (idx, idx, x, x)),
                      (mg.csr_gather_mm, (ptr, idx, None, w,
-                                         torch.ones(2, 3), False))):
+                                         torch.ones(2, 3), False)),
+                     (dk.dense_event_mv, (torch.ones(2, 3), x > 0, True)),
+                     (dk.dense_event_mm, (torch.ones(2, 3), torch.ones(2, 4),
+                                          True)),
+                     (dk.dense_stdp_pre, (torch.ones(2, 3), x, w, 0.0, 1.0)),
+                     (dk.dense_stdp_post, (torch.ones(3, 2), w, x > 0)),
+                     (ek.event_row_count, (torch.ones(2, 3),))):
         op.cuda(op, *args)
     assert set(seen) == {'csr_gather_mv_launch', 'csr_scatter_mv_launch',
-                         'pair_gather_launch', 'csr_gather_mm_launch'}
+                         'pair_gather_launch', 'csr_gather_mm_launch',
+                         'dense_event_mv_launch', 'dense_event_mm_launch',
+                         'dense_stdp_launch', 'event_row_count_launch'}
     for name, n in seen.items():
         assert _c_params(name) == n, name
 
@@ -325,6 +360,8 @@ _NO_DEVICE = {
     'csc_from_arrays': lambda: bt.csc_from_arrays(
         np.ones(1, np.float32), np.zeros(1, np.int32),
         np.array([0, 1], np.int32), shape=(1, 1)),
+    'dense_from_arrays': lambda: bt.dense_from_arrays(
+        np.ones((2, 3), np.float32)),
     'jitc_net_from_arrays': lambda: bt.jitc_net_from_arrays(
         *(np.zeros(200, np.float32),) * 4, np.zeros(200, np.int32),
         scale=0.05, weight_law='scalar', coba=True),
