@@ -63,7 +63,10 @@ from .csr import (
 )
 from .models import (
     LIFRefParams, LIFRefState, lifref_init, lifref_step, surrogate_spike,
-    EINet, EINetState, einet_pallas_sim, mxu6_conn_table, SNNParams,
+    EINet, EINetState, einet_pallas_sim, einet_pallas_sim_mxu,
+    einet_pallas_sim_mxu2, einet_pallas_sim_mxu3, einet_pallas_sim_mxu4,
+    einet_pallas_sim_mxu5, einet_pallas_sim_mxu6, einet_pallas_sim_chain,
+    einet_pallas_sim_dense, dense_count_table, mxu6_conn_table, SNNParams,
     SurrogateSNN, snn_loss, train_step, JITCNet, JITCNetState,
 )
 from .jitc import (
@@ -106,6 +109,9 @@ __all__ = [
     'update_csc_on_binary_pre', 'update_csc_on_binary_post',
     'LIFRefParams', 'LIFRefState', 'lifref_init', 'lifref_step',
     'surrogate_spike', 'EINet', 'EINetState', 'einet_pallas_sim',
+    'einet_pallas_sim_mxu', 'einet_pallas_sim_mxu2', 'einet_pallas_sim_mxu3',
+    'einet_pallas_sim_mxu4', 'einet_pallas_sim_mxu5', 'einet_pallas_sim_mxu6',
+    'einet_pallas_sim_chain', 'einet_pallas_sim_dense', 'dense_count_table',
     'mxu6_conn_table', 'SNNParams', 'SurrogateSNN', 'snn_loss', 'train_step',
     'einet_from_arrays', 'surrogate_snn_from_arrays', 'csr_from_arrays',
     'csc_from_arrays', 'jitc_net_from_arrays', 'JITCNet', 'JITCNetState',

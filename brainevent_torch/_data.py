@@ -25,11 +25,20 @@ of the implicit-connectivity matrices (``brainevent_torch.jitc``).
 import operator
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
 from ._error import UnsupportedOperationError
 
-__all__ = ['DataRepresentation', 'JITCMatrix']
+__all__ = ['DataRepresentation', 'JITCMatrix', 'as_operand']
+
+
+def as_operand(x, device):
+    """A numpy array as a tensor on *device* (``torch.as_tensor``);
+    anything else as it is."""
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x, device=device)
+    return x
 
 
 class DataRepresentation:
@@ -39,7 +48,14 @@ class DataRepresentation:
     live in ``self._buffers`` (read as attributes); ``__matmul__`` and
     ``__rmatmul__`` implement the products; ``apply`` maps the stored
     values.
+
+    ``__array_ufunc__ = None`` makes numpy defer: ``ndarray @ obj`` calls
+    ``obj.__rmatmul__``, which takes the array as a tensor on the
+    object's device (the JAX classes get the same from
+    ``__array_priority__``).
     """
+
+    __array_ufunc__ = None
 
     def __init__(self, shape: Tuple[int, ...]):
         self.shape = tuple(int(s) for s in shape)

@@ -39,6 +39,15 @@ a chunk of entries at a time). A homogeneous ``(1,)`` weight gets the sum,
 of shape ``(1,)``. ``backend=`` is accepted and ignored. The JAX package's
 warning about slow weight gradients at large ``nse`` is not ported: it
 names XLA's gather path, which the port does not take.
+
+Dtypes (``ops/operand.py``): event operands of any dtype reach the
+kernels as their ``> 0`` gate; float16 and bfloat16 weights are computed
+in float32 and the result rounded to the weights' dtype, the dtype the
+JAX package returns (within 1 ulp of it of the twin, on top of the
+float32 bound). float64 weights are computed in float64 on the CPU (the
+twins), as the JAX package keeps float64 on its XLA kernel; on the card
+they raise a ``TypeError``, since no kernel computes float64 yet. A float
+operand is taken in the dtype of the computation.
 """
 
 import dataclasses
@@ -49,8 +58,9 @@ import torch
 from .._error import MathError, UnsupportedOperationError
 from .._misc import csr_to_csc_index
 from ..ops.mxu_gather import csr_gather_mm
-from ..ops.operand import op_values
-from ..ops.pair_gather import pair_gather_product
+from ..ops.operand import (acc_dtype, event_spikes, op_values,
+                           refuse_float64, widen)
+from ..ops.pair_gather import pair_gather, pair_gather_product
 from ._common import csr_checks, is_homo, row_ids_from_indptr
 from .pallas_kernels import csr_gather_mv, csr_scatter_mv
 
@@ -104,8 +114,12 @@ def _weight_grad(indices, indptr, v, ct, transpose: bool) -> torch.Tensor:
     rows = row_ids_from_indptr(indptr, indices.shape[0])
     s, x = (v, ct) if transpose else (ct, v)
     if v.ndim == 1:
+        if acc_dtype(s, x) == torch.float64:
+            # K9 in float64: the twin, on the CPU (the card refused float64)
+            return pair_gather(rows, indices, s, x)
         return pair_gather_product(rows, indices, s, x)
-    out = torch.empty(indices.shape[0], dtype=torch.float32, device=v.device)
+    out = torch.empty(indices.shape[0], dtype=acc_dtype(s, x),
+                      device=v.device)
     step = max(1, _CHUNK_ELEMS // max(v.shape[1], 1))
     for a in range(0, indices.shape[0], step):
         b = a + step
@@ -131,7 +145,7 @@ class _CsrProduct(torch.autograd.Function):
             raise UnsupportedOperationError(
                 'the indexed CSR products have no gradient, as in the JAX '
                 'package.')
-        ct = ct.to(torch.float32).contiguous()
+        ct = ct.to(acc_dtype(weights)).contiguous()
         w_bar = x_bar = None
         if ctx.needs_input_grad[1]:
             back = dataclasses.replace(spec, transpose=not spec.transpose,
@@ -140,7 +154,8 @@ class _CsrProduct(torch.autograd.Function):
                 operand.dtype)
         if ctx.needs_input_grad[0]:
             w_bar = _weight_grad(indices, indptr,
-                                 op_values(operand, spec.binary), ct,
+                                 op_values(operand, spec.binary,
+                                           acc_dtype(weights)), ct,
                                  spec.transpose)
             if is_homo(weights):
                 w_bar = w_bar.sum().reshape(1)
@@ -150,14 +165,17 @@ class _CsrProduct(torch.autograd.Function):
 def prepare(weights, indices, indptr, operand, *, shape, transpose: bool,
             binary: bool, ndim: int):
     """Check a CSR product's operands and bring them to the kernels'
-    dtypes: int32 structure, float32 weights, a bool or float32 event
-    operand, a float32 float operand; all contiguous, on one device."""
+    dtypes: int32 structure, float weights (any other dtype as float32;
+    :func:`csr_product` computes in float32 or float64), a bool or float32
+    event operand (any other dtype as its ``> 0`` gate), a float operand
+    in the dtype of the computation; all contiguous, on one device."""
     indices = torch.as_tensor(indices)
     device = indices.device
     indptr = torch.as_tensor(indptr, device=device)
     weights = torch.atleast_1d(torch.as_tensor(weights, device=device))
     operand = torch.as_tensor(operand, device=device)
     csr_checks(weights, indices, indptr, shape)
+    refuse_float64('CSR product', weights)
     m, k = shape
     exp_in = m if transpose else k
     if operand.ndim != ndim or operand.shape[0] != exp_in:
@@ -165,18 +183,21 @@ def prepare(weights, indices, indptr, operand, *, shape, transpose: bool,
             f'operand shape {tuple(operand.shape)} does not fit shape {shape} '
             f'with transpose={transpose}: expected a {ndim}-D operand of '
             f'length {exp_in}.')
-    if binary and operand.dtype not in (torch.bool, torch.float32):
-        operand = operand > 0
-    elif not binary:
-        operand = operand.to(torch.float32)
-    return (weights.to(torch.float32).contiguous(),
+    if not weights.is_floating_point():
+        weights = weights.to(torch.float32)
+    operand = (event_spikes(operand) if binary
+               else operand.to(acc_dtype(weights)))
+    return (weights.contiguous(),
             indices.to(torch.int32).contiguous(),
             indptr.to(torch.int32).contiguous(), operand.contiguous())
 
 
 def csr_product(weights, indices, indptr, operand, spec: ProductSpec):
-    """A prepared product through the autograd rule."""
-    return _CsrProduct.apply(weights, operand, indices, indptr, spec)
+    """A prepared product through the autograd rule, computed in float32
+    (float16 and bfloat16 weights widened) or float64 and returned in the
+    weights' dtype."""
+    return _CsrProduct.apply(widen(weights), operand, indices, indptr,
+                             spec).to(weights.dtype)
 
 
 def _call(weights, indices, indptr, operand, *, shape, transpose, binary,

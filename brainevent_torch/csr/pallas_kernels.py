@@ -35,7 +35,8 @@ one.
 Homogeneous binary products count in int32 and scale once by ``w[0]``, so
 they are exact at any summation order. Ids outside the operand (K7) or
 the output (K8) are dropped. Each op has a plain PyTorch twin that runs
-for CPU tensors.
+for CPU tensors; it sums in float32, or in float64 for float64 weights
+(the route ``csr/float.py`` takes for them on any device).
 """
 
 import ctypes
@@ -43,7 +44,7 @@ import torch
 
 from ..ops import cuda_build
 from ..ops.core import KernelOp, check_cuda_tensors, cuda_stream
-from ..ops.operand import fits, op_code, op_values, take
+from ..ops.operand import acc_dtype, fits, op_code, op_values, take
 from ._common import is_homo, row_ids_from_indptr
 
 __all__ = ['csr_gather_mv', 'csr_scatter_mv', 'csr_gather_mv_twin',
@@ -67,8 +68,9 @@ def csr_gather_mv_twin(indptr, indices, perm, w, x, binary: bool):
     homogeneous binary products sum 0/1 gates (exact) and scale once."""
     n_rows = indptr.shape[0] - 1
     rows = row_ids_from_indptr(indptr, indices.shape[0])
-    v = take(op_values(x, binary), indices)
-    y = torch.zeros(n_rows, dtype=torch.float32, device=x.device)
+    acc = acc_dtype(w, x)
+    v = take(op_values(x, binary, acc), indices)
+    y = torch.zeros(n_rows, dtype=acc, device=x.device)
     if is_homo(w):
         if binary:
             return y.index_add_(0, rows, v) * w[0]
@@ -82,16 +84,17 @@ def csr_scatter_mv_twin(indptr, indices, perm, w, x, binary: bool,
     ``op(x[r]) != 0``, added with ``index_add_``; homogeneous binary
     products count in int32 and scale once."""
     rows = row_ids_from_indptr(indptr, indices.shape[0])
-    xv = op_values(x, binary)
+    acc = acc_dtype(w, x)
+    xv = op_values(x, binary, acc)
     act = (xv != 0)[rows] & _in_range(indices, n_out)
     tgt = indices[act]
     if is_homo(w) and binary:
         counts = torch.zeros(n_out, dtype=torch.int32, device=x.device)
         counts.index_add_(0, tgt, torch.ones_like(tgt, dtype=torch.int32))
-        return counts.to(torch.float32) * w[0]
+        return counts.to(acc) * w[0]
     vals = xv[rows[act]]
     contrib = w[0] * vals if is_homo(w) else _slot_weights(w, perm)[act] * vals
-    y = torch.zeros(n_out, dtype=torch.float32, device=x.device)
+    y = torch.zeros(n_out, dtype=acc, device=x.device)
     return y.index_add_(0, tgt, contrib)
 
 

@@ -36,7 +36,8 @@ from typing import Optional
 
 import torch
 
-from ..ops.pair_gather import pair_gather_product
+from ..ops.operand import refuse_float64
+from ..ops.pair_gather import pair_gather, pair_gather_product
 from ._common import event_gate, row_ids_from_indptr
 
 __all__ = ['update_csr_on_binary_pre', 'update_csr_on_binary_post',
@@ -52,7 +53,14 @@ def _update(weight, indices, indptr, pre, post, w_min, w_max):
     with torch.no_grad():
         rows = row_ids_from_indptr(
             torch.as_tensor(indptr, device=indices.device), indices.shape[0])
-        prod = pair_gather_product(rows, indices, pre, post)
+        pre = torch.as_tensor(pre, device=indices.device)
+        post = torch.as_tensor(post, device=indices.device)
+        refuse_float64('CSR STDP', weight)
+        # float64 weights (on the CPU) take K9's twin in float64, never
+        # rounded
+        prod = (pair_gather(rows, indices, pre.double(), post.double())
+                if weight.dtype == torch.float64 else
+                pair_gather_product(rows, indices, pre, post))
     out = weight + prod.to(weight.dtype)
     if w_min is not None or w_max is not None:
         out = torch.clamp(out, w_min, w_max)

@@ -30,6 +30,15 @@ surrogate convention), ``W @ ct`` or ``W.T @ ct``. These are plain
 products, as in the JAX package, and run through ``torch.matmul``/
 ``torch.outer``. Bool spikes get no gradient. ``backend=`` is accepted
 and ignored.
+
+Dtypes (``ops/operand.py``): spikes of any dtype reach the kernels as
+their gate (bool, or float32 gated in the kernel); float16 and bfloat16
+weights are computed in float32 and the result rounded to the weights'
+dtype, within 1 ulp of that dtype of the twin's result, on top of the
+float32 bound. float64 weights are computed in float64 on the CPU (the
+twins), as the JAX package keeps float64 on its XLA kernel
+(``dense/binary.py:87-89``); on the card they raise a ``TypeError``,
+since no kernel computes float64 yet.
 """
 
 from typing import Optional
@@ -37,6 +46,7 @@ from typing import Optional
 import torch
 
 from .._error import MathError
+from ..ops.operand import event_spikes, refuse_float64, widen
 from .pallas_kernels import dense_event_mm, dense_event_mv, product_gate
 
 __all__ = ['binary_densemv', 'binary_densemv_p_call', 'binary_densemm',
@@ -52,7 +62,9 @@ class _DenseEventProduct(torch.autograd.Function):
         ctx.save_for_backward(weights, spikes)
         ctx.transpose, ctx.mm = transpose, mm
         op = dense_event_mm if mm else dense_event_mv
-        return op(weights, spikes, transpose)
+        refuse_float64(op.name, weights)
+        return op(widen(weights), event_spikes(spikes), transpose).to(
+            weights.dtype)
 
     @staticmethod
     def backward(ctx, ct):

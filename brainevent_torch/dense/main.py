@@ -172,7 +172,9 @@ class Dense(DataRepresentation):
             if ev.ndim == 1:
                 return binary_densemv(self.data, ev, transpose=True)
             return binary_densemm(self.data, ev.T, transpose=True).T
-        return torch.as_tensor(other, device=self.device) @ self.data
+        other = torch.as_tensor(other, device=self.device)
+        dtype = torch.promote_types(other.dtype, self.data.dtype)
+        return other.to(dtype) @ self.data.to(dtype)
 
     def __repr__(self):
         return f'Dense(shape={self.shape}, dtype={self.dtype})'

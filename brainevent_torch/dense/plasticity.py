@@ -28,6 +28,15 @@ The AD contract is the JAX package's: the update is the identity with
 respect to the weight, then the clip's gradient (1 inside the bounds, 0
 where clipped); spikes and traces are not differentiated. ``backend=`` is
 accepted and ignored.
+
+Dtypes (``ops/operand.py``): spikes of any dtype reach K17 as their
+``!= 0`` gate; float16 and bfloat16 weights (the trace takes the weights'
+dtype) are updated in float32 and rounded once to their dtype, within
+1 ulp of that dtype of the twin. float64 weights are updated in float64
+on the CPU (the twin), as the JAX package does
+(``dense/plasticity.py:60,100``); on the card they raise a
+``TypeError``, since no kernel computes float64 yet. A float64 ``W`` is
+never rounded to float32.
 """
 
 from typing import Optional
@@ -35,6 +44,7 @@ from typing import Optional
 import torch
 
 from .._error import MathError
+from ..ops.operand import event_spikes, refuse_float64, widen
 from .pallas_kernels import dense_stdp_post, dense_stdp_pre
 
 __all__ = ['update_dense_on_binary_pre', 'update_dense_on_binary_post']
@@ -53,8 +63,13 @@ class _DenseStdp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, weight, spike, trace, w_min, w_max, post):
-        out = (dense_stdp_post(weight, trace, spike, w_min, w_max) if post
-               else dense_stdp_pre(weight, spike, trace, w_min, w_max))
+        op = dense_stdp_post if post else dense_stdp_pre
+        dtype = weight.dtype
+        refuse_float64(op.name, weight, trace)
+        weight, trace = widen(weight), widen(trace)
+        spike = event_spikes(spike, nonzero=True)
+        out = (op(weight, trace, spike, w_min, w_max) if post
+               else op(weight, spike, trace, w_min, w_max)).to(dtype)
         ctx.bounds = (w_min, w_max)
         if ctx.needs_input_grad[0]:
             ctx.save_for_backward(out)

@@ -45,7 +45,13 @@ def is_known_type(x) -> bool:
 
 
 class EventRepresentation(abc.ABC):
-    """Tensor wrapper marking its content as spike events."""
+    """Tensor wrapper marking its content as spike events.
+
+    ``__array_ufunc__ = None``: ``ndarray @ events`` calls
+    ``__rmatmul__``, which takes the array as a tensor.
+    """
+
+    __array_ufunc__ = None
 
     def __init__(self, value):
         self._value = (value if isinstance(value, torch.Tensor)

@@ -43,8 +43,11 @@ class CompactBinary:
     active elements. For a 2-D input ``(n, batch)``: packed along axis 1,
     ``active_ids`` the rows active in any batch column. Build with
     :meth:`from_array` (both), :meth:`from_array_light` (compaction only)
-    or :meth:`from_packed` (precomputed pieces).
+    or :meth:`from_packed` (precomputed pieces). ``__array_ufunc__ =
+    None``: ``ndarray @ obj`` calls ``__rmatmul__``.
     """
+
+    __array_ufunc__ = None
 
     __slots__ = ('_packed', '_active_ids', '_n_active', '_value',
                  '_n_orig', '_batch_size', '_bit_width')
@@ -169,7 +172,7 @@ class CompactBinary:
 
     def __rmatmul__(self, oc):
         from .binary import BinaryArray
-        return oc @ BinaryArray(self._value)
+        return BinaryArray(self._value).__rmatmul__(oc)
 
     def __repr__(self):
         return (f'CompactBinary(shape={self.shape}, dtype={self.dtype}, '

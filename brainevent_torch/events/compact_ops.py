@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 
 from .bitpack import bitpack
+from ..ops.operand import event_spikes
 from .pallas_kernels import event_mask, event_row_count
 
 __all__ = [
@@ -150,9 +151,12 @@ def binary_2d_row_sparse_encode_p_call(spikes, *,
 
 
 def binary_2d_csr_row_count_p_call(spikes, *, backend: Optional[str] = None):
-    """``(row_counts (n,) int32,)``, through K18 on a CUDA tensor."""
+    """``(row_counts (n,) int32,)``, through K18 on a CUDA tensor. Spikes
+    of any dtype reach K18 as their ``!= 0`` gate (bool and float32 as
+    they are), which is exact."""
     del backend
-    return (event_row_count(_check_2d(spikes).contiguous()),)
+    spikes = event_spikes(_check_2d(spikes), nonzero=True)
+    return (event_row_count(spikes.contiguous()),)
 
 
 def binary_2d_csr_fill_p_call(spikes, indptr, *,

@@ -32,6 +32,13 @@ neurons (K5) and only the weights of active targets (K6); targets outside
 CPU tensors. The device of the tensors picks the route; ``backend=`` is
 accepted and ignored.
 
+Dtypes (``ops/operand.py``): spikes of any dtype reach the kernels as
+their ``> 0`` gate; float16 and bfloat16 weights are computed in float32
+and the result rounded to the weights' dtype (within 1 ulp of it of the
+twin, on top of the float32 bound). float64 weights are computed in
+float64 on the CPU (the twins); on the card they raise a ``TypeError``,
+since no kernel computes float64 yet.
+
 Gradients through :func:`binary_fcnmv` need the float ELL products
 (``fcn/float.py``), which are not ported yet: a backward through it raises
 :class:`~brainevent_torch.UnsupportedOperationError`.
@@ -46,6 +53,7 @@ from .. import config
 from .._error import MathError, UnsupportedOperationError
 from ..ops import cuda_build
 from ..ops.core import KernelOp, check_cuda_tensors, cuda_stream
+from ..ops.operand import event_spikes, refuse_float64, widen
 
 __all__ = ['event_capacity', 'binary_fcnmv', 'binary_fcnmv_p_call',
            'check_fixed_conn_num_shape', 'fcn_event_scatter',
@@ -176,7 +184,9 @@ class _BinaryFcnmv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, weights, indices, spikes, n_post, transpose):
         op = fcn_event_scatter if transpose else fcn_event_gather
-        return op(weights, indices, spikes, n_post)
+        refuse_float64('binary_fcnmv', weights)
+        return op(widen(weights), indices, event_spikes(spikes),
+                  n_post).to(weights.dtype)
 
     @staticmethod
     def backward(ctx, ct):
@@ -211,8 +221,6 @@ def binary_fcnmv_p_call(weights, indices, spikes, *, shape,
     if indices.device.type == 'cuda':
         indices = indices.to(torch.int32).contiguous()
         weights = weights.contiguous()
-        if spikes.dtype not in (torch.bool, torch.float32):
-            spikes = spikes > 0
         spikes = spikes.contiguous()
     return [_BinaryFcnmv.apply(weights, indices, spikes, n_post,
                                bool(transpose))]

@@ -37,7 +37,7 @@ from typing import Tuple
 
 import torch
 
-from .._data import JITCMatrix
+from .._data import JITCMatrix, as_operand
 from .._error import MathError, UnsupportedOperationError
 from ..events.base import EventRepresentation, extract_raw_value
 from ..ops.core import check_device
@@ -60,6 +60,8 @@ class JITCWalkPlan:
     ``row_cap``): on the card every event product is one K12 launch. The
     kernels' law arguments are derived once, here, for every product.
     """
+
+    __array_ufunc__ = None
 
     def __init__(self, family, matrix, shape, transpose, corder, clen,
                  setup):
@@ -88,11 +90,12 @@ class JITCWalkPlan:
 
     def __matmul__(self, other):
         event = isinstance(other, EventRepresentation)
-        return self._product(extract_raw_value(other), event, flip=False)
+        raw = as_operand(extract_raw_value(other), self.matrix.device)
+        return self._product(raw, event, flip=False)
 
     def __rmatmul__(self, other):
         event = isinstance(other, EventRepresentation)
-        raw = extract_raw_value(other)
+        raw = as_operand(extract_raw_value(other), self.matrix.device)
         if raw.ndim == 1:
             return self._product(raw, event, flip=True)
         return self._product(raw.T, event, flip=True).T
@@ -236,6 +239,7 @@ def make_classes(family, class_base_name: str, param_names: Tuple[str, ...],
             products through the cached walk plan (the same sampled
             matrix), 2-D ones sample the mm-mode matrix. A flip swaps
             ``(transpose, corder)`` together."""
+            other = as_operand(other, self.device)
             raw = extract_raw_value(other)
             if raw.ndim == 1:
                 if self._plan_cache is None:

@@ -38,7 +38,15 @@ Routes (the tensors' device picks the twin or the kernel):
 ``dense_fn`` has no tensor argument, so it takes ``device``: ``None``
 means the card (``'cuda'``), unless a weight parameter is a tensor, whose
 device is then used. A product runs on its operand's device. Results are
-float32. A backward through a product raises
+float32, or the dtype of the first weight parameter where that is a
+float16 or bfloat16 tensor (the dtype the JAX package returns).
+
+Operand dtypes (``ops/operand.py``): an event operand of any dtype
+reaches the kernels as its ``> 0`` gate; a float operand of any other
+dtype than float32 as float32, the dtype of the law's weights, in which
+the JAX package computes too (its result takes the dtype of the first
+weight parameter), so a float64 operand is rounded to float32 there as
+here. A backward through a product raises
 :class:`~brainevent_torch.UnsupportedOperationError`: the JVP and
 transpose rules are not ported. ``count``/``fill``/``to_csr`` and
 ``dt2t`` are not ported either (``ROADMAP.md``).
@@ -55,6 +63,7 @@ from .._error import UnsupportedOperationError
 from .._misc import (_initialize_conn_length, _normalize_chunk_size,
                      _normalize_matrix_mode)
 from ..ops.core import check_device
+from ..ops.operand import event_spikes
 from ..rng.light import M32
 from .event_route import jitc_event_matvec_plan
 from .pallas_kernels import (jitc_walk_mm, jitc_walk_mm4, jitc_walk_mv,
@@ -99,11 +108,25 @@ def walk_dims(shape, transpose: bool):
     return shape[0], shape[1]
 
 
-def _operand(x) -> torch.Tensor:
+def _operand(x, event: bool) -> torch.Tensor:
+    """An operand as the walk kernels take it: an event operand as its
+    gate, a float one as float32 (the weights' dtype)."""
     x = torch.as_tensor(x)
-    if x.dtype not in (torch.bool, torch.float32):
+    if event:
+        x = event_spikes(x)
+    elif x.dtype not in (torch.bool, torch.float32):
         x = x.to(torch.float32)
     return x.contiguous()
+
+
+def _out_dtype(params, out: torch.Tensor) -> torch.dtype:
+    """The result's dtype: the first weight parameter's where that is a
+    float16 or bfloat16 tensor, else the computation's."""
+    p = params[0] if params else None
+    if isinstance(p, torch.Tensor) and p.dtype in (torch.float16,
+                                                   torch.bfloat16):
+        return p.dtype
+    return out.dtype
 
 
 class _NoBackward(torch.autograd.Function):
@@ -169,7 +192,7 @@ def make_family(spec: JITCFamilySpec) -> SimpleNamespace:
         """The mat-vec (1-D operand) or mat-mat (2-D) over the walk of
         *shape*, with the kernels' law arguments *args* (:func:`law_args`);
         *setup* ``(state2, q2)`` is a plan of that walk."""
-        x = _operand(operand)
+        x = _operand(operand, event)
         out_len, in_len = walk_dims(shape, transpose)
         if x.shape[0] != in_len:
             raise ValueError(f'operand length {x.shape[0]} != {in_len} '
@@ -182,14 +205,16 @@ def make_family(spec: JITCFamilySpec) -> SimpleNamespace:
                   corder=bool(corder), event=bool(event))
         if x.ndim == 1:
             if event and not corder and setup is not None:
-                return _guard(lambda: jitc_event_matvec_plan(
+                out = _guard(lambda: jitc_event_matvec_plan(
                     law, a, b, seed, x, out_len, n_rows=in_len,
                     logical_cols=shape[1], setup=(state2, q2, kw['cl'])),
                     operand, *params)
+                return out.to(_out_dtype(params, out))
             op = jitc_walk_mv
         else:
             op = jitc_walk_mm if stride_mm == 32 else jitc_walk_mm4
-        return _guard(lambda: op(state2, q2, x, **kw), operand, *params)
+        out = _guard(lambda: op(state2, q2, x, **kw), operand, *params)
+        return out.to(_out_dtype(params, out))
 
     def _zeros(operand, shape, transpose):
         out_len, _ = walk_dims(shape, transpose)

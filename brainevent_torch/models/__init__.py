@@ -9,12 +9,19 @@ from .neurons import (
 )
 from .jitc_net import JITCNet, JITCNetState
 from .networks import EINet, EINetState
-from .sim import einet_pallas_sim, mxu6_conn_table
+from .sim import (
+    dense_count_table, einet_pallas_sim, einet_pallas_sim_chain,
+    einet_pallas_sim_dense, einet_pallas_sim_mxu, einet_pallas_sim_mxu2,
+    einet_pallas_sim_mxu3, einet_pallas_sim_mxu4, einet_pallas_sim_mxu5,
+    einet_pallas_sim_mxu6, mxu6_conn_table,
+)
 from .training import SNNParams, SurrogateSNN, snn_loss, train_step
 
 __all__ = [
     'LIFRefParams', 'LIFRefState', 'lifref_init', 'lifref_step',
     'surrogate_spike', 'EINet', 'EINetState', 'JITCNet', 'JITCNetState',
-    'einet_pallas_sim',
-    'mxu6_conn_table', 'SNNParams', 'SurrogateSNN', 'snn_loss', 'train_step',
+    'einet_pallas_sim', 'einet_pallas_sim_mxu', 'einet_pallas_sim_mxu2',
+    'einet_pallas_sim_mxu3', 'einet_pallas_sim_mxu4', 'einet_pallas_sim_mxu5',
+    'einet_pallas_sim_mxu6', 'einet_pallas_sim_chain',
+    'einet_pallas_sim_dense', 'dense_count_table', 'mxu6_conn_table', 'SNNParams', 'SurrogateSNN', 'snn_loss', 'train_step',
 ]

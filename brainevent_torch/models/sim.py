@@ -13,32 +13,80 @@
 # limitations under the License.
 # ==============================================================================
 
-"""Whole-simulation entry point for EI networks.
+"""Whole-simulation entry points for EI networks.
 
-Counterpart of ``brainevent_tpu.models.pallas_sim``: the same name, the
-same arguments and the same return tuple. The JAX package runs the whole
-simulation in one Pallas kernel whose layout (one-hot contractions,
-mantissa packing, a partitioned table, DMA banks) exists because a TPU has
-no atomics and no gather. On a GPU the same contract is two kernels per
-step, K1 (``csrc/einet_step.cu``) and K2 (``csrc/event_scatter.cu``),
-through :meth:`EINet.run`. Every strategy name is accepted and runs them;
-the TPU layout knobs are accepted and ignored.
+Counterpart of ``brainevent_tpu.models.pallas_sim``: the same names, the
+same signatures and defaults, the same return tuple ``(v, t_last, g_e,
+g_i, spike_count)``. The JAX package runs each strategy as one Pallas
+kernel whose layout (one-hot contractions, mantissa packing, a
+partitioned table, DMA banks) exists because a TPU has no atomics and no
+gather. On a GPU each step is two kernels: K1 ``einet_step``
+(``csrc/einet_step.cu``), which updates the neurons and appends the ids
+of this step's spikes to a device list, and a count kernel over that
+list, whose int32 E/I hit counts K1 folds into the conductances at the
+next step. Every route gives the same counts, so all eight strategies
+return bitwise the same five outputs.
+
+======== ======================================== ======== ==================
+strategy JAX function (``pallas_sim.py``)          route    why
+======== ======================================== ======== ==================
+mxu3     ``einet_pallas_sim_mxu3`` (``:639``)       K1 + K2  two-stage compaction
+                                                           is K1's append;
+                                                           packed one-hot
+                                                           factors are K2's
+                                                           integer atomics
+mxu6     ``einet_pallas_sim_mxu6`` (``:1368``)      K1 + K2  K2 reads the plain
+                                                           row-major table
+                                                           from HBM at any size
+dense    ``einet_pallas_sim_dense`` (``:532``)      K1 + K19 the count product
+                                                           ``masks @ table``:
+                                                           K19 sums the table
+                                                           rows of the spikes
+mxu      ``einet_pallas_sim_mxu`` (``:143``)        K1 + K2  branchy scan and
+                                                           event buffers are
+                                                           K1's append
+chain    ``einet_pallas_sim_chain`` (``:350``)      K1 + K2  per-synapse RMW
+                                                           chains are K2's
+                                                           atomics
+mxu2     ``einet_pallas_sim_mxu2`` (``:2763``)      K1 + K2  vectorized
+                                                           compaction is K1's
+                                                           append
+mxu4     ``einet_pallas_sim_mxu4`` (``:2973``)      K1 + K2  chunked state phases
+                                                           are K1's grid
+mxu5     ``einet_pallas_sim_mxu5`` (``:2430``)      K1 + K2  split E/I compaction
+                                                           is K2's channel by id
+======== ======================================== ======== ==================
+
+K2 and K19 count in int32 with no capacity, so no strategy needs an
+overflow round, and none copies the TPU's in-degree limit of 255 (the
+mxu4 refusal, the mxu3 to mxu2 fallback at ``pallas_sim.py:716-717``):
+their 8-bit packed fields have no counterpart here. Each function accepts
+its JAX knobs (``rpb``, ``group``, ``radix``, ...) and ignores them, and
+rejects any other keyword with ``TypeError``, as Python does in the JAX
+package. ``platform`` is accepted for parity; the device of *state*
+decides where a strategy runs.
 """
 
+import ctypes
+
+import torch
+
+from ..ops import cuda_build
+from ..ops.core import KernelOp, check_cuda_tensors, cuda_stream
 from .networks import EINet, EINetState
 
-__all__ = ['einet_pallas_sim', 'mxu6_conn_table', 'STRATEGIES']
+__all__ = ['einet_pallas_sim', 'einet_pallas_sim_mxu',
+           'einet_pallas_sim_mxu2', 'einet_pallas_sim_mxu3',
+           'einet_pallas_sim_mxu4', 'einet_pallas_sim_mxu5',
+           'einet_pallas_sim_mxu6', 'mxu6_conn_table',
+           'einet_pallas_sim_chain', 'einet_pallas_sim_dense',
+           'dense_count_table', 'einet_dense_hits', 'einet_dense_hits_twin',
+           'STRATEGIES', 'CPU_TABLE_BUDGET']
 
 STRATEGIES = ('chain', 'mxu', 'mxu2', 'mxu3', 'mxu4', 'mxu5', 'mxu6', 'dense')
 
-# Knobs of the JAX package's strategies: layouts of the TPU kernels, with
-# no meaning for K1/K2.
-_LAYOUT_KNOBS = frozenset((
-    '_ablate', 'block_pack', 'cap_divisor', 'compact_dot', 'compact_j',
-    'conn_table', 'dead_skip', 'ei_split', 'factor_unroll', 'factors',
-    'fused_load', 'gather', 'group', 'm1_fuse', 'mask_dtype', 'operands',
-    'pack', 'prefetch', 'radix', 'row_chunk', 'rpb', 'table_space', 'tier_w',
-    'two_stage'))
+# Largest dense count table built in host memory (bytes).
+CPU_TABLE_BUDGET = 2 * 1024 ** 3
 
 
 def einet_pallas_sim(net: EINet, state: EINetState, n_steps: int,
@@ -48,24 +96,17 @@ def einet_pallas_sim(net: EINet, state: EINetState, n_steps: int,
     ``(v, t_last, g_e, g_i, spike_count)`` with ``g`` after the step's
     scatter and ``spike_count`` int32, as the JAX package returns them.
 
-    ``platform`` is accepted for signature parity (the device of *state*
-    decides where this runs). ``strategy`` is one of :data:`STRATEGIES` or
-    ``'auto'``; every strategy, and every TPU layout knob (``rpb``,
-    ``group``, ``radix``, ``prefetch``, ``dead_skip``, ``cap_divisor``,
-    ``conn_table``, ...), runs the same two kernels.
+    ``strategy`` is one of :data:`STRATEGIES` or ``'auto'`` (mxu3 below
+    40k neurons, mxu6 from 40k up). The knobs go to the strategy's
+    function, so a knob it does not take raises ``TypeError``; see the
+    module docstring for what each strategy runs.
     """
-    del platform
     if strategy == 'auto':
         strategy = _auto_strategy(net.num)
-    if strategy not in STRATEGIES:
+    if strategy not in _FUNCTIONS:
         raise ValueError(f'unknown strategy {strategy!r}; expected one of '
                          f"{STRATEGIES} or 'auto'")
-    unknown = set(knobs) - _LAYOUT_KNOBS
-    if unknown:
-        raise TypeError(f'einet_pallas_sim got unknown knobs {sorted(unknown)}')
-    out = net.run(n_steps, inp, state)
-    return (out.neurons.v, out.neurons.t_last, out.g_e, out.g_i,
-            out.spike_count)
+    return _FUNCTIONS[strategy](net, state, n_steps, inp, platform, **knobs)
 
 
 def _auto_strategy(num: int) -> str:
@@ -75,6 +116,109 @@ def _auto_strategy(num: int) -> str:
     return 'mxu6' if num >= 40_000 else 'mxu3'
 
 
+def _run(net: EINet, state: EINetState, n_steps: int, inp: float):
+    """The K1/K2 route."""
+    out = net.run(n_steps, inp, state)
+    return (out.neurons.v, out.neurons.t_last, out.g_e, out.g_i,
+            out.spike_count)
+
+
+# -- the K1/K2 strategies ------------------------------------------------------------
+
+def einet_pallas_sim_mxu3(net, state, n_steps: int, inp: float = 20.0,
+                          platform=None, *, mask_dtype=None,
+                          operands: str = 'concat', pack: bool = True,
+                          two_stage: bool = True, table_space: str = 'auto',
+                          cap_divisor: int = 448, factors: str = 'auto'):
+    """The main path below 40k neurons, through K1 and K2: the two-stage
+    compaction is K1's warp-aggregated append; the mantissa-packed one-hot
+    contraction is K2's int32 atomics, exact at any order and with no
+    capacity, so neither the overflow rounds nor the in-degree fallback to
+    mxu2 is needed. The knobs lay out the TPU kernel and are ignored."""
+    del platform, mask_dtype, operands, pack, two_stage, table_space
+    del cap_divisor, factors
+    return _run(net, state, n_steps, inp)
+
+
+def einet_pallas_sim_mxu6(net, state, n_steps: int, inp: float = 20.0,
+                          platform=None, *, mask_dtype=None,
+                          table_space: str = 'auto', cap_divisor: int = 448,
+                          rpb: int = 384, group: int = 4,
+                          factor_unroll: int = 4, gather: str = 'block',
+                          prefetch: bool = True,
+                          fused_load: 'bool | int' = 2,
+                          ei_split: bool = True, block_pack: int = 1,
+                          m1_fuse: bool = False,
+                          compact_j: 'int | None' = None,
+                          compact_dot: 'bool | None' = None,
+                          dead_skip: 'bool | None' = None,
+                          tier_w: int = 0, radix: 'int | str' = 'auto',
+                          conn_table=None, _ablate: tuple = ()):
+    """The main path from 40k neurons up, through K1 and K2: K2 reads the
+    plain row-major table wherever it lies in HBM, so the target-partitioned
+    table, its two-level one-hot and its radix channels have no
+    counterpart. ``conn_table`` (see :func:`mxu6_conn_table`) and the
+    layout knobs are ignored."""
+    del platform, mask_dtype, table_space, cap_divisor, rpb, group
+    del factor_unroll, gather, prefetch, fused_load, ei_split, block_pack
+    del m1_fuse, compact_j, compact_dot, dead_skip, tier_w, radix
+    del conn_table, _ablate
+    return _run(net, state, n_steps, inp)
+
+
+def einet_pallas_sim_mxu(net, state, n_steps: int, inp: float = 20.0,
+                         platform=None):
+    """Superseded on the TPU by mxu2; here K1 and K2. Its branchy firing
+    scan and per-channel event buffers are K1's warp-aggregated append, its
+    chunked one-hot contraction is K2's int32 atomics, and its per-event
+    overflow fallback is not needed: K2 has no capacity."""
+    del platform
+    return _run(net, state, n_steps, inp)
+
+
+def einet_pallas_sim_chain(net, state, n_steps: int, inp: float = 20.0,
+                           platform=None):
+    """Per-synapse read-modify-write chains on the TPU's scalar unit; here
+    K1 and K2. The chains are K2's int32 atomic adds: integer sums do not
+    depend on the order the adds land in, so the counts are exact, and the
+    fold of the chain columns is K1's fold of the counts."""
+    del platform
+    return _run(net, state, n_steps, inp)
+
+
+def einet_pallas_sim_mxu2(net, state, n_steps: int, inp: float = 20.0,
+                          platform=None):
+    """Vectorized compaction (prefix-sum slot map, one-hot id gather) and a
+    stacked one-hot contraction on the TPU; here K1 and K2. The compaction
+    is K1's append and the contraction K2's int32 atomics; the multi-round
+    overflow handling is not needed, since K2 has no capacity."""
+    del platform
+    return _run(net, state, n_steps, inp)
+
+
+def einet_pallas_sim_mxu4(net, state, n_steps: int, inp: float = 20.0,
+                          platform=None, *, row_chunk: int = 128,
+                          table_space: str = 'auto'):
+    """mxu3 with its state phases chunked by ``row_chunk`` on the TPU, to
+    bound the Mosaic program size; here K1 and K2, whose grid already
+    covers the neurons in blocks. The JAX function refuses an in-degree
+    above 255 (its 8-bit packed fields); K2's int32 counts have no such
+    limit, so that refusal is not copied."""
+    del platform, row_chunk, table_space
+    return _run(net, state, n_steps, inp)
+
+
+def einet_pallas_sim_mxu5(net, state, n_steps: int, inp: float = 20.0,
+                          platform=None, *, mask_dtype=None,
+                          table_space: str = 'auto', cap_divisor: int = 448,
+                          factors: str = 'unrolled'):
+    """mxu3 with separate E and I compactions on the TPU; here K1 and K2,
+    where K2 picks each event's channel from its id (``id >= n_exc``), so
+    the split needs no second pass. The knobs are ignored."""
+    del platform, mask_dtype, table_space, cap_divisor, factors
+    return _run(net, state, n_steps, inp)
+
+
 def mxu6_conn_table(net: EINet, *, rpb: int = 384, group: int = 4,
                     gather: str = 'block', radix='auto'):
     """The table mxu6 would read. The TPU kernel partitions it by target
@@ -82,3 +226,116 @@ def mxu6_conn_table(net: EINet, *, rpb: int = 384, group: int = 4,
     this returns ``net.conn_all`` as it lies on the device."""
     del rpb, group, gather, radix
     return net.conn_all
+
+
+# -- the dense strategy: the count table and K19 --------------------------------------
+
+def dense_count_table(net: EINet) -> torch.Tensor:
+    """The ``(num, num)`` connection-count table on the net's device:
+    ``table[i, j]`` is the multiplicity of the edge ``i -> j`` (targets
+    outside ``[0, num)`` are dropped). The counterpart of
+    ``pallas_sim.py:572-577``, without its 128-lane padding, which never
+    reaches the TPU kernel's result.
+
+    The element type is uint8 when every multiplicity is at most 255
+    (always so for ``n_conn <= 255``), else int32. The table takes
+    ``num**2`` bytes of uint8, checked before anything is allocated:
+    against ``torch.cuda.mem_get_info``'s free bytes on the card and
+    against :data:`CPU_TABLE_BUDGET` (2 GiB) on the CPU. A table above that
+    raises ``ValueError`` with its bytes and the budget: 16 MB at 4k
+    neurons, 1.6 GB at 40k, 160 GB at 400k, which no card holds.
+    """
+    conn = net.conn_all
+    device = conn.device
+    num, n_conn = conn.shape
+    budget = (torch.cuda.mem_get_info(device)[0] if device.type == 'cuda'
+              else CPU_TABLE_BUDGET)
+
+    def check(itemsize):
+        n_bytes = num * num * itemsize
+        if n_bytes > budget:
+            raise ValueError(
+                f'dense count table of {num} neurons needs {n_bytes} bytes, '
+                f'above the budget of {budget} bytes on {device}; use an '
+                f'event-driven strategy (mxu3, mxu6) at this size.')
+
+    check(1)
+    rows = torch.arange(num, dtype=torch.int64, device=device)[:, None]
+    keys = (rows * num + conn.long())[(conn >= 0) & (conn < num)]
+    edges, mult = torch.unique(keys, return_counts=True)
+    dtype = torch.uint8
+    if n_conn > 255 and mult.numel() and int(mult.max()) > 255:
+        dtype = torch.int32
+        check(4)
+    table = torch.zeros(num * num, dtype=dtype, device=device)
+    table[edges] = mult.to(dtype)
+    return table.view(num, num)
+
+
+def einet_dense_hits_twin(ids: torch.Tensor, n_ids: torch.Tensor,
+                          table: torch.Tensor, n_exc: int,
+                          counts: torch.Tensor) -> torch.Tensor:
+    """``counts[0] += sum of table[i]`` over the first ``n_ids[0]`` ids
+    ``i < n_exc``, ``counts[1]`` over the others, in place, dropping ids
+    outside ``[0, num)``. Plain PyTorch twin of K19."""
+    num = counts.shape[1]
+    sel = ids[:max(0, min(int(n_ids[0]), num))].long()
+    sel = sel[(sel >= 0) & (sel < num)]
+    for ch, rows in enumerate((sel[sel < n_exc], sel[sel >= n_exc])):
+        counts[ch] += table[rows].sum(0, dtype=torch.int32)
+    return counts
+
+
+def _einet_dense_hits_cuda(op, ids, n_ids, table, n_exc, counts):
+    if table.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f'{op.name}: the table must be uint8 or int32, got '
+                        f'{table.dtype}')
+    i32 = torch.int32
+    device = check_cuda_tensors(op.name, (ids, i32), (n_ids, i32),
+                                (table, table.dtype), (counts, i32))
+    num = table.shape[0]
+    if (table.shape != (num, num) or counts.shape != (2, num)
+            or ids.shape != (num,) or n_ids.numel() < 1):
+        raise ValueError(f'{op.name}: ids {tuple(ids.shape)}, table '
+                         f'{tuple(table.shape)}, counts {tuple(counts.shape)}')
+    fn = cuda_build.function('einet_dense_hits_launch', [
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    op.launch(fn, ids.data_ptr(), n_ids.data_ptr(), table.data_ptr(),
+              int(table.dtype == torch.int32), num, int(n_exc),
+              counts.data_ptr(), device.index or 0, cuda_stream(device))
+    return counts
+
+
+einet_dense_hits = KernelOp(
+    'einet_dense_hits', twin=einet_dense_hits_twin,
+    cuda=_einet_dense_hits_cuda,
+    source='brainevent_torch/csrc/einet_dense.cu',
+    replaces='brainevent_tpu/models/pallas_sim.py:532')
+
+
+def einet_pallas_sim_dense(net, state, n_steps: int, inp: float = 20.0,
+                           platform=None):
+    """The dense formulation, through K1 and K19: the JAX kernel multiplies
+    the step's E and I spike masks by the ``(num, num)`` count table; K19
+    sums the table rows of the neurons in K1's spike list into the same
+    int32 counts, so all five outputs are bitwise the K1/K2 route's.
+
+    Each call builds the table (:func:`dense_count_table`). There is no
+    VMEM cap: the table's limit is device memory.
+    """
+    del platform
+    table = dense_count_table(net)
+
+    def scatter_op(ids, n_ids, _conn_all, n_exc, counts):
+        einet_dense_hits(ids, n_ids, table, n_exc, counts)
+    out = net._simulate(state, net.times(n_steps), inp,
+                        scatter_op=scatter_op)
+    return (out.neurons.v, out.neurons.t_last, out.g_e, out.g_i,
+            out.spike_count)
+
+
+_FUNCTIONS = {'chain': einet_pallas_sim_chain, 'mxu': einet_pallas_sim_mxu,
+              'mxu2': einet_pallas_sim_mxu2, 'mxu3': einet_pallas_sim_mxu3,
+              'mxu4': einet_pallas_sim_mxu4, 'mxu5': einet_pallas_sim_mxu5,
+              'mxu6': einet_pallas_sim_mxu6, 'dense': einet_pallas_sim_dense}

@@ -68,7 +68,7 @@ import torch
 from .. import _misc
 from . import cuda_build
 from .core import KernelOp, check_cuda_tensors, cuda_stream
-from .operand import fits, op_code, op_values, take
+from .operand import acc_dtype, fits, op_code, op_values, take
 
 __all__ = [
     'GatherPlan', 'build_gather_plan', 'plan_from_csr', 'plan_from_ell',
@@ -512,8 +512,9 @@ def csr_gather_mm_twin(indptr, indices, perm, w, X, binary: bool):
     rows = _misc.csr_to_coo_index(indptr, indices)[0]
     homo = tuple(w.shape) == (1,)
     ws = None if homo else (w if perm is None else w[perm])
-    Xv = op_values(X, binary)
-    Y = torch.zeros(n_rows, B, dtype=torch.float32, device=X.device)
+    acc = acc_dtype(w, X)
+    Xv = op_values(X, binary, acc)
+    Y = torch.zeros(n_rows, B, dtype=acc, device=X.device)
     step = max(1, _TWIN_ELEMS // max(B, 1))
     for a in range(0, nse, step):
         v = take(Xv, indices[a:a + step])

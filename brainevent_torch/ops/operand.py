@@ -12,14 +12,35 @@ product. :func:`op_code` picks it from the operand's dtype and
 ``!= 0`` (dense STDP, the row count) take their spikes' dtype from
 :func:`spike_is_bool`. :func:`take` is the gather every twin uses: ids
 outside the operand give an exact 0, as the kernels drop them.
+
+The kernels take bool or float32 spikes and float32 weights, traces and
+float operands, and raise on anything else. The public entries bring the
+dtypes the JAX package computes to them, before any launch:
+
+- :func:`event_spikes`: spikes of any other dtype become their bool gate
+  (``> 0`` for the products, ``!= 0`` for STDP and the encoders). The
+  kernel then sees the bool that a bool operand gives it, so this is
+  exact;
+- :func:`widen`: float16 and bfloat16 become float32, which is exact; the
+  entry casts the float32 result to the dtype the JAX package returns, as
+  its Pallas routes do ("Mosaic computes f32"). Against the twin in that
+  dtype the result is within 1 ulp of the dtype, on top of the family's
+  float32 bound;
+- :func:`refuse_float64`: no kernel of the port computes float64 yet, so
+  a float64 weight, trace or float operand on the card raises a
+  ``TypeError`` at the entry, before any launch. On the CPU the twins
+  compute it in float64 (:func:`acc_dtype`), as the JAX package keeps
+  float64 on its XLA kernel.
 """
 
 import torch
 
 __all__ = ['OP_BOOL', 'OP_GATE', 'OP_IDENTITY', 'op_code', 'spike_is_bool',
-           'op_values', 'take', 'fits']
+           'op_values', 'take', 'fits', 'event_spikes', 'widen',
+           'refuse_float64', 'acc_dtype']
 
 OP_BOOL, OP_GATE, OP_IDENTITY = 0, 1, 2
+_HALF = (torch.float16, torch.bfloat16)
 
 
 def op_code(x: torch.Tensor, binary: bool) -> int:
@@ -43,24 +64,63 @@ def spike_is_bool(name: str, x: torch.Tensor) -> int:
     return int(x.dtype == torch.bool)
 
 
-def op_values(x: torch.Tensor, binary: bool) -> torch.Tensor:
-    """``op(x)`` as float32: the event gate (bool, or ``x > 0``), or ``x``
+def event_spikes(x: torch.Tensor, nonzero: bool = False) -> torch.Tensor:
+    """Spikes as the event kernels take them: bool and float32 as they
+    are (the kernels gate them), any other dtype reduced to its gate,
+    ``x != 0`` with *nonzero*, else ``x > 0``."""
+    if x.dtype in (torch.bool, torch.float32):
+        return x
+    return x != 0 if nonzero else x > 0
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """float16 and bfloat16 as float32 (exact); any other dtype as it
+    is."""
+    return x.to(torch.float32) if x.dtype in _HALF else x
+
+
+def _float64(xs) -> bool:
+    return any(isinstance(x, torch.Tensor) and x.dtype == torch.float64
+               for x in xs)
+
+
+def refuse_float64(name: str, *xs) -> None:
+    """Raise a ``TypeError`` where a float64 tensor among *xs* lies on a
+    CUDA device: the kernels compute float32 and none computes float64."""
+    if any(x.device.type == 'cuda' for x in xs
+           if isinstance(x, torch.Tensor) and x.dtype == torch.float64):
+        raise TypeError(
+            f'{name}: float64 weights, traces and float operands are not '
+            f'computed on the card (the kernels compute float32): cast them '
+            f'to float32, or compute float64 on the CPU')
+
+
+def acc_dtype(*xs) -> torch.dtype:
+    """The dtype a twin sums in: float64 where a float64 tensor is among
+    *xs*, else float32."""
+    return torch.float64 if _float64(xs) else torch.float32
+
+
+def op_values(x: torch.Tensor, binary: bool,
+              dtype=torch.float32) -> torch.Tensor:
+    """``op(x)`` in *dtype*: the event gate (bool, or ``x > 0``), or ``x``
     itself."""
     if not binary:
-        return x.to(torch.float32)
-    return (x if x.dtype == torch.bool else x > 0).to(torch.float32)
+        return x.to(dtype)
+    return (x if x.dtype == torch.bool else x > 0).to(dtype)
 
 
 def take(v: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``v[ids]`` (along the first axis) as float32, with an exact 0 where
-    an id is outside ``[0, len(v))``."""
+    """``v[ids]`` (along the first axis) as float32 (float64 stays
+    float64), with an exact 0 where an id is outside ``[0, len(v))``."""
     n = v.shape[0]
     shape = ids.shape + v.shape[1:]
-    zero = torch.zeros((), dtype=torch.float32, device=v.device)
+    dtype = acc_dtype(v)
+    zero = torch.zeros((), dtype=dtype, device=v.device)
     if n == 0:
         return zero.expand(shape)
     valid = (ids >= 0) & (ids < n)
-    got = v.to(torch.float32)[ids.clamp(0, n - 1)]
+    got = v.to(dtype)[ids.clamp(0, n - 1)]
     return torch.where(valid.reshape(ids.shape + (1,) * (v.ndim - 1)), got,
                        zero)
 

@@ -16,9 +16,11 @@ beside the 10M-synapse event product ``binary_fcnmv`` (K5, K6); the
 CSR slice (``CSR``, ``BinaryArray``, STDP, mat-mat products) at 10k x 10k
 with 10% connectivity, 10M entries (K7-K10); and the JITC slice, the
 80k-neuron ``JITCNet`` over implicit connectivity and the JITC matrix
-classes (K11-K14); and the dense slice, a 10k x 10k ``Dense`` matrix
+classes (K11-K14); the dense slice, a 10k x 10k ``Dense`` matrix
 (100M weights) with ``BinaryArray`` products, STDP and the event
-encoders (K15-K18). Phases:
+encoders (K15-K18); and the EI strategies of ``einet_pallas_sim``, the
+dense one over the ``(num, num)`` connection-count table (K1 + K19) and
+the superseded ones (K1 + K2). Phases:
 
 1. the device (``torch.cuda.get_device_name`` and ``nvidia-smi``);
 2. the kernel build, with its seconds;
@@ -111,15 +113,34 @@ encoders (K15-K18). Phases:
 24. dense timing: device ms per launch of K15-K18 at the slice's shapes,
     their twins' ms per call, their bounds and the library calls
     (``torch.matmul`` with TF32 off, ``torch.addr``,
-    ``torch.count_nonzero``).
+    ``torch.count_nonzero``);
+25. K19 (``einet_dense_hits``) against its twin and against K2 on the same
+    spike lists (0, 1, 1% and 100% of the neurons, out-of-range ids among
+    them) at 4k and 40k with uint8 tables and at 4k with an int32 table
+    (a multiplicity above 255): exact, bitwise K2;
+26. the strategies: ``einet_pallas_sim(strategy='dense')`` on COBA and
+    CUBA 4k and COBA 40k for 2,000 steps, all five outputs bitwise the
+    ``'mxu3'`` route's, K1 2001 times, K19 2000 times and K2 never, the
+    rate in 5-200 Hz, the table's bytes and build time; a burst (inp
+    500, 10 steps); every other strategy name at 4k bitwise mxu3;
+27. dense timing: COBA 4k us/step over 100k steps after 1,000, dense and
+    mxu3 in one run; K19's device ms per launch at 4k and 40k on recorded
+    spike lists, its twin's ms, its bound, and ``torch.matmul`` of the
+    ``(2, num)`` float32 masks with the float32 table (TF32 off);
+28. the dtypes of the public entries of K5-K8, K10, K12, K13 and K15-K18:
+    spikes in nine dtypes (negatives and NaN among the silent ones) give
+    the bool spikes' result bitwise through the kernel; float16 and
+    bfloat16 weights within 1 ulp of the twin plus the float32 bound;
+    float64 weights refused with a ``TypeError`` before any launch (no
+    kernel computes float64).
 
 Each kernel's line also carries its bound (the larger of its bytes over
 the HBM rate and its operations over the float32 rate) and the time of one
 PyTorch call computing the same function (``torch.sparse.mm``,
 ``index_add_``, ``torch.matmul``, ``torch.addr``, ``torch.count_nonzero``)
 where one exists. Any failure exits non-zero; so does a host without
-CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K18; K15's
-line is its ``s @ W`` direction); the last is
+CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K19; K15's
+line is its ``s @ W`` direction, K19's the 4k COBA run); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -296,13 +317,14 @@ def check_slice(device):
     return launches
 
 
-def time_run(net, n_steps, warm):
+def time_run(net, n_steps, warm, strategy='auto'):
     import brainevent_torch as bt
-    state = bt.einet_pallas_sim(net, net.init_state(), warm)
+    state = bt.einet_pallas_sim(net, net.init_state(), warm,
+                                strategy=strategy)
     state = bt.EINetState(bt.LIFRefState(state[0], state[1]), *state[2:])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = bt.einet_pallas_sim(net, state, n_steps)
+    out = bt.einet_pallas_sim(net, state, n_steps, strategy=strategy)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     rate = float(out[4].float().mean()) / (n_steps * net.dt * 1e-3)
@@ -1799,6 +1821,391 @@ def time_dense_kernels(W, device):
     return out
 
 
+# -- the EI strategies: the dense count table and K19 ---------------------------------
+
+DENSE_SIM_STEPS = 2000
+# (label, EINet scale, COBA) of the dense strategy's runs against mxu3
+DENSE_SIM_NETS = (('4k', 1.0, True), ('4k', 1.0, False), ('40k', 10.0, True))
+DENSE_TIME_STEPS, DENSE_TIME_WARM = 100_000, 1000
+# (label, EINet scale) of K19's checks and timings: the two sizes of the runs
+K19_NETS = (('4k', 1.0), ('40k', 10.0))
+
+
+def int32_table_net(device):
+    """A 4k network of 300 connections a neuron with the edge 5 -> 17
+    290 times: its count table needs int32."""
+    import brainevent_torch as bt
+    rng = np.random.default_rng(250)
+    conn = rng.integers(0, 4000, (4000, 300)).astype(np.int32)
+    conn[5, :290] = 17
+    return bt.EINet(scale=1.0, n_conn=300, conn_all=conn, device=device)
+
+
+def spike_list(num, n_act, rng, device):
+    """A permutation of the neurons with ids outside ``[0, num)`` among
+    its first entries, and a length of *n_act*."""
+    ids = rng.permutation(num).astype(np.int32)
+    ids[1:min(num, 400):7] = -3
+    ids[2:min(num, 400):11] = num + 5
+    return (torch.from_numpy(ids).to(device),
+            torch.tensor([n_act], dtype=torch.int32, device=device))
+
+
+def check_k19(device):
+    phase('25 K19 einet_dense_hits vs its twin and vs K2 at 4k and 40k, uint8 '
+          'and int32 tables, spike lists of 0, 1, 1% and 100% of the neurons '
+          'with out-of-range ids (tolerance: exact, bitwise K2)')
+    import brainevent_torch as bt
+    from brainevent_torch.models import sim
+    from brainevent_torch.ops import scatter as sc
+    rng = np.random.default_rng(25)
+    worst = 0.0
+    nets = [(label, bt.EINet(scale=scale, device=device))
+            for label, scale in K19_NETS]
+    nets.append(('4k int32', int32_table_net(device)))
+    for label, net in nets:
+        num = net.num
+        table = sim.dense_count_table(net)
+        check(table.dtype == (torch.int32 if 'int32' in label
+                              else torch.uint8), (label, table.dtype))
+        for n_act in (0, 1, num // 100, num):
+            ids, n_ids = spike_list(num, n_act, rng, device)
+            start = torch.from_numpy(rng.integers(0, 9, (2, num)).astype(
+                np.int32)).to(device)
+            got = sim.einet_dense_hits(ids, n_ids, table, net.n_exc,
+                                       start.clone())
+            want = sim.einet_dense_hits_twin(ids, n_ids, table, net.n_exc,
+                                             start.clone())
+            k2 = sc.event_count_scatter(ids, n_ids, net.conn_all, net.n_exc,
+                                        start.clone())
+            torch.cuda.synchronize()
+            worst = max(worst, float((got - want).abs().max()))
+            check(torch.equal(got, want), ('K19 vs twin', label, n_act))
+            check(torch.equal(got, k2), ('K19 vs K2', label, n_act))
+        print(f'{label} ({num} neurons, {table.dtype} table of '
+              f'{table.numel() * table.element_size()} bytes): n_act 0, 1, '
+              f'{num // 100}, {num}: equal to the twin and to K2')
+        del table
+    return worst
+
+
+def run_strategy(net, state, n_steps, strategy, ref, inp=20.0):
+    """``einet_pallas_sim(strategy=...)`` from *state*, held against *ref*
+    (the mxu3 route's five outputs): all five bitwise, K1 launched
+    ``n_steps + 1`` times and K19 (dense) or K2 (every other name)
+    ``n_steps`` times. Returns the outputs and the launch counts."""
+    import brainevent_torch as bt
+    bt.reset_launch_counts()
+    out = bt.einet_pallas_sim(net, state, n_steps, inp, strategy=strategy)
+    torch.cuda.synchronize()
+    counts = bt.launch_counts()
+    dense = strategy == 'dense'
+    check(counts['einet_step'] == n_steps + 1
+          and counts['einet_dense_hits'] == (n_steps if dense else 0)
+          and counts['event_count_scatter'] == (0 if dense else n_steps),
+          (strategy, counts))
+    for x, y in zip(out, ref):
+        check(x.dtype == y.dtype and torch.equal(x, y),
+              (strategy, 'bitwise mxu3'))
+    return out, counts
+
+
+def check_dense_strategies(device):
+    phase(f'26 the strategies: einet_pallas_sim(strategy=\'dense\') (K1 + '
+          f'K19) against \'mxu3\' (K1 + K2), COBA and CUBA 4k and COBA 40k, '
+          f'{DENSE_SIM_STEPS} steps; a burst; every other strategy at 4k '
+          f'(all five outputs bitwise)')
+    import brainevent_torch as bt
+    from brainevent_torch.models import sim
+    n_steps = DENSE_SIM_STEPS
+    launches = None
+    for label, scale, coba in DENSE_SIM_NETS:
+        net = bt.EINet(scale=scale, coba=coba, device=device)
+        state = net.init_state()
+        t0 = time.perf_counter()
+        table = sim.dense_count_table(net)
+        torch.cuda.synchronize()
+        t_table = time.perf_counter() - t0
+        n_bytes = table.numel() * table.element_size()
+        del table
+        ref = bt.einet_pallas_sim(net, state, n_steps, strategy='mxu3')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, counts = run_strategy(net, state, n_steps, 'dense', ref)
+        t_run = time.perf_counter() - t0
+        if label == '4k' and coba:
+            launches = counts
+        for x in out[:4]:
+            check(x.shape == (net.num,) and bool(torch.isfinite(x).all()),
+                  'finite (num,) state')
+        rate = float(out[4].float().mean()) / (n_steps * net.dt * 1e-3)
+        check(5.0 < rate < 200.0, rate)
+        print(f'{"COBA" if coba else "CUBA"} {label}: dense bitwise mxu3 '
+              f'({int(out[4].sum())} spikes, rate {rate!r} Hz); launches '
+              f'{counts["einet_step"]} K1 + {counts["einet_dense_hits"]} K19 '
+              f'+ {counts["event_count_scatter"]} K2; table {n_bytes} bytes '
+              f'built in {t_table!r} s; {t_run / n_steps * 1e6!r} us/step '
+              f'with the build and the check (host clock)')
+    # a burst: every neuron driven over threshold (tests/test_models.py:222)
+    net = bt.EINet(scale=0.064, seed=3, device=device)
+    state = net.init_state()
+    ref = bt.einet_pallas_sim(net, state, 10, 500.0, strategy='mxu3')
+    out, _ = run_strategy(net, state, 10, 'dense', ref, inp=500.0)
+    check(int(out[4].sum()) > 100, 'burst fires')
+    print(f'burst (inp 500, 10 steps, {net.num} neurons): '
+          f'{int(out[4].sum())} spikes, bitwise mxu3')
+    net = bt.EINet(scale=1.0, device=device)
+    state = net.init_state()
+    ref = bt.einet_pallas_sim(net, state, n_steps, strategy='mxu3')
+    for strategy in ('chain', 'mxu', 'mxu2', 'mxu4', 'mxu5', 'mxu6'):
+        run_strategy(net, state, n_steps, strategy, ref)
+    print(f'chain, mxu, mxu2, mxu4, mxu5, mxu6 at 4k, {n_steps} steps: '
+          f'bitwise mxu3 (K1 + K2)')
+    return launches
+
+
+def recorded_spikes(net, state, steps_done, device):
+    """The spike list of one K1 step from *state* (a run's final state,
+    *steps_done* steps in): ``(ids, n_ids)`` as K19 reads them."""
+    from brainevent_torch.models import networks as nw
+    num = net.num
+    b = [x.clone() for x in state[:4]]
+    b += [torch.zeros(2, num, dtype=torch.int32, device=device),
+          state[4].clone(), torch.zeros(num, dtype=torch.int32, device=device),
+          torch.zeros(2, dtype=torch.int32, device=device)]
+    t = float(F32(steps_done) * F32(net.dt))
+    nw.einet_step(*b, net.step_params(), t, steps_done & 1, True, True)
+    parity = steps_done & 1
+    return b[6], b[7][parity:parity + 1]
+
+
+def time_dense(device):
+    phase(f'27 dense timing: COBA 4k us/step over {DENSE_TIME_STEPS} steps '
+          f'after {DENSE_TIME_WARM}, dense and mxu3 in one run; K19 device '
+          f'ms per launch (launches queued back to back) at 4k and 40k on '
+          f'recorded spike lists, its twin, its bound, and torch.matmul of '
+          f'the (2, num) float32 masks with the float32 table (TF32 off)')
+    import brainevent_torch as bt
+    from brainevent_torch.models import sim
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for label, scale in K19_NETS:
+        net = bt.EINet(scale=scale, device=device)
+        us = {}
+        if label == K19_NETS[0][0]:
+            for strategy in ('mxu3', 'dense'):
+                us[strategy], rate, final = time_run(
+                    net, DENSE_TIME_STEPS, DENSE_TIME_WARM, strategy)
+                print(f'COBA 4k strategy={strategy}: {us[strategy]!r} '
+                      f'us/step over {DENSE_TIME_STEPS} steps after '
+                      f'{DENSE_TIME_WARM} (host clock, the table build '
+                      f'included), rate {rate!r} Hz')
+            steps_done = DENSE_TIME_WARM + DENSE_TIME_STEPS
+        else:
+            final = bt.einet_pallas_sim(net, net.init_state(),
+                                        DENSE_TIME_WARM, strategy='dense')
+            steps_done = DENSE_TIME_WARM
+        num = net.num
+        table = sim.dense_count_table(net)
+        ids, n_ids = recorded_spikes(net, final, steps_done, device)
+        n_act = int(n_ids)
+        counts = torch.zeros(2, num, dtype=torch.int32, device=device)
+        reps, reps_twin = (500, 100) if num < 40_000 else (200, 20)
+        args = (ids, n_ids, table, net.n_exc, counts)
+        ms = device_ms(lambda: sim.einet_dense_hits(*args), reps)
+        twin_ms = host_ms(lambda: sim.einet_dense_hits_twin(*args),
+                          reps_twin)
+        sel = ids[:n_act].long()
+        masks = torch.zeros(2, num, device=device)
+        masks[0, sel[sel < net.n_exc]] = 1.0
+        masks[1, sel[sel >= net.n_exc]] = 1.0
+        table_f32 = table.float()
+        lib_ms = device_ms(lambda: torch.matmul(masks, table_f32), 50)
+        del table_f32
+        n_bytes = n_act * (num * table.element_size() + 4) + 8 * num
+        res[label] = dict(ms=ms, plain_ms=twin_ms, library_ms=lib_ms,
+                          bytes=n_bytes, us_per_step=us, n_act=n_act)
+        print(f'K19 at {label} ({n_act} spikes of {num}): device {ms!r} ms, '
+              f'twin {twin_ms!r} ms, torch.matmul {lib_ms!r} ms, bound '
+              f'{bound(n_bytes, 0)!r}')
+        del table
+    return res
+
+
+def c8_entries(device, gen, w_dtype):
+    """``name -> (fn(spikes), spike shape, op name, nonzero gate, fn over
+    |W| in float32 or None where the result is exact)`` for each public
+    entry of K5-K8, K10, K12, K13 and K15-K18, weights in *w_dtype*."""
+    import brainevent_torch as bt
+    n, m, b = 2000, 1500, 16
+    on = torch.rand(n, m, generator=gen, device=device) < 0.02
+    A = torch.where(on, torch.randn(n, m, generator=gen, device=device), 0.0)
+    csr = bt.CSR.fromdense(A)
+    idx = torch.randint(0, m, (n, 32), generator=gen, device=device,
+                        dtype=torch.int32)
+    w_ell = torch.randn(n, 32, generator=gen, device=device)
+    W = torch.randn(n, m, generator=gen, device=device)
+    trace = torch.rand(m, generator=gen, device=device)
+
+    def w(x, d):
+        return x.abs() if d is None else x.to(d)
+
+    def ent(fn, shape, op, nonzero=False, exact=False):
+        return (lambda s: fn(s, w_dtype), shape, op, nonzero,
+                None if exact else (lambda s: fn(s, None)))
+    return {
+        # the scatters (K5, K8) add float weights with atomics in no fixed
+        # order; a homogeneous weight counts in int32, exactly
+        'binary_fcnmv T': ent(lambda s, d: bt.binary_fcnmv(
+            w(w_ell[0, :1], d), idx, s, shape=(n, m), transpose=True), (n,),
+            'fcn_event_scatter'),
+        'binary_fcnmv': ent(lambda s, d: bt.binary_fcnmv(
+            w(w_ell, d), idx, s, shape=(n, m)), (m,), 'fcn_event_gather'),
+        'binary_csrmv': ent(lambda s, d: bt.binary_csrmv(
+            w(csr.data, d), csr.indices, csr.indptr, s, shape=csr.shape),
+            (m,), 'csr_gather_mv'),
+        'binary_csrmv T': ent(lambda s, d: bt.binary_csrmv(
+            w(csr.data[:1], d), csr.indices, csr.indptr, s, shape=csr.shape,
+            transpose=True), (n,), 'csr_scatter_mv'),
+        'binary_csrmm': ent(lambda s, d: bt.binary_csrmm(
+            w(csr.data, d), csr.indices, csr.indptr, s, shape=csr.shape),
+            (m, b), 'csr_gather_mm'),
+        'binary_jitnmv': ent(lambda s, d: bt.binary_jitnmv(
+            0.6, 0.06, 0.01, s, 3, shape=(n, m)), (m,), 'jitc_walk_mv'),
+        'binary_jitnmm': ent(lambda s, d: bt.binary_jitnmm(
+            0.6, 0.06, 0.01, s, 3, shape=(n, m)), (m, b), 'jitc_walk_mm4'),
+        'binary_densemv T': ent(lambda s, d: bt.binary_densemv(
+            w(W, d), s, transpose=True), (n,), 'dense_event_mv'),
+        'binary_densemv': ent(lambda s, d: bt.binary_densemv(
+            w(W, d), s, transpose=False), (m,), 'dense_event_mv'),
+        'binary_densemm': ent(lambda s, d: bt.binary_densemm(
+            w(W, d), s, transpose=False), (m, b), 'dense_event_mm'),
+        'update_dense_on_binary_pre': ent(
+            lambda s, d: bt.update_dense_on_binary_pre(
+                w(W, d), s, trace, -1.0, 1.0), (n,), 'dense_stdp_pre', True,
+            True),
+        'update_dense_on_binary_post': ent(
+            lambda s, d: bt.update_dense_on_binary_post(
+                w(W, d).T.contiguous(), trace, s, -1.0, 1.0), (n,),
+            'dense_stdp_post', True, True),
+        'binary_2d_csr_row_count': ent(
+            lambda s, d: bt.binary_2d_csr_row_count_p_call(s)[0], (n, b),
+            'event_row_count', True, True),
+    }
+
+
+C8_SPIKE_DTYPES = (torch.bool, torch.int8, torch.uint8, torch.int32,
+                   torch.int64, torch.float16, torch.bfloat16, torch.float32,
+                   torch.float64)
+
+
+def c8_spikes(dtype, shape, gen, device):
+    """Spikes of *dtype*: 2% positive, negatives and (floats) NaN among
+    the silent entries."""
+    u = torch.rand(shape, generator=gen, device=device)
+    x = torch.where(u < 0.02, 2.0, torch.where(u < 0.2, -1.0, 0.0))
+    if dtype == torch.uint8:
+        x = x.clamp(min=0)
+    x = x.to(dtype)
+    if dtype.is_floating_point:
+        x.view(-1)[::13] = float('nan')
+    return x
+
+
+def c8_spike_dtypes(device, gen):
+    """Spikes in the nine dtypes at every entry of :func:`c8_entries`:
+    bitwise the bool spikes' result, through the kernel. Returns the
+    number of cases."""
+    from brainevent_torch.ops.core import REGISTRY
+    n_checked = 0
+    for name, (fn, shape, op, nonzero, _) in c8_entries(
+            device, gen, torch.float32).items():
+        for dtype in C8_SPIKE_DTYPES:
+            s = c8_spikes(dtype, shape, gen, device)
+            gate = s if dtype == torch.bool else (s != 0 if nonzero
+                                                  else s > 0)
+            want = fn(gate)
+            before = REGISTRY[op].launches
+            got = fn(s)
+            torch.cuda.synchronize()
+            check(REGISTRY[op].launches == before + 1, (name, dtype, 'launch'))
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  (name, dtype))
+            n_checked += 1
+    return n_checked
+
+
+def c8_weighted(device, gen, dtype):
+    """The entries of :func:`c8_entries` with weights of their own."""
+    return {name: e for name, e in c8_entries(device, gen, dtype).items()
+            if 'jitn' not in name and 'row_count' not in name}
+
+
+def c8_half_weights(device, gen):
+    """float16 and bfloat16 weights: one launch of the float32 kernel, the
+    result in the weights' dtype, within 1 ulp of it of the twin on the
+    widened weights plus the float32 bound. Returns the largest error
+    per dtype."""
+    from brainevent_torch.ops.core import REGISTRY
+    worst = {}
+    for dtype in (torch.float16, torch.bfloat16):
+        for name, (fn, shape, op, nonzero, fn_abs) in c8_weighted(
+                device, gen, dtype).items():
+            s = c8_spikes(torch.bool, shape, gen, device)
+            before = REGISTRY[op].launches
+            got = fn(s)
+            launched = REGISTRY[op].launches - before
+            with twins_on_card([REGISTRY[op]]):
+                want = fn(s)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype == want.dtype, (name, dtype))
+            check(launched == 1, (name, dtype, launched))
+            g, t = got.float(), want.float()
+            tol = torch.finfo(dtype).eps * torch.maximum(g.abs(), t.abs())
+            if fn_abs is not None:
+                tol = tol + 1e-5 * fn_abs(s)
+            check(bool(((g - t).abs() <= tol).all()), (name, dtype))
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0),
+                                    float((g - t).abs().max()))
+    return worst
+
+
+def c8_float64_refused(device, gen):
+    """float64 weights on the card: a ``TypeError`` at the entry, before
+    any launch (no kernel computes float64). Returns the number of entries."""
+    import brainevent_torch as bt
+    entries = c8_weighted(device, gen, torch.float64)
+    for name, (fn, shape, op, nonzero, _) in entries.items():
+        s = c8_spikes(torch.bool, shape, gen, device)
+        bt.reset_launch_counts()
+        try:
+            fn(s)
+            refused = False
+        except TypeError as err:
+            refused = 'float64' in str(err)
+        torch.cuda.synchronize()
+        check(refused, (name, 'float64 not refused'))
+        check(sum(bt.launch_counts().values()) == 0, (name, 'launched'))
+    return len(entries)
+
+
+def check_c8(device):
+    phase('28 dtypes at the public entries of K5-K8, K10, K12, K13, K15-K18: '
+          'spikes in nine dtypes bitwise the bool spikes\' result through '
+          'the kernel; float16/bfloat16 weights within 1 ulp of the twin '
+          '(on the widened weights, rounded) plus the float32 bound; '
+          'float64 weights refused before any launch')
+    gen = torch.Generator(device=device).manual_seed(28)
+    n_checked = c8_spike_dtypes(device, gen)
+    print(f'spikes: {n_checked} entry x dtype cases bitwise the bool '
+          f'spikes\' result, each through its kernel')
+    worst = c8_half_weights(device, gen)
+    n64 = c8_float64_refused(device, gen)
+    print(f'weights float16 and bfloat16 within tolerance (max |d| '
+          f'{worst!r}); float64 refused with a TypeError at {n64} entries, '
+          f'no kernel launched')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this needs an '
@@ -1881,6 +2288,12 @@ def main():
     dense_counts, _, W_end = check_dense_slice(W0, device)
     del W0
     dense_times = time_dense_kernels(W_end.data, device)
+    del W_end
+
+    k19_err = check_k19(device)
+    sim_launches = check_dense_strategies(device)
+    sim_times = time_dense(device)
+    check_c8(device)
 
     from brainevent_torch.ops.core import REGISTRY
 
@@ -1923,6 +2336,8 @@ def main():
     for op_name in DENSE_OPS:
         kernels.append(entry(op_name, dense_counts[op_name],
                              dense_err[op_name], dense_times[op_name]))
+    kernels.append(entry('einet_dense_hits', sim_launches['einet_dense_hits'],
+                         k19_err, sim_times['4k']))
     for k in kernels:
         check(k['launches'] > 0, (k['name'], 'not launched on its path'))
     print(json.dumps({'kernels': kernels}))

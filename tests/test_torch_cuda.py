@@ -1,7 +1,7 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Kernels K1-K18 against their PyTorch twins on a CUDA device.
+"""Kernels K1-K19 against their PyTorch twins on a CUDA device.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so that it also runs where JAX is not installed. ``tests/conftest.py``
@@ -25,8 +25,17 @@ float32 operations, with its FMAs and its float64 ``log``); the products
 within ``1e-5 * sum|w x|`` per output, the gathers bitwise on a repeat.
 K15/K16 (the dense event products) within ``1e-5 * sum|W| * gate`` per
 output and bitwise on a repeat; K17 (dense STDP) bitwise (one rounding,
-the gate being 0 or 1); K18 (the row count) exact.
+the gate being 0 or 1); K18 (the row count) exact; K19 (the dense EI
+propagation) exact and bitwise K2's counts, and every strategy of
+``einet_pallas_sim`` bitwise the mxu3 route over 2,000 steps. The public
+entries (``chip_smoke.py``'s phase 28 matrix): spikes of nine dtypes
+bitwise the bool spikes' result through the kernel; float16 and bfloat16
+weights within 1 ulp of the twin on the widened weights, plus the float32
+bound; float64 weights refused with a ``TypeError`` before any launch.
 """
+
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -38,6 +47,9 @@ from brainevent_torch.models import networks as nw
 from brainevent_torch.models import training as tr
 from brainevent_torch.ops import mxu_gather as mg
 from brainevent_torch.ops import scatter as sc
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (its dtype matrix and strategy check)
 
 pytestmark = pytest.mark.cuda
 
@@ -702,3 +714,69 @@ def test_event_operands_route_through_k15_k16_on_card(cuda_device, gen):
         expr()
         counts = bt.launch_counts()
         assert counts[name] == 1 and sum(counts.values()) == 1, counts
+
+
+# -- K19 and the strategies of einet_pallas_sim ---------------------------------------
+
+@pytest.mark.parametrize('table_dtype', ['uint8', 'int32'])
+@pytest.mark.parametrize('n_act', [0, 1, 400, 4000, 10 ** 6])
+def test_einet_dense_hits_kernel_vs_twin_and_k2(cuda_device, gen, n_act,
+                                                table_dtype):
+    from brainevent_torch.models import sim
+    num, n_exc = 4000, 3200
+    n_conn = 80 if table_dtype == 'uint8' else 300
+    conn = gen.integers(0, num, (num, n_conn)).astype(np.int32)
+    if table_dtype == 'int32':
+        conn[5, :290] = 17                    # a multiplicity above 255
+    net = bt.EINet(scale=1.0, n_conn=n_conn, conn_all=conn,
+                   device=cuda_device)
+    table = sim.dense_count_table(net)
+    assert table.dtype == getattr(torch, table_dtype)
+    ids = gen.permutation(num).astype(np.int32)
+    ids[1:300:7] = -3
+    ids[2:300:11] = num + 5
+    ids = torch.from_numpy(ids).to(cuda_device)
+    n_ids = torch.tensor([n_act], dtype=torch.int32, device=cuda_device)
+    start = torch.from_numpy(gen.integers(0, 9, (2, num)).astype(
+        np.int32)).to(cuda_device)
+    before = sim.einet_dense_hits.launches
+    got = sim.einet_dense_hits(ids, n_ids, table, n_exc, start.clone())
+    want = sim.einet_dense_hits_twin(ids, n_ids, table, n_exc, start.clone())
+    k2 = sc.event_count_scatter(ids, n_ids, net.conn_all, n_exc,
+                                start.clone())
+    torch.cuda.synchronize()
+    assert sim.einet_dense_hits.launches == before + 1
+    assert torch.equal(got, want) and torch.equal(got, k2)
+
+
+@pytest.mark.parametrize('strategy', ['dense', 'chain', 'mxu', 'mxu2', 'mxu4',
+                                      'mxu5', 'mxu6'])
+def test_strategies_match_mxu3_on_card(cuda_device, strategy):
+    # 200 steps here; chip_smoke.py phase 26 runs the same check over 2,000
+    n_steps = 200
+    net = bt.EINet(scale=1.0, coba=True, device=cuda_device)
+    state = net.init_state()
+    ref = bt.einet_pallas_sim(net, state, n_steps, strategy='mxu3')
+    chip_smoke.run_strategy(net, state, n_steps, strategy, ref)
+
+
+# -- the dtypes the public entries take (ops/operand.py) -------------------------------
+# the matrix is chip_smoke.py's (phase 28); each part runs here on its own
+
+def _c8_gen(device):
+    return torch.Generator(device=device).manual_seed(28)
+
+
+def test_spike_dtypes_on_card_equal_bool_spikes(cuda_device):
+    assert chip_smoke.c8_spike_dtypes(cuda_device, _c8_gen(cuda_device)) == (
+        13 * len(chip_smoke.C8_SPIKE_DTYPES))
+
+
+def test_half_weights_on_card_within_one_ulp(cuda_device):
+    worst = chip_smoke.c8_half_weights(cuda_device, _c8_gen(cuda_device))
+    assert set(worst) == {'torch.float16', 'torch.bfloat16'}
+
+
+def test_float64_weights_on_card_are_refused(cuda_device):
+    assert chip_smoke.c8_float64_refused(cuda_device,
+                                         _c8_gen(cuda_device)) == 10

@@ -124,7 +124,8 @@ def test_build_command_targets_hopper_without_fma_contraction():
     assert {Path(s).name for s in srcs} == {
         'einet_step.cu', 'event_scatter.cu', 'fcn_event.cu', 'plan_gather.cu',
         'csr_event.cu', 'pair_gather.cu', 'csr_gather_mm.cu', 'jitc_walk.cu',
-        'dense_event.cu', 'dense_stdp.cu', 'event_encode.cu'}
+        'dense_event.cu', 'dense_stdp.cu', 'event_encode.cu',
+        'einet_dense.cu'}
     for src in srcs:
         cmd = cuda_build.compile_command(nvcc, 'x.o', src)
         assert 'arch=compute_90a,code=sm_90a' in ' '.join(cmd)
@@ -193,7 +194,7 @@ def test_cu_sources_ship_as_package_data():
                        'fcn_event.cu', 'plan_gather.cu', 'csr_event.cu',
                        'pair_gather.cu', 'csr_gather_mm.cu', 'light_rng.cuh',
                        'jitc_walk.cu', 'dense_event.cu', 'dense_stdp.cu',
-                       'event_encode.cu'}
+                       'event_encode.cu', 'einet_dense.cu'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 
@@ -231,7 +232,7 @@ def test_launch_counts_only_successful_launches(monkeypatch):
                            'csr_scatter_mv', 'pair_gather', 'csr_gather_mm',
                            'dense_event_mv', 'dense_event_mm',
                            'dense_stdp_pre', 'dense_stdp_post',
-                           'event_row_count'}
+                           'event_row_count', 'einet_dense_hits'}
     bt.reset_launch_counts()
     assert set(bt.launch_counts().values()) == {0}
 
@@ -293,6 +294,7 @@ def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
     from brainevent_torch.csr import pallas_kernels as pk
     from brainevent_torch.dense import pallas_kernels as dk
     from brainevent_torch.events import pallas_kernels as ek
+    from brainevent_torch.models import sim
     from brainevent_torch.ops import mxu_gather as mg
     from brainevent_torch.ops import pair_gather as pg
     seen = {}
@@ -305,7 +307,7 @@ def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
         return fn
 
     monkeypatch.setattr(cuda_build, 'function', function)
-    for mod in (pk, mg, pg, dk, ek):
+    for mod in (pk, mg, pg, dk, ek, sim):
         monkeypatch.setattr(mod, 'cuda_stream', lambda device: None)
     i32 = torch.int32
     ptr = torch.tensor([0, 2, 3], dtype=i32)
@@ -321,12 +323,16 @@ def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
                                           True)),
                      (dk.dense_stdp_pre, (torch.ones(2, 3), x, w, 0.0, 1.0)),
                      (dk.dense_stdp_post, (torch.ones(3, 2), w, x > 0)),
-                     (ek.event_row_count, (torch.ones(2, 3),))):
+                     (ek.event_row_count, (torch.ones(2, 3),)),
+                     (sim.einet_dense_hits, (idx, idx[:1], torch.zeros(
+                         3, 3, dtype=torch.uint8), 2, torch.zeros(
+                         2, 3, dtype=i32)))):
         op.cuda(op, *args)
     assert set(seen) == {'csr_gather_mv_launch', 'csr_scatter_mv_launch',
                          'pair_gather_launch', 'csr_gather_mm_launch',
                          'dense_event_mv_launch', 'dense_event_mm_launch',
-                         'dense_stdp_launch', 'event_row_count_launch'}
+                         'dense_stdp_launch', 'event_row_count_launch',
+                         'einet_dense_hits_launch'}
     for name, n in seen.items():
         assert _c_params(name) == n, name
 
