@@ -44,10 +44,10 @@ Dtypes (``ops/operand.py``): event operands of any dtype reach the
 kernels as their ``> 0`` gate; float16 and bfloat16 weights are computed
 in float32 and the result rounded to the weights' dtype, the dtype the
 JAX package returns (within 1 ulp of it of the twin, on top of the
-float32 bound). float64 weights are computed in float64 on the CPU (the
-twins), as the JAX package keeps float64 on its XLA kernel; on the card
-they raise a ``TypeError``, since no kernel computes float64 yet. A float
-operand is taken in the dtype of the computation.
+float32 bound). float64 weights are computed in float64, as the JAX
+package keeps float64 on its XLA kernel: by the twins on the CPU, by the
+kernels' ``double`` instances (K7-K10) on the card. A float operand is
+taken in the dtype of the computation.
 """
 
 import dataclasses
@@ -58,8 +58,7 @@ import torch
 from .._error import MathError, UnsupportedOperationError
 from .._misc import csr_to_csc_index
 from ..ops.mxu_gather import csr_gather_mm
-from ..ops.operand import (acc_dtype, event_spikes, op_values,
-                           refuse_float64, widen)
+from ..ops.operand import acc_dtype, event_spikes, op_values, widen
 from ..ops.pair_gather import pair_gather, pair_gather_product
 from ._common import csr_checks, is_homo, row_ids_from_indptr
 from .pallas_kernels import csr_gather_mv, csr_scatter_mv
@@ -115,8 +114,9 @@ def _weight_grad(indices, indptr, v, ct, transpose: bool) -> torch.Tensor:
     s, x = (v, ct) if transpose else (ct, v)
     if v.ndim == 1:
         if acc_dtype(s, x) == torch.float64:
-            # K9 in float64: the twin, on the CPU (the card refused float64)
-            return pair_gather(rows, indices, s, x)
+            # K9's double instance: the sides stay float64
+            return pair_gather(rows, indices, s.double().contiguous(),
+                               x.double().contiguous())
         return pair_gather_product(rows, indices, s, x)
     out = torch.empty(indices.shape[0], dtype=acc_dtype(s, x),
                       device=v.device)
@@ -175,7 +175,6 @@ def prepare(weights, indices, indptr, operand, *, shape, transpose: bool,
     weights = torch.atleast_1d(torch.as_tensor(weights, device=device))
     operand = torch.as_tensor(operand, device=device)
     csr_checks(weights, indices, indptr, shape)
-    refuse_float64('CSR product', weights)
     m, k = shape
     exp_in = m if transpose else k
     if operand.ndim != ndim or operand.shape[0] != exp_in:

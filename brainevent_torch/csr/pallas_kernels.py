@@ -35,8 +35,8 @@ one.
 Homogeneous binary products count in int32 and scale once by ``w[0]``, so
 they are exact at any summation order. Ids outside the operand (K7) or
 the output (K8) are dropped. Each op has a plain PyTorch twin that runs
-for CPU tensors; it sums in float32, or in float64 for float64 weights
-(the route ``csr/float.py`` takes for them on any device).
+for CPU tensors; it sums in float32, or in float64 for float64 weights,
+which on a CUDA device launch the kernels' ``double`` instances.
 """
 
 import ctypes
@@ -44,7 +44,8 @@ import torch
 
 from ..ops import cuda_build
 from ..ops.core import KernelOp, check_cuda_tensors, cuda_stream
-from ..ops.operand import acc_dtype, fits, op_code, op_values, take
+from ..ops.operand import (acc_dtype, fits, is_double, op_code, op_values,
+                           take)
 from ._common import is_homo, row_ids_from_indptr
 
 __all__ = ['csr_gather_mv', 'csr_scatter_mv', 'csr_gather_mv_twin',
@@ -101,9 +102,10 @@ def csr_scatter_mv_twin(indptr, indices, perm, w, x, binary: bool,
 # -- kernels ---------------------------------------------------------------------
 
 def _launch_args(op, indptr, indices, perm, w, x, binary):
-    code = op_code(x, binary)
+    dbl = is_double(op.name, w)
+    code = op_code(x, binary, w.dtype)
     pairs = [(indptr, torch.int32), (indices, torch.int32),
-             (w, torch.float32), (x, x.dtype)]
+             (w, w.dtype), (x, x.dtype)]
     if perm is not None:
         pairs.append((perm, torch.int32))
     device = check_cuda_tensors(op.name, *pairs)
@@ -112,16 +114,16 @@ def _launch_args(op, indptr, indices, perm, w, x, binary):
                          f'not fit {indices.shape[0]} entries')
     return device, [indptr.data_ptr(), indices.data_ptr(),
                     None if perm is None else perm.data_ptr(), w.data_ptr(),
-                    x.data_ptr(), code, int(is_homo(w)),
+                    x.data_ptr(), code, int(is_homo(w)), dbl,
                     indptr.shape[0] - 1]
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
 
 
 def _csr_gather_mv_cuda(op, indptr, indices, perm, w, x, binary):
     device, args = _launch_args(op, indptr, indices, perm, w, x, binary)
-    y = torch.empty(indptr.shape[0] - 1, dtype=torch.float32, device=device)
+    y = torch.empty(indptr.shape[0] - 1, dtype=w.dtype, device=device)
     fn = cuda_build.function('csr_gather_mv_launch', _ARGTYPES + [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     op.launch(fn, *args, x.shape[0], y.data_ptr(), device.index or 0,
@@ -133,7 +135,7 @@ def _csr_scatter_mv_cuda(op, indptr, indices, perm, w, x, binary, n_out):
     device, args = _launch_args(op, indptr, indices, perm, w, x, binary)
     counting = is_homo(w) and binary
     y = (torch.empty if counting else torch.zeros)(
-        n_out, dtype=torch.float32, device=device)
+        n_out, dtype=w.dtype, device=device)
     counts = torch.zeros(n_out if counting else 0, dtype=torch.int32,
                          device=device)
     fn = cuda_build.function('csr_scatter_mv_launch', _ARGTYPES + [

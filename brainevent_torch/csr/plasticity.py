@@ -36,7 +36,6 @@ from typing import Optional
 
 import torch
 
-from ..ops.operand import refuse_float64
 from ..ops.pair_gather import pair_gather, pair_gather_product
 from ._common import event_gate, row_ids_from_indptr
 
@@ -55,10 +54,12 @@ def _update(weight, indices, indptr, pre, post, w_min, w_max):
             torch.as_tensor(indptr, device=indices.device), indices.shape[0])
         pre = torch.as_tensor(pre, device=indices.device)
         post = torch.as_tensor(post, device=indices.device)
-        refuse_float64('CSR STDP', weight)
-        # float64 weights (on the CPU) take K9's twin in float64, never
-        # rounded
-        prod = (pair_gather(rows, indices, pre.double(), post.double())
+        # float64 weights take K9 in float64 (its double instance on the
+        # card), never rounded
+        prod = (pair_gather(rows.to(torch.int32).contiguous(),
+                            indices.to(torch.int32).contiguous(),
+                            pre.double().contiguous(),
+                            post.double().contiguous())
                 if weight.dtype == torch.float64 else
                 pair_gather_product(rows, indices, pre, post))
     out = weight + prod.to(weight.dtype)

@@ -54,6 +54,38 @@ __device__ __forceinline__ float be_load_op(const void* x, long long i) {
     return v;
 }
 
+// be_load_op in the value type T of a kernel's instance (float, or double
+// for float64 weights): an event gate reads bool bytes or float32 spikes
+// (the entries bring spikes of any other dtype to a bool gate), the
+// identity of a float product reads T.
+template <int kOp, typename T>
+__device__ __forceinline__ T be_load_op_t(const void* x, long long i) {
+    if (kOp == 0) return static_cast<const unsigned char*>(x)[i] ? T(1) : T(0);
+    if (kOp == 1) return static_cast<const float*>(x)[i] > 0.0f ? T(1) : T(0);
+    return static_cast<const T*>(x)[i];
+}
+
+// One rounding of a * b + c in the value type.
+__device__ __forceinline__ float be_fma(float a, float b, float c) {
+    return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double be_fma(double a, double b, double c) {
+    return __fma_rn(a, b, c);
+}
+
+// Run the statement given last with T the value type: double where dbl is
+// set (float64 weights), else float.
+#define BE_VALUE_DISPATCH(dbl, ...)                                        \
+    do {                                                                   \
+        if (dbl) {                                                         \
+            using T = double;                                              \
+            __VA_ARGS__;                                                   \
+        } else {                                                           \
+            using T = float;                                               \
+            __VA_ARGS__;                                                   \
+        }                                                                  \
+    } while (0)
+
 // The other event gate: an entry is an event where it is non-zero (a bool
 // byte that is set, or a float != 0, NaN and negatives included). The dense
 // STDP updates (K17) and the event encoders (K18) gate so; the products

@@ -3,7 +3,8 @@
 //
 // K7 and K8: the CSR matvecs of brainevent_torch/csr (pallas_kernels.py),
 // over a structure (ptr (n_rows + 1,), col (nse,)) of int32, weights w of
-// shape (1,) (homogeneous) or one per entry, an optional slot permutation
+// shape (1,) (homogeneous) or one per entry, in float32 or (the double
+// instances, for float64 weights) float64, an optional slot permutation
 // perm (the weight of entry j is w[perm[j]]; without it, w[j]) and an
 // operand x whose values pass through an op: the event gate of a binary
 // product (bool x, read as bytes, or float x gated at > 0) or the identity
@@ -34,21 +35,22 @@
 //
 // Bound: K7 by the index and weight reads of every entry (8 bytes each,
 // 80 MB at 10M entries) and the random operand gather (x stays in L2);
-// K8 by its atomics, one per entry of an active row.
+// K8 by its atomics, one per entry of an active row (atomicAdd on double
+// is native on sm_90a).
 #include "common.cuh"
 
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
-template <int kOp, bool kHomo, bool kPerm>
+template <int kOp, bool kHomo, bool kPerm, typename T>
 __global__ void csr_gather_mv_kernel(const int* __restrict__ ptr,
                                      const int* __restrict__ col,
                                      const int* __restrict__ perm,
-                                     const float* __restrict__ w,
+                                     const T* __restrict__ w,
                                      const void* __restrict__ x,
                                      const int n_rows, const int n_cols,
-                                     float* __restrict__ y) {
+                                     T* __restrict__ y) {
     constexpr bool kCount = kHomo && kOp != 2;
     const int lane = threadIdx.x & 31;
     const long long row =
@@ -57,15 +59,15 @@ __global__ void csr_gather_mv_kernel(const int* __restrict__ ptr,
     const int begin = ptr[row];
     const int end = ptr[row + 1];
     int cnt = 0;
-    float acc = 0.0f;
+    T acc = T(0);
     for (int j = begin + lane; j < end; j += 32) {
         const unsigned c = static_cast<unsigned>(col[j]);
         if (c >= static_cast<unsigned>(n_cols)) continue;
-        const float v = be_load_op<kOp>(x, c);
+        const T v = be_load_op_t<kOp, T>(x, c);
         if (kCount) {
-            cnt += v != 0.0f;
+            cnt += v != T(0);
         } else if (kOp != 2) {
-            if (v != 0.0f) acc += w[kHomo ? 0 : (kPerm ? perm[j] : j)];
+            if (v != T(0)) acc += w[kHomo ? 0 : (kPerm ? perm[j] : j)];
         } else {
             acc += w[kHomo ? 0 : (kPerm ? perm[j] : j)] * v;
         }
@@ -76,18 +78,18 @@ __global__ void csr_gather_mv_kernel(const int* __restrict__ ptr,
         else
             acc += __shfl_xor_sync(kFullMask, acc, off);
     }
-    if (lane == 0) y[row] = kCount ? static_cast<float>(cnt) * w[0] : acc;
+    if (lane == 0) y[row] = kCount ? static_cast<T>(cnt) * w[0] : acc;
 }
 
-template <int kOp, bool kHomo, bool kPerm>
+template <int kOp, bool kHomo, bool kPerm, typename T>
 __global__ void csr_scatter_mv_kernel(const int* __restrict__ ptr,
                                       const int* __restrict__ col,
                                       const int* __restrict__ perm,
-                                      const float* __restrict__ w,
+                                      const T* __restrict__ w,
                                       const void* __restrict__ x,
                                       const int n_rows, const int n_out,
                                       int* __restrict__ counts,
-                                      float* __restrict__ y) {
+                                      T* __restrict__ y) {
     constexpr bool kCount = kHomo && kOp != 2;
     const int lane = threadIdx.x & 31;
     const long long warp =
@@ -97,12 +99,12 @@ __global__ void csr_scatter_mv_kernel(const int* __restrict__ ptr,
     // the loop bound is the same for every lane, so the ballot sees all 32
     for (long long base = warp * 32; base < n_rows; base += n_warps * 32) {
         const long long i = base + lane;
-        const float v = i < n_rows ? be_load_op<kOp>(x, i) : 0.0f;
-        unsigned mask = __ballot_sync(kFullMask, v != 0.0f);
+        const T v = i < n_rows ? be_load_op_t<kOp, T>(x, i) : T(0);
+        unsigned mask = __ballot_sync(kFullMask, v != T(0));
         while (mask) {
             const int src = __ffs(mask) - 1;
             mask &= mask - 1;
-            const float vr = __shfl_sync(kFullMask, v, src);
+            const T vr = __shfl_sync(kFullMask, v, src);
             const long long r = base + src;
             const int end = ptr[r + 1];
             for (int j = ptr[r] + lane; j < end; j += 32) {
@@ -111,7 +113,7 @@ __global__ void csr_scatter_mv_kernel(const int* __restrict__ ptr,
                 if (kCount) {
                     atomicAdd(counts + c, 1);
                 } else {
-                    const float wv = w[kHomo ? 0 : (kPerm ? perm[j] : j)];
+                    const T wv = w[kHomo ? 0 : (kPerm ? perm[j] : j)];
                     atomicAdd(y + c, kOp == 2 ? wv * vr : wv);
                 }
             }
@@ -119,13 +121,14 @@ __global__ void csr_scatter_mv_kernel(const int* __restrict__ ptr,
     }
 }
 
+template <typename T>
 __global__ void scale_counts_kernel(const int* __restrict__ counts,
-                                    const float* __restrict__ w,
-                                    const int n, float* __restrict__ y) {
-    const float w0 = w[0];
+                                    const T* __restrict__ w,
+                                    const int n, T* __restrict__ y) {
+    const T w0 = w[0];
     for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
          j += gridDim.x * blockDim.x)
-        y[j] = static_cast<float>(counts[j]) * w0;
+        y[j] = static_cast<T>(counts[j]) * w0;
 }
 
 int blocks_for_warps(long long warps, long long cap) {
@@ -135,22 +138,24 @@ int blocks_for_warps(long long warps, long long cap) {
 
 }  // namespace
 
-// op: 0 bool x (one byte per value), 1 float x gated at > 0, 2 float x.
+// op: 0 bool x (one byte per value), 1 float32 x gated at > 0, 2 float x
+// in the value type. dbl: w, y (and x for op 2) are float64, else float32.
 // perm may be null; it is not read for homogeneous weights. y (n_rows,)
 // is written in full.
 BE_EXPORT int csr_gather_mv_launch(const int* ptr, const int* col,
-                                   const int* perm, const float* w,
-                                   const void* x, int op, int homo,
-                                   int n_rows, int n_cols, float* y,
+                                   const int* perm, const void* w,
+                                   const void* x, int op, int homo, int dbl,
+                                   int n_rows, int n_cols, void* y,
                                    int device, void* stream) {
     int err = be_begin(device);
     if (err) return err;
     if (n_rows <= 0) return be_end();
     const int blocks = blocks_for_warps(n_rows, 1LL << 30);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    BE_CSR_DISPATCH(op, homo, perm,
-                    csr_gather_mv_kernel<O, H, P><<<blocks, BE_BLOCK, 0, st>>>(
-                        ptr, col, perm, w, x, n_rows, n_cols, y));
+    BE_VALUE_DISPATCH(dbl, BE_CSR_DISPATCH(op, homo, perm,
+        csr_gather_mv_kernel<O, H, P, T><<<blocks, BE_BLOCK, 0, st>>>(
+            ptr, col, perm, static_cast<const T*>(w), x, n_rows, n_cols,
+            static_cast<T*>(y))));
     return be_end();
 }
 
@@ -158,10 +163,10 @@ BE_EXPORT int csr_gather_mv_launch(const int* ptr, const int* col,
 // (homo = 1, op < 2): counts (n_out,) int32 zeroed by the caller, y written
 // in full. Otherwise y (n_out,) zeroed by the caller.
 BE_EXPORT int csr_scatter_mv_launch(const int* ptr, const int* col,
-                                    const int* perm, const float* w,
-                                    const void* x, int op, int homo,
+                                    const int* perm, const void* w,
+                                    const void* x, int op, int homo, int dbl,
                                     int n_rows, int n_out, int* counts,
-                                    float* y, int device, void* stream) {
+                                    void* y, int device, void* stream) {
     int err = be_begin(device);
     if (err) return err;
     if (n_out <= 0) return be_end();
@@ -169,15 +174,17 @@ BE_EXPORT int csr_scatter_mv_launch(const int* ptr, const int* col,
                                         4 * BE_MAX_BLOCKS);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (blocks > 0)
-        BE_CSR_DISPATCH(op, homo, perm,
-                        csr_scatter_mv_kernel<O, H, P><<<blocks, BE_BLOCK, 0,
-                                                         st>>>(
-                            ptr, col, perm, w, x, n_rows, n_out, counts, y));
+        BE_VALUE_DISPATCH(dbl, BE_CSR_DISPATCH(op, homo, perm,
+            csr_scatter_mv_kernel<O, H, P, T><<<blocks, BE_BLOCK, 0, st>>>(
+                ptr, col, perm, static_cast<const T*>(w), x, n_rows, n_out,
+                counts, static_cast<T*>(y))));
     if (homo && op != 2) {
         int sblocks = (n_out + BE_BLOCK - 1) / BE_BLOCK;
         if (sblocks > BE_MAX_BLOCKS) sblocks = BE_MAX_BLOCKS;
-        scale_counts_kernel<<<sblocks, BE_BLOCK, 0, st>>>(counts, w, n_out,
-                                                          y);
+        BE_VALUE_DISPATCH(dbl,
+            scale_counts_kernel<T><<<sblocks, BE_BLOCK, 0, st>>>(
+                counts, static_cast<const T*>(w), n_out,
+                static_cast<T*>(y)));
     }
     return be_end();
 }

@@ -5,7 +5,7 @@
 // brainevent_tpu/ops/mxu_gather.py:_make_mm_kernel (:854, `gather_matmat`):
 //     Y[r, :] = sum over j in [ptr[r], ptr[r+1]) of w[slot(j)] * op(X[col[j], :])
 // over an int32 row index (ptr, col), weights w of shape (1,) or one per
-// entry, an optional slot permutation perm (w[perm[j]]), and a row-major
+// entry (float32, or float64 in the double instances), an optional slot permutation perm (w[perm[j]]), and a row-major
 // operand X (n_x, B) whose values pass through be_load_op (common.cuh: the
 // event gate of a binary product, or the identity). It serves csrmm and
 // binary_csrmm on a CSR matrix's own arrays, their transposed direction
@@ -36,15 +36,15 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kTile = 128;                  // columns of Y per warp
 constexpr int kPerLane = kTile / 32;
 
-template <int kOp, bool kHomo, bool kPerm>
+template <int kOp, bool kHomo, bool kPerm, typename T>
 __global__ void csr_gather_mm_kernel(const int* __restrict__ ptr,
                                      const int* __restrict__ col,
                                      const int* __restrict__ perm,
-                                     const float* __restrict__ w,
+                                     const T* __restrict__ w,
                                      const void* __restrict__ X,
                                      const int n_rows, const int n_x,
                                      const int B, const int n_tiles,
-                                     float* __restrict__ Y) {
+                                     T* __restrict__ Y) {
     constexpr bool kCount = kHomo && kOp != 2;
     const int lane = threadIdx.x & 31;
     const long long wid =
@@ -54,13 +54,13 @@ __global__ void csr_gather_mm_kernel(const int* __restrict__ ptr,
     const int c0 = static_cast<int>(wid % n_tiles) * kTile + lane;
     const int begin = ptr[row];
     const int end = ptr[row + 1];
-    float acc[kPerLane];
+    T acc[kPerLane];
 #pragma unroll
-    for (int v = 0; v < kPerLane; ++v) acc[v] = 0.0f;
+    for (int v = 0; v < kPerLane; ++v) acc[v] = T(0);
     for (int base = begin; base < end; base += 32) {
         const int j = base + lane;
         int c = -1;
-        float wv = 0.0f;
+        T wv = T(0);
         if (j < end) {
             const unsigned cj = static_cast<unsigned>(col[j]);
             if (cj < static_cast<unsigned>(n_x)) {
@@ -71,24 +71,24 @@ __global__ void csr_gather_mm_kernel(const int* __restrict__ ptr,
         const int n = end - base < 32 ? end - base : 32;
         for (int t = 0; t < n; ++t) {       // the same t on every lane
             const int ct = __shfl_sync(kFullMask, c, t);
-            const float wt = __shfl_sync(kFullMask, wv, t);
+            const T wt = __shfl_sync(kFullMask, wv, t);
             if (ct < 0) continue;
             const long long off = static_cast<long long>(ct) * B;
 #pragma unroll
             for (int v = 0; v < kPerLane; ++v) {
                 const int cc = c0 + 32 * v;
                 if (cc >= B) break;
-                const float xv = be_load_op<kOp>(X, off + cc);
+                const T xv = be_load_op_t<kOp, T>(X, off + cc);
                 if (kCount)
                     acc[v] += xv;
                 else if (kOp != 2)
-                    acc[v] += xv != 0.0f ? wt : 0.0f;
+                    acc[v] += xv != T(0) ? wt : T(0);
                 else
                     acc[v] += wt * xv;
             }
         }
     }
-    const float scale = kCount ? w[0] : 1.0f;
+    const T scale = kCount ? w[0] : T(1);
 #pragma unroll
     for (int v = 0; v < kPerLane; ++v) {
         const int cc = c0 + 32 * v;
@@ -96,34 +96,35 @@ __global__ void csr_gather_mm_kernel(const int* __restrict__ ptr,
     }
 }
 
-template <int kOp, bool kHomo, bool kPerm>
-void launch(const int* ptr, const int* col, const int* perm, const float* w,
-            const void* X, int n_rows, int n_x, int B, float* Y,
+template <int kOp, bool kHomo, bool kPerm, typename T>
+void launch(const int* ptr, const int* col, const int* perm, const T* w,
+            const void* X, int n_rows, int n_x, int B, T* Y,
             cudaStream_t st) {
     const int n_tiles = (B + kTile - 1) / kTile;
     const long long warps = static_cast<long long>(n_rows) * n_tiles;
     const long long blocks = (warps * 32 + BE_BLOCK - 1) / BE_BLOCK;
-    csr_gather_mm_kernel<kOp, kHomo, kPerm>
+    csr_gather_mm_kernel<kOp, kHomo, kPerm, T>
         <<<static_cast<int>(blocks), BE_BLOCK, 0, st>>>(
             ptr, col, perm, w, X, n_rows, n_x, B, n_tiles, Y);
 }
 
 }  // namespace
 
-// op: 0 bool X (one byte per value), 1 float X gated at > 0, 2 float X.
+// op: 0 bool X (one byte per value), 1 float32 X gated at > 0, 2 float X
+// in the value type. dbl: w, Y (and X for op 2) are float64, else float32.
 // perm may be null; it is not read for homogeneous weights. Y (n_rows, B)
 // is written in full.
 BE_EXPORT int csr_gather_mm_launch(const int* ptr, const int* col,
-                                   const int* perm, const float* w,
-                                   const void* X, int op, int homo,
-                                   int n_rows, int n_x, int B, float* Y,
+                                   const int* perm, const void* w,
+                                   const void* X, int op, int homo, int dbl,
+                                   int n_rows, int n_x, int B, void* Y,
                                    int device, void* stream) {
     int err = be_begin(device);
     if (err) return err;
     if (n_rows <= 0 || B <= 0) return be_end();
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    BE_CSR_DISPATCH(op, homo, perm,
-                    launch<O, H, P>(ptr, col, perm, w, X, n_rows, n_x, B, Y,
-                                    st));
+    BE_VALUE_DISPATCH(dbl, BE_CSR_DISPATCH(op, homo, perm,
+        launch<O, H, P, T>(ptr, col, perm, static_cast<const T*>(w), X,
+                           n_rows, n_x, B, static_cast<T*>(Y), st)));
     return be_end();
 }

@@ -3,7 +3,8 @@
 //
 // K5 and K6: the event-driven binary ELL products of `binary_fcnmv`
 // (brainevent_torch/fcn/binary.py), over a row-major (n_pre, n_conn) int32
-// table idx, weights w of shape (1,) (homogeneous) or (n_pre, n_conn), and
+// table idx, weights w of shape (1,) (homogeneous) or (n_pre, n_conn) in
+// float32 or (the double instances, for float64 weights) float64, and
 // spikes s (bool or float32; a float spike is active where s > 0).
 //
 // K5 `fcn_event_scatter` (transpose=True) replaces
@@ -46,14 +47,14 @@ __device__ __forceinline__ bool active(const float* s, long long i) {
     return s[i] > 0.0f;
 }
 
-template <typename S, bool kHomo>
+template <typename S, bool kHomo, typename T>
 __global__ void fcn_event_scatter_kernel(const int* __restrict__ idx,
-                                         const float* __restrict__ w,
+                                         const T* __restrict__ w,
                                          const S* __restrict__ s,
                                          const int n_pre, const int n_conn,
                                          const int n_post,
                                          int* __restrict__ counts,
-                                         float* __restrict__ y) {
+                                         T* __restrict__ y) {
     const int lane = threadIdx.x & 31;
     const long long warp =
         (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -78,29 +79,30 @@ __global__ void fcn_event_scatter_kernel(const int* __restrict__ idx,
     }
 }
 
+template <typename T>
 __global__ void scale_counts_kernel(const int* __restrict__ counts,
-                                    const float* __restrict__ w,
-                                    const int n, float* __restrict__ y) {
-    const float w0 = w[0];
+                                    const T* __restrict__ w,
+                                    const int n, T* __restrict__ y) {
+    const T w0 = w[0];
     for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
          j += gridDim.x * blockDim.x)
-        y[j] = static_cast<float>(counts[j]) * w0;
+        y[j] = static_cast<T>(counts[j]) * w0;
 }
 
-template <typename S, bool kHomo>
+template <typename S, bool kHomo, typename T>
 __global__ void fcn_event_gather_kernel(const int* __restrict__ idx,
-                                        const float* __restrict__ w,
+                                        const T* __restrict__ w,
                                         const S* __restrict__ s,
                                         const int n_pre, const int n_conn,
                                         const int n_post,
-                                        float* __restrict__ y) {
+                                        T* __restrict__ y) {
     const int lane = threadIdx.x & 31;
     const long long i =
         (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
     if (i >= n_pre) return;                     // the whole warp leaves
     const long long row = i * n_conn;
     int cnt = 0;
-    float acc = 0.0f;
+    T acc = T(0);
     for (int k = lane; k < n_conn; k += 32) {
         const unsigned t = static_cast<unsigned>(idx[row + k]);
         if (t >= static_cast<unsigned>(n_post) || !active(s, t)) continue;
@@ -115,7 +117,7 @@ __global__ void fcn_event_gather_kernel(const int* __restrict__ idx,
         else
             acc += __shfl_xor_sync(kFullMask, acc, off);
     }
-    if (lane == 0) y[i] = kHomo ? static_cast<float>(cnt) * w[0] : acc;
+    if (lane == 0) y[i] = kHomo ? static_cast<T>(cnt) * w[0] : acc;
 }
 
 int grid_for_warps(long long warps, int cap) {
@@ -123,79 +125,91 @@ int grid_for_warps(long long warps, int cap) {
     return static_cast<int>(blocks < cap ? blocks : cap);
 }
 
-template <typename S>
-void launch_scatter(const int* idx, const float* w, const void* s, int homo,
-                    int n_pre, int n_conn, int n_post, int* counts, float* y,
+template <typename S, typename T>
+void launch_scatter(const int* idx, const T* w, const void* s, int homo,
+                    int n_pre, int n_conn, int n_post, int* counts, T* y,
                     cudaStream_t stream) {
     const int blocks = grid_for_warps((n_pre + 31) / 32, 4 * BE_MAX_BLOCKS);
     const S* spk = static_cast<const S*>(s);
     if (blocks > 0) {
         if (homo)
-            fcn_event_scatter_kernel<S, true><<<blocks, BE_BLOCK, 0, stream>>>(
-                idx, w, spk, n_pre, n_conn, n_post, counts, y);
+            fcn_event_scatter_kernel<S, true, T>
+                <<<blocks, BE_BLOCK, 0, stream>>>(idx, w, spk, n_pre, n_conn,
+                                                  n_post, counts, y);
         else
-            fcn_event_scatter_kernel<S, false><<<blocks, BE_BLOCK, 0,
-                                                 stream>>>(
-                idx, w, spk, n_pre, n_conn, n_post, counts, y);
+            fcn_event_scatter_kernel<S, false, T>
+                <<<blocks, BE_BLOCK, 0, stream>>>(idx, w, spk, n_pre, n_conn,
+                                                  n_post, counts, y);
     }
     if (homo) {
         int sblocks = (n_post + BE_BLOCK - 1) / BE_BLOCK;
         if (sblocks > BE_MAX_BLOCKS) sblocks = BE_MAX_BLOCKS;
-        scale_counts_kernel<<<sblocks, BE_BLOCK, 0, stream>>>(counts, w,
-                                                              n_post, y);
+        scale_counts_kernel<T><<<sblocks, BE_BLOCK, 0, stream>>>(counts, w,
+                                                                 n_post, y);
     }
 }
 
-template <typename S>
-void launch_gather(const int* idx, const float* w, const void* s, int homo,
-                   int n_pre, int n_conn, int n_post, float* y,
+template <typename S, typename T>
+void launch_gather(const int* idx, const T* w, const void* s, int homo,
+                   int n_pre, int n_conn, int n_post, T* y,
                    cudaStream_t stream) {
     const int blocks = grid_for_warps(n_pre, 1 << 30);
     const S* spk = static_cast<const S*>(s);
     if (homo)
-        fcn_event_gather_kernel<S, true><<<blocks, BE_BLOCK, 0, stream>>>(
+        fcn_event_gather_kernel<S, true, T><<<blocks, BE_BLOCK, 0, stream>>>(
             idx, w, spk, n_pre, n_conn, n_post, y);
     else
-        fcn_event_gather_kernel<S, false><<<blocks, BE_BLOCK, 0, stream>>>(
+        fcn_event_gather_kernel<S, false, T><<<blocks, BE_BLOCK, 0, stream>>>(
             idx, w, spk, n_pre, n_conn, n_post, y);
 }
 
 }  // namespace
 
-// s: bool (one byte per spike) when s_is_float is 0, else float32.
-// Homogeneous (homo = 1): counts (n_post,) int32 zeroed by the caller, y
-// written in full. Heterogeneous: y (n_post,) zeroed by the caller.
-BE_EXPORT int fcn_event_scatter_launch(const int* idx, const float* w,
+// s: bool (one byte per spike) when s_is_float is 0, else float32. dbl:
+// w and y are float64, else float32. Homogeneous (homo = 1): counts
+// (n_post,) int32 zeroed by the caller, y written in full. Heterogeneous:
+// y (n_post,) zeroed by the caller.
+BE_EXPORT int fcn_event_scatter_launch(const int* idx, const void* w,
                                        const void* s, int s_is_float,
-                                       int homo, int n_pre, int n_conn,
-                                       int n_post, int* counts, float* y,
-                                       int device, void* stream) {
+                                       int homo, int dbl, int n_pre,
+                                       int n_conn, int n_post, int* counts,
+                                       void* y, int device, void* stream) {
     int err = be_begin(device);
     if (err) return err;
     if (n_post <= 0) return be_end();
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (s_is_float)
-        launch_scatter<float>(idx, w, s, homo, n_pre, n_conn, n_post, counts,
-                              y, st);
-    else
-        launch_scatter<unsigned char>(idx, w, s, homo, n_pre, n_conn, n_post,
-                                      counts, y, st);
+    BE_VALUE_DISPATCH(dbl, {
+        const T* wt = static_cast<const T*>(w);
+        T* yt = static_cast<T*>(y);
+        if (s_is_float)
+            launch_scatter<float, T>(idx, wt, s, homo, n_pre, n_conn, n_post,
+                                     counts, yt, st);
+        else
+            launch_scatter<unsigned char, T>(idx, wt, s, homo, n_pre, n_conn,
+                                             n_post, counts, yt, st);
+    });
     return be_end();
 }
 
-// y (n_pre,) written in full.
-BE_EXPORT int fcn_event_gather_launch(const int* idx, const float* w,
+// y (n_pre,) written in full; dbl as above.
+BE_EXPORT int fcn_event_gather_launch(const int* idx, const void* w,
                                       const void* s, int s_is_float, int homo,
-                                      int n_pre, int n_conn, int n_post,
-                                      float* y, int device, void* stream) {
+                                      int dbl, int n_pre, int n_conn,
+                                      int n_post, void* y, int device,
+                                      void* stream) {
     int err = be_begin(device);
     if (err) return err;
     if (n_pre <= 0) return be_end();
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (s_is_float)
-        launch_gather<float>(idx, w, s, homo, n_pre, n_conn, n_post, y, st);
-    else
-        launch_gather<unsigned char>(idx, w, s, homo, n_pre, n_conn, n_post,
-                                     y, st);
+    BE_VALUE_DISPATCH(dbl, {
+        const T* wt = static_cast<const T*>(w);
+        T* yt = static_cast<T*>(y);
+        if (s_is_float)
+            launch_gather<float, T>(idx, wt, s, homo, n_pre, n_conn, n_post,
+                                    yt, st);
+        else
+            launch_gather<unsigned char, T>(idx, wt, s, homo, n_pre, n_conn,
+                                            n_post, yt, st);
+    });
     return be_end();
 }

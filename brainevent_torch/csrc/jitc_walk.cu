@@ -14,7 +14,12 @@
 // chunk_size), advancing state = next(state), q += 1 + bounded(state,
 // cl - 1) after each visit. The weight of a visit is lr_weight<law> at
 // (row, col). corder = 1: walk rows are output rows and walk columns the
-// operand's (gather); corder = 0: the reverse (scatter).
+// operand's (gather); corder = 0: the reverse (scatter). row0 offsets the
+// walk rows (K11, K12): a launch walks the global rows [row0, row0 +
+// n_rows), its streams and weights keyed on the global ids, while the plan,
+// the operand (scatter) and the output (gather) stay in local rows. Each
+// shard of brainevent_torch/parallel walks its own rows so; the sampled
+// matrix does not depend on the split.
 //
 // K11 `jitc_walk_setup` builds a plan's (state, q): the XLA stream setup
 //     of brainevent_tpu/jitc/pallas_kernels.py:walk_plan_setup (:117),
@@ -50,6 +55,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 struct WalkGeom {
     uint32_t seed, cl;
     int n_rows, n_cols, chunk_size, stride, n_chunks;
+    uint32_t row0;   // global id of local walk row 0
 };
 
 // The state and residual of stream (row, sub), sub = chunk * stride + lane.
@@ -64,8 +70,8 @@ __device__ __forceinline__ void stream_start(const WalkGeom& g,
         state = state2[s];
         q = q2[s];
     } else {
-        lr_stream_init(g.seed, row, sub / g.stride, sub % g.stride, g.cl,
-                       state, q);
+        lr_stream_init(g.seed, g.row0 + row, sub / g.stride, sub % g.stride,
+                       g.cl, state, q);
     }
 }
 
@@ -97,7 +103,7 @@ __global__ void walk_setup_kernel(WalkGeom g, uint32_t* __restrict__ state2,
                         threadIdx.x;
     if (s >= g.n_rows * L) return;
     const int row = static_cast<int>(s / L), sub = static_cast<int>(s % L);
-    lr_stream_init(g.seed, row, sub / g.stride, sub % g.stride, g.cl,
+    lr_stream_init(g.seed, g.row0 + row, sub / g.stride, sub % g.stride, g.cl,
                    state2[s], q2[s]);
 }
 
@@ -115,7 +121,8 @@ __global__ void walk_mv_gather_kernel(WalkGeom g, const uint32_t* state2,
     for (int sub = lane; sub < L; sub += 32)
         walk_stream(g, state2, q2, static_cast<int>(row), sub,
                     [&](uint32_t col) {
-                        acc += lr_weight<kLaw>(g.seed, row, col, a, b) *
+                        acc += lr_weight<kLaw>(g.seed, g.row0 + row, col, a,
+                                               b) *
                                be_load_op<kOp>(x, col);
                     });
     for (int off = 16; off > 0; off >>= 1)
@@ -136,7 +143,8 @@ __global__ void walk_mv_scatter_kernel(WalkGeom g, const uint32_t* state2,
     const float v = be_load_op<kOp>(x, row);
     if (v == 0.0f) return;                      // before the first draw
     walk_stream(g, state2, q2, row, sub, [&](uint32_t col) {
-        atomicAdd(out + col, v * lr_weight<kLaw>(g.seed, row, col, a, b));
+        atomicAdd(out + col,
+                  v * lr_weight<kLaw>(g.seed, g.row0 + row, col, a, b));
     });
 }
 
@@ -198,9 +206,9 @@ __global__ void walk_todense_kernel(WalkGeom g, const uint32_t* state2,
 }
 
 WalkGeom geom(unsigned seed, unsigned cl, int n_rows, int n_cols,
-              int chunk_size, int stride) {
+              int chunk_size, int stride, unsigned row0 = 0) {
     return WalkGeom{seed, cl, n_rows, n_cols, chunk_size, stride,
-                    (n_cols + chunk_size - 1) / chunk_size};
+                    (n_cols + chunk_size - 1) / chunk_size, row0};
 }
 
 int blocks_for(long long threads) {
@@ -230,13 +238,15 @@ int blocks_for(long long threads) {
     } while (0)
 
 // state and q: (n_rows, n_chunks * stride) uint32, written in full; cl >= 2.
+// The streams are those of the global rows [row0, row0 + n_rows).
 BE_EXPORT int jitc_walk_setup_launch(unsigned seed, unsigned cl, int n_rows,
                                      int n_cols, int chunk_size, int stride,
-                                     unsigned* state, unsigned* q,
-                                     int device, void* stream) {
+                                     unsigned row0, unsigned* state,
+                                     unsigned* q, int device, void* stream) {
     int err = be_begin(device);
     if (err) return err;
-    const WalkGeom g = geom(seed, cl, n_rows, n_cols, chunk_size, stride);
+    const WalkGeom g = geom(seed, cl, n_rows, n_cols, chunk_size, stride,
+                            row0);
     const long long n = static_cast<long long>(n_rows) * g.n_chunks * stride;
     if (n > 0)
         walk_setup_kernel<<<blocks_for(n), BE_BLOCK, 0,
@@ -247,15 +257,17 @@ BE_EXPORT int jitc_walk_setup_launch(unsigned seed, unsigned cl, int n_rows,
 // state and q: a plan of the walk's layout, or both null (each stream
 // draws its own setup). corder = 1: out (n_rows,) written in full, x
 // (n_cols,); corder = 0: out (n_cols,) zeroed by the caller, x (n_rows,).
+// The walk rows are the global rows [row0, row0 + n_rows).
 BE_EXPORT int jitc_walk_mv_launch(const unsigned* state, const unsigned* q,
                                   const void* x, int op, int law, float a,
                                   float b, unsigned seed, unsigned cl,
                                   int n_rows, int n_cols, int chunk_size,
-                                  int stride, int corder, float* out,
-                                  int device, void* stream) {
+                                  int stride, int corder, unsigned row0,
+                                  float* out, int device, void* stream) {
     int err = be_begin(device);
     if (err) return err;
-    const WalkGeom g = geom(seed, cl, n_rows, n_cols, chunk_size, stride);
+    const WalkGeom g = geom(seed, cl, n_rows, n_cols, chunk_size, stride,
+                            row0);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (n_rows <= 0) return be_end();
     if (corder) {

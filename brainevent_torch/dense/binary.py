@@ -35,10 +35,10 @@ Dtypes (``ops/operand.py``): spikes of any dtype reach the kernels as
 their gate (bool, or float32 gated in the kernel); float16 and bfloat16
 weights are computed in float32 and the result rounded to the weights'
 dtype, within 1 ulp of that dtype of the twin's result, on top of the
-float32 bound. float64 weights are computed in float64 on the CPU (the
-twins), as the JAX package keeps float64 on its XLA kernel
-(``dense/binary.py:87-89``); on the card they raise a ``TypeError``,
-since no kernel computes float64 yet.
+float32 bound. float64 weights are computed in float64, as the JAX
+package keeps float64 on its XLA kernel (``dense/binary.py:87-89``): by
+the twins on the CPU, by the ``double`` instances of K15 and K16 on the
+card.
 """
 
 from typing import Optional
@@ -46,7 +46,7 @@ from typing import Optional
 import torch
 
 from .._error import MathError
-from ..ops.operand import event_spikes, refuse_float64, widen
+from ..ops.operand import event_spikes, widen
 from .pallas_kernels import dense_event_mm, dense_event_mv, product_gate
 
 __all__ = ['binary_densemv', 'binary_densemv_p_call', 'binary_densemm',
@@ -62,7 +62,6 @@ class _DenseEventProduct(torch.autograd.Function):
         ctx.save_for_backward(weights, spikes)
         ctx.transpose, ctx.mm = transpose, mm
         op = dense_event_mm if mm else dense_event_mv
-        refuse_float64(op.name, weights)
         return op(widen(weights), event_spikes(spikes), transpose).to(
             weights.dtype)
 

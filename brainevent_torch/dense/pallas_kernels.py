@@ -22,8 +22,10 @@ the STDP updates at ``!= 0`` (``g'``, the encoders' ``event_mask``; NaN
 and negative spikes count). A bool spike gates on its truth either way.
 
 The twins compute in the weight's dtype and take what the JAX package's
-``jax_raw`` kernels take; the kernels take float32 weights and traces and
-bool or float32 spikes, and raise a ``TypeError`` on anything else.
+``jax_raw`` kernels take; the kernels take float32 or float64 weights
+(and traces of the weights' dtype; float64 launches each kernel's
+``double`` instance) and bool or float32 spikes, and raise a
+``TypeError`` on anything else.
 """
 
 import ctypes
@@ -33,7 +35,7 @@ import torch
 from ..events.pallas_kernels import event_mask
 from ..ops import cuda_build
 from ..ops.core import KernelOp, check_cuda_tensors, cuda_stream
-from ..ops.operand import op_code, spike_is_bool
+from ..ops.operand import is_double, op_code, spike_is_bool
 
 __all__ = ['dense_event_mv', 'dense_event_mm', 'dense_stdp_pre',
            'dense_stdp_post', 'dense_event_mv_twin', 'dense_event_mm_twin',
@@ -85,52 +87,55 @@ def dense_stdp_post_twin(w, t, s, w_min=None, w_max=None):
 
 def _dense_event_mv_cuda(op, w, s, transpose):
     code = op_code(s, True)
-    device = check_cuda_tensors(op.name, (w, torch.float32), (s, s.dtype))
+    dbl = is_double(op.name, w)
+    device = check_cuda_tensors(op.name, (w, w.dtype), (s, s.dtype))
     rows, cols = w.shape
-    y = torch.empty(cols if transpose else rows, dtype=torch.float32,
+    y = torch.empty(cols if transpose else rows, dtype=w.dtype,
                     device=device)
     fn = cuda_build.function('dense_event_mv_launch', [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p])
-    op.launch(fn, w.data_ptr(), s.data_ptr(), code, int(transpose), rows,
-              cols, y.data_ptr(), device.index or 0, cuda_stream(device))
+        ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    op.launch(fn, w.data_ptr(), s.data_ptr(), code, int(transpose), dbl,
+              rows, cols, y.data_ptr(), device.index or 0,
+              cuda_stream(device))
     return y
 
 
 def _dense_event_mm_cuda(op, w, s, transpose):
     code = op_code(s, True)
-    device = check_cuda_tensors(op.name, (w, torch.float32), (s, s.dtype))
+    dbl = is_double(op.name, w)
+    device = check_cuda_tensors(op.name, (w, w.dtype), (s, s.dtype))
     k, n = s.shape
     m = w.shape[1] if transpose else w.shape[0]
     if -(-m // _MM_ROWS_PER_TILE) > _GRID_Y:
         raise ValueError(f'{op.name}: {m} output rows exceed the kernel '
                          f'grid ({_GRID_Y} tiles of {_MM_ROWS_PER_TILE})')
-    y = torch.empty(m, n, dtype=torch.float32, device=device)
+    y = torch.empty(m, n, dtype=w.dtype, device=device)
     fn = cuda_build.function('dense_event_mm_launch', [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p])
-    op.launch(fn, w.data_ptr(), s.data_ptr(), code, int(transpose), m, k, n,
-              y.data_ptr(), device.index or 0, cuda_stream(device))
+        ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    op.launch(fn, w.data_ptr(), s.data_ptr(), code, int(transpose), dbl, m,
+              k, n, y.data_ptr(), device.index or 0, cuda_stream(device))
     return y
 
 
 def _dense_stdp_cuda(op, w, s, t, w_min, w_max, *, post):
     spike_bool = spike_is_bool(op.name, s)
-    device = check_cuda_tensors(op.name, (w, torch.float32), (s, s.dtype),
-                                (t, torch.float32))
+    dbl = is_double(op.name, w, t)
+    device = check_cuda_tensors(op.name, (w, w.dtype), (s, s.dtype),
+                                (t, w.dtype))
     m, n = w.shape
     out = torch.empty_like(w)
     ptrs = (w, out) if post else (w, out, t)
-    vec = int(n % 4 == 0 and all(p.data_ptr() % 16 == 0 for p in ptrs))
+    vec = int(not dbl and n % 4 == 0
+              and all(p.data_ptr() % 16 == 0 for p in ptrs))
     fn = cuda_build.function('dense_stdp_launch', [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [
+        ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_int, ctypes.c_double,
+                             ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                             ctypes.c_void_p])
     op.launch(fn, w.data_ptr(), s.data_ptr(), t.data_ptr(), spike_bool,
-              int(post), m, n, int(w_min is not None),
+              int(post), dbl, m, n, int(w_min is not None),
               0.0 if w_min is None else float(w_min),
               int(w_max is not None), 0.0 if w_max is None else float(w_max),
               vec, out.data_ptr(), device.index or 0, cuda_stream(device))

@@ -32,11 +32,10 @@ accepted and ignored.
 Dtypes (``ops/operand.py``): spikes of any dtype reach K17 as their
 ``!= 0`` gate; float16 and bfloat16 weights (the trace takes the weights'
 dtype) are updated in float32 and rounded once to their dtype, within
-1 ulp of that dtype of the twin. float64 weights are updated in float64
-on the CPU (the twin), as the JAX package does
-(``dense/plasticity.py:60,100``); on the card they raise a
-``TypeError``, since no kernel computes float64 yet. A float64 ``W`` is
-never rounded to float32.
+1 ulp of that dtype of the twin. float64 weights are updated in float64,
+as the JAX package does (``dense/plasticity.py:60,100``): by the twin on
+the CPU, by K17's ``double`` instance on the card, bitwise the twin. A
+float64 ``W`` is never rounded to float32.
 """
 
 from typing import Optional
@@ -44,7 +43,7 @@ from typing import Optional
 import torch
 
 from .._error import MathError
-from ..ops.operand import event_spikes, refuse_float64, widen
+from ..ops.operand import event_spikes, widen
 from .pallas_kernels import dense_stdp_post, dense_stdp_pre
 
 __all__ = ['update_dense_on_binary_pre', 'update_dense_on_binary_post']
@@ -65,7 +64,6 @@ class _DenseStdp(torch.autograd.Function):
     def forward(ctx, weight, spike, trace, w_min, w_max, post):
         op = dense_stdp_post if post else dense_stdp_pre
         dtype = weight.dtype
-        refuse_float64(op.name, weight, trace)
         weight, trace = widen(weight), widen(trace)
         spike = event_spikes(spike, nonzero=True)
         out = (op(weight, trace, spike, w_min, w_max) if post

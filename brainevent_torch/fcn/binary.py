@@ -36,8 +36,8 @@ Dtypes (``ops/operand.py``): spikes of any dtype reach the kernels as
 their ``> 0`` gate; float16 and bfloat16 weights are computed in float32
 and the result rounded to the weights' dtype (within 1 ulp of it of the
 twin, on top of the float32 bound). float64 weights are computed in
-float64 on the CPU (the twins); on the card they raise a ``TypeError``,
-since no kernel computes float64 yet.
+float64: by the twins on the CPU, by the kernels' ``double`` instances on
+the card.
 
 Gradients through :func:`binary_fcnmv` need the float ELL products
 (``fcn/float.py``), which are not ported yet: a backward through it raises
@@ -53,7 +53,7 @@ from .. import config
 from .._error import MathError, UnsupportedOperationError
 from ..ops import cuda_build
 from ..ops.core import KernelOp, check_cuda_tensors, cuda_stream
-from ..ops.operand import event_spikes, refuse_float64, widen
+from ..ops.operand import event_spikes, is_double, widen
 
 __all__ = ['event_capacity', 'binary_fcnmv', 'binary_fcnmv_p_call',
            'check_fixed_conn_num_shape', 'fcn_event_scatter',
@@ -133,38 +133,40 @@ def _event_args(op, weights, indices, spikes):
     if spikes.dtype not in (torch.bool, torch.float32):
         raise TypeError(f'{op.name}: spikes must be bool or float32 on the '
                         f'card, got {spikes.dtype}')
+    dbl = is_double(op.name, weights)
     device = check_cuda_tensors(op.name, (indices, torch.int32),
-                                (weights, torch.float32),
+                                (weights, weights.dtype),
                                 (spikes, spikes.dtype))
     return device, int(spikes.dtype == torch.float32), int(
-        weights.shape == (1,))
+        weights.shape == (1,)), dbl
 
 
 def _fcn_event_scatter_cuda(op, weights, indices, spikes, n_post):
-    device, s_is_float, homo = _event_args(op, weights, indices, spikes)
+    device, s_is_float, homo, dbl = _event_args(op, weights, indices, spikes)
     n_pre, n_conn = indices.shape
     y = (torch.empty if homo else torch.zeros)(
-        n_post, dtype=torch.float32, device=device)
+        n_post, dtype=weights.dtype, device=device)
     counts = torch.zeros(n_post if homo else 0, dtype=torch.int32,
                          device=device)
     fn = cuda_build.function('fcn_event_scatter_launch', [
-        ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     op.launch(fn, indices.data_ptr(), weights.data_ptr(), spikes.data_ptr(),
-              s_is_float, homo, n_pre, n_conn, n_post, counts.data_ptr(),
-              y.data_ptr(), device.index or 0, cuda_stream(device))
+              s_is_float, homo, dbl, n_pre, n_conn, n_post,
+              counts.data_ptr(), y.data_ptr(), device.index or 0,
+              cuda_stream(device))
     return y
 
 
 def _fcn_event_gather_cuda(op, weights, indices, spikes, n_post):
-    device, s_is_float, homo = _event_args(op, weights, indices, spikes)
+    device, s_is_float, homo, dbl = _event_args(op, weights, indices, spikes)
     n_pre, n_conn = indices.shape
-    y = torch.empty(n_pre, dtype=torch.float32, device=device)
+    y = torch.empty(n_pre, dtype=weights.dtype, device=device)
     fn = cuda_build.function('fcn_event_gather_launch', [
-        ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     op.launch(fn, indices.data_ptr(), weights.data_ptr(), spikes.data_ptr(),
-              s_is_float, homo, n_pre, n_conn, n_post, y.data_ptr(),
+              s_is_float, homo, dbl, n_pre, n_conn, n_post, y.data_ptr(),
               device.index or 0, cuda_stream(device))
     return y
 
@@ -184,7 +186,6 @@ class _BinaryFcnmv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, weights, indices, spikes, n_post, transpose):
         op = fcn_event_scatter if transpose else fcn_event_gather
-        refuse_float64('binary_fcnmv', weights)
         return op(widen(weights), indices, event_spikes(spikes),
                   n_post).to(weights.dtype)
 

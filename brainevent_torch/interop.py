@@ -36,7 +36,7 @@ from .ops.core import check_device
 
 __all__ = ['einet_from_arrays', 'surrogate_snn_from_arrays',
            'csr_from_arrays', 'csc_from_arrays', 'dense_from_arrays',
-           'jitc_net_from_arrays']
+           'jitc_net_from_arrays', 'sharded_einet_from_arrays']
 
 
 def _tensor(x, dtype, device):
@@ -168,4 +168,42 @@ def jitc_net_from_arrays(v, t_last, g_e, g_i, spike_count, *, scale: float,
     if state.neurons.v.shape != (net.num,):
         raise ValueError(f'arrays do not fit scale={scale}: v '
                          f'{tuple(state.neurons.v.shape)} vs ({net.num},)')
+    return net, state
+
+
+def sharded_einet_from_arrays(indices, n_exc, v, t_last, g_e, g_i,
+                              spike_count, *, mesh, propagate='scatter',
+                              **params):
+    """Build the port's ``(ShardedEINet, ShardedEINetState)`` from the
+    global numpy arrays of the JAX ``ShardedEINet`` (``np.asarray(
+    net.indices)``, ``np.asarray(state.v)``, ...). Every rank passes the
+    same arrays and keeps its block of neurons, its rows of *indices* and
+    its block of the state, on the mesh's device.
+
+    Parameters
+    ----------
+    indices : ``(num, n_conn)`` int array, excitatory rows first
+    n_exc : int, checked against ``int(num * exc_fraction)``
+    v, t_last, g_e, g_i : ``(num,)`` float arrays
+    spike_count : ``(num,)`` int array
+    mesh : the ``DeviceMesh`` to shard over (its first dimension)
+    propagate : ``'scatter'`` or ``'mxu6'``, as :class:`ShardedEINet`
+    params : other :class:`ShardedEINet` fields (``coba``, ``dt``, ``w_e``,
+        ...); ``exc_fraction`` defaults to ``n_exc / num``.
+    """
+    from .parallel import ShardedEINet
+    idx = np.asarray(indices).astype(np.int32)
+    num = idx.shape[0]
+    params.setdefault('exc_fraction', int(n_exc) / num)
+    net = ShardedEINet(mesh=mesh, num=num, n_conn=idx.shape[1],
+                       indices=torch.from_numpy(idx), propagate=propagate,
+                       **params)
+    if net.n_exc != int(n_exc):
+        raise ValueError(f'n_exc {n_exc} does not fit num={num} and '
+                         f'exc_fraction={net.exc_fraction} ({net.n_exc})')
+    state = net.shard_state(np.asarray(v, np.float32),
+                            np.asarray(t_last, np.float32),
+                            np.asarray(g_e, np.float32),
+                            np.asarray(g_i, np.float32),
+                            np.asarray(spike_count, np.int32))
     return net, state

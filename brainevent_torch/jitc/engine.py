@@ -36,6 +36,14 @@ replace the stream setup when given.
 
 ``weight_fn(seed, rows, cols) -> float32`` is a family's weight law,
 evaluated at walk coordinates.
+
+``row0`` offsets the walk rows, the sharding hook of the JAX engine
+(``brainevent_tpu/jitc/engine.py:63-77``): a walk of ``n_rows`` rows is
+the walk of the global rows ``[row0, row0 + n_rows)``, its streams and
+weights keyed on the global ids, while the operand (scatter form), the
+output (gather form) and a plan's streams stay in local rows. Each shard
+of :mod:`brainevent_torch.parallel` walks its own rows so, and the
+sampled matrix does not depend on the split.
 """
 
 from typing import Callable, Iterator, Optional, Tuple
@@ -68,30 +76,32 @@ def _stream_ids(rows: torch.Tensor, L: int, stride: int):
 
 def walk_setup(seed, clen, n_rows: int, n_cols: int, stride: int,
                chunk_size: int, rows: Optional[torch.Tensor] = None,
-               device=None):
-    """Initialize the streams of *rows* (default: every walk row).
+               device=None, row0: int = 0):
+    """Initialize the streams of *rows* (default: every walk row), local
+    rows of a walk starting at global row *row0*.
 
     Returns ``(rows, chunks, lanes, state, q, cl)``: flat int64 tensors
-    over the streams, row-major as ``(row, chunk, lane)``, and the
-    connection length ``cl = max(clen, 2)``.
+    over the streams, row-major as ``(row, chunk, lane)`` (local rows),
+    and the connection length ``cl = max(clen, 2)``.
     """
     n_chunks = cdiv(n_cols, chunk_size)
     cl = max(int(clen) & M32, 2)
     if rows is None:
         rows = torch.arange(n_rows, device=device)
     r, c, l = _stream_ids(rows, n_chunks * stride, stride)
-    state = light_rng_init(int(seed) & M32, r, c, l)
+    state = light_rng_init(int(seed) & M32, r + row0, c, l)
     q, state = light_rng_initial_q(state, cl)
     return r, c, l, state, q, cl
 
 
 def walk_setup2(seed, clen, n_rows: int, n_cols: int, stride: int,
-                chunk_size: int, device=None) -> Tuple[torch.Tensor,
-                                                       torch.Tensor]:
+                chunk_size: int, device=None, row0: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A plan's streams: ``(state2, q2)``, ``(n_rows, n_chunks *
-    stride)`` int32 bit patterns of the uint32 state and residual."""
+    stride)`` int32 bit patterns of the uint32 state and residual, of the
+    global rows ``[row0, row0 + n_rows)``."""
     _, _, _, state, q, _ = walk_setup(seed, clen, n_rows, n_cols, stride,
-                                      chunk_size, device=device)
+                                      chunk_size, device=device, row0=row0)
     L = cdiv(n_cols, chunk_size) * stride
     return (to_int32(state).reshape(n_rows, L),
             to_int32(q).reshape(n_rows, L))
@@ -99,15 +109,17 @@ def walk_setup2(seed, clen, n_rows: int, n_cols: int, stride: int,
 
 def walk_rounds(seed, clen, n_rows: int, n_cols: int, *, stride: int,
                 chunk_size: int, rows: Optional[torch.Tensor] = None,
-                setup=None, device=None
+                setup=None, device=None, row0: int = 0
                 ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
     """Yield ``(rows, cols)`` of the visits of each round, over the
-    streams still inside their chunk."""
+    streams still inside their chunk; *rows* are local (the walk starts
+    at global row *row0*)."""
     n_chunks = cdiv(n_cols, chunk_size)
     L = n_chunks * stride
     if setup is None:
         r, c, l, state, q, cl = walk_setup(seed, clen, n_rows, n_cols,
-                                           stride, chunk_size, rows, device)
+                                           stride, chunk_size, rows, device,
+                                           row0)
     else:
         state2, q2 = setup
         if tuple(state2.shape) != (n_rows, L):
@@ -138,43 +150,47 @@ def walk_rounds(seed, clen, n_rows: int, n_cols: int, *, stride: int,
 def walk_fold(seed, clen, n_rows: int, n_cols: int, *, stride: int,
               body: Callable, carry, chunk_size: Optional[int] = None,
               logical_cols: Optional[int] = None,
-              rows: Optional[torch.Tensor] = None, setup=None, device=None):
+              rows: Optional[torch.Tensor] = None, setup=None, device=None,
+              row0: int = 0):
     """Fold ``carry = body(carry, rows, cols)`` over the rounds of the
-    walk. ``chunk_size`` defaults to ``ceil(logical_cols / 4)`` (the
-    logical column count, not the walk width); *rows* restricts the walk
-    to those walk rows."""
+    walk (local *rows*; the walk starts at global row *row0*).
+    ``chunk_size`` defaults to ``ceil(logical_cols / 4)`` (the logical
+    column count, not the walk width); *rows* restricts the walk to those
+    walk rows."""
     if chunk_size is None:
         chunk_size = _normalize_chunk_size(
             n_cols if logical_cols is None else logical_cols, None)
     for r, c in walk_rounds(seed, clen, n_rows, n_cols, stride=stride,
                             chunk_size=chunk_size, rows=rows, setup=setup,
-                            device=device):
+                            device=device, row0=row0):
         carry = body(carry, r, c)
     return carry
 
 
 def walk_matvec(weight_fn, seed, clen, v, out_len: int, *, corder: bool,
                 logical_cols: int, stride: int = _MV_STRIDE,
-                event: bool = False, setup=None) -> torch.Tensor:
+                event: bool = False, setup=None,
+                row0: int = 0) -> torch.Tensor:
     """Implicit mat-vec: ``out[row] += w * v[col]`` (``corder=True``) or
     ``out[col] += w * v[row]`` (``corder=False``, over the rows with
-    ``v != 0`` only)."""
+    ``v != 0`` only), the walk rows starting at global row *row0*."""
     in_len = v.shape[0]
     gate = op_values(v, event)
     out = torch.zeros(out_len, dtype=torch.float32, device=v.device)
     if corder:
         def body(acc, r, c):
-            return acc.index_add_(0, r, gate[c] * weight_fn(seed, r, c))
+            return acc.index_add_(0, r, gate[c] * weight_fn(seed, r + row0,
+                                                              c))
         return walk_fold(seed, clen, out_len, in_len, stride=stride,
                          logical_cols=logical_cols, body=body, carry=out,
-                         setup=setup, device=v.device)
+                         setup=setup, device=v.device, row0=row0)
 
     def body(acc, r, c):
-        return acc.index_add_(0, c, gate[r] * weight_fn(seed, r, c))
+        return acc.index_add_(0, c, gate[r] * weight_fn(seed, r + row0, c))
     rows = torch.nonzero(v != 0).flatten()
     return walk_fold(seed, clen, in_len, out_len, stride=stride,
                      logical_cols=logical_cols, body=body, carry=out,
-                     rows=rows, setup=setup, device=v.device)
+                     rows=rows, setup=setup, device=v.device, row0=row0)
 
 
 def walk_matmat(weight_fn, seed, clen, B, out_len: int, *, corder: bool,

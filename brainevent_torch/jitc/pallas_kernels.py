@@ -22,7 +22,9 @@ evaluates a weight law at each visit: ``law`` 0 scalar (``a``), 1 normal
 ``b`` float32 values. ``state2``/``q2`` are a plan's streams
 (:func:`walk_plan_setup`, int32 bit patterns of uint32) or ``None``, in
 which case each stream draws its own setup. The chunk width is
-``ceil(logical_cols / 4)``.
+``ceil(logical_cols / 4)``. K11 and K12 take ``row0``, the global id of
+their first walk row (:mod:`.engine`; the sharded products of
+:mod:`brainevent_torch.parallel` walk their own rows so).
 
 - K11 :data:`jitc_walk_setup` builds a plan's streams; it stands in for
   the XLA setup of ``walk_plan_setup`` (``pallas_kernels.py:117``).
@@ -116,17 +118,18 @@ _WALK = [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_uint32,
 # -- K11: plan setup ---------------------------------------------------------------
 
 def jitc_walk_setup_twin(state2, q2, *, seed: int, cl: int, n_rows: int,
-                         n_cols: int, chunk_size: int, stride: int):
+                         n_cols: int, chunk_size: int, stride: int,
+                         row0: int = 0):
     """Plain PyTorch twin of K11: fills ``state2``/``q2`` in place."""
     s, q = engine.walk_setup2(seed, cl, n_rows, n_cols, stride, chunk_size,
-                              device=state2.device)
+                              device=state2.device, row0=row0)
     state2.copy_(s)
     q2.copy_(q)
     return state2, q2
 
 
 def _jitc_walk_setup_cuda(op, state2, q2, *, seed, cl, n_rows, n_cols,
-                          chunk_size, stride):
+                          chunk_size, stride, row0=0):
     device = check_cuda_tensors(op.name, (state2, _I32), (q2, _I32))
     L = engine.cdiv(n_cols, chunk_size) * stride
     if tuple(state2.shape) != (n_rows, L) or q2.shape != state2.shape:
@@ -134,10 +137,11 @@ def _jitc_walk_setup_cuda(op, state2, q2, *, seed, cl, n_rows, n_cols,
                          f'fit the walk ({n_rows}, {L})')
     fn = cuda_build.function('jitc_walk_setup_launch', [
         ctypes.c_uint32, ctypes.c_uint32] + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p])
     op.launch(fn, seed & M32, cl, n_rows, n_cols, chunk_size, stride,
-              state2.data_ptr(), q2.data_ptr(), device.index or 0,
-              cuda_stream(device))
+              row0 & M32, state2.data_ptr(), q2.data_ptr(),
+              device.index or 0, cuda_stream(device))
     return state2, q2
 
 
@@ -146,23 +150,27 @@ jitc_walk_setup = KernelOp(
     source=_SOURCE, replaces=f'{_TPU}:117')
 
 
-def _plan_setup(seed, clen, n_rows, n_cols, chunk_size, stride, device):
+def _plan_setup(seed, clen, n_rows, n_cols, chunk_size, stride, device,
+                row0=0):
     L = engine.cdiv(n_cols, chunk_size) * stride
     state2 = torch.empty(n_rows, L, dtype=_I32, device=device)
     q2 = torch.empty(n_rows, L, dtype=_I32, device=device)
     cl = max(int(clen) & M32, 2)
     jitc_walk_setup(state2, q2, seed=int(seed) & M32, cl=cl, n_rows=n_rows,
-                    n_cols=n_cols, chunk_size=chunk_size, stride=stride)
+                    n_cols=n_cols, chunk_size=chunk_size, stride=stride,
+                    row0=row0)
     return state2, q2, cl
 
 
 def walk_plan_setup(seed, clen, n_rows: int, n_cols: int, chunk_size: int,
-                    device=None) -> Tuple[torch.Tensor, torch.Tensor, int]:
+                    device=None, row0: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The streams of the stride-32 (mv-mode) walk: ``(state2, q2, cl)``,
     ``(n_rows, n_chunks * 32)`` int32 bit patterns of uint32 and the
-    connection length, through K11 on *device*."""
+    connection length, through K11 on *device*; the rows are the global
+    rows ``[row0, row0 + n_rows)``."""
     return _plan_setup(seed, clen, n_rows, n_cols, chunk_size, _MV_STRIDE,
-                       device)
+                       device, row0)
 
 
 def walk_plan_setup_mm(seed, clen, n_rows: int, n_cols: int,
@@ -178,18 +186,18 @@ def walk_plan_setup_mm(seed, clen, n_rows: int, n_cols: int,
 def jitc_walk_mv_twin(state2, q2, x, *, law: int, a: float, b: float,
                       seed: int, cl: int, n_rows: int, n_cols: int,
                       logical_cols: int, corder: bool, event: bool,
-                      stride: int = _MV_STRIDE):
+                      stride: int = _MV_STRIDE, row0: int = 0):
     """Plain PyTorch twin of K12: ``(n_rows,)`` (gather) or ``(n_cols,)``
-    (scatter)."""
+    (scatter); the walk rows are the global rows from *row0*."""
     return engine.walk_matvec(
         law_weight_fn(law, a, b), seed, cl, x, n_rows if corder else n_cols,
         corder=corder, logical_cols=logical_cols, stride=stride,
-        event=event, setup=_setup(state2, q2))
+        event=event, setup=_setup(state2, q2), row0=row0)
 
 
 def _jitc_walk_mv_cuda(op, state2, q2, x, *, law, a, b, seed, cl, n_rows,
                        n_cols, logical_cols, corder, event,
-                       stride=_MV_STRIDE):
+                       stride=_MV_STRIDE, row0=0):
     chunk = _chunk(logical_cols)
     device, plan = _walk_args(op, state2, q2, x, n_rows, n_cols, stride,
                               chunk)
@@ -200,10 +208,11 @@ def _jitc_walk_mv_cuda(op, state2, q2, x, *, law, a, b, seed, cl, n_rows,
         n_rows if corder else n_cols, dtype=_F32, device=device)
     fn = cuda_build.function('jitc_walk_mv_launch', [
         ctypes.c_void_p] * 3 + [ctypes.c_int] + _WALK + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     op.launch(fn, *plan, x.data_ptr(), _op(x, event), law, a, b,
               seed & M32, cl, n_rows, n_cols, chunk, stride, int(corder),
-              out.data_ptr(), device.index or 0, cuda_stream(device))
+              row0 & M32, out.data_ptr(), device.index or 0,
+              cuda_stream(device))
     return out
 
 

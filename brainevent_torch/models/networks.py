@@ -294,28 +294,15 @@ class EINet:
     def _simulate(self, state: EINetState, times, inp: float, *,
                   step_op=einet_step, scatter_op=event_count_scatter
                   ) -> EINetState:
-        """The step loop: K1 then K2 for each time in *times*, then a
-        last K1 that only folds the final counts. ``chip_smoke.py`` passes
-        the twins as *step_op* and *scatter_op* to run the twin loop on a
-        CUDA device."""
-        device = state.neurons.v.device
-        v = state.neurons.v.to(torch.float32, copy=True)
-        t_last = state.neurons.t_last.to(torch.float32, copy=True)
-        g_e = state.g_e.to(torch.float32, copy=True)
-        g_i = state.g_i.to(torch.float32, copy=True)
-        spike_count = state.spike_count.to(torch.int32, copy=True)
-        counts = torch.zeros(2, self.num, dtype=torch.int32, device=device)
-        ids = torch.empty(self.num, dtype=torch.int32, device=device)
-        n_ids = torch.zeros(2, dtype=torch.int32, device=device)
-        p = self.step_params(inp)
-        buffers = (v, t_last, g_e, g_i, counts, spike_count, ids, n_ids)
-        for k, t in enumerate(times):
-            parity = k & 1
-            step_op(*buffers, p, t, parity, k > 0, True)
-            scatter_op(ids, n_ids[parity:parity + 1], self.conn_all,
-                       self.n_exc, counts)
-        if len(times):
-            step_op(*buffers, p, 0.0, 0, True, False)
+        """The step loop (:func:`einet_loop`) with K2 over the whole
+        table. ``chip_smoke.py`` passes the twins as *step_op* and
+        *scatter_op* to run the twin loop on a CUDA device."""
+        def propagate(ids, n_ids, counts):
+            scatter_op(ids, n_ids, self.conn_all, self.n_exc, counts)
+        v, t_last, g_e, g_i, spike_count = einet_loop(
+            state.neurons.v, state.neurons.t_last, state.g_e, state.g_i,
+            state.spike_count, times, self.step_params(inp), propagate,
+            step_op=step_op)
         return EINetState(neurons=LIFRefState(v=v, t_last=t_last), g_e=g_e,
                           g_i=g_i, spike_count=spike_count)
 
@@ -323,6 +310,34 @@ class EINet:
         """Mean firing rate in Hz over the simulated window."""
         t_sec = n_steps * self.dt * 1e-3
         return state.spike_count.to(torch.float32).mean() / t_sec
+
+
+def einet_loop(v, t_last, g_e, g_i, spike_count, times, p: EINetParams,
+               propagate, *, step_op=einet_step):
+    """The EI step loop on ``p.num`` neurons, shared by :class:`EINet` and
+    the sharded network: for each time in *times*, K1 then
+    ``propagate(ids, n_ids, counts)``, which leaves in the int32 ``(2,
+    p.num)`` *counts* this step's hits of the spike list *ids* (its
+    length at ``n_ids[0]``); then a last K1 that only folds the final
+    counts. The five state arrays are copied, not modified; the copies
+    are returned."""
+    device = v.device
+    v = v.to(torch.float32, copy=True)
+    t_last = t_last.to(torch.float32, copy=True)
+    g_e = g_e.to(torch.float32, copy=True)
+    g_i = g_i.to(torch.float32, copy=True)
+    spike_count = spike_count.to(torch.int32, copy=True)
+    counts = torch.zeros(2, p.num, dtype=torch.int32, device=device)
+    ids = torch.empty(p.num, dtype=torch.int32, device=device)
+    n_ids = torch.zeros(2, dtype=torch.int32, device=device)
+    buffers = (v, t_last, g_e, g_i, counts, spike_count, ids, n_ids)
+    for k, t in enumerate(times):
+        parity = k & 1
+        step_op(*buffers, p, t, parity, k > 0, True)
+        propagate(ids, n_ids[parity:parity + 1], counts)
+    if len(times):
+        step_op(*buffers, p, 0.0, 0, True, False)
+    return v, t_last, g_e, g_i, spike_count
 
 
 def _to(state: EINetState, device) -> EINetState:

@@ -68,7 +68,7 @@ import torch
 from .. import _misc
 from . import cuda_build
 from .core import KernelOp, check_cuda_tensors, cuda_stream
-from .operand import acc_dtype, fits, op_code, op_values, take
+from .operand import acc_dtype, fits, is_double, op_code, op_values, take
 
 __all__ = [
     'GatherPlan', 'build_gather_plan', 'plan_from_csr', 'plan_from_ell',
@@ -525,9 +525,10 @@ def csr_gather_mm_twin(indptr, indices, perm, w, X, binary: bool):
 
 
 def _csr_gather_mm_cuda(op, indptr, indices, perm, w, X, binary):
-    code = op_code(X, binary)
+    dbl = is_double(op.name, w)
+    code = op_code(X, binary, w.dtype)
     pairs = [(indptr, torch.int32), (indices, torch.int32),
-             (w, torch.float32), (X, X.dtype)]
+             (w, w.dtype), (X, X.dtype)]
     if perm is not None:
         pairs.append((perm, torch.int32))
     device = check_cuda_tensors(op.name, *pairs)
@@ -536,12 +537,12 @@ def _csr_gather_mm_cuda(op, indptr, indices, perm, w, X, binary):
         raise ValueError(f'{op.name}: X {tuple(X.shape)}, weights '
                          f'{tuple(w.shape)} or perm do not fit '
                          f'{indices.shape[0]} entries')
-    Y = torch.empty(n_rows, X.shape[1], dtype=torch.float32, device=device)
+    Y = torch.empty(n_rows, X.shape[1], dtype=w.dtype, device=device)
     fn = cuda_build.function('csr_gather_mm_launch', [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     op.launch(fn, indptr.data_ptr(), indices.data_ptr(),
               None if perm is None else perm.data_ptr(), w.data_ptr(),
-              X.data_ptr(), code, int(tuple(w.shape) == (1,)), n_rows,
+              X.data_ptr(), code, int(tuple(w.shape) == (1,)), dbl, n_rows,
               X.shape[0], X.shape[1], Y.data_ptr(), device.index or 0,
               cuda_stream(device))
     return Y

@@ -13,9 +13,11 @@ product. :func:`op_code` picks it from the operand's dtype and
 :func:`spike_is_bool`. :func:`take` is the gather every twin uses: ids
 outside the operand give an exact 0, as the kernels drop them.
 
-The kernels take bool or float32 spikes and float32 weights, traces and
-float operands, and raise on anything else. The public entries bring the
-dtypes the JAX package computes to them, before any launch:
+The kernels take bool or float32 spikes and float32 or float64 weights,
+traces and float operands (a float operand in the weights' dtype; each
+float kernel has a ``double`` instance, :func:`is_double` picks it), and
+raise on anything else. The public entries bring the dtypes the JAX
+package computes to them, before any launch:
 
 - :func:`event_spikes`: spikes of any other dtype become their bool gate
   (``> 0`` for the products, ``!= 0`` for STDP and the encoders). The
@@ -26,33 +28,46 @@ dtypes the JAX package computes to them, before any launch:
   its Pallas routes do ("Mosaic computes f32"). Against the twin in that
   dtype the result is within 1 ulp of the dtype, on top of the family's
   float32 bound;
-- :func:`refuse_float64`: no kernel of the port computes float64 yet, so
-  a float64 weight, trace or float operand on the card raises a
-  ``TypeError`` at the entry, before any launch. On the CPU the twins
-  compute it in float64 (:func:`acc_dtype`), as the JAX package keeps
-  float64 on its XLA kernel.
+- float64 weights and traces stay float64: on the card they launch the
+  kernels' ``double`` instances, on the CPU the twins compute in float64
+  (:func:`acc_dtype`), as the JAX package keeps float64 on its XLA
+  kernel; the result is float64.
 """
 
 import torch
 
 __all__ = ['OP_BOOL', 'OP_GATE', 'OP_IDENTITY', 'op_code', 'spike_is_bool',
            'op_values', 'take', 'fits', 'event_spikes', 'widen',
-           'refuse_float64', 'acc_dtype']
+           'is_double', 'acc_dtype']
 
 OP_BOOL, OP_GATE, OP_IDENTITY = 0, 1, 2
 _HALF = (torch.float16, torch.bfloat16)
 
 
-def op_code(x: torch.Tensor, binary: bool) -> int:
-    """The kernels' op for operand *x*; raises on a dtype they do not
-    take."""
-    if binary and x.dtype == torch.bool:
-        return OP_BOOL
-    if x.dtype != torch.float32:
-        raise TypeError(f'the event kernels take a bool or float32 operand '
-                        f'for an event product and float32 for a float one, '
-                        f'got {x.dtype}')
-    return OP_GATE if binary else OP_IDENTITY
+def op_code(x: torch.Tensor, binary: bool,
+            value: torch.dtype = torch.float32) -> int:
+    """The kernels' op for operand *x* of a kernel computing in *value*
+    (the weights' dtype); raises on a dtype they do not take."""
+    if binary and x.dtype in (torch.bool, torch.float32):
+        return OP_BOOL if x.dtype == torch.bool else OP_GATE
+    if not binary and x.dtype == value:
+        return OP_IDENTITY
+    raise TypeError(f'the event kernels take a bool or float32 operand for '
+                    f"an event product and one in the weights' dtype "
+                    f'({value}) for a float one, got {x.dtype}')
+
+
+def is_double(name: str, *xs) -> int:
+    """1 where the float tensors *xs* (weights, traces) are float64, 0
+    where they are float32: the value type of the kernel instance to
+    launch. Raises a ``TypeError`` on any other dtype or a mix."""
+    dtypes = {x.dtype for x in xs}
+    if dtypes == {torch.float64}:
+        return 1
+    if dtypes == {torch.float32}:
+        return 0
+    raise TypeError(f'{name}: the kernels compute float32 or float64 '
+                    f'weights and traces of one dtype, got {dtypes}')
 
 
 def spike_is_bool(name: str, x: torch.Tensor) -> int:
@@ -82,17 +97,6 @@ def widen(x: torch.Tensor) -> torch.Tensor:
 def _float64(xs) -> bool:
     return any(isinstance(x, torch.Tensor) and x.dtype == torch.float64
                for x in xs)
-
-
-def refuse_float64(name: str, *xs) -> None:
-    """Raise a ``TypeError`` where a float64 tensor among *xs* lies on a
-    CUDA device: the kernels compute float32 and none computes float64."""
-    if any(x.device.type == 'cuda' for x in xs
-           if isinstance(x, torch.Tensor) and x.dtype == torch.float64):
-        raise TypeError(
-            f'{name}: float64 weights, traces and float operands are not '
-            f'computed on the card (the kernels compute float32): cast them '
-            f'to float32, or compute float64 on the CPU')
 
 
 def acc_dtype(*xs) -> torch.dtype:

@@ -33,7 +33,7 @@ import torch
 
 from . import cuda_build
 from .core import KernelOp, check_cuda_tensors, cuda_stream
-from .operand import take
+from .operand import is_double, take
 
 __all__ = ['pair_gather_product', 'pair_gather', 'pair_gather_twin']
 
@@ -52,19 +52,22 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _pair_gather_cuda(op, rows, cols, s, x):
+    sides = [v for v in (s, x) if v is not None]
+    dbl = is_double(op.name, *sides)
     pairs = [(t, dtype) for t, dtype in ((rows, torch.int32),
                                          (cols, torch.int32),
-                                         (s, torch.float32),
-                                         (x, torch.float32)) if t is not None]
+                                         (s, sides[0].dtype),
+                                         (x, sides[0].dtype)) if t is not None]
     device = check_cuda_tensors(op.name, *pairs)
     nse = (rows if rows is not None else cols).shape[0]
-    out = torch.empty(nse, dtype=torch.float32, device=device)
+    out = torch.empty(nse, dtype=sides[0].dtype, device=device)
     fn = cuda_build.function('pair_gather_launch', [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     op.launch(fn, _ptr(rows), _ptr(cols), _ptr(s), _ptr(x),
               0 if s is None else s.shape[0], 0 if x is None else x.shape[0],
-              nse, out.data_ptr(), device.index or 0, cuda_stream(device))
+              nse, dbl, out.data_ptr(), device.index or 0,
+              cuda_stream(device))
     return out
 
 

@@ -20,7 +20,11 @@ classes (K11-K14); the dense slice, a 10k x 10k ``Dense`` matrix
 (100M weights) with ``BinaryArray`` products, STDP and the event
 encoders (K15-K18); and the EI strategies of ``einet_pallas_sim``, the
 dense one over the ``(num, num)`` connection-count table (K1 + K19) and
-the superseded ones (K1 + K2). Phases:
+the superseded ones (K1 + K2); and the multi-device layer over
+``torch.distributed`` at world size 1 under NCCL (the one process's group,
+through a file store): ``ShardedEINet`` at 4k and 400k (K1 + K20, or K1 +
+the float K2), its count kernel K20 split over four shards in one process,
+and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
 
 1. the device (``torch.cuda.get_device_name`` and ``nvidia-smi``);
 2. the kernel build, with its seconds;
@@ -131,21 +135,45 @@ the superseded ones (K1 + K2). Phases:
     spikes in nine dtypes (negatives and NaN among the silent ones) give
     the bool spikes' result bitwise through the kernel; float16 and
     bfloat16 weights within 1 ulp of the twin plus the float32 bound;
-    float64 weights refused with a ``TypeError`` before any launch (no
-    kernel computes float64).
+    float64 weights (C10) through each kernel's ``double`` instance, one
+    launch, within 1e-12 * sum|w x| of the float64 twin (bitwise where the
+    float32 route is exact), and float64 ``csrmv``/``csrmm``, CSR STDP and
+    a CSR weight gradient (K7-K10 on float64);
+29. K20 (``mega_counts``) on COBA 4k and 400k spike lists recorded from
+    runs, split over 4 shards in one process (``row0 = r * n_loc``): each
+    partial bitwise its twin, their sum and the shard-major buffer
+    bitwise K2; a 4k table with an in-degree of 300 per class at one
+    target (the JAX route refuses above 255), exact; at world size 1 (the
+    main path's shape) one launch bitwise its twin, then K20's device ms,
+    its twin's, its bound and ``index_add_``'s;
+30. ``ShardedEINet`` (world size 1, NCCL) at COBA 4k and 400k, both
+    routes, 2,000 steps: all five fields bitwise ``EINet``; K1 2,001 and
+    K20 2,000 launches (mxu6), the float K2 4,000 (scatter); exactly one
+    ``reduce_scatter_tensor`` of ``2 * num * 4`` bytes per step and no
+    other collective (counted by wrapping ``torch.distributed`` here);
+    us/step over 5,000 steps after 200 beside ``EINet`` in one run;
+31. the sharded ops at world size 1 against the single-device entries:
+    ``sharded_binary_fcnmv`` (both weights, both directions, ``psum`` and
+    ``psum_scatter``), the four CSR wrappers both ways and a weight
+    gradient, bitwise (K5's and K8's float atomics within 1e-5 * sum|w x|);
+    K11/K12 at the 80k E projection in halves with ``row0`` 0 and n/2:
+    plans and gathers bitwise the whole walk, the scatter within 1e-5 *
+    sum|w x|; ``sharded_jitmv`` bitwise ``jitnmv``.
 
 Each kernel's line also carries its bound (the larger of its bytes over
 the HBM rate and its operations over the float32 rate) and the time of one
 PyTorch call computing the same function (``torch.sparse.mm``,
 ``index_add_``, ``torch.matmul``, ``torch.addr``, ``torch.count_nonzero``)
 where one exists. Any failure exits non-zero; so does a host without
-CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K19; K15's
-line is its ``s @ W`` direction, K19's the 4k COBA run); the last is
+CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K20; K15's
+line is its ``s @ W`` direction, K19's the 4k COBA run, K20's the 400k
+one); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 import contextlib
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -381,6 +409,15 @@ def bound(n_bytes, n_ops):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
+def count_scatter_bytes(n_events, n_conn):
+    """The bytes an int32 hit-count scatter (K2, K20) must move for
+    *n_events* spikes of *n_conn* targets each: the ids and the spiking
+    rows read once, and a read and a write of each counter hit. The
+    caller zeroes the counts in a launch of its own, so the rest of the
+    buffer is not the kernel's traffic."""
+    return 4 * n_events * (1 + n_conn) + 8 * n_events * n_conn
+
+
 def time_kernels(nets, finals, device):
     """K1 and K2 against their twins at the main path's shapes: the state
     each timed run ended in, and the spike list of one more step from it."""
@@ -433,7 +470,7 @@ def time_kernels(nets, finals, device):
         res.update(
             k2_library_ms=device_ms(lambda: flat.index_add_(0, tgt, ones),
                                     reps),
-            k1_bytes=56 * num, k2_bytes=4 * n_events * (1 + n_conn) + 16 * num,
+            k1_bytes=56 * num, k2_bytes=count_scatter_bytes(n_events, n_conn),
             k2_events=n_events)
         out[label] = res
         print(f'{label} ({num} neurons), ms per call: K1 device '
@@ -2170,40 +2207,515 @@ def c8_half_weights(device, gen):
     return worst
 
 
-def c8_float64_refused(device, gen):
-    """float64 weights on the card: a ``TypeError`` at the entry, before
-    any launch (no kernel computes float64). Returns the number of entries."""
-    import brainevent_torch as bt
+def c8_float64_weights(device, gen):
+    """float64 weights on the card (C10): one launch of the kernel's
+    ``double`` instance at each weighted entry of :func:`c8_entries`, the
+    result float64 and within ``1e-12 * sum|w| gate`` of the float64 twin
+    (bitwise at the exact entries). Returns the number of entries and the
+    largest error."""
+    from brainevent_torch.ops.core import REGISTRY
+    worst = 0.0
     entries = c8_weighted(device, gen, torch.float64)
-    for name, (fn, shape, op, nonzero, _) in entries.items():
+    for name, (fn, shape, op, nonzero, fn_abs) in entries.items():
         s = c8_spikes(torch.bool, shape, gen, device)
-        bt.reset_launch_counts()
-        try:
-            fn(s)
-            refused = False
-        except TypeError as err:
-            refused = 'float64' in str(err)
-        torch.cuda.synchronize()
-        check(refused, (name, 'float64 not refused'))
-        check(sum(bt.launch_counts().values()) == 0, (name, 'launched'))
-    return len(entries)
+        worst = max(worst, c10_check(
+            name, lambda: fn(s), REGISTRY[op],
+            None if fn_abs is None else (lambda: fn_abs(s).double())))
+    return len(entries), worst
+
+
+def c10_check(name, fn, op, fn_abs):
+    """``fn()`` launches *op*'s double instance once, returns float64, and
+    is within ``1e-12 * fn_abs()`` of the float64 twin (bitwise where
+    *fn_abs* is None). Returns the largest error."""
+    before = op.launches
+    got = fn()
+    launched = op.launches - before
+    with twins_on_card([op]):
+        want = fn()
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float64 == want.dtype, (name, got.dtype))
+    check(launched == 1, (name, 'float64', launched))
+    err = (got - want).abs()
+    if fn_abs is None:
+        check(torch.equal(got, want), (name, 'float64 bitwise'))
+    else:
+        check(bool((err <= 1e-12 * fn_abs()).all()),
+              (name, 'float64', float(err.max())))
+    return float(err.max())
+
+
+def c10_float_products(device, gen):
+    """The float64 kernels the binary matrix does not reach: ``csrmv``
+    both ways and ``csrmm`` (K7, K8, K10 on a float64 operand), the CSR
+    STDP update and a weight gradient (K9), each one launch of its
+    ``double`` instance against the float64 twin: K9 bitwise, the sums
+    within ``1e-12 * sum|w x|``. Returns the number of cases and the
+    largest error."""
+    import brainevent_torch as bt
+    from brainevent_torch.ops.core import REGISTRY
+    n, m, b = 2000, 1500, 16
+    f64 = torch.float64
+    on = torch.rand(n, m, generator=gen, device=device) < 0.02
+    A = torch.where(on, torch.randn(n, m, generator=gen, device=device,
+                                    dtype=f64), 0.0)
+    csr = bt.CSR.fromdense(A)
+    w, args, shape = csr.data, (csr.indices, csr.indptr), csr.shape
+    v = {k: torch.randn(k, generator=gen, device=device, dtype=f64)
+         for k in (n, m)}
+    X = torch.randn(m, b, generator=gen, device=device, dtype=f64)
+    s = torch.rand(n, generator=gen, device=device) < 0.1
+    trace = torch.rand(m, generator=gen, device=device, dtype=f64)
+
+    def grad():
+        wg = w.clone().requires_grad_(True)
+        y = bt.binary_csrmv(wg, *args, s, shape=shape, transpose=True)
+        (y * v[m]).sum().backward()
+        return wg.grad
+
+    cases = {
+        'csrmv': (lambda: bt.csrmv(w, *args, v[m], shape=shape),
+                  'csr_gather_mv',
+                  lambda: bt.csrmv(w.abs(), *args, v[m].abs(), shape=shape)),
+        'csrmv T': (lambda: bt.csrmv(w, *args, v[n], shape=shape,
+                                     transpose=True), 'csr_scatter_mv',
+                    lambda: bt.csrmv(w.abs(), *args, v[n].abs(), shape=shape,
+                                     transpose=True)),
+        'csrmm': (lambda: bt.csrmm(w, *args, X, shape=shape),
+                  'csr_gather_mm',
+                  lambda: bt.csrmm(w.abs(), *args, X.abs(), shape=shape)),
+        'update_csr_on_binary_pre': (lambda: bt.update_csr_on_binary_pre(
+            w, *args, s, trace, -1.0, 1.0, shape=shape), 'pair_gather',
+            None),
+        'binary_csrmv weight grad': (grad, 'pair_gather', None),
+    }
+    worst = 0.0
+    for name, (fn, op, fn_abs) in cases.items():
+        worst = max(worst, c10_check(name, fn, REGISTRY[op], fn_abs))
+    return len(cases), worst
 
 
 def check_c8(device):
-    phase('28 dtypes at the public entries of K5-K8, K10, K12, K13, K15-K18: '
+    phase('28 dtypes at the public entries of K5-K10, K12, K13, K15-K18: '
           'spikes in nine dtypes bitwise the bool spikes\' result through '
           'the kernel; float16/bfloat16 weights within 1 ulp of the twin '
           '(on the widened weights, rounded) plus the float32 bound; '
-          'float64 weights refused before any launch')
+          'float64 weights (C10) through each kernel\'s double instance, '
+          'within 1e-12 * sum|w x| of the float64 twin, bitwise where exact')
     gen = torch.Generator(device=device).manual_seed(28)
     n_checked = c8_spike_dtypes(device, gen)
     print(f'spikes: {n_checked} entry x dtype cases bitwise the bool '
           f'spikes\' result, each through its kernel')
     worst = c8_half_weights(device, gen)
-    n64 = c8_float64_refused(device, gen)
+    n64, err64 = c8_float64_weights(device, gen)
+    nf, errf = c10_float_products(device, gen)
     print(f'weights float16 and bfloat16 within tolerance (max |d| '
-          f'{worst!r}); float64 refused with a TypeError at {n64} entries, '
-          f'no kernel launched')
+          f'{worst!r}); float64 through the double instances at {n64} '
+          f'binary entries (max |d| {err64!r}) and {nf} float product, '
+          f'STDP and gradient cases (max |d| {errf!r}), one launch each')
+
+
+# -- the multi-device layer: K20, ShardedEINet, the sharded ops (phases 29-31) --
+
+# (label, EINet scale) of phases 29 and 30: COBA 4k and the 400k network of
+# the repo's acceptance model (80 targets a neuron, a 128 MB table)
+SHARD_NETS = (('4k', 1.0), ('400k', 100.0))
+K20_SHARDS = 4
+SHARD_STEPS, SHARD_TIME_STEPS, SHARD_TIME_WARM = 2000, 5000, 200
+# phase 31: the ELL and CSR shapes, and the 80k E projection of
+# JITCNet(scale=20) (64,000 presynaptic rows x 80,000 targets)
+SHARD_OPS_N, SHARD_CSR = 20_000, (4000, 3000)
+SHARD_JITC = (64_000, 80_000)
+# every collective of torch.distributed a step could call
+COLLECTIVES = ('all_reduce', 'reduce_scatter_tensor', 'reduce_scatter',
+               'reduce_scatter_single', 'all_gather_into_tensor',
+               'all_gather', 'all_gather_single', 'broadcast', 'reduce',
+               'all_to_all', 'all_to_all_single', 'send', 'recv', 'barrier')
+
+
+@contextlib.contextmanager
+def collective_log():
+    """Count the calls of :data:`COLLECTIVES` on ``torch.distributed``
+    (wrapped here, not in the package) and the bytes of each call's input:
+    yields the list of ``(name, bytes)``."""
+    import torch.distributed as dist
+    calls = []
+    saved = {n: getattr(dist, n) for n in COLLECTIVES if hasattr(dist, n)}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            ts = [a for a in args if isinstance(a, torch.Tensor)]
+            src = ts[1] if len(ts) > 1 else (ts or [None])[0]
+            calls.append((name, 0 if src is None
+                          else src.numel() * src.element_size()))
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def shard_lists(ids, n_act, num, n_dev, device):
+    """The spike list *ids* (its first *n_act* global ids) cut into
+    *n_dev* local lists of ``num / n_dev`` neurons: ``[(ids_r, n_r)]``."""
+    n_loc = num // n_dev
+    sel = ids[:n_act].long()
+    sel = sel[(sel >= 0) & (sel < num)]
+    out = []
+    for r in range(n_dev):
+        loc = sel[(sel >= r * n_loc) & (sel < (r + 1) * n_loc)] - r * n_loc
+        ids_r = torch.zeros(n_loc, dtype=torch.int32, device=device)
+        ids_r[:loc.numel()] = loc.to(torch.int32)
+        out.append((ids_r, torch.tensor([loc.numel()], dtype=torch.int32,
+                                        device=device)))
+    return out
+
+
+def k20_vs_k2(net, ids, n_ids, device, n_dev=K20_SHARDS):
+    """K20 on *n_dev* shards of *net* for one spike list: each shard's
+    full partial bitwise its twin, their sum and the shard-major buffer
+    bitwise K2's counts. Returns the largest error against the twin."""
+    from brainevent_torch.ops import scatter as sc
+    from brainevent_torch.parallel import mega
+    num, n_loc = net.num, net.num // n_dev
+    k2 = sc.event_count_scatter(ids, n_ids, net.conn_all, net.n_exc,
+                                torch.zeros(2, num, dtype=torch.int32,
+                                            device=device))
+    total = torch.zeros(2, num, dtype=torch.int32, device=device)
+    major = torch.zeros(n_dev, 2, n_loc, dtype=torch.int32, device=device)
+    worst = 0.0
+    for r, (ids_r, n_r) in enumerate(shard_lists(ids, int(n_ids), num,
+                                                 n_dev, device)):
+        conn_r = net.conn_all[r * n_loc:(r + 1) * n_loc]
+        got = mega.mega_counts(ids_r, n_r, conn_r, r * n_loc, net.n_exc,
+                               torch.zeros(1, 2, num, dtype=torch.int32,
+                                           device=device))
+        want = mega.mega_counts_twin(ids_r, n_r, conn_r, r * n_loc,
+                                     net.n_exc, torch.zeros_like(got))
+        mega.mega_counts(ids_r, n_r, conn_r, r * n_loc, net.n_exc, major)
+        torch.cuda.synchronize()
+        worst = max(worst, float((got - want).abs().max()))
+        check(torch.equal(got, want), ('K20 vs twin', num, r))
+        total += got[0]
+    torch.cuda.synchronize()
+    check(torch.equal(total, k2), ('K20 4-shard sum vs K2', num))
+    check(torch.equal(major.transpose(0, 1).reshape(2, num), k2),
+          ('K20 shard-major vs K2', num))
+    return worst
+
+
+def indegree_net(device):
+    """A 4k network whose target 17 has an in-degree of 300 from each
+    class (the case the JAX mega-kernel refuses above 255)."""
+    import brainevent_torch as bt
+    rng = np.random.default_rng(290)
+    conn = rng.integers(0, 4000, (4000, 80)).astype(np.int32)
+    conn[:300, 0] = 17
+    conn[3200:3500, 0] = 17
+    return bt.EINet(scale=1.0, conn_all=conn, device=device)
+
+
+def check_k20(device):
+    phase(f'29 K20 mega_counts vs its twin and K2: COBA 4k and 400k spike '
+          f'lists recorded from runs, split over {K20_SHARDS} shards '
+          f'(row0 = r * n_loc): each partial bitwise its twin, the sum and '
+          f'the shard-major buffer bitwise K2; an in-degree of 300 per '
+          f'class, exact; at world size 1 bitwise its twin, and device ms '
+          f'per launch')
+    import brainevent_torch as bt
+    from brainevent_torch.parallel import mega
+    worst, res = 0.0, {}
+    for label, scale in SHARD_NETS:
+        net = bt.EINet(scale=scale, device=device)
+        final = bt.einet_pallas_sim(net, net.init_state(), DENSE_TIME_WARM)
+        ids, n_ids = recorded_spikes(net, final, DENSE_TIME_WARM, device)
+        n_act = int(n_ids)
+        worst = max(worst, k20_vs_k2(net, ids, n_ids, device))
+        num, n_conn = net.num, net.conn_all.shape[1]
+        # the main path's shape: world size 1, one shard of num neurons
+        counts = torch.zeros(1, 2, num, dtype=torch.int32, device=device)
+        args = (ids, n_ids, net.conn_all, 0, net.n_exc, counts)
+        want = mega.mega_counts_twin(*args[:5], torch.zeros_like(counts))
+        mega.mega_counts(*args)
+        torch.cuda.synchronize()
+        worst = max(worst, float((counts - want).abs().max()))
+        check(torch.equal(counts, want), ('K20 vs twin at world size 1',
+                                          num))
+        reps, reps_twin = (500, 100) if num < 40_000 else (200, 20)
+        ms = device_ms(lambda: mega.mega_counts(*args), reps)
+        twin_ms = host_ms(lambda: mega.mega_counts_twin(*args), reps_twin)
+        src = ids[:n_act].long()
+        tgt = (net.conn_all[src].long() + num * (src >= net.n_exc).long()[
+            :, None]).reshape(-1)
+        ones = torch.ones(tgt.numel(), dtype=torch.int32, device=device)
+        flat = torch.zeros(2 * num, dtype=torch.int32, device=device)
+        lib_ms = device_ms(lambda: flat.index_add_(0, tgt, ones), reps)
+        n_bytes = count_scatter_bytes(n_act, n_conn)
+        res[label] = dict(ms=ms, plain_ms=twin_ms, library_ms=lib_ms,
+                          bytes=n_bytes, n_act=n_act)
+        print(f'{label} ({n_act} spikes of {num}): {K20_SHARDS} shards '
+              f'bitwise their twins, summed bitwise K2; K20 device {ms!r} '
+              f'ms, twin {twin_ms!r} ms, index_add_ {lib_ms!r} ms, bound '
+              f'{bound(n_bytes, 0)!r}')
+        del net, final
+    net = indegree_net(device)
+    ids = torch.arange(net.num, dtype=torch.int32, device=device)
+    n_ids = torch.tensor([net.num], dtype=torch.int32, device=device)
+    worst = max(worst, k20_vs_k2(net, ids, n_ids, device))
+    counts = mega.mega_counts(ids, n_ids, net.conn_all, 0, net.n_exc,
+                              torch.zeros(1, 2, net.num, dtype=torch.int32,
+                                          device=device))
+    deg = torch.stack([torch.bincount(net.conn_all[:3200].reshape(-1).long(),
+                                      minlength=4000),
+                       torch.bincount(net.conn_all[3200:].reshape(-1).long(),
+                                      minlength=4000)]).to(torch.int32)
+    check(torch.equal(counts[0], deg) and int(deg[:, 17].min()) >= 300,
+          ('K20 in-degree', deg[:, 17].tolist()))
+    print(f'in-degree {deg[:, 17].tolist()} at target 17 (every neuron '
+          f'spiking): exact, bitwise K2 over {K20_SHARDS} shards')
+    return worst, res
+
+
+def sharded_net(net, mesh, propagate):
+    """:class:`ShardedEINet` of *net* on *mesh* by *propagate*."""
+    from brainevent_torch.parallel import ShardedEINet
+    s = ShardedEINet.from_einet(net, mesh)
+    return s if propagate == 'scatter' else dataclasses.replace(
+        s, propagate=propagate)
+
+
+def sharded_run(snet, state, n_steps, inp=20.0):
+    """*n_steps* of *snet* from *state* with the launches and the
+    collectives counted: ``(final, launch counts, collective calls)``."""
+    import brainevent_torch as bt
+    bt.reset_launch_counts()
+    with collective_log() as calls:
+        out = snet.run(n_steps, inp, state=state)
+        torch.cuda.synchronize()
+    return out, bt.launch_counts(), calls
+
+
+def check_sharded_einet(mesh, device):
+    phase(f'30 ShardedEINet on the card (world size 1, NCCL), COBA 4k and '
+          f'400k, propagate scatter and mxu6: {SHARD_STEPS} steps, all five '
+          f'fields bitwise EINet; K1 {SHARD_STEPS + 1} and K20 '
+          f'{SHARD_STEPS} launches (mxu6); one reduce-scatter of 2 * num * '
+          f'4 bytes per step and no other collective; us/step over '
+          f'{SHARD_TIME_STEPS} steps after {SHARD_TIME_WARM}, beside EINet')
+    import brainevent_torch as bt
+    res = {}
+    for label, scale in SHARD_NETS:
+        net = bt.EINet(scale=scale, coba=True, device=device)
+        state = net.init_state()
+        ref = net.run(SHARD_STEPS, state=state)
+        want = (ref.neurons.v, ref.neurons.t_last, ref.g_e, ref.g_i,
+                ref.spike_count)
+        for propagate in ('scatter', 'mxu6'):
+            snet = sharded_net(net, mesh, propagate)
+            s0 = snet.init_state_from(state)
+            out, counts, calls = sharded_run(snet, s0, SHARD_STEPS)
+            for x, y in zip(out, want):
+                check(x.to_local().dtype == y.dtype
+                      and torch.equal(x.to_local(), y),
+                      (label, propagate, 'bitwise EINet'))
+            mx = propagate == 'mxu6'
+            check(counts['einet_step'] == SHARD_STEPS + 1
+                  and counts['mega_counts'] == (SHARD_STEPS if mx else 0)
+                  and counts['event_scatter_float'] == (
+                      0 if mx else 2 * SHARD_STEPS)
+                  and counts['event_count_scatter'] == 0,
+                  (label, propagate, counts))
+            check([c for c, _ in calls] == ['reduce_scatter_tensor']
+                  * SHARD_STEPS and {b for _, b in calls} == {
+                      2 * net.num * 4}, (label, propagate, calls[:3]))
+            res[label, propagate] = dict(counts=counts)
+            print(f'COBA {label} {propagate}: bitwise EINet on all five '
+                  f'fields over {SHARD_STEPS} steps '
+                  f'({int(ref.spike_count.sum())} spikes); launches '
+                  f'{counts["einet_step"]} K1, {counts["mega_counts"]} K20, '
+                  f'{counts["event_scatter_float"]} K2 float; '
+                  f'{len(calls)} reduce-scatters of {2 * net.num * 4} bytes, '
+                  f'no other collective')
+        # timing, the routes in one run: EINet, then the sharded routes
+        us = {}
+        for route in ('EINet', 'scatter', 'mxu6'):
+            runner = net if route == 'EINet' else sharded_net(net, mesh,
+                                                              route)
+            s0 = state if route == 'EINet' else runner.init_state_from(state)
+            warm = runner.run(SHARD_TIME_WARM, state=s0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.run(SHARD_TIME_STEPS, state=warm)
+            torch.cuda.synchronize()
+            us[route] = (time.perf_counter() - t0) / SHARD_TIME_STEPS * 1e6
+        # the step's one collective alone, on the step's buffers
+        import torch.distributed as dist
+        full = torch.zeros(1, 2, net.num, dtype=torch.int32, device=device)
+        counts = torch.empty(2, net.num, dtype=torch.int32, device=device)
+        us['reduce_scatter'] = host_ms(
+            lambda: dist.reduce_scatter_tensor(counts.view(-1),
+                                               full.view(-1)),
+            SHARD_TIME_STEPS) * 1e3
+        res[label, 'us'] = us
+        print(f'COBA {label} us/step over {SHARD_TIME_STEPS} steps after '
+              f'{SHARD_TIME_WARM} (host clock): EINet {us["EINet"]!r}, '
+              f'sharded scatter {us["scatter"]!r}, sharded mxu6 '
+              f'{us["mxu6"]!r}; the reduce-scatter alone '
+              f'{us["reduce_scatter"]!r} us per call')
+        del net, ref, want
+    return res
+
+
+def check_sharded_ops(mesh, device):
+    phase('31 the sharded ops on the card (world size 1): '
+          'sharded_binary_fcnmv (homogeneous and heterogeneous, both '
+          'directions, psum and psum_scatter), the four CSR wrappers both '
+          'ways, a CSR weight gradient, bitwise the single-device entries '
+          '(the float atomics of K5 and K8 within 1e-5 * sum|w x|); K11 and '
+          'K12 at the 80k E projection in two halves (row0 0 and n/2): '
+          'gather and plans bitwise the whole walk, scatter within 1e-5 * '
+          'sum|w x|')
+    import brainevent_torch as bt
+    from brainevent_torch import parallel as par
+    from brainevent_torch.jitc import pallas_kernels as jk
+    from brainevent_torch._misc import _initialize_conn_length
+    gen = torch.Generator(device=device).manual_seed(31)
+    n, m, k = SHARD_OPS_N, SHARD_OPS_N, 80
+    idx = torch.randint(0, m, (n, k), generator=gen, device=device,
+                        dtype=torch.int32)
+    w_ell = torch.randn(n, k, generator=gen, device=device)
+    spk = {True: torch.rand(n, generator=gen, device=device) < 0.01,
+           False: torch.rand(m, generator=gen, device=device) < 0.01}
+    n_case = 0
+    for homo in (True, False):
+        w = w_ell[0, :1] if homo else w_ell
+        for transpose in (True, False):
+            for reduce in (('psum', 'psum_scatter') if transpose
+                           else ('psum',)):
+                s = spk[transpose]
+                got = par.sharded_binary_fcnmv(
+                    w, idx, s, mesh=mesh, shape=(n, m), transpose=transpose,
+                    reduce=reduce).to_local()
+                want = bt.binary_fcnmv(w, idx, s, shape=(n, m),
+                                       transpose=transpose)
+                torch.cuda.synchronize()
+                if transpose and not homo:          # K5's float atomics
+                    within(got, want, bt.binary_fcnmv(
+                        w.abs(), idx, s, shape=(n, m), transpose=True),
+                        ('sharded fcn', homo, transpose, reduce))
+                else:
+                    check(torch.equal(got, want),
+                          ('sharded fcn', homo, transpose, reduce))
+                n_case += 1
+    cm, ck = SHARD_CSR
+    on = torch.rand(cm, ck, generator=gen, device=device) < 0.02
+    A = bt.CSR.fromdense(torch.where(on, torch.randn(
+        cm, ck, generator=gen, device=device), 0.0))
+    args, shape = (A.indices, A.indptr), A.shape
+    plan = par.balance_csr_shards(A.indices, A.indptr, 1, shape=shape)
+    x = {r: torch.randn(r, generator=gen, device=device) for r in (cm, ck)}
+    X = {r: torch.randn(r, 16, generator=gen, device=device)
+         for r in (cm, ck)}
+    for name, single, sharded, op_of in (
+            ('binary_csrmv', bt.binary_csrmv, par.sharded_binary_csrmv,
+             lambda r: x[r] > 1.0),
+            ('csrmv', bt.csrmv, par.sharded_csrmv, lambda r: x[r]),
+            ('binary_csrmm', bt.binary_csrmm, par.sharded_binary_csrmm,
+             lambda r: X[r] > 1.0),
+            ('csrmm', bt.csrmm, par.sharded_csrmm, lambda r: X[r])):
+        for transpose in (True, False):
+            o = op_of(cm if transpose else ck)
+            got = sharded(A.data, *args, o, mesh=mesh, shape=shape,
+                          transpose=transpose, plan=plan).to_local()
+            want = single(A.data, *args, o, shape=shape, transpose=transpose)
+            torch.cuda.synchronize()
+            if transpose and got.dim() == 1:        # K8's float atomics
+                within(got, want, single(A.data.abs(), *args, o.abs() if
+                                         o.is_floating_point() else o,
+                                         shape=shape, transpose=True),
+                       (name, transpose))
+            else:
+                check(torch.equal(got, want), (name, transpose))
+            n_case += 1
+    cot = torch.randn(ck, generator=gen, device=device)
+    s_pre = torch.rand(cm, generator=gen, device=device) < 0.01
+    grads = []
+    for fn in (lambda w: par.sharded_binary_csrmv(
+            w, *args, s_pre, mesh=mesh, shape=shape, plan=plan).to_local(),
+            lambda w: bt.binary_csrmv(w, *args, s_pre, shape=shape,
+                                      transpose=True)):
+        wg = A.data.clone().requires_grad_(True)
+        (fn(wg) * cot).sum().backward()
+        grads.append(wg.grad)
+    torch.cuda.synchronize()
+    check(torch.equal(*grads), 'sharded CSR weight gradient (K9)')
+    n_case += 1
+    print(f'{n_case} sharded op cases equal to the single-device entries '
+          f'(K5-K10 through the sharded wrappers)')
+    # K11 and K12 with row0 at the 80k E projection of JITCNet(scale=20)
+    n_rows, n_cols = SHARD_JITC
+    kw = dict(law=1, a=0.6, b=float(F32(0.06)), seed=42,
+              cl=_initialize_conn_length(80 / n_cols), logical_cols=n_cols)
+    chunk = -(-n_cols // 4)
+    half = n_rows // 2
+    s_all, q_all, _ = jk.walk_plan_setup(42, kw['cl'], n_rows, n_cols, chunk,
+                                         device=device)
+    halves = [jk.walk_plan_setup(42, kw['cl'], half, n_cols, chunk,
+                                 device=device, row0=r0)
+              for r0 in (0, half)]
+    torch.cuda.synchronize()
+    check(torch.equal(torch.cat([h[0] for h in halves]), s_all)
+          and torch.equal(torch.cat([h[1] for h in halves]), q_all),
+          'K11 row0 halves bitwise the whole plan')
+    v = torch.randn(n_cols, generator=gen, device=device)
+    whole = jk.jitc_walk_mv(None, None, v, n_rows=n_rows, n_cols=n_cols,
+                            corder=True, event=False, **kw)
+    for plan_h in ((None, None), None):
+        parts = [jk.jitc_walk_mv(*(plan_h or halves[i][:2]), v,
+                                 n_rows=half, n_cols=n_cols, corder=True,
+                                 event=False, row0=i * half, **kw)
+                 for i in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(torch.cat(parts), whole),
+              ('K12 row0 gather', plan_h is None))
+    s = torch.rand(n_rows, generator=gen, device=device) < 0.002
+    whole = jk.jitc_walk_mv(None, None, s, n_rows=n_rows, n_cols=n_cols,
+                            corder=False, event=True, **kw)
+    parts = sum(jk.jitc_walk_mv(None, None, s[i * half:(i + 1) * half],
+                                n_rows=half, n_cols=n_cols, corder=False,
+                                event=True, row0=i * half, **kw)
+                for i in range(2))
+    visits = jk.jitc_walk_mv(None, None, s, n_rows=n_rows, n_cols=n_cols,
+                             corder=False, event=True,
+                             **dict(kw, law=0, a=1.0, b=0.0))
+    err = within(parts, whole, visits * (0.6 + 6 * 0.06), 'K12 row0 scatter')
+    got = par.sharded_jitmv('n', (0.6, 0.06), 80 / n_cols, v, 42, mesh=mesh,
+                            shape=(n_rows, n_cols)).to_local()
+    want = bt.jitnmv(0.6, 0.06, 80 / n_cols, v, 42, shape=(n_rows, n_cols))
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), 'sharded_jitmv bitwise jitnmv')
+    print(f'K11/K12 row0 at ({n_rows}, {n_cols}): plan halves and gathers '
+          f'bitwise the whole walk; scatter halves within {err!r} '
+          f'(1e-5 * sum|w x|); sharded_jitmv bitwise jitnmv')
+
+
+def neuron_mesh_world1(device):
+    """The process group of this one process (NCCL on the card, through a
+    file store in a temporary directory: no TCP port) and a 1-D neuron
+    mesh over it."""
+    import tempfile
+    import torch.distributed as dist
+    from brainevent_torch.parallel import neuron_mesh
+    store = tempfile.mkdtemp(prefix='chip_smoke_pg_')
+    dist.init_process_group('nccl' if device.type == 'cuda' else 'gloo',
+                            init_method=f'file://{store}/pg', rank=0,
+                            world_size=1)
+    return neuron_mesh(1, device_type=device.type)
 
 
 def main():
@@ -2295,6 +2807,12 @@ def main():
     sim_times = time_dense(device)
     check_c8(device)
 
+    k20_err, k20_times = check_k20(device)
+    mesh = neuron_mesh_world1(device)
+    shard_res = check_sharded_einet(mesh, device)
+    check_sharded_ops(mesh, device)
+    torch.distributed.destroy_process_group()
+
     from brainevent_torch.ops.core import REGISTRY
 
     def entry(op_name, launches, err, t):
@@ -2338,6 +2856,9 @@ def main():
                              dense_err[op_name], dense_times[op_name]))
     kernels.append(entry('einet_dense_hits', sim_launches['einet_dense_hits'],
                          k19_err, sim_times['4k']))
+    kernels.append(entry('mega_counts',
+                         shard_res['400k', 'mxu6']['counts']['mega_counts'],
+                         k20_err, k20_times['400k']))
     for k in kernels:
         check(k['launches'] > 0, (k['name'], 'not launched on its path'))
     print(json.dumps({'kernels': kernels}))

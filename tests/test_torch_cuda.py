@@ -31,7 +31,12 @@ propagation) exact and bitwise K2's counts, and every strategy of
 entries (``chip_smoke.py``'s phase 28 matrix): spikes of nine dtypes
 bitwise the bool spikes' result through the kernel; float16 and bfloat16
 weights within 1 ulp of the twin on the widened weights, plus the float32
-bound; float64 weights refused with a ``TypeError`` before any launch.
+bound; float64 weights through the kernels' ``double`` instances (C10),
+one launch each, within ``1e-12 * sum|w x|`` of the float64 twin (bitwise
+where the route is exact). K20 (the sharded mega-scatter) exact against
+its twin, its four shards summed bitwise K2; K11/K12 with a row offset
+(``row0``) bitwise the whole walk's rows (gather) and within the float32
+atomic-order bound (scatter).
 """
 
 import pathlib
@@ -778,5 +783,99 @@ def test_half_weights_on_card_within_one_ulp(cuda_device):
 
 
 def test_float64_weights_on_card_are_refused(cuda_device):
-    assert chip_smoke.c8_float64_refused(cuda_device,
-                                         _c8_gen(cuda_device)) == 10
+    # C10 closed: float64 weights launch the double instances and are held
+    # against the float64 twins (the name is the earlier test's)
+    n, _ = chip_smoke.c8_float64_weights(cuda_device, _c8_gen(cuda_device))
+    assert n == 10
+
+
+def test_float64_float_products_on_card(cuda_device):
+    n, _ = chip_smoke.c10_float_products(cuda_device, _c8_gen(cuda_device))
+    assert n == 5
+
+
+# -- the multi-device layer: K20, K11/K12 with row0, ShardedEINet (world 1) ----------
+
+@pytest.mark.parametrize('n_act', [0, 1, 40, 4000])
+def test_k20_shards_vs_twin_and_k2(cuda_device, gen, n_act):
+    net = bt.EINet(scale=1.0, device=cuda_device)
+    ids = torch.from_numpy(gen.permutation(net.num).astype(np.int32)).to(
+        cuda_device)
+    n_ids = torch.tensor([n_act], dtype=torch.int32, device=cuda_device)
+    assert chip_smoke.k20_vs_k2(net, ids, n_ids, cuda_device) == 0.0
+
+
+def test_k20_exact_at_in_degree_300(cuda_device):
+    net = chip_smoke.indegree_net(cuda_device)
+    ids = torch.arange(net.num, dtype=torch.int32, device=cuda_device)
+    n_ids = torch.tensor([net.num], dtype=torch.int32, device=cuda_device)
+    assert chip_smoke.k20_vs_k2(net, ids, n_ids, cuda_device) == 0.0
+
+
+@pytest.mark.parametrize('corder', [True, False], ids=['gather', 'scatter'])
+def test_jitc_row0_halves_match_whole_walk(cuda_device, gen, corder):
+    from brainevent_torch.jitc import pallas_kernels as jk
+    n_rows, n_cols, half = 6400, 8000, 3200
+    kw = dict(law=1, a=0.6, b=float(F32(0.06)), seed=42, cl=200,
+              logical_cols=n_cols)
+    halves = [jk.walk_plan_setup(42, 200, half, n_cols, 2000,
+                                 device=cuda_device, row0=r0)
+              for r0 in (0, half)]
+    s_all, q_all, _ = jk.walk_plan_setup(42, 200, n_rows, n_cols, 2000,
+                                         device=cuda_device)
+    assert torch.equal(torch.cat([h[0] for h in halves]), s_all)
+    assert torch.equal(torch.cat([h[1] for h in halves]), q_all)
+    x = torch.from_numpy(gen.standard_normal(
+        n_cols if corder else n_rows).astype(F32)).to(cuda_device)
+    whole = jk.jitc_walk_mv(None, None, x, n_rows=n_rows, n_cols=n_cols,
+                            corder=corder, event=False, **kw)
+    parts = []
+    for i in range(2):
+        xi = x if corder else x[i * half:(i + 1) * half].contiguous()
+        parts.append(jk.jitc_walk_mv(*halves[i][:2], xi, n_rows=half,
+                                     n_cols=n_cols, corder=corder,
+                                     event=False, row0=i * half, **kw))
+    torch.cuda.synchronize()
+    if corder:
+        assert torch.equal(torch.cat(parts), whole)
+    else:
+        bound = jk.jitc_walk_mv(None, None, x.abs(), n_rows=n_rows,
+                                n_cols=n_cols, corder=False, event=False,
+                                **dict(kw, law=0, a=0.6 + 6 * 0.06, b=0.0))
+        assert bool(((parts[0] + parts[1] - whole).abs()
+                     <= 1e-5 * bound).all())
+
+
+@pytest.fixture(scope='module')
+def world1_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the CUDA kernels have no CPU form')
+    mesh = chip_smoke.neuron_mesh_world1(torch.device('cuda'))
+    yield mesh
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize('propagate', ['scatter', 'mxu6'])
+def test_sharded_einet_on_card_bitwise_einet(cuda_device, world1_mesh,
+                                             propagate):
+    n_steps = 200
+    net = bt.EINet(scale=1.0, coba=True, device=cuda_device)
+    state = net.init_state()
+    ref = net.run(n_steps, state=state)
+    snet = chip_smoke.sharded_net(net, world1_mesh, propagate)
+    out, counts, calls = chip_smoke.sharded_run(
+        snet, snet.init_state_from(state), n_steps)
+    want = (ref.neurons.v, ref.neurons.t_last, ref.g_e, ref.g_i,
+            ref.spike_count)
+    for x, y in zip(out, want):
+        assert torch.equal(x.to_local(), y)
+    assert counts['einet_step'] == n_steps + 1
+    assert counts['mega_counts'] == (n_steps if propagate == 'mxu6' else 0)
+    assert calls == [('reduce_scatter_tensor', 2 * net.num * 4)] * n_steps
+
+
+def test_sharded_ops_on_card_match_single_device(cuda_device, world1_mesh,
+                                                 monkeypatch):
+    monkeypatch.setattr(chip_smoke, 'SHARD_OPS_N', 4000)
+    monkeypatch.setattr(chip_smoke, 'SHARD_JITC', (6400, 8000))
+    chip_smoke.check_sharded_ops(world1_mesh, cuda_device)

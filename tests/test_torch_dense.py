@@ -368,13 +368,15 @@ def test_dense_products_route_through_the_dense_ops(monkeypatch):
 
 
 def test_kernel_wrappers_refuse_other_dtypes():
-    """On the card the kernels take float32 weights and traces and bool or
-    float32 spikes; anything else raises a ``TypeError`` before a launch
-    (the wrappers are called directly, with CPU tensors)."""
+    """On the card the kernels take float32 or float64 weights and traces
+    (float64 through their double instances) and bool or float32 spikes;
+    anything else raises a ``TypeError`` before a launch (the wrappers are
+    called directly, with CPU tensors)."""
     w = torch.zeros(4, 4)
     s, t = torch.zeros(4, dtype=torch.bool), torch.zeros(4)
     for op, args in (
-            (dk.dense_event_mv, (w.double(), s, True)),
+            (dk.dense_event_mv, (w.half(), s, True)),
+            (dk.dense_stdp_pre, (w.double(), s, t, None, None)),
             (dk.dense_event_mv, (w, s.int(), True)),
             (dk.dense_event_mm, (w, torch.zeros(4, 2, dtype=torch.int8),
                                  False)),

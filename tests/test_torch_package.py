@@ -125,7 +125,7 @@ def test_build_command_targets_hopper_without_fma_contraction():
         'einet_step.cu', 'event_scatter.cu', 'fcn_event.cu', 'plan_gather.cu',
         'csr_event.cu', 'pair_gather.cu', 'csr_gather_mm.cu', 'jitc_walk.cu',
         'dense_event.cu', 'dense_stdp.cu', 'event_encode.cu',
-        'einet_dense.cu'}
+        'einet_dense.cu', 'mega_counts.cu'}
     for src in srcs:
         cmd = cuda_build.compile_command(nvcc, 'x.o', src)
         assert 'arch=compute_90a,code=sm_90a' in ' '.join(cmd)
@@ -194,7 +194,8 @@ def test_cu_sources_ship_as_package_data():
                        'fcn_event.cu', 'plan_gather.cu', 'csr_event.cu',
                        'pair_gather.cu', 'csr_gather_mm.cu', 'light_rng.cuh',
                        'jitc_walk.cu', 'dense_event.cu', 'dense_stdp.cu',
-                       'event_encode.cu', 'einet_dense.cu'}
+                       'event_encode.cu', 'einet_dense.cu',
+                       'mega_counts.cu'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 
@@ -373,6 +374,10 @@ _NO_DEVICE = {
         scale=0.05, weight_law='scalar', coba=True),
     'JITCNormalR': lambda: bt.JITCNormalR((0.6, 0.06, 0.1, 1), shape=(4, 5)),
     'jits': lambda: bt.jits(0.5, 0.1, 1, shape=(4, 5)),
+    'neuron_mesh': lambda: __import__(
+        'brainevent_torch.parallel', fromlist=['x']).neuron_mesh(),
+    'host_chip_mesh': lambda: __import__(
+        'brainevent_torch.parallel', fromlist=['x']).host_chip_mesh(),
 }
 
 
@@ -387,3 +392,88 @@ def test_entry_point_without_device_means_the_card(monkeypatch, entry):
     with pytest.raises(bt.CUDANotInstalledError):
         _NO_DEVICE[entry]()
     assert calls == []
+
+
+def test_parallel_imports_and_runs_without_jax(tmp_path):
+    """``brainevent_torch.parallel`` imports no JAX: with ``jax`` blocked,
+    ``import *`` works and a one-rank gloo ShardedEINet runs both
+    routes."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from brainevent_torch.parallel import *\n"
+        "import torch.distributed as dist\n"
+        f"dist.init_process_group('gloo', init_method='file://{tmp_path}/pg',"
+        " rank=0, world_size=1)\n"
+        "mesh = neuron_mesh(device_type='cpu')\n"
+        "outs = [ShardedEINet(mesh=mesh, num=400, n_conn=8, propagate=p)"
+        ".run(5, inp=40.0).spike_count.to_local() for p in ('scatter', "
+        "'mxu6')]\n"
+        "assert bool((outs[0] == outs[1]).all()) and int(outs[0].sum()) > 0\n"
+        "dist.destroy_process_group()\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'brainevent_tpu') and sys.modules[m] is not None]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == 'ok'
+
+
+def test_star_import_names_only_defined_names():
+    # the port lists only what it defines; the JAX package's mega lists
+    # build_mega_layout, which it does not define (C11)
+    import brainevent_torch.parallel as par
+    from brainevent_torch.parallel import mega, ops, sharding
+    for mod in (par, mega, ops, sharding):
+        assert all(hasattr(mod, name) for name in mod.__all__), mod
+    scope = {}
+    exec('from brainevent_torch.parallel import *', scope)
+    assert {'ShardedEINet', 'mega_local_counts', 'sharded_jitmv'} <= set(
+        scope)
+    with pytest.raises(AttributeError, match='build_mega_layout'):
+        exec('from brainevent_tpu.parallel.mega import *', {})
+
+
+def test_new_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
+    """The ELL, JITC walk and K20 wrappers declare as many ctypes
+    arguments as their C entry points have parameters, and pass that
+    many (the entry points replaced by a recorder; no card)."""
+    from brainevent_torch.fcn import binary as fb
+    from brainevent_torch.jitc import pallas_kernels as jk
+    from brainevent_torch.parallel import mega
+    seen = {}
+
+    def function(name, argtypes, restype=ctypes.c_int):
+        def fn(*cargs):
+            assert len(cargs) == len(argtypes), name
+            seen[name] = len(argtypes)
+            return 0
+        return fn
+
+    monkeypatch.setattr(cuda_build, 'function', function)
+    for mod in (fb, jk, mega):
+        monkeypatch.setattr(mod, 'cuda_stream', lambda device: None)
+    i32 = torch.int32
+    idx = torch.zeros(4, 3, dtype=i32)
+    s = torch.ones(4) > 0
+    for w in (torch.ones(1), torch.ones(4, 3, dtype=torch.float64)):
+        fb.fcn_event_scatter.cuda(fb.fcn_event_scatter, w, idx, s, 5)
+        fb.fcn_event_gather.cuda(fb.fcn_event_gather, w, idx, s, 5)
+    st = torch.zeros(4, 2 * 32, dtype=i32)
+    jk.jitc_walk_setup.cuda(jk.jitc_walk_setup, st, st.clone(), seed=1,
+                            cl=2, n_rows=4, n_cols=6, chunk_size=3,
+                            stride=32, row0=8)
+    jk.jitc_walk_mv.cuda(jk.jitc_walk_mv, None, None, torch.ones(6),
+                         law=1, a=0.5, b=0.1, seed=1, cl=2, n_rows=4,
+                         n_cols=6, logical_cols=6, corder=True, event=False,
+                         row0=8)
+    mega.mega_counts.cuda(mega.mega_counts, torch.zeros(4, dtype=i32),
+                          torch.zeros(1, dtype=i32), idx, 4, 3,
+                          torch.zeros(2, 2, 3, dtype=i32))
+    assert set(seen) == {'fcn_event_scatter_launch',
+                         'fcn_event_gather_launch', 'jitc_walk_setup_launch',
+                         'jitc_walk_mv_launch', 'mega_counts_launch'}
+    for name, n in seen.items():
+        assert _c_params(name) == n, name
