@@ -179,15 +179,15 @@ class CompressedSparseData(DataRepresentation):
         (no plans, or weights that need their gradient)."""
         if self._mxu_plans is None or v.ndim != 1 or self.data.requires_grad:
             return None
-        from ..ops.mxu_gather import plan_matvec_vjp
+        from ..ops.mxu_gather import plan_matvec_rows
         plan, plan_t = self._mxu_plans
         if self._mxu_wviews is None:
-            self._mxu_wviews = (plan.sort_data(self.data),
-                                plan_t.sort_data(self.data))
+            self._mxu_wviews = (plan.sort_rows(self.data),
+                                plan_t.sort_rows(self.data))
         w_s, w_t = self._mxu_wviews
         if csr_transpose:
-            return plan_matvec_vjp(plan_t, plan, w_t, w_s, v)
-        return plan_matvec_vjp(plan, plan_t, w_s, w_t, v)
+            return plan_matvec_rows(plan_t, plan, w_t, w_s, v)
+        return plan_matvec_rows(plan, plan_t, w_s, w_t, v)
 
     # -- products ---------------------------------------------------------------------
 

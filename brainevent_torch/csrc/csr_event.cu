@@ -16,8 +16,9 @@
 // One warp per row; its lanes walk the row 32 entries apart, a lane reads
 // a weight only for an active event (binary products), and a fixed
 // xor-shuffle tree combines the lanes: no atomics, the same bits on every
-// run (K3's scheme). Homogeneous binary products count in int32 and scale
-// once by w[0], so they are exact.
+// run. Homogeneous binary products count in int32 and scale once by w[0],
+// so they are exact. The kernel lives in csr_rows.cuh: K3 (plan_gather.cu)
+// launches its float product over a gather plan's row index.
 //
 // K8 `csr_scatter_mv` replaces the XLA transpose branch of
 // brainevent_tpu/csr/binary.py:_binary_csrmv_jax_kernel (:57, :72-74):
@@ -37,49 +38,11 @@
 // 80 MB at 10M entries) and the random operand gather (x stays in L2);
 // K8 by its atomics, one per entry of an active row (atomicAdd on double
 // is native on sm_90a).
-#include "common.cuh"
+#include "csr_rows.cuh"
 
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-
-template <int kOp, bool kHomo, bool kPerm, typename T>
-__global__ void csr_gather_mv_kernel(const int* __restrict__ ptr,
-                                     const int* __restrict__ col,
-                                     const int* __restrict__ perm,
-                                     const T* __restrict__ w,
-                                     const void* __restrict__ x,
-                                     const int n_rows, const int n_cols,
-                                     T* __restrict__ y) {
-    constexpr bool kCount = kHomo && kOp != 2;
-    const int lane = threadIdx.x & 31;
-    const long long row =
-        (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-    if (row >= n_rows) return;                  // the whole warp leaves
-    const int begin = ptr[row];
-    const int end = ptr[row + 1];
-    int cnt = 0;
-    T acc = T(0);
-    for (int j = begin + lane; j < end; j += 32) {
-        const unsigned c = static_cast<unsigned>(col[j]);
-        if (c >= static_cast<unsigned>(n_cols)) continue;
-        const T v = be_load_op_t<kOp, T>(x, c);
-        if (kCount) {
-            cnt += v != T(0);
-        } else if (kOp != 2) {
-            if (v != T(0)) acc += w[kHomo ? 0 : (kPerm ? perm[j] : j)];
-        } else {
-            acc += w[kHomo ? 0 : (kPerm ? perm[j] : j)] * v;
-        }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-        if (kCount)
-            cnt += __shfl_xor_sync(kFullMask, cnt, off);
-        else
-            acc += __shfl_xor_sync(kFullMask, acc, off);
-    }
-    if (lane == 0) y[row] = kCount ? static_cast<T>(cnt) * w[0] : acc;
-}
 
 template <int kOp, bool kHomo, bool kPerm, typename T>
 __global__ void csr_scatter_mv_kernel(const int* __restrict__ ptr,

@@ -25,16 +25,33 @@
 //
 // K16 `dense_event_mm` replaces _densemm_pallas_kernel (:267):
 //   Y = W @ g(S) (W (m, k)) or W.T @ g(S) (transpose, W (k, m)), S (k, n),
-//   Y (m, n). A tiled float32 product on the CUDA cores: a block owns a
-//   64 x 64 tile of Y and walks k in tiles of 32, staging the gate tile and
-//   then the W tile in shared memory. A k-tile whose gate tile is all zero
-//   is skipped, W tile included: the TPU kernel's tile-level event skip
-//   (dense/binary.py:291). The sums run in ascending k, in full float32
-//   (no TF32, no bf16 split: the TPU kernel asks for Precision.HIGHEST).
-//   Bound: reading W once (the blocks of one row of tiles share it through
-//   L2) against 2 * nnz(S) * m operations; the dense tile product does
-//   2 * m * k * n, which at 1% spikes makes it compute-bound. wgmma and TMA
-//   are later work.
+//   Y (m, n). The TPU kernel is a tiled MXU product that skips all-zero
+//   gate tiles (dense/binary.py:291); a tile product on the CUDA cores does
+//   all 2 m k n operations (25.6 GFLOP at (10k, 10k, 128)) and, at 1%
+//   spikes, never finds an all-zero tile. Here it is an event gather:
+//   - a mask pass reads S once and writes, per 64-row k tile, one 64-bit
+//     gate mask per column, the OR of each 32-column group's masks (the k
+//     rows the group needs), and per 8 columns an event record: the
+//     columns' active k offsets, column by column in ascending k;
+//   - a block owns 64 output rows and 64 columns and walks k in tiles of
+//     64 in ascending order. A tile that no column of the block needs is
+//     skipped, copy and all; otherwise the 16-byte pieces of the W tile
+//     that hold a needed k row (whole needed rows of W (k, m), which are
+//     contiguous) are copied into shared memory through a ring of
+//     cp.async stages, several tiles ahead of the sum. W is read once a
+//     column range;
+//   - a warp sums 2 rows a lane and 8 columns: it adds the weights of the
+//     k rows its record lists (so its work follows the events, not the
+//     k x n gate bits), or walks the masks' bits when a record overflows
+//     (above ~20% spikes). Each output is the plain float sum of its
+//     active weights in ascending k, rounded once per add: the same bits
+//     as an ordered loop Y += W[:, i] * g(S[i]) over i (a 0/1 gate makes
+//     each product exact and adds nothing when it is 0). k is not split
+//     across blocks, so that order holds.
+//   Bound: reading W once (the rows some column needs, transpose) against
+//   2 * nnz(S) * m adds. What the bound does not count sets the time: the
+//   per-tile copy, barrier and record work of 64 x 64 blocks at 1%, and
+//   above ~5% the adds (m n k rate), which exceed a full float32 product.
 #include "common.cuh"
 
 namespace {
@@ -85,82 +102,373 @@ __global__ void dense_event_mv_nt_kernel(const T* __restrict__ W,
     if (lane == 0) y[row] = acc;
 }
 
-constexpr int kBM = 64, kBN = 64, kBK = 32, kMmThreads = 256;
+// -- K16 ---------------------------------------------------------------------
 
-// The shared tiles take 16.6 KB in float32 and 33 KB in float64, within
-// the 48 KB of static shared memory.
-template <int kOp, bool kTrans, typename T>
-__global__ void __launch_bounds__(kMmThreads)
-dense_event_mm_kernel(const T* __restrict__ W, const void* __restrict__ S,
-                      const int m, const int k, const int n,
+typedef unsigned long long u64;
+
+// k per tile: one 64-bit gate mask per column
+constexpr int kTileK = 64;
+// output rows per lane (a warp's lanes own 32 rows at a time) and per block
+constexpr int kRowsPerLane = 2;
+constexpr int kBandRows = 32 * kRowsPerLane;
+// output columns per warp and per block: 8 warps
+constexpr int kColsPerWarp = 8;
+constexpr int kBlockCols = 64;
+constexpr int kMmThreads = 32 * kBlockCols / kColsPerWarp;
+// blocks per SM the kernel is built for (at most 85 registers a thread),
+// and the depth of the W tile ring: four float stages (18 KB each) or two
+// double stages a block fit three blocks in an SM's 228 KB
+constexpr int kMinBlocks = 3;
+template <typename T>
+constexpr int kStagesOf = sizeof(T) == 4 ? 4 : 2;
+// the mask pass: one warp per (k tile, group of 32 columns)
+constexpr int kMaskThreads = 128;
+constexpr int kGroupsPerRange = kBlockCols / 32;
+// The event record of a k tile and a warp's 8 columns: 8 one-byte event
+// counts, then up to kRecEvents k offsets sorted by column, then by k; the
+// counts are all ones when the events do not fit (the warp then walks the
+// bits of its columns' masks, read from L2).
+constexpr int kRecBytes = 128;
+constexpr int kRecEvents = kRecBytes - 8;
+constexpr u64 kRecFull = ~0ull;
+
+// The W tile in shared memory, copied in 16-byte pieces (kV elements):
+// W (m, k) row-major, ws[r * kStride + kk], its pieces along k; W (k, m)
+// k-major, ws[kk * kStride + r], its pieces along m. The strides keep the
+// pieces aligned. The 32 lanes of a warp read 32 rows at one k: consecutive
+// words k-major, 4 ways to a bank row-major, which only events pay.
+template <bool kTrans, typename T>
+struct Tile {
+    static constexpr int kV = 16 / sizeof(T);
+    static constexpr int kStride = (kTrans ? kBandRows : kTileK) + kV;
+    static constexpr int kElems = (kTrans ? kTileK : kBandRows) * kStride;
+    __device__ static int at(int kk, int r) {
+        return kTrans ? kk * kStride + r : r * kStride + kk;
+    }
+};
+
+// cp.async of kBytes: 16-byte pieces bypass L1 (.cg), smaller ones (ragged
+// or unaligned tiles) go through it (.ca, the only form they have)
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    if (kBytes == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                     :: "r"(s), "l"(gmem) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                     :: "r"(s), "l"(gmem), "n"(kBytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// Reads S once and writes, for k tile t:
+// - masks[t * n + c]: bit kk set where S[64 t + kk, c] is an event;
+// - need[t * n_groups + g]: the OR of the masks of the g-th group of 32
+//   columns (the k rows some column of the group needs);
+// - recs[(t * n_g8 + g8) * kRecBytes]: the event record of the g8-th
+//   group of 8 columns.
+template <int kOp>
+__global__ void __launch_bounds__(kMaskThreads)
+dense_event_masks_kernel(const void* __restrict__ S, const int k,
+                         const int n, const int n_groups,
+                         const long long n_jobs, u64* __restrict__ masks,
+                         u64* __restrict__ need,
+                         unsigned char* __restrict__ recs) {
+    const int lane = threadIdx.x & 31;
+    const long long job =
+        (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+    if (job >= n_jobs) return;                  // the whole warp leaves
+    const int t = static_cast<int>(job / n_groups);
+    const int c = static_cast<int>(job % n_groups) * 32 + lane;
+    const long long k0 = static_cast<long long>(t) * kTileK;
+    u64 bits = 0;
+    if (c < n) {
+        const long long base = k0 * n + c;
+        if (k0 + kTileK <= k) {
+            // a whole tile: the 64 loads are in flight together
+#pragma unroll
+            for (int kk = 0; kk < kTileK; ++kk)
+                if (be_load_op<kOp>(S, base + static_cast<long long>(kk) * n)
+                    != 0.0f)
+                    bits |= 1ull << kk;
+        } else {
+            for (int kk = 0; k0 + kk < k; ++kk)
+                if (be_load_op<kOp>(S, base + static_cast<long long>(kk) * n)
+                    != 0.0f)
+                    bits |= 1ull << kk;
+        }
+        masks[t * static_cast<long long>(n) + c] = bits;
+    }
+    // the record of the lane's 8 columns: its count, and its events after
+    // those of the group's lower columns
+    const int j = lane & 7;
+    const int cnt = __popcll(bits);
+    int upto = cnt;
+    for (int off = 1; off < 8; off <<= 1) {
+        const int v = __shfl_up_sync(kFullMask, upto, off, 8);
+        if (j >= off) upto += v;
+    }
+    const int total = __shfl_sync(kFullMask, upto, 7, 8);
+    u64 counts = static_cast<u64>(cnt) << (8 * j);
+    for (int off = 1; off < 8; off <<= 1)
+        counts |= __shfl_xor_sync(kFullMask, counts, off, 8);
+    const int n_g8 = (n + 7) / 8;
+    if (c / 8 < n_g8) {
+        unsigned char* rec =
+            recs + (static_cast<long long>(t) * n_g8 + c / 8) * kRecBytes;
+        if (j == 0)
+            *reinterpret_cast<u64*>(rec) =
+                total > kRecEvents ? kRecFull : counts;
+        if (total <= kRecEvents) {
+            unsigned char* out = rec + 8 + upto - cnt;
+            for (u64 b = bits; b; b &= b - 1)
+                *out++ = static_cast<unsigned char>(
+                    __ffsll(static_cast<long long>(b)) - 1);
+        }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+        bits |= __shfl_xor_sync(kFullMask, bits, off);
+    if (lane == 0) need[job] = bits;
+}
+
+// One block owns kBandRows output rows and kBlockCols output columns and
+// walks k in tiles of kTileK, in ascending order. A tile whose columns need
+// no k row is skipped, copy and all; otherwise the 16-byte pieces of the W
+// tile that hold a needed k row are copied, kStagesOf<T> - 1 tiles ahead of
+// the sum, with the tile's event records. A warp sums
+// kRowsPerLane rows a lane and kColsPerWarp columns: column by column it
+// adds the weights of the k rows its record lists, in ascending k; when the
+// record is full it walks each 32-bit half of its columns' masks, low half
+// first, in rounds that take the lowest set bit left in each column. Both
+// add each column's active weights in ascending k (the records and masks
+// are the same across the warp, so nothing diverges): each output is the
+// plain ascending-k sum of its active weights in T.
+template <bool kTrans, typename T>
+__global__ void __launch_bounds__(kMmThreads, kMinBlocks)
+dense_event_mm_kernel(const T* __restrict__ W, const u64* __restrict__ masks,
+                      const u64* __restrict__ need,
+                      const unsigned char* __restrict__ recs, const int m,
+                      const int k, const int n, const int n_ranges,
+                      const int n_groups, const int vec,
                       T* __restrict__ Y) {
-    __shared__ T ws[kBK][kBM + 1];              // W tile, k-major
-    __shared__ T gs[kBK][kBN];                  // gate tile
-    const int t = threadIdx.x;
-    const int tx = t % 16, ty = t / 16;
-    const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-    T acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = T(0);
-    for (int k0 = 0; k0 < k; k0 += kBK) {
-        int any = 0;
-        for (int e = t; e < kBK * kBN; e += kMmThreads) {
-            const int kk = e / kBN, nn = e % kBN;
-            const int gk = k0 + kk, gn = n0 + nn;
-            T g = T(0);
-            if (gk < k && gn < n)
-                g = be_load_op_t<kOp, T>(S,
-                                         static_cast<long long>(gk) * n + gn);
-            gs[kk][nn] = g;
-            any |= g != T(0);
+    extern __shared__ __align__(16) unsigned char smem[];
+    using Ts = Tile<kTrans, T>;
+    constexpr int kStages = kStagesOf<T>;
+    constexpr int kRecsPerBlock = kBlockCols / kColsPerWarp;
+    constexpr int kStageBytes =
+        Ts::kElems * sizeof(T) + kRecsPerBlock * kRecBytes;
+    static_assert(kStageBytes % 16 == 0, "stage alignment");
+    u64* need_s = reinterpret_cast<u64*>(smem + kStages * kStageBytes);
+    auto ws_of = [&](int s) {
+        return reinterpret_cast<T*>(smem + s * kStageBytes);
+    };
+    auto rs_of = [&](int s) {
+        return smem + s * kStageBytes + Ts::kElems * sizeof(T);
+    };
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int range = static_cast<int>(blockIdx.x % n_ranges);
+    const long long m0 =
+        static_cast<long long>(blockIdx.x / n_ranges) * kBandRows;
+    const int c0 = range * kBlockCols;
+    const int n_tiles = (k + kTileK - 1) / kTileK;
+    const int n_g8 = (n + 7) / 8;
+    const int rows = static_cast<int>(
+        min(static_cast<long long>(kBandRows), m - m0));
+
+    // copy tile t (whose needed rows are nd) into its stage, and commit a
+    // group, empty when nothing is copied
+    auto issue = [&](int t, u64 nd) {
+        const int s = t % kStages;
+        if (tid == 0) need_s[s] = nd;
+        if (nd == 0) {
+            cp_async_commit();
+            return;
         }
-        // a barrier too: the gate tile is complete past this line
-        if (!__syncthreads_or(any)) continue;   // an all-zero gate tile
-        for (int e = t; e < kBK * kBM; e += kMmThreads) {
-            int kk, mm;
-            if (kTrans) {                       // W (k, m): along m
-                kk = e / kBM;
-                mm = e % kBM;
-            } else {                            // W (m, k): along k
-                mm = e / kBK;
-                kk = e % kBK;
+        // the records, 16 bytes a thread
+        constexpr int kRecPieces = kRecBytes / 16;
+        static_assert(kRecsPerBlock * kRecPieces <= kMmThreads, "records");
+        if (tid < kRecsPerBlock * kRecPieces) {
+            const int piece = tid;
+            const int g8 = c0 / 8 + piece / kRecPieces;
+            unsigned char* dst = rs_of(s) + piece * 16;
+            if (g8 < n_g8)
+                cp_async<16>(dst, recs + (static_cast<long long>(t) * n_g8 +
+                                          g8) * kRecBytes +
+                                      piece % kRecPieces * 16);
+            else if (piece % kRecPieces == 0)
+                *reinterpret_cast<u64*>(dst) = 0;   // no columns, no events
+        }
+        // the W tile: a thread keeps one piece position and steps the
+        // other index by kStep
+        constexpr int kV = Ts::kV;
+        const long long k0 = static_cast<long long>(t) * kTileK;
+        T* ws = ws_of(s);
+        if (kTrans) {                           // W (k, m): pieces along m
+            constexpr int kPer = kBandRows / kV;
+            constexpr int kStep = kMmThreads / kPer;
+            const int r = tid % kPer * kV;
+            const T* src = W + (k0 + tid / kPer) * m + m0 + r;
+            T* dst = ws + Ts::at(tid / kPer, r);
+            const bool whole = vec && r + kV <= rows;
+#pragma unroll
+            for (int i = 0; i < kTileK / kStep; ++i) {
+                if ((nd >> (tid / kPer + i * kStep)) & 1) {
+                    if (whole) {
+                        cp_async<16>(dst, src);
+                    } else {
+                        for (int v = 0; v < kV; ++v)
+                            if (r + v < rows)
+                                cp_async<sizeof(T)>(dst + v, src + v);
+                    }
+                }
+                src += static_cast<long long>(kStep) * m;
+                dst += Ts::at(kStep, 0);
             }
-            const int gk = k0 + kk, gm = m0 + mm;
-            T w = T(0);
-            if (gk < k && gm < m)
-                w = kTrans ? W[static_cast<long long>(gk) * m + gm]
-                           : W[static_cast<long long>(gm) * k + gk];
-            ws[kk][mm] = w;
+        } else {                                // W (m, k): pieces along k
+            constexpr int kPer = kTileK / kV;
+            constexpr int kStep = kMmThreads / kPer;
+            const int kk = tid % kPer * kV;
+            if ((nd >> kk) & ((1ull << kV) - 1)) {
+                const T* src = W + (m0 + tid / kPer) * k + k0 + kk;
+                T* dst = ws + Ts::at(kk, tid / kPer);
+                const bool whole = vec && k0 + kk + kV <= k;
+#pragma unroll 4
+                for (int r = tid / kPer; r < rows; r += kStep) {
+                    if (whole) {
+                        cp_async<16>(dst, src);
+                    } else {
+                        for (int v = 0; v < kV; ++v)
+                            if (k0 + kk + v < k)
+                                cp_async<sizeof(T)>(dst + v, src + v);
+                    }
+                    src += static_cast<long long>(kStep) * k;
+                    dst += Ts::at(0, kStep);
+                }
+            }
         }
+        cp_async_commit();
+    };
+    auto need_at = [&](int t) -> u64 {
+        if (t >= n_tiles) return 0ull;
+        const u64* row = need + static_cast<long long>(t) * n_groups;
+        u64 nd = 0;
+#pragma unroll
+        for (int g = 0; g < kGroupsPerRange; ++g)
+            if (range * kGroupsPerRange + g < n_groups)
+                nd |= row[range * kGroupsPerRange + g];
+        return nd;
+    };
+
+    T acc[kColsPerWarp][kRowsPerLane];
+#pragma unroll
+    for (int j = 0; j < kColsPerWarp; ++j)
+#pragma unroll
+        for (int r = 0; r < kRowsPerLane; ++r) acc[j][r] = T(0);
+
+    for (int t = 0; t < kStages - 1; ++t) issue(t, need_at(t));
+    u64 nd_ahead = need_at(kStages - 1);
+    for (int t = 0; t < n_tiles; ++t) {
+        cp_async_wait<kStages - 2>();
+        // tile t has landed for every thread, and every thread is done
+        // with tile t - 1, whose stage the next issue reuses
         __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < kBK; ++kk) {
-            T a[4], b[4];
+        issue(t + kStages - 1, nd_ahead);
+        nd_ahead = need_at(t + kStages);
+        const int s = t % kStages;
+        if (need_s[s] == 0) continue;           // the tile's event skip
+        const T* ws = ws_of(s) + Ts::at(0, lane);
+        const unsigned char* rec = rs_of(s) + warp * kRecBytes;
+        const u64 counts = *reinterpret_cast<const u64*>(rec);
+        if (counts != kRecFull) {
+            const unsigned char* ev = rec + 8;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = ws[kk][ty + 16 * i];
+            for (int j = 0; j < kColsPerWarp; ++j) {
+                const int cnt = static_cast<int>((counts >> (8 * j)) & 0xff);
+                for (int i = 0; i < cnt; ++i) {
+                    const int kk = ev[i];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = gs[kk][tx + 16 * j];
-            // b is 0 or 1, so a * b is exact and the FMA adds a or 0
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc[i][j] = be_fma(a[i], b[j], acc[i][j]);
+                    for (int r = 0; r < kRowsPerLane; ++r)
+                        acc[j][r] += ws[Ts::at(kk, 32 * r)];
+                }
+                ev += cnt;
+            }
+            continue;
         }
-        __syncthreads();
-    }
+        const int cw = c0 + warp * kColsPerWarp;
+        const u64* ms = masks + static_cast<long long>(t) * n + cw;
+#pragma unroll 1
+        for (int h = 0; h < 2; ++h) {
+            unsigned b[kColsPerWarp], left = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = m0 + ty + 16 * i;
-        if (r >= m) continue;
+            for (int j = 0; j < kColsPerWarp; ++j) {
+                b[j] = cw + j < n ? static_cast<unsigned>(ms[j] >> (32 * h))
+                                  : 0u;
+                left |= b[j];
+            }
+            while (left) {
+                left = 0;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int c = n0 + tx + 16 * j;
-            if (c < n) Y[static_cast<long long>(r) * n + c] = acc[i][j];
+                for (int j = 0; j < kColsPerWarp; ++j) {
+                    if (b[j]) {
+                        const int kk = 32 * h + __ffs(b[j]) - 1;
+                        b[j] &= b[j] - 1;
+                        left |= b[j];
+#pragma unroll
+                        for (int r = 0; r < kRowsPerLane; ++r)
+                            acc[j][r] += ws[Ts::at(kk, 32 * r)];
+                    }
+                }
+            }
         }
     }
+    cp_async_wait<0>();
+    __syncthreads();
+    // through shared memory, so that each row of Y is written coalesced
+    constexpr int kOutStride = kBlockCols + 1;
+    static_assert(kBandRows * kOutStride * sizeof(T) <= kStages * kStageBytes,
+                  "out tile");
+    T* out = reinterpret_cast<T*>(smem);
+#pragma unroll
+    for (int j = 0; j < kColsPerWarp; ++j)
+#pragma unroll
+        for (int r = 0; r < kRowsPerLane; ++r)
+            out[(lane + 32 * r) * kOutStride + warp * kColsPerWarp + j] =
+                acc[j][r];
+    __syncthreads();
+    for (int e = tid; e < kBandRows * kBlockCols; e += kMmThreads) {
+        const int r = e / kBlockCols, c = e % kBlockCols;
+        if (r < rows && c0 + c < n)
+            Y[(m0 + r) * n + c0 + c] = out[r * kOutStride + c];
+    }
+}
+
+template <bool kTrans, typename T>
+int mm_launch(const T* W, const u64* masks, const u64* need,
+              const unsigned char* recs, int m, int k, int n, int n_ranges,
+              int n_groups, long long blocks, T* Y, cudaStream_t st) {
+    constexpr int bytes =
+        kStagesOf<T> * (Tile<kTrans, T>::kElems * sizeof(T) +
+                        kBlockCols / kColsPerWarp * kRecBytes + 8);
+    const cudaError_t err = cudaFuncSetAttribute(
+        dense_event_mm_kernel<kTrans, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // 16-byte pieces need 16-byte aligned rows of W
+    const int vec = reinterpret_cast<unsigned long long>(W) % 16 == 0 &&
+                    (static_cast<long long>(kTrans ? m : k) * sizeof(T)) %
+                            16 == 0;
+    dense_event_mm_kernel<kTrans, T><<<static_cast<unsigned>(blocks),
+                                       kMmThreads, bytes, st>>>(
+        W, masks, need, recs, m, k, n, n_ranges, n_groups, vec, Y);
+    return 0;
 }
 
 template <typename T>
@@ -188,24 +496,6 @@ void launch_mv(const T* W, const void* s, int op, int transpose, int rows,
     }
 }
 
-template <typename T>
-void launch_mm(const T* W, const void* S, int op, int transpose, int m,
-               int k, int n, T* Y, cudaStream_t st) {
-    const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-    if (op == 0 && transpose)
-        dense_event_mm_kernel<0, true, T><<<grid, kMmThreads, 0, st>>>(
-            W, S, m, k, n, Y);
-    else if (op == 0)
-        dense_event_mm_kernel<0, false, T><<<grid, kMmThreads, 0, st>>>(
-            W, S, m, k, n, Y);
-    else if (transpose)
-        dense_event_mm_kernel<1, true, T><<<grid, kMmThreads, 0, st>>>(
-            W, S, m, k, n, Y);
-    else
-        dense_event_mm_kernel<1, false, T><<<grid, kMmThreads, 0, st>>>(
-            W, S, m, k, n, Y);
-}
-
 }  // namespace
 
 // op: 0 bool s (one byte per value), 1 float32 s gated at > 0. dbl: W and
@@ -226,18 +516,48 @@ BE_EXPORT int dense_event_mv_launch(const void* W, const void* s, int op,
 }
 
 // op and dbl as above; S (k, n) row-major; Y (m, n) is written in full.
-// transpose = 1: W (k, m); transpose = 0: W (m, k). The caller keeps
-// ceil(m / 64) within the grid's y limit (65535).
+// transpose = 1: W (k, m); transpose = 0: W (m, k). scratch holds
+// ceil(k / 64) * (n + ceil(n / 32) + 16 * ceil(n / 8)) + 1 64-bit words,
+// written here: the gate masks of each k tile and column, the k rows each
+// tile's group of 32 columns needs, and the event records of each tile's
+// groups of 8 columns (from a 16-byte boundary).
 BE_EXPORT int dense_event_mm_launch(const void* W, const void* S, int op,
                                     int transpose, int dbl, int m, int k,
-                                    int n, void* Y, int device,
+                                    int n, void* scratch, void* Y, int device,
                                     void* stream) {
     int err = be_begin(device);
     if (err) return err;
     if (m <= 0 || n <= 0) return be_end();
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    BE_VALUE_DISPATCH(dbl, launch_mm<T>(static_cast<const T*>(W), S, op,
-                                        transpose, m, k, n,
-                                        static_cast<T*>(Y), st));
+    const int n_tiles = (k + kTileK - 1) / kTileK;
+    const int n_groups = (n + 31) / 32;
+    const int n_ranges = (n + kBlockCols - 1) / kBlockCols;
+    u64* masks = static_cast<u64*>(scratch);
+    u64* need = masks + static_cast<long long>(n_tiles) * n;
+    const long long words = static_cast<long long>(n_tiles) * (n + n_groups);
+    unsigned char* recs = reinterpret_cast<unsigned char*>(
+        masks + words + (words & 1));
+    const long long jobs = static_cast<long long>(n_tiles) * n_groups;
+    if (jobs > 0) {
+        const long long blocks = (jobs * 32 + kMaskThreads - 1) / kMaskThreads;
+        if (op == 0)
+            dense_event_masks_kernel<0><<<static_cast<unsigned>(blocks),
+                                          kMaskThreads, 0, st>>>(
+                S, k, n, n_groups, jobs, masks, need, recs);
+        else
+            dense_event_masks_kernel<1><<<static_cast<unsigned>(blocks),
+                                          kMaskThreads, 0, st>>>(
+                S, k, n, n_groups, jobs, masks, need, recs);
+    }
+    const long long blocks =
+        ((static_cast<long long>(m) + kBandRows - 1) / kBandRows) * n_ranges;
+    BE_VALUE_DISPATCH(dbl, err = transpose
+        ? mm_launch<true, T>(static_cast<const T*>(W), masks, need, recs, m,
+                             k, n, n_ranges, n_groups, blocks,
+                             static_cast<T*>(Y), st)
+        : mm_launch<false, T>(static_cast<const T*>(W), masks, need, recs, m,
+                              k, n, n_ranges, n_groups, blocks,
+                              static_cast<T*>(Y), st));
+    if (err) return err;
     return be_end();
 }

@@ -15,20 +15,29 @@
 // The TPU kernels walk the plan chunk by chunk and reach a row through
 // one-hot MXU contractions with bf16 hi/lo splits, because a TPU has no
 // gather. Here the plan is read row by row: the host builds a row index
-// (row_ptr, row_slots: the valid slots of each row, in slot order), one
-// warp takes one row, its lanes walk the row's slots 32 apart, decode each
-// slot's column from meta and b0 (bit layout mxu_gather.py:77-80), gather
-// x, and sum. The lane sums are combined by a fixed xor-shuffle tree, so
-// the result does not depend on scheduling: the same inputs give the same
-// bits on every run (no float atomics). Each row is written once, so y
-// needs no zeroing.
+// (row_ptr, row_slots: the valid slots of each row, in slot order, and
+// row_cols: their columns), one warp takes one row, its lanes walk the
+// row's entries 32 apart, gather x, and sum. The lane sums are combined by
+// a fixed xor-shuffle tree, so the result does not depend on scheduling:
+// the same inputs give the same bits on every run (no float atomics). Each
+// row is written once, so y needs no zeroing.
 //
-// Bound: memory latency. A slot costs three scattered 4-byte reads
-// (row_slots is read in order; meta[e] and w[e] lie within the row's row
-// block of the plan; x[col] is a random gather from a vector that stays in
-// L2) and K4 one 4-byte write. At the 100k x 100 ELL that is ~10M slots,
-// ~120-160 MB per launch.
-#include "common.cuh"
+// K3 reads the row index alone: (row_ptr, row_cols) and the weights in row
+// order, w_row[j] = w_sorted[row_slots[j]] (the host reorders them once per
+// weight update, GatherPlan.sort_rows). That is K7's float product, whose
+// body it launches (csr_rows.cuh): 8 coalesced bytes a slot and a gather
+// from x, which stays in L2. Bound: those bytes, 80 MB at the 100k x 100
+// ELL's 10M slots, 0.024 ms at 3.35 TB/s. Each lane adds the same slots in
+// the same order as K4 does and multiplies then adds (-fmad=false), so K3's
+// y is K4's bit for bit.
+//
+// K4 walks the row's plan slots (row_slots) and decodes each slot's column
+// from meta and b0 (bit layout mxu_gather.py:77-80), because it writes dw
+// in plan order. Bound: memory latency; a slot costs three scattered 4-byte
+// reads (meta[e] and w[e] lie within the row's row block of the plan; x[col]
+// is a random gather from a vector that stays in L2) and one 4-byte write,
+// ~120-160 MB per launch at 10M slots.
+#include "csr_rows.cuh"
 
 namespace {
 
@@ -47,25 +56,24 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-template <bool kDw>
-__global__ void plan_rows_kernel(const int* __restrict__ meta,
-                                 const int* __restrict__ b0,
-                                 const int* __restrict__ row_ptr,
-                                 const int* __restrict__ row_slots,
-                                 const float* __restrict__ w,
-                                 const int n_rows, const int n_cols,
-                                 const int chunk,
-                                 const float* __restrict__ s,
-                                 const float* __restrict__ x,
-                                 float* __restrict__ y,
-                                 float* __restrict__ dw) {
+__global__ void plan_matvec_dw_kernel(const int* __restrict__ meta,
+                                      const int* __restrict__ b0,
+                                      const int* __restrict__ row_ptr,
+                                      const int* __restrict__ row_slots,
+                                      const float* __restrict__ w,
+                                      const int n_rows, const int n_cols,
+                                      const int chunk,
+                                      const float* __restrict__ s,
+                                      const float* __restrict__ x,
+                                      float* __restrict__ y,
+                                      float* __restrict__ dw) {
     const int lane = threadIdx.x & 31;
     const long long row =
         (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
     if (row >= n_rows) return;                  // the whole warp leaves
     const int begin = row_ptr[row];
     const int end = row_ptr[row + 1];
-    const float s_row = kDw ? s[row] : 0.0f;
+    const float s_row = s[row];
     float acc = 0.0f;
     for (int j = begin + lane; j < end; j += 32) {
         const int e = row_slots[j];
@@ -75,7 +83,7 @@ __global__ void plan_rows_kernel(const int* __restrict__ meta,
         col = min(col, n_cols - 1);
         const float xv = x[col];
         acc += w[e] * xv;
-        if (kDw) dw[e] = s_row * xv;
+        dw[e] = s_row * xv;
     }
     acc = warp_sum(acc);
     if (lane == 0) y[row] = acc;
@@ -88,24 +96,24 @@ int rows_blocks(int n_rows) {
 
 }  // namespace
 
-// meta, row_slots, w: the plan's (n_chunks, chunk) / (nse,) arrays;
-// b0 (n_chunks,); row_ptr (n_rows + 1,); x (n_cols,); y (n_rows,).
-BE_EXPORT int plan_gather_mv_launch(const int* meta, const int* b0,
-                                    const int* row_ptr, const int* row_slots,
-                                    const float* w, int n_rows, int n_cols,
-                                    int chunk, const float* x, float* y,
+// row_ptr (n_rows + 1,), row_cols (nse,): the plan's row index; w_row
+// (nse,): the weights in the same (row) order; x (n_cols,); y (n_rows,).
+BE_EXPORT int plan_gather_mv_launch(const int* row_ptr, const int* row_cols,
+                                    const float* w_row, int n_rows,
+                                    int n_cols, const float* x, float* y,
                                     int device, void* stream) {
     int err = be_begin(device);
     if (err) return err;
     if (n_rows <= 0) return be_end();
-    plan_rows_kernel<false><<<rows_blocks(n_rows), BE_BLOCK, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        meta, b0, row_ptr, row_slots, w, n_rows, n_cols, chunk, nullptr, x,
-        y, nullptr);
+    csr_gather_mv_kernel<2, false, false, float><<<
+        rows_blocks(n_rows), BE_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+        row_ptr, row_cols, nullptr, w_row, x, n_rows, n_cols, y);
     return be_end();
 }
 
-// As above, plus s (n_rows,) and dw (n_chunks, chunk), zeroed by the caller.
+// meta, w: the plan's (n_chunks, chunk) arrays; b0 (n_chunks,); row_ptr
+// (n_rows + 1,) and row_slots (nse,): the row index; s (n_rows,), x
+// (n_cols,), y (n_rows,); dw (n_chunks, chunk), zeroed by the caller.
 BE_EXPORT int plan_matvec_dw_launch(const int* meta, const int* b0,
                                     const int* row_ptr, const int* row_slots,
                                     const float* w, int n_rows, int n_cols,
@@ -115,8 +123,8 @@ BE_EXPORT int plan_matvec_dw_launch(const int* meta, const int* b0,
     int err = be_begin(device);
     if (err) return err;
     if (n_rows <= 0) return be_end();
-    plan_rows_kernel<true><<<rows_blocks(n_rows), BE_BLOCK, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+    plan_matvec_dw_kernel<<<rows_blocks(n_rows), BE_BLOCK, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
         meta, b0, row_ptr, row_slots, w, n_rows, n_cols, chunk, s, x, y, dw);
     return be_end();
 }

@@ -43,8 +43,15 @@ __all__ = ['dense_event_mv', 'dense_event_mm', 'dense_stdp_pre',
 
 _EVENT_SOURCE = 'brainevent_torch/csrc/dense_event.cu'
 _STDP_SOURCE = 'brainevent_torch/csrc/dense_stdp.cu'
-# K16's tile of output rows, and the grid's y limit it must stay within
-_MM_ROWS_PER_TILE, _GRID_Y = 64, 65535
+# K16's k tile (one 64-bit gate mask per column), and its scratch words
+# per tile: a mask per column, a needed-row mask per 32 columns, a
+# 128-byte event record per 8 columns
+_MM_TILE_K = 64
+
+
+def _mm_scratch_words(k: int, n: int) -> int:
+    per_tile = n + -(-n // 32) + 16 * -(-n // 8)
+    return -(-k // _MM_TILE_K) * per_tile + 1
 
 
 def product_gate(s: torch.Tensor, dtype) -> torch.Tensor:
@@ -107,15 +114,16 @@ def _dense_event_mm_cuda(op, w, s, transpose):
     device = check_cuda_tensors(op.name, (w, w.dtype), (s, s.dtype))
     k, n = s.shape
     m = w.shape[1] if transpose else w.shape[0]
-    if -(-m // _MM_ROWS_PER_TILE) > _GRID_Y:
-        raise ValueError(f'{op.name}: {m} output rows exceed the kernel '
-                         f'grid ({_GRID_Y} tiles of {_MM_ROWS_PER_TILE})')
     y = torch.empty(m, n, dtype=w.dtype, device=device)
+    # written by the launch's mask pass
+    scratch = torch.empty(_mm_scratch_words(k, n), dtype=torch.int64,
+                          device=device)
     fn = cuda_build.function('dense_event_mm_launch', [
         ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     op.launch(fn, w.data_ptr(), s.data_ptr(), code, int(transpose), dbl, m,
-              k, n, y.data_ptr(), device.index or 0, cuda_stream(device))
+              k, n, scratch.data_ptr(), y.data_ptr(), device.index or 0,
+              cuda_stream(device))
     return y
 
 

@@ -222,7 +222,7 @@ class SurrogateSNN:
     def _spikes(self, params: SNNParams, inputs: torch.Tensor):
         """Spike trains ``(n_steps, n_hidden)`` float 0/1."""
         decay = float(np.float32(math.exp(-self.dt / self.tau)))
-        # plan-order views, made once per train step
+        # the weight views, made once per train step
         w_sorted = _sorted_view(params.w_rec, self._plan.perm, self._inv)
         fwd_w = self._fwd_weights(params.w_rec)
         v = torch.zeros(self.n_hidden, device=inputs.device)
@@ -239,11 +239,12 @@ class SurrogateSNN:
 
     def _fwd_weights(self, w_rec):
         """The forward's weight view, with no gradient: the full gradient
-        is the backward's ``dw``."""
+        is the backward's ``dw``. K3 reads the incoming plan's row order
+        (one gather per train step, then read at every simulated step)."""
         w = w_rec.detach().to(torch.float32)
         if self.forward == 'event':
             return w.contiguous()
-        return self._plan_T.sort_data(w)
+        return self._plan_T.sort_rows(w)
 
     def spike_counts(self, params: SNNParams,
                      inputs: torch.Tensor) -> torch.Tensor:

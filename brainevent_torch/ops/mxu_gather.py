@@ -30,18 +30,23 @@ interface the two packages share: weights go in through
 On a GPU the plan is read row by row. At build time, in numpy, each plan
 also gets a row index: ``row_ptr (M+1,)`` and ``row_slots (nse,)``, the
 plan slots of row ``r`` in increasing slot order at
-``row_slots[row_ptr[r]:row_ptr[r+1]]``, and ``row_cols (nse,)``, their
-columns. The two matvec kernels
-(``csrc/plan_gather.cu``) give each row one warp, which walks the row's
-slots, decodes their columns from ``meta`` and ``b0``, and sums in a fixed
-order (lane-strided partial sums, then a fixed shuffle tree). No float
-atomics: the same inputs give bitwise-equal outputs on every run.
+``row_slots[row_ptr[r]:row_ptr[r+1]]``, ``row_cols (nse,)``, their
+columns, and ``row_src (nse,)``, their flat-nse entries. The two matvec
+kernels (``csrc/plan_gather.cu``) give each row one warp, which walks the
+row's entries and sums in a fixed order (lane-strided partial sums, then a
+fixed shuffle tree). No float atomics: the same inputs give bitwise-equal
+outputs on every run.
 
 - K3 :data:`plan_gather_mv` (:func:`gather_matvec`):
-  ``y[r] = sum_{slots e of row r} w_sorted[e] * x[col_e]``;
+  ``y[r] = sum_{slots e of row r} w_sorted[e] * x[col_e]``, over the row
+  index alone (``row_ptr``, ``row_cols``) with the weights in row order
+  (:meth:`GatherPlan.sort_rows`, :meth:`GatherPlan.rows_of`): K7's float
+  row gather, 8 coalesced bytes a slot;
 - K4 :data:`plan_matvec_dw_op` (:func:`plan_matvec_dw`): K3's ``y`` plus
   ``dw[e] = s[row_e] * x[col_e]`` for every valid slot (0 at padding), in
-  one launch: the surrogate-training backward;
+  one launch: the surrogate-training backward; it walks the plan slots
+  (``row_slots``) and decodes their columns from ``meta`` and ``b0``,
+  since ``dw`` is written in plan order;
 - K10 :data:`csr_gather_mm` (``csrc/csr_gather_mm.cu``, :func:`gather_matmat`):
   ``Y[r, :] = sum_j w[slot(j)] * op(X[col_j, :])`` over any CSR-like row
   index with an optional slot permutation: a plan's (``row_ptr``,
@@ -50,12 +55,13 @@ atomics: the same inputs give bitwise-equal outputs on every run.
   row and 128-column tile; the lanes span the columns, so each read of an
   ``X`` row is coalesced, and the row's entries are added in order.
 
-Each has a plain PyTorch twin (:func:`gather_matvec_xla`,
+Each has a plain PyTorch twin (:func:`gather_matvec_rows`,
 :func:`matvec_dw_xla`, :func:`csr_gather_mm_twin`) that gathers and sums
-with ``index_add_``; it runs for CPU tensors. The JAX functions' TPU keywords
-``passes`` (the bf16 split depth) and ``force_xla`` (a VMEM guard) are
-accepted and ignored: float32 on the card needs no split, and nothing on
-the card routes a CUDA tensor to the twin.
+with ``index_add_``; it runs for CPU tensors. :func:`gather_matvec_xla`,
+the JAX package's oracle over the plan order, stays beside them. The JAX
+functions' TPU keywords ``passes`` (the bf16 split depth) and
+``force_xla`` (a VMEM guard) are accepted and ignored: float32 on the card
+needs no split, and nothing on the card routes a CUDA tensor to the twin.
 """
 
 import ctypes
@@ -72,8 +78,10 @@ from .operand import acc_dtype, fits, is_double, op_code, op_values, take
 
 __all__ = [
     'GatherPlan', 'build_gather_plan', 'plan_from_csr', 'plan_from_ell',
-    'gather_matvec', 'gather_matvec_xla', 'plan_matvec_dw', 'matvec_dw_xla',
-    'plan_inverse_perm', 'plan_aux', 'plan_matvec_vjp', 'plan_gather_mv',
+    'gather_matvec', 'gather_matvec_xla', 'gather_matvec_rows',
+    'plan_matvec_dw', 'matvec_dw_xla',
+    'plan_inverse_perm', 'plan_aux', 'plan_matvec_vjp', 'plan_matvec_rows',
+    'plan_gather_mv',
     'plan_matvec_dw_op', 'build_mm_plan', 'gather_matmat_xla',
     'gather_matmat', 'plan_matmat_vjp', 'csr_gather_mm',
     'csr_gather_mm_twin',
@@ -104,8 +112,9 @@ class GatherPlan:
     (n_chunks,)`` window starts (in 128-column blocks), ``rb (n_chunks,)``
     row-block ids (non-decreasing), ``perm (n_chunks, C) int32`` flat-nse
     source index (-1 = padding), and the row index the kernels walk:
-    ``row_ptr (M+1,)``, ``row_slots (nse,)`` and ``row_cols (nse,)``, the
-    column of each listed slot. The other fields are static.
+    ``row_ptr (M+1,)``, ``row_slots (nse,)``, and for each listed slot its
+    column, ``row_cols (nse,)``, and its flat-nse entry, ``row_src
+    (nse,)``. The other fields are static.
     """
     meta: torch.Tensor
     b0: torch.Tensor
@@ -114,6 +123,7 @@ class GatherPlan:
     row_ptr: torch.Tensor
     row_slots: torch.Tensor
     row_cols: torch.Tensor
+    row_src: torch.Tensor
     shape: Tuple[int, int]
     nse: int
     chunk: int
@@ -123,7 +133,7 @@ class GatherPlan:
     nbp: int              # padded number of 128-column blocks
 
     _TENSORS = ('meta', 'b0', 'rb', 'perm', 'row_ptr', 'row_slots',
-                'row_cols')
+                'row_cols', 'row_src')
 
     @property
     def n_chunks(self) -> int:
@@ -148,11 +158,25 @@ class GatherPlan:
                                device=self.perm.device)
         return torch.where(valid, flat[self.perm.clamp(min=0).long()], zero)
 
+    def sort_rows(self, data: torch.Tensor) -> torch.Tensor:
+        """Flat nse ``data`` in row order, ``(nse,)`` float32, in one
+        gather: what K3 reads, and ``rows_of(sort_data(data))``.
+        Homogeneous ``data`` of shape ``(1,)`` broadcasts."""
+        flat = data.reshape(-1).to(torch.float32)
+        if tuple(data.shape) == (1,):
+            return flat.expand(self.nse).contiguous()
+        return torch.index_select(flat, 0, self.row_src)
+
+    def rows_of(self, w_sorted: torch.Tensor) -> torch.Tensor:
+        """Plan-order ``w_sorted`` (``(n_chunks, C)``) in row order,
+        ``(nse,)``: one gather by ``row_slots``."""
+        return torch.index_select(w_sorted.reshape(-1), 0, self.row_slots)
+
 
 def _row_index(meta, b0, rb, perm, row_block: int, n_rows: int):
-    """``row_ptr``, ``row_slots``, ``row_cols``: the valid slots of each
-    row, in increasing slot order, and their columns (numpy, at build
-    time)."""
+    """``row_ptr``, ``row_slots``, ``row_cols``, ``row_src``: the valid
+    slots of each row, in increasing slot order, their columns and their
+    flat-nse entries (numpy, at build time)."""
     flat_perm = perm.reshape(-1)
     slots = np.flatnonzero(flat_perm >= 0)
     chunk = meta.shape[1]
@@ -165,8 +189,10 @@ def _row_index(meta, b0, rb, perm, row_block: int, n_rows: int):
     order = np.argsort(rows, kind='stable')
     row_ptr = np.zeros(n_rows + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=n_rows), out=row_ptr[1:])
-    return (row_ptr.astype(np.int32), slots[order].astype(np.int32),
-            cols[order].astype(np.int32))
+    row_slots = slots[order]
+    return (row_ptr.astype(np.int32), row_slots.astype(np.int32),
+            cols[order].astype(np.int32),
+            flat_perm[row_slots].astype(np.int32))
 
 
 def _plan(meta, b0, rb, perm, shape, nse, chunk, row_block, win_blocks,
@@ -330,6 +356,20 @@ def gather_matvec_xla(plan: GatherPlan, w_sorted: torch.Tensor,
     return out[:plan.shape[0]]
 
 
+def gather_matvec_rows(plan: GatherPlan, w_row: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of K3 over the row index: ``w_row * x[row_cols]``
+    summed into each row with ``index_add_``. A row's entries are its plan
+    slots in increasing slot order, so on the CPU this adds what
+    :func:`gather_matvec_xla` adds, in the same order."""
+    M = plan.shape[0]
+    rows = torch.repeat_interleave(
+        torch.arange(M, device=x.device), plan.row_ptr.diff().long())
+    xv = torch.index_select(x.to(torch.float32), 0, plan.row_cols)
+    y = torch.zeros(M, dtype=torch.float32, device=x.device)
+    return y.index_add_(0, rows, w_row * xv)
+
+
 def matvec_dw_xla(plan: GatherPlan, w_sorted: torch.Tensor,
                   s_vec: torch.Tensor, x: torch.Tensor):
     """Plain PyTorch twin of K4: ``(y, dw)``, ``dw`` 0 at padding slots."""
@@ -367,15 +407,24 @@ def _plan_args(op, plan: GatherPlan, w_sorted, *vectors):
 _PLAN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
 
 
-def _plan_gather_mv_cuda(op, plan, w_sorted, x):
-    device, args = _plan_args(op, plan, w_sorted, x)
-    if x.shape != (plan.shape[1],):
-        raise ValueError(f'{op.name}: x {tuple(x.shape)} for shape {plan.shape}')
-    y = torch.empty(plan.shape[0], dtype=torch.float32, device=device)
-    fn = cuda_build.function('plan_gather_mv_launch', _PLAN_ARGTYPES + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    op.launch(fn, *args, x.data_ptr(), y.data_ptr(), device.index or 0,
-              cuda_stream(device))
+def _plan_gather_mv_cuda(op, plan, w_row, x):
+    i32, f32 = torch.int32, torch.float32
+    device = check_cuda_tensors(op.name, (plan.row_ptr, i32),
+                                (plan.row_cols, i32), (w_row, f32), (x, f32))
+    M, N = plan.shape
+    if (w_row.shape != (plan.nse,) or x.shape != (N,)
+            or plan.row_ptr.shape != (M + 1,)
+            or plan.row_cols.shape != (plan.nse,)):
+        raise ValueError(f'{op.name}: w_row {tuple(w_row.shape)}, x '
+                         f'{tuple(x.shape)} or the row index does not fit '
+                         f'the plan ({plan.nse} slots, shape {plan.shape})')
+    y = torch.empty(M, dtype=f32, device=device)
+    fn = cuda_build.function('plan_gather_mv_launch', [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                             ctypes.c_void_p])
+    op.launch(fn, plan.row_ptr.data_ptr(), plan.row_cols.data_ptr(),
+              w_row.data_ptr(), M, N, x.data_ptr(), y.data_ptr(),
+              device.index or 0, cuda_stream(device))
     return y
 
 
@@ -395,7 +444,7 @@ def _plan_matvec_dw_cuda(op, plan, w_sorted, s_vec, x):
 
 
 plan_gather_mv = KernelOp(
-    'plan_gather_mv', twin=gather_matvec_xla, cuda=_plan_gather_mv_cuda,
+    'plan_gather_mv', twin=gather_matvec_rows, cuda=_plan_gather_mv_cuda,
     source=_SOURCE, replaces='brainevent_tpu/ops/mxu_gather.py:288')
 
 plan_matvec_dw_op = KernelOp(
@@ -412,11 +461,14 @@ def gather_matvec(plan: GatherPlan, w_sorted, x, *,
     """``out[r] = sum_{e in row r} w[e] * x[col[e]]`` over the plan's
     structure, through K3 (the twin for CPU tensors).
 
-    ``w_sorted`` is :meth:`GatherPlan.sort_data`'s output. ``force_xla``
-    and ``passes`` are accepted and ignored.
+    ``w_sorted`` is :meth:`GatherPlan.sort_data`'s output; it is brought
+    to row order (:meth:`GatherPlan.rows_of`, one gather) for K3. A caller
+    that reuses its weights keeps them in row order
+    (:meth:`GatherPlan.sort_rows`) and calls :data:`plan_gather_mv`.
+    ``force_xla`` and ``passes`` are accepted and ignored.
     """
     del force_xla, passes
-    return plan_gather_mv(plan, _f32(w_sorted), _f32(x))
+    return plan_gather_mv(plan, plan.rows_of(_f32(w_sorted)), _f32(x))
 
 
 def plan_matvec_dw(plan: GatherPlan, w_sorted, s_vec, x, *,
@@ -437,22 +489,29 @@ def plan_matvec_dw(plan: GatherPlan, w_sorted, s_vec, x, *,
 
 
 class _PlanMatvecVjp(torch.autograd.Function):
-    """Matvec over a plan pair, differentiable with respect to ``v``: both
-    directions are K3 launches (``plan_b`` carries the transposed
-    structure)."""
+    """Matvec over a plan pair with row-order weights, differentiable with
+    respect to ``v``: both directions are K3 launches (``plan_b`` carries
+    the transposed structure)."""
 
     @staticmethod
-    def forward(ctx, v, plan_f, plan_b, w_f, w_b):
+    def forward(ctx, v, plan_f, plan_b, wr_f, wr_b):
         ctx.plan_b = plan_b
-        ctx.save_for_backward(w_b)
+        ctx.save_for_backward(wr_b)
         ctx.v_dtype = v.dtype
-        return gather_matvec(plan_f, w_f, v)
+        return plan_gather_mv(plan_f, wr_f, _f32(v))
 
     @staticmethod
     def backward(ctx, ct):
-        (w_b,) = ctx.saved_tensors
-        v_bar = gather_matvec(ctx.plan_b, w_b, ct).to(ctx.v_dtype)
+        (wr_b,) = ctx.saved_tensors
+        v_bar = plan_gather_mv(ctx.plan_b, wr_b, _f32(ct)).to(ctx.v_dtype)
         return v_bar, None, None, None, None
+
+
+def plan_matvec_rows(plan_f: GatherPlan, plan_b: GatherPlan, wr_f, wr_b, v):
+    """:func:`plan_matvec_vjp` with the weights already in row order
+    (:meth:`GatherPlan.sort_rows` of each plan): what a caller that keeps
+    its weight views across calls launches."""
+    return _PlanMatvecVjp.apply(v, plan_f, plan_b, wr_f, wr_b)
 
 
 def plan_matvec_vjp(plan_f: GatherPlan, plan_b: GatherPlan, w_f, w_b, v, *,
@@ -465,7 +524,8 @@ def plan_matvec_vjp(plan_f: GatherPlan, plan_b: GatherPlan, w_f, w_b, v, *,
     the JAX package. ``passes`` is accepted and ignored.
     """
     del passes
-    return _PlanMatvecVjp.apply(v, plan_f, plan_b, w_f, w_b)
+    return plan_matvec_rows(plan_f, plan_b, plan_f.rows_of(_f32(w_f)),
+                            plan_b.rows_of(_f32(w_b)), v)
 
 
 # -- the mat-mat half: K10 -------------------------------------------------------

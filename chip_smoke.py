@@ -42,9 +42,11 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
    5,000 steps in us/step (host clock); K1's and K2's device time (CUDA
    events around launches queued back to back), host-paced time per
    launch, and their twins' time per call;
-7. K3 (``plan_gather_mv``) and K4 (``plan_matvec_dw``) against their twins
-   on both plans of the 100k x 100 model, x normal and 0/1 at 18%: y
-   within 1e-5 * sum|w x| per row, K4's dw bitwise, repeats bitwise;
+7. K3 (``plan_gather_mv``, over each plan's row index with row-order
+   weights) and K4 (``plan_matvec_dw``) against their twins on both plans
+   of the 100k x 100 model, x normal and 0/1 at 18%: y within
+   1e-5 * sum|w x| per row, K3 bitwise K4's y and ``gather_matvec``'s,
+   K4's dw bitwise, repeats bitwise;
 8. K5 (``fcn_event_scatter``) and K6 (``fcn_event_gather``) against their
    twins at 100k x 100, rates 0, 0.1%, 1% and 100%, homogeneous and
    heterogeneous weights, bool and float spikes: homogeneous exact, K5
@@ -62,7 +64,8 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
 11. learning: the 2,000-neuron net of 4 class-templated inputs, 30 epochs
     at lr 0.5, must lower its loss;
 12. K3-K6 timing at full width: device ms per launch and twin ms per call
-    (K5 and K6 at 0.1% and 1%);
+    (K5 and K6 at 0.1% and 1%), and the row-order weight view K3 reads
+    (one gather per train step) apart;
 13. K7 (``csr_gather_mv``) and K8 (``csr_scatter_mv``) against their twins
     at (10k, 10k, 10%): rates 0, 0.1%, 1%, 10% and 100%, homogeneous and
     heterogeneous weights, bool and float spikes, the indexed (``perm``)
@@ -102,7 +105,9 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
     (negatives and NaN among the silent ones), and K16
     (``dense_event_mm``) at (5000, 5000, B = 128) and (10k, 10k, B = 128)
     at 1%, both directions: within 1e-5 * sum|W| gate per output,
-    bitwise on a repeat;
+    bitwise on a repeat; K16 bitwise the ascending-k loop
+    (``ordered_event_mm``) at (5000, 5000, B = 128), 1% and 50%, bool and
+    float, both directions;
 22. K17 (``dense_stdp_pre``/``dense_stdp_post``) at (10k, 10k), 1%
     spikes, with and without the clip, and K18 (``event_row_count``) at
     (10k, 128) and (16, 8192) at 1%, against their twins: bitwise; the
@@ -114,10 +119,10 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
     twins on the card: ``W.data`` bitwise, products within 1e-5 * sum|W|
     gate, K15 twice and K16, K17 (each direction), K18 once per step; a
     backward through ``W @ BinaryArray(float spikes)``; 10 profiled steps;
-24. dense timing: device ms per launch of K15-K18 at the slice's shapes,
-    their twins' ms per call, their bounds and the library calls
-    (``torch.matmul`` with TF32 off, ``torch.addr``,
-    ``torch.count_nonzero``);
+24. dense timing: device ms per launch of K15-K18 at the slice's shapes
+    (K16 also at 10% and 50%, both directions), their twins' ms per call,
+    their bounds and the library calls (``torch.matmul`` with TF32 off,
+    ``torch.addr``, ``torch.count_nonzero``);
 25. K19 (``einet_dense_hits``) against its twin and against K2 on the same
     spike lists (0, 1, 1% and 100% of the neurons, out-of-range ids among
     them) at 4k and 40k with uint8 tables and at 4k with an int32 table
@@ -164,7 +169,10 @@ Each kernel's line also carries its bound (the larger of its bytes over
 the HBM rate and its operations over the float32 rate) and the time of one
 PyTorch call computing the same function (``torch.sparse.mm``,
 ``index_add_``, ``torch.matmul``, ``torch.addr``, ``torch.count_nonzero``)
-where one exists. Any failure exits non-zero; so does a host without
+where one exists. K5's and K8's is ``torch.sparse.mm`` of the transposed
+matrix by the float spikes; their ``index_add_`` over the active rows'
+targets, gathered outside the timed call, is printed beside it as what it
+is, not the same function. Any failure exits non-zero; so does a host without
 CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K20; K15's
 line is its ``s @ W`` direction, K19's the 4k COBA run, K20's the 400k
 one); the last is
@@ -490,31 +498,40 @@ SMALL = dict(n_in=12, n_hidden=128, n_out=4, n_conn=8)
 def check_plans(model, device):
     """K3 and K4 on both plans of the full-width model: y within
     1e-5 * sum|w x| of the twin's per row, dw bitwise, and two launches on
-    the same inputs bitwise equal."""
+    the same inputs bitwise equal. K3 runs over the plan's row index with
+    row-order weights (``sort_rows``, and ``gather_matvec``'s reorder of
+    plan-order weights): bitwise K4's y."""
     phase('7 K3 plan_gather_mv / K4 plan_matvec_dw vs twin at 100k x 100 '
-          '(tolerance: |dy| <= 1e-5 * sum|w x| per row; dw bitwise)')
+          '(tolerance: |dy| <= 1e-5 * sum|w x| per row; dw bitwise; K3 '
+          'bitwise K4\'s y)')
     from brainevent_torch.ops import mxu_gather as mg
     gen = torch.Generator(device='cpu').manual_seed(7)
     n = model.n_hidden
     w_rec = model.init_params().w_rec
     worst = {'plan_gather_mv': 0.0, 'plan_matvec_dw': 0.0}
-    for label, plan, w_sorted in (
-            ('outgoing', model._plan, model._plan.sort_data(w_rec)),
-            ('incoming', model._plan_T, model._plan_T.sort_data(w_rec))):
+    for label, plan in (('outgoing', model._plan), ('incoming', model._plan_T)):
+        w_sorted, w_row = plan.sort_data(w_rec), plan.sort_rows(w_rec)
+        check(torch.equal(w_row, plan.rows_of(w_sorted)), ('sort_rows', label))
         s = (torch.rand(n, generator=gen) < 0.18).float().to(device)
         for xkind in ('normal', 'spikes 18%'):
             x = (torch.randn(n, generator=gen).to(device)
                  if xkind == 'normal'
                  else (torch.rand(n, generator=gen) < 0.18).float().to(device))
             bound = 1e-5 * mg.gather_matvec_xla(plan, w_sorted.abs(), x.abs())
-            y = mg.gather_matvec(plan, w_sorted, x)
+            y = mg.plan_gather_mv(plan, w_row, x)
+            y_public = mg.gather_matvec(plan, w_sorted, x)
             y_twin = mg.gather_matvec_xla(plan, w_sorted, x)
+            y_rows = mg.plan_gather_mv.twin(plan, w_row, x)
             y4, dw = mg.plan_matvec_dw(plan, w_sorted, s, x)
             y4_twin, dw_twin = mg.matvec_dw_xla(plan, w_sorted, s, x)
-            y_again = mg.gather_matvec(plan, w_sorted, x)
+            y_again = mg.plan_gather_mv(plan, w_row, x)
             y4_again, dw_again = mg.plan_matvec_dw(plan, w_sorted, s, x)
             torch.cuda.synchronize()
             check(bool(((y - y_twin).abs() <= bound).all()), ('K3', label))
+            check(bool(((y - y_rows).abs() <= bound).all()),
+                  ('K3 row twin', label))
+            check(torch.equal(y, y4) and torch.equal(y, y_public),
+                  ('K3 bitwise K4 and gather_matvec', label))
             check(bool(((y4 - y4_twin).abs() <= bound).all()), ('K4', label))
             check(torch.equal(dw, dw_twin), ('K4 dw', label))
             check(torch.equal(y, y_again), ('K3 repeat', label))
@@ -526,7 +543,7 @@ def check_plans(model, device):
             worst['plan_matvec_dw'] = max(worst['plan_matvec_dw'], e4)
             print(f'{label} plan ({plan.nse} slots, {plan.n_chunks} chunks), '
                   f'x {xkind}: K3 max|dy| {e3!r}, K4 max|dy| {e4!r}, dw '
-                  f'equal, repeats bitwise equal')
+                  f'equal, K3 bitwise K4\'s y, repeats bitwise equal')
     return worst
 
 
@@ -763,7 +780,9 @@ def time_new_kernels(model, runs, device):
     p = model.init_params()
     spk = (torch.rand(n, generator=gen) < 0.18).float().to(device)
     ct = torch.randn(n, generator=gen).to(device)
-    fwd_w = model._plan_T.sort_data(p.w_rec)
+    # K3 reads the incoming plan's row-order weights, made once per train
+    # step (SurrogateSNN._fwd_weights); that reorder is timed apart
+    fwd_w = model._plan_T.sort_rows(p.w_rec)
     w_sorted = model._plan.sort_data(p.w_rec)
     out = {}
     for name, op, args in (
@@ -774,6 +793,9 @@ def time_new_kernels(model, runs, device):
                          plain_ms=host_ms(lambda: op.twin(*args), 5))
         print(f'{name} (18% spikes): device {out[name]["ms"]!r} ms, twin '
               f'{out[name]["plain_ms"]!r} ms')
+    reorder_ms = device_ms(lambda: model._plan_T.sort_rows(p.w_rec), 50)
+    print(f'the row-order weight view (sort_rows, one {model._plan_T.nse}-'
+          f'entry gather, once per train step): {reorder_ms!r} ms')
     for rate, (w, idx, s) in runs:
         for op in (fb.fcn_event_scatter, fb.fcn_event_gather):
             args = (w, idx, s, n)
@@ -804,15 +826,25 @@ def time_new_kernels(model, runs, device):
     ell = torch.sparse_csr_tensor(
         torch.arange(0, n * k + 1, k, device=device), idx.reshape(-1).long(),
         w.expand(n * k).contiguous(), (n, n))
+    # K5's function, y = W^T g(s) over the ELL table, as one call: the
+    # transposed matrix (targets as rows) by the float spikes
+    ell_t = torch.sparse_coo_tensor(
+        torch.stack([idx.reshape(-1).long(), src]), w.expand(n * k),
+        (n, n)).coalesce().to_sparse_csr()
     sf = s.float()[:, None]
     out['fcn_event_scatter'].update(
-        library_ms=device_ms(lambda: y.index_add_(0, active, vals), 100),
+        library_ms=device_ms(lambda: torch.sparse.mm(ell_t, sf), 100),
+        selected_index_add_ms=device_ms(
+            lambda: y.index_add_(0, active, vals), 100),
         bytes=n + 4 * active.numel() + 4 * n, ops=active.numel())
     out['fcn_event_gather'].update(
         library_ms=device_ms(lambda: torch.sparse.mm(ell, sf), 100),
         bytes=4 * n * k + 5 * n, ops=n * k)
     for name in ('plan_gather_mv', 'fcn_event_scatter', 'fcn_event_gather'):
         print(f'{name}: library call {out[name]["library_ms"]!r} ms')
+    print(f'fcn_event_scatter: index_add_ after selection (the active rows\' '
+          f'targets gathered outside the timed call; not the same function) '
+          f'{out["fcn_event_scatter"]["selected_index_add_ms"]!r} ms')
     return out
 
 
@@ -1164,13 +1196,20 @@ def time_csr_kernels(W, A, plan, w_sorted, device):
     tgt, vals = W.indices[act].long(), homo.expand(int(act.sum()))
     y = torch.zeros(n, device=device)
     sf = s[:, None]
+    # K8's function, y = W^T g(s), as one call: the transposed matrix by
+    # the float spikes
+    Wt = torch.sparse_coo_tensor(
+        torch.stack([W.indices.long(), rows_w.long()]), homo.expand(W.nse),
+        (n, n)).coalesce().to_sparse_csr()
     A_csr = torch.sparse_csr_tensor(A.indptr.long(), A.indices.long(), A.data,
                                     A.shape)
     out['csr_gather_mv'].update(
         library_ms=device_ms(lambda: torch.sparse.mm(Wh, sf), 100),
         bytes=4 * (n + 1) + 4 * W.nse + 5 * n, ops=W.nse)
     out['csr_scatter_mv'].update(
-        library_ms=device_ms(lambda: y.index_add_(0, tgt, vals), 100),
+        library_ms=device_ms(lambda: torch.sparse.mm(Wt, sf), 100),
+        selected_index_add_ms=device_ms(lambda: y.index_add_(0, tgt, vals),
+                                        100),
         bytes=5 * n + 4 * tgt.numel(), ops=tgt.numel())
     out['pair_gather'].update(bytes=12 * W.nse + 8 * n, ops=W.nse)
     out['csr_gather_mm'].update(
@@ -1179,6 +1218,9 @@ def time_csr_kernels(W, A, plan, w_sorted, device):
         ops=2 * A.nse * MM_B)
     for name in ('csr_gather_mv', 'csr_scatter_mv', 'csr_gather_mm'):
         print(f'{name}: library call {out[name]["library_ms"]!r} ms')
+    print(f'csr_scatter_mv: index_add_ after selection (the active rows\' '
+          f'targets gathered outside the timed call; not the same function) '
+          f'{out["csr_scatter_mv"]["selected_index_add_ms"]!r} ms')
     return out
 
 
@@ -1598,10 +1640,26 @@ def dense_spikes(shape, rate, kind, gen, device):
     return x
 
 
+def ordered_event_mm(w, s, transpose):
+    """K16's function as the loop its sums follow: ``Y += W[:, i] *
+    g(S[i])`` (``W[i, :]`` with *transpose*) over the k rows ``i`` in
+    ascending order. Each product is exact (the gate is 0 or 1), so each
+    add rounds once; a row without an event adds zeros to sums that are
+    never -0.0, so it is left out."""
+    from brainevent_torch.dense import pallas_kernels as dk
+    g = dk.product_gate(s, w.dtype)
+    m = w.shape[1] if transpose else w.shape[0]
+    Y = torch.zeros(m, s.shape[1], dtype=w.dtype, device=w.device)
+    for i in torch.nonzero(g.any(dim=1)).flatten().tolist():
+        Y += (w[i, :, None] if transpose else w[:, i, None]) * g[i, None, :]
+    return Y
+
+
 def check_dense_products(W, device):
     phase(f'21 K15 dense_event_mv / K16 dense_event_mm vs twin at '
           f'({DENSE_N}, {DENSE_N}) and at {DENSE_MM} (tolerance: |d| <= '
-          f'1e-5 * sum|W| gate per output; repeats bitwise)')
+          f'1e-5 * sum|W| gate per output; repeats bitwise; K16 bitwise the '
+          f'ascending-k loop at {DENSE_MM[0]})')
     from brainevent_torch.dense import pallas_kernels as dk
     gen = torch.Generator(device=device).manual_seed(21)
     worst = {'dense_event_mv': 0.0, 'dense_event_mm': 0.0}
@@ -1633,6 +1691,19 @@ def check_dense_products(W, device):
                      ('K16', n, kind, transpose))
         print(f'K16 ({n}, {n}, B = {b}) at {DENSE_RATE:.0%}, bool and float, '
               f'T and NT: within tolerance, repeats bitwise')
+    n, b = DENSE_MM[0]
+    w = W[:n, :n].contiguous()
+    for rate in (DENSE_RATE, 0.5):
+        for kind in ('bool', 'float'):
+            S = dense_spikes((n, b), rate, kind, gen, device)
+            for transpose in (True, False):
+                got = dk.dense_event_mm(w, S, transpose)
+                want = ordered_event_mm(w, S, transpose)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      ('K16 vs the ordered loop', rate, kind, transpose))
+        print(f'K16 ({n}, {n}, B = {b}) at {rate:.0%}, bool and float, T and '
+              f'NT: bitwise the ascending-k loop')
     print(f'max |d|: {worst!r}')
     return worst
 
@@ -1824,8 +1895,8 @@ def time_dense_kernels(W, device):
     x = torch.rand(*ENCODE_SHAPES[0], generator=gen, device=device) < \
         DENSE_RATE
     trace = torch.rand(n, generator=gen, device=device)
-    n_act, nnz = int(s.sum()), int(S.sum())
-    g, G = s.float(), S.float()
+    n_act = int(s.sum())
+    g = s.float()
     out = {}
 
     def timed(name, op, args, reps, reps_twin, library, n_bytes, n_ops):
@@ -1842,9 +1913,22 @@ def time_dense_kernels(W, device):
           lambda: torch.matmul(g, W), 4 * n * n_act + n + 4 * n, n * n_act)
     timed('dense_event_mv NT', dk.dense_event_mv, (W, s, False), 200, 20,
           lambda: torch.matmul(W, g), 32 * n * n_act + n + 4 * n, n * n_act)
-    timed('dense_event_mm', dk.dense_event_mm, (W, S, False), 10, 5,
-          lambda: torch.matmul(W, G), 4 * n * n + n * b + 4 * n * b,
-          2 * nnz * n)
+    # K16 at the slice's 1% (W @ S, the main path) and at 10% and 50%,
+    # both directions: the event form's adds grow as m n k rate. The bytes
+    # are W once (the rows some column needs, transpose), S and Y.
+    for rate in (DENSE_RATE, 0.1, 0.5):
+        Sr = S if rate == DENSE_RATE else torch.rand(
+            n, b, generator=gen, device=device) < rate
+        Gr, nnz_r = Sr.float(), int(Sr.sum())
+        rows_needed = int(Sr.any(dim=1).sum())
+        for transpose in (False, True):
+            name = f'dense_event_mm {"T" if transpose else "NT"} {rate:.0%}'
+            timed(name, dk.dense_event_mm, (W, Sr, transpose), 10, 5,
+                  (lambda G_=Gr: torch.matmul(W.T, G_)) if transpose
+                  else (lambda G_=Gr: torch.matmul(W, G_)),
+                  4 * n * (rows_needed if transpose else n) + n * b
+                  + 4 * n * b, 2 * nnz_r * n)
+    out['dense_event_mm'] = out[f'dense_event_mm NT {DENSE_RATE:.0%}']
     for name, op, args, lib in (
             ('dense_stdp_pre', dk.dense_stdp_pre, (W, s, trace, -1.0, 1.0),
              lambda: torch.addr(W, g, trace)),

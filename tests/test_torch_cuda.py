@@ -13,8 +13,8 @@ imports JAX; on such a host run it without that file::
 K1 and K2 are held to bitwise equality: K1 writes the twin's FMAs with
 ``__fmaf_rn`` and is built with ``-fmad=false``; K2's sums are integers.
 K3/K4 (gather plans) sum each row in another order than the twin's
-``index_add_``: ``|y - twin| <= 1e-5 * sum|w x|`` per row, and K4's ``dw``
-(one product per slot) bitwise. K5/K6 (``binary_fcnmv``): homogeneous
+``index_add_``: ``|y - twin| <= 1e-5 * sum|w x|`` per row, K3's ``y``
+bitwise K4's, and K4's ``dw`` (one product per slot) bitwise. K5/K6 (``binary_fcnmv``): homogeneous
 weights exact; heterogeneous K5 (float atomics) within ``1e-5 * sum|w|``
 per target, K6 within ``1e-6 * sum|w|`` per row. K7-K10 (the CSR slice):
 homogeneous binary products exact (int32 counts, scaled once); the others
@@ -24,7 +24,7 @@ stream setup and the dense matrix bitwise (the kernels compute the twin's
 float32 operations, with its FMAs and its float64 ``log``); the products
 within ``1e-5 * sum|w x|`` per output, the gathers bitwise on a repeat.
 K15/K16 (the dense event products) within ``1e-5 * sum|W| * gate`` per
-output and bitwise on a repeat; K17 (dense STDP) bitwise (one rounding,
+output and bitwise on a repeat, K16 bitwise the ascending-k loop; K17 (dense STDP) bitwise (one rounding,
 the gate being 0 or 1); K18 (the row count) exact; K19 (the dense EI
 propagation) exact and bitwise K2's counts, and every strategy of
 ``einet_pallas_sim`` bitwise the mxu3 route over 2,000 steps. The public
@@ -216,6 +216,36 @@ def test_plan_kernels_vs_twin(cuda_device, gen, incoming):
     assert torch.equal(dw, dw_twin)
     y4b, dwb = bt.plan_matvec_dw(plan, w_sorted, s, x)
     assert torch.equal(y4b, y4) and torch.equal(dwb, dw)
+
+
+@pytest.mark.parametrize('incoming', [False, True], ids=['out', 'in'])
+def test_plan_gather_rows_bitwise_k4(cuda_device, gen, incoming):
+    """K3 over the row index with row-order weights: one launch, bitwise
+    K4's y (each lane adds the same slots in the same order), bitwise on a
+    repeat, and within the tolerance of the row-order twin."""
+    n, k = 20_000, 50
+    idx = gen.integers(0, n, (n, k))
+    if incoming:       # targets as rows: uneven row lengths
+        plan = mg.build_gather_plan(idx.reshape(-1), np.repeat(np.arange(n), k),
+                                    (n, n))
+    else:
+        plan = mg.plan_from_ell(idx, (n, n))
+    plan = plan.to(cuda_device)
+    w = torch.from_numpy(gen.normal(size=n * k).astype(F32)).to(cuda_device)
+    w_row = plan.sort_rows(w)
+    assert torch.equal(w_row, plan.rows_of(plan.sort_data(w)))
+    x = torch.from_numpy(gen.normal(size=n).astype(F32)).to(cuda_device)
+    s = torch.from_numpy((gen.random(n) < 0.18).astype(F32)).to(cuda_device)
+    before = mg.plan_gather_mv.launches
+    y = mg.plan_gather_mv(plan, w_row, x)
+    y4, _ = bt.plan_matvec_dw(plan, plan.sort_data(w), s, x)
+    again = mg.plan_gather_mv(plan, w_row, x)
+    twin = mg.plan_gather_mv.twin(plan, w_row, x)
+    torch.cuda.synchronize()
+    assert mg.plan_gather_mv.launches == before + 2
+    assert torch.equal(y, y4) and torch.equal(y, again)
+    bound = 1e-5 * _row_bound(plan, plan.sort_data(w), x) + 1e-30
+    assert bool(((y - twin).abs() <= bound).all())
 
 
 @pytest.mark.parametrize('rate', [0.0, 0.001, 0.01, 1.0])
@@ -610,6 +640,26 @@ def test_dense_event_products_kernel_vs_twin(cuda_device, gen, transpose,
         assert bool(((got - want).abs() <= 1e-5 * bound + 1e-30).all()), \
             op.name
         assert torch.equal(got, again), op.name
+
+
+@pytest.mark.parametrize('kind', ['bool', 'float'])
+@pytest.mark.parametrize('rate', [0.0, 0.01, 0.5])
+@pytest.mark.parametrize('transpose', [True, False], ids=['T', 'NT'])
+def test_dense_event_mm_bitwise_ordered_loop(cuda_device, gen, transpose,
+                                             rate, kind):
+    """K16 is the plain ascending-k sum: bitwise ``Y += W[:, i] * g(S[i])``
+    over i in order (``chip_smoke.ordered_event_mm``), at a shape off the
+    kernel's 64-row tiles, float spikes with negatives and NaN among the
+    silent ones."""
+    from brainevent_torch.dense import pallas_kernels as dk
+    m, k, n = 300, 333, 77
+    W = torch.from_numpy(gen.normal(size=(k, m) if transpose else (m, k))
+                         .astype(F32)).to(cuda_device)
+    S = _dense_spikes(gen, (k, n), rate, kind, cuda_device)
+    got = dk.dense_event_mm(W, S, transpose)
+    want = chip_smoke.ordered_event_mm(W, S, transpose)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize('shape', [(1000, 1200), (301, 257)], ids=str)

@@ -8,7 +8,10 @@ The plan layout is the interface the two packages share, so ``meta``,
 JAX side runs its Pallas kernels in interpret mode; the port runs its
 twins of K3 (``gather_matvec``) and K4 (``plan_matvec_dw``). The sums run
 in another order than the JAX kernel's, hence rtol 1e-5 / atol 1e-6 on
-``y``; ``dw`` is one product per slot and must be bitwise equal.
+``y``; ``dw`` is one product per slot and must be bitwise equal. K3 reads
+the weights in row order (``sort_rows``): its twin adds each row's slots
+in the order the plan-order twin ``gather_matvec_xla`` adds them, so the
+two are bitwise equal here.
 """
 
 import jax
@@ -118,6 +121,73 @@ def test_sort_data_homogeneous_broadcast():
         w.numpy(), np.asarray(jp.sort_data(jnp.asarray([2.5], jnp.float32))))
     valid = tp.perm >= 0
     assert (w[valid] == 2.5).all() and (w[~valid] == 0).all()
+
+
+# plans from ELL tables (even rows) beside CASES' COO structures (uneven)
+ELL_CASES = {'ell_square': ((200, 150), 6), 'ell_one': ((64, 64), 1),
+             'ell_wide': ((1100, 300), 9)}
+
+
+def _plan_and_data(name, seed=6):
+    rng = np.random.default_rng(seed)
+    if name in ELL_CASES:
+        shape, k = ELL_CASES[name]
+        plan = tg.plan_from_ell(rng.integers(0, shape[1], (shape[0], k)),
+                                shape)
+    else:
+        rows, cols, shape, kw, rng = _coo(name, seed)
+        plan = tg.build_gather_plan(rows, cols, shape, **kw)
+    data = rng.normal(size=plan.nse).astype(np.float32)
+    x = rng.normal(size=plan.shape[1]).astype(np.float32)
+    return plan, torch.from_numpy(data), torch.from_numpy(x)
+
+
+@pytest.mark.parametrize('name', sorted(CASES) + sorted(ELL_CASES))
+def test_sort_rows_is_sort_data_then_row_slots(name):
+    plan, data, _ = _plan_and_data(name)
+    w_row = plan.sort_rows(data)
+    assert w_row.dtype == torch.float32 and w_row.shape == (plan.nse,)
+    want = plan.sort_data(data).reshape(-1)[plan.row_slots.long()]
+    assert torch.equal(w_row, want)
+    assert torch.equal(plan.rows_of(plan.sort_data(data)), want)
+    assert torch.equal(plan.row_src, plan.perm.reshape(-1)[
+        plan.row_slots.long()])
+    homo = plan.sort_rows(torch.tensor([2.5], dtype=torch.float64))
+    assert homo.dtype == torch.float32 and bool((homo == 2.5).all())
+    assert homo.shape == (plan.nse,)
+
+
+@pytest.mark.parametrize('name', sorted(CASES) + sorted(ELL_CASES))
+def test_row_twin_bitwise_the_plan_order_twin(name):
+    plan, data, x = _plan_and_data(name)
+    got = tg.gather_matvec_rows(plan, plan.sort_rows(data), x)
+    want = tg.gather_matvec_xla(plan, plan.sort_data(data), x)
+    assert torch.equal(got, want)
+    assert torch.equal(bt.gather_matvec(plan, plan.sort_data(data), x), want)
+
+
+@pytest.mark.parametrize('name', sorted(ELL_CASES))
+def test_plan_matvec_rows_is_plan_matvec_vjp(name):
+    """The row-order entry the CSR matrix's plan route calls gives
+    :func:`plan_matvec_vjp`'s values and cotangents."""
+    plan, data, x = _plan_and_data(name)
+    rows, cols = tg._decode(plan)
+    valid = plan.perm >= 0
+    plan_t = tg.build_gather_plan(cols[valid].numpy(), rows[valid].numpy(),
+                                  plan.shape[::-1])
+    # data in the flat order of the transposed plan's build
+    data_t = data[plan.perm[valid].long()]
+    vv = [x.clone().requires_grad_(True) for _ in range(2)]
+    ct = torch.from_numpy(np.random.default_rng(7).normal(
+        size=plan.shape[0]).astype(np.float32))
+    ya = bt.plan_matvec_vjp(plan, plan_t, plan.sort_data(data),
+                            plan_t.sort_data(data_t), vv[0])
+    yb = tg.plan_matvec_rows(plan, plan_t, plan.sort_rows(data),
+                             plan_t.sort_rows(data_t), vv[1])
+    assert torch.equal(ya, yb)
+    (ga,) = torch.autograd.grad(ya, vv[0], ct)
+    (gb,) = torch.autograd.grad(yb, vv[1], ct)
+    assert torch.equal(ga, gb)
 
 
 def _operands(name, seed=4):

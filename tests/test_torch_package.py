@@ -195,7 +195,7 @@ def test_cu_sources_ship_as_package_data():
                        'pair_gather.cu', 'csr_gather_mm.cu', 'light_rng.cuh',
                        'jitc_walk.cu', 'dense_event.cu', 'dense_stdp.cu',
                        'event_encode.cu', 'einet_dense.cu',
-                       'mega_counts.cu'}
+                       'mega_counts.cu', 'csr_rows.cuh'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 
@@ -314,7 +314,9 @@ def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
     ptr = torch.tensor([0, 2, 3], dtype=i32)
     idx = torch.tensor([0, 1, 1], dtype=i32)
     w, x = torch.ones(3), torch.ones(2)
+    plan = mg.plan_from_ell(np.array([[0, 1], [1, 1]]), (2, 2))
     for op, args in ((pk.csr_gather_mv, (ptr, idx, idx, w, x, False)),
+                     (mg.plan_gather_mv, (plan, torch.ones(4), x)),
                      (pk.csr_scatter_mv, (ptr, idx, None, w, x > 0, True, 2)),
                      (pg.pair_gather, (idx, idx, x, x)),
                      (mg.csr_gather_mm, (ptr, idx, None, w,
@@ -330,6 +332,7 @@ def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
                          2, 3, dtype=i32)))):
         op.cuda(op, *args)
     assert set(seen) == {'csr_gather_mv_launch', 'csr_scatter_mv_launch',
+                         'plan_gather_mv_launch',
                          'pair_gather_launch', 'csr_gather_mm_launch',
                          'dense_event_mv_launch', 'dense_event_mm_launch',
                          'dense_stdp_launch', 'event_row_count_launch',
