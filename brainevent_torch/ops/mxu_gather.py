@@ -51,13 +51,16 @@ outputs on every run.
   ``Y[r, :] = sum_j w[slot(j)] * op(X[col_j, :])`` over any CSR-like row
   index with an optional slot permutation: a plan's (``row_ptr``,
   ``row_cols``, ``row_slots``), or a CSR matrix's own arrays
-  (``csr/float.py:csrmm``, ``csr/binary.py:binary_csrmm``). One warp per
-  row and 128-column tile; the lanes span the columns, so each read of an
-  ``X`` row is coalesced, and the row's entries are added in order.
+  (``csr/float.py:csrmm``, ``csr/binary.py:binary_csrmm``). A row takes
+  4 lanes up to ``B = 16`` and a whole warp above, each lane 4 columns of
+  ``Y`` (two such pieces in a warp) read as 16-byte pieces where they are
+  aligned, so each read of an ``X`` row is coalesced; the row's entries
+  are added in stored order.
 
 Each has a plain PyTorch twin (:func:`gather_matvec_rows`,
 :func:`matvec_dw_xla`, :func:`csr_gather_mm_twin`) that gathers and sums
-with ``index_add_``; it runs for CPU tensors. :func:`gather_matvec_xla`,
+with ``index_add_``; it runs for CPU tensors. K10 is also held bitwise
+against :func:`csr_gather_mm_ordered`, its sum in stored order. :func:`gather_matvec_xla`,
 the JAX package's oracle over the plan order, stays beside them. The JAX
 functions' TPU keywords ``passes`` (the bf16 split depth) and
 ``force_xla`` (a VMEM guard) are accepted and ignored: float32 on the card
@@ -84,7 +87,7 @@ __all__ = [
     'plan_gather_mv',
     'plan_matvec_dw_op', 'build_mm_plan', 'gather_matmat_xla',
     'gather_matmat', 'plan_matmat_vjp', 'csr_gather_mm',
-    'csr_gather_mm_twin',
+    'csr_gather_mm_twin', 'csr_gather_mm_ordered',
 ]
 
 _LANES = 128
@@ -582,6 +585,38 @@ def csr_gather_mm_twin(indptr, indices, perm, w, X, binary: bool):
             v = (w[0] if homo else ws[a:a + step, None]) * v
         Y.index_add_(0, rows[a:a + step], v)
     return Y * w[0] if homo and binary else Y
+
+
+def csr_gather_mm_ordered(indptr, indices, perm, w, X, binary: bool):
+    """K10's function summed as K10 sums it: position by position over the
+    rows, each row's next entry multiplied (or, for an event product,
+    gated: ``w if op(x) != 0 else 0``) and then added to its row, one
+    rounding each, in stored order; out-of-range columns add nothing, and
+    homogeneous binary products sum 0/1 gates and scale once. K10's output
+    is bitwise this one's; nothing on the main path calls it."""
+    n_rows, B = indptr.shape[0] - 1, X.shape[1]
+    ptr = indptr.long()
+    lens = ptr[1:] - ptr[:-1]
+    homo = tuple(w.shape) == (1,)
+    acc = acc_dtype(w, X)
+    Xv = op_values(X, binary, acc)
+    wv = w.to(acc)
+    Y = torch.zeros(n_rows, B, dtype=acc, device=X.device)
+    zero = torch.zeros((), dtype=acc, device=X.device)
+    for p in range(int(lens.max()) if n_rows else 0):
+        rows = torch.nonzero(lens > p).squeeze(1)
+        j = ptr[rows] + p
+        c = indices[j].long()
+        keep = (c >= 0) & (c < X.shape[0])
+        rows, j, x = rows[keep], j[keep], Xv[c[keep]]
+        if homo and binary:
+            v = x
+        else:
+            wt = (wv[:1].expand(j.shape[0]) if homo
+                  else wv[j if perm is None else perm[j].long()])[:, None]
+            v = torch.where(x != 0, wt, zero) if binary else wt * x
+        Y[rows] = Y[rows] + v
+    return Y * wv[0] if homo and binary else Y
 
 
 def _csr_gather_mm_cuda(op, indptr, indices, perm, w, X, binary):

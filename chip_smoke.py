@@ -75,8 +75,11 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
     side, ``-1`` sentinels, and the STDP updates with clip: bitwise;
 15. K10 (``csr_gather_mm``) against its twin at (10k, 10k, 1%, B = 256):
     ``csrmm`` and ``binary_csrmm`` both directions, and ``gather_matmat``
-    over an mm plan: within 1e-5 * sum|w x|, bitwise on a repeat; the
-    per-call CSC mirror of a functional transposed product, timed;
+    over an mm plan: within 1e-5 * sum|w x|, bitwise the stored-order sum
+    (``csr_gather_mm_ordered``), bitwise on a repeat; the CSR slice's
+    ``W @ X`` and ``X @ W`` at (10k, 10k, 10%, B = 16) within tolerance
+    and bitwise the stored-order sum; the per-call CSC mirror of a
+    functional transposed product, timed;
 16. the CSR slice at 10M entries: 100 steps of ``BinaryArray @ W``,
     ``W @ BinaryArray``, trace decay, ``update_on_pre``/``update_on_post``
     with clip, ``W @ X`` and ``X @ W``, through the kernels and through the
@@ -84,7 +87,9 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
     K7, K8 once and K9, K10 twice per step; a backward through ``W @ v``;
     ``W @ X`` at B = 256;
 17. K7-K10 timing: device ms per launch and twin ms per call (K7 and K8
-    at 0.1% and 1%);
+    at 0.1% and 1%); K10 at the csrmm cell (NT and over its mm plan) and
+    at the slice's B = 16 both ways, each beside ``torch.sparse.mm``;
+    K9 beside ``torch.sparse.sampled_addmm`` on W's pattern (equal);
 18. K11-K14 (``jitc_walk_setup``, ``jitc_walk_mv``, ``jitc_walk_mm``/
     ``jitc_walk_mm4``, ``jitc_walk_todense``/``jitc_walk_todense4``)
     against their twins at (5120, 5120, 1%), each weight law, strides 32
@@ -99,7 +104,10 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
     1e-5 relative), the rate in 1-200 Hz; the scalar law at 80k over 1,000
     steps, spike counts equal to the twin loop on the card;
 20. JITC timing: us/step at 4k and 80k, device ms per launch of K11-K14
-    and their twins' ms per call, and 10 profiled steps at 80k;
+    and their twins' ms per call, K12 at the 80k E projection over the
+    plan and drawing its own setup (the event scatter at the recorded
+    spikes, 10% and 100%, the gather and the float scatter), and 10
+    profiled steps at 80k;
 21. K15 (``dense_event_mv``) against its twin at (10k, 10k), both
     directions, rates 0, 0.1%, 1%, 10% and 100%, bool and float spikes
     (negatives and NaN among the silent ones), and K16
@@ -165,17 +173,22 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
     plans and gathers bitwise the whole walk, the scatter within 1e-5 *
     sum|w x|; ``sharded_jitmv`` bitwise ``jitnmv``.
 
+With ``--tree DIR`` it runs only phase 17's K10 timing and phase 20's
+JITCNet and K12 timing, of DIR's ``brainevent_torch`` by this file's code
+(``time_tree``), to compare two checkouts on one card.
+
 Each kernel's line also carries its bound (the larger of its bytes over
 the HBM rate and its operations over the float32 rate) and the time of one
 PyTorch call computing the same function (``torch.sparse.mm``,
-``index_add_``, ``torch.matmul``, ``torch.addr``, ``torch.count_nonzero``)
-where one exists. K5's and K8's is ``torch.sparse.mm`` of the transposed
+``torch.sparse.sampled_addmm``, ``index_add_``, ``torch.matmul``,
+``torch.addr``, ``torch.count_nonzero``) where one exists. K5's and K8's is ``torch.sparse.mm`` of the transposed
 matrix by the float spikes; their ``index_add_`` over the active rows'
 targets, gathered outside the timed call, is printed beside it as what it
 is, not the same function. Any failure exits non-zero; so does a host without
 CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K20; K15's
-line is its ``s @ W`` direction, K19's the 4k COBA run, K20's the 400k
-one); the last is
+line is its ``s @ W`` direction, K10's the mean of the CSR slice's two
+B = 16 directions with each shape apart under ``by_shape``, K19's the 4k
+COBA run, K20's the 400k one); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -984,11 +997,43 @@ def check_pair_gather(W, device):
     return 0.0
 
 
-def check_csr_mm(device):
+def check_ordered(got, ptr, idx, perm, w, X, binary, what):
+    """K10's output bitwise its stored-order plain sum on the same
+    inputs."""
+    from brainevent_torch.ops import mxu_gather as mg
+    want = mg.csr_gather_mm_ordered(ptr, idx, perm, w, X, binary)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), ('K10 vs the stored-order sum', what))
+
+
+def slice_mm_operands(W, device):
+    """The CSR slice's mat-mat inputs (phase 16 at SLICE_B): ``W @ X`` over
+    the CSR arrays, ``Z @ W`` over the CSC mirror with its permutation,
+    the operand transposed in as the entry transposes it."""
+    from brainevent_torch import _misc
+    gen = torch.Generator(device=device).manual_seed(151)
+    n = W.shape[0]
+    X = torch.randn(n, SLICE_B, generator=gen, device=device)
+    Zt = torch.randn(SLICE_B, n, generator=gen, device=device).T.contiguous()
+    mirror = _misc.csr_to_csc_index(W.indptr, W.indices, shape=W.shape)
+    return {'NT': ((W.indptr, W.indices, None), X),
+            'T': (mirror, Zt)}
+
+
+def mm_plan(A, device):
+    """The gather plan of the csrmm cell's matrix *A*, built in numpy."""
+    from brainevent_torch.ops import mxu_gather as mg
+    rows = np.repeat(np.arange(A.shape[0]), np.diff(A.indptr.cpu().numpy()))
+    return mg.build_mm_plan(rows, A.indices.cpu().numpy(), A.shape).to(device)
+
+
+def check_csr_mm(W, device):
     phase(f'15 K10 csr_gather_mm vs twin at ({MM_N}, {MM_N}, '
-          f'{MM_DENSITY:.0%}, B = {MM_B}), NT and T, float and binary, and '
-          f'gather_matmat over an mm plan (tolerance: |d| <= 1e-5 * '
-          f'sum|w x|; repeats bitwise)')
+          f'{MM_DENSITY:.0%}, B = {MM_B}), NT and T, float and binary, '
+          f'gather_matmat over an mm plan, and the CSR slice\'s W @ X and '
+          f'X @ W at ({CSR_N}, {CSR_N}, {CSR_DENSITY:.0%}, B = {SLICE_B}) '
+          f'(tolerance: |d| <= 1e-5 * sum|w x|; bitwise the stored-order '
+          f'sum; repeats bitwise)')
     import brainevent_torch as bt
     from brainevent_torch import _misc
     from brainevent_torch.ops import mxu_gather as mg
@@ -1013,15 +1058,16 @@ def check_csr_mm(device):
             bound = mg.csr_gather_mm_twin(ptr, idx, perm, A.data, Xb, binary)
             worst = max(worst, within(got, want, bound,
                                       ('K10', kind, transpose)))
+            check_ordered(got, ptr, idx, perm, A.data, X, binary,
+                          (kind, transpose))
             again = fn(A.data, A.indices, A.indptr, X, shape=shape,
                        transpose=transpose)
             torch.cuda.synchronize()
             check(torch.equal(got, again), ('K10 repeat', kind, transpose))
             print(f'{kind}, {"T" if transpose else "NT"}: within tolerance, '
-                  f'repeats bitwise')
+                  f'bitwise the stored-order sum, repeats bitwise')
     t0 = time.perf_counter()
-    rows = np.repeat(np.arange(MM_N), np.diff(A.indptr.cpu().numpy()))
-    plan = mg.build_mm_plan(rows, A.indices.cpu().numpy(), shape).to(device)
+    plan = mm_plan(A, device)
     plan_s = time.perf_counter() - t0
     w_sorted = plan.sort_data(A.data)
     X = torch.randn(MM_N, MM_B, generator=gen, device=device)
@@ -1029,13 +1075,24 @@ def check_csr_mm(device):
     worst = max(worst, within(got, mg.gather_matmat_xla(plan, w_sorted, X),
                               mg.gather_matmat_xla(plan, w_sorted, X.abs()),
                               'gather_matmat'))
+    check_ordered(got, plan.row_ptr, plan.row_cols, plan.row_slots,
+                  w_sorted.reshape(-1), X, False, 'gather_matmat')
     torch.cuda.synchronize()
     check(torch.equal(got, bt.gather_matmat(plan, w_sorted, X)),
           'gather_matmat repeat')
     print(f'gather_matmat over the mm plan ({plan.nse} slots, built in '
-          f'{plan_s!r} s in numpy): within tolerance, repeats bitwise; the '
-          f'per-call CSC mirror of a functional transposed csrmm takes '
-          f'{mirror_ms!r} ms (host clock)')
+          f'{plan_s!r} s in numpy): within tolerance, bitwise the '
+          f'stored-order sum, repeats bitwise; the per-call CSC mirror of a '
+          f'functional transposed csrmm takes {mirror_ms!r} ms (host clock)')
+    for what, ((ptr, idx, perm), X) in slice_mm_operands(W, device).items():
+        got = mg.csr_gather_mm(ptr, idx, perm, W.data, X, False)
+        worst = max(worst, within(
+            got, mg.csr_gather_mm_twin(ptr, idx, perm, W.data, X, False),
+            mg.csr_gather_mm_twin(ptr, idx, perm, W.data, X.abs(), False),
+            ('K10 slice', what)))
+        check_ordered(got, ptr, idx, perm, W.data, X, False, ('slice', what))
+        print(f'the slice\'s {what} at B = {SLICE_B} ({W.nse} entries): '
+              f'within tolerance, bitwise the stored-order sum')
     return A, plan, w_sorted, worst, mirror_ms
 
 
@@ -1144,12 +1201,60 @@ def check_csr_slice(W, device):
     return counts, W_k
 
 
+def time_k10(W, A, plan, w_sorted, device):
+    """K10 at its four shapes, each beside ``torch.sparse.mm`` of the same
+    matrix by the same operand (the transposed CSR built outside the timed
+    call): the csrmm cell (MM_N, MM_N, MM_DENSITY, MM_B) NT over the CSR
+    arrays and over its mm plan's row index, and the CSR slice's ``W @ X``
+    (NT) and ``X @ W`` (T, over the CSC mirror with its permutation) at
+    (CSR_N, CSR_N, CSR_DENSITY, SLICE_B). Device ms per launch, the
+    library call's, the bytes and operations of the bound, and each twin
+    (timed by the caller)."""
+    from brainevent_torch import _misc
+    from brainevent_torch.ops import mxu_gather as mg
+    gen = torch.Generator(device=device).manual_seed(171)
+    X = torch.randn(MM_N, MM_B, generator=gen, device=device)
+
+    def sparse(ptr, idx, vals, shape):
+        return torch.sparse_csr_tensor(ptr.long(), idx.long(), vals, shape)
+
+    def row(ptr, idx, perm, w, X, lib, reps, nse):
+        n_rows, (n_x, B) = ptr.shape[0] - 1, X.shape
+        args = (ptr, idx, perm, w, X, False)
+        return dict(ms=device_ms(lambda: mg.csr_gather_mm(*args), reps),
+                    library_ms=device_ms(lambda: torch.sparse.mm(lib, X),
+                                         reps),
+                    twin=lambda: mg.csr_gather_mm_twin(*args),
+                    bytes=4 * (n_rows + 1) + (12 if perm is not None else 8)
+                    * nse + 4 * n_x * B + 4 * n_rows * B,
+                    ops=2 * nse * B)
+
+    A_csr = sparse(A.indptr, A.indices, A.data, A.shape)
+    res = {'csrmm': row(A.indptr, A.indices, None, A.data, X, A_csr, 20,
+                        A.nse)}
+    flat = w_sorted.reshape(-1).contiguous()
+    res['plan'] = row(plan.row_ptr, plan.row_cols, plan.row_slots, flat, X,
+                      A_csr, 20, A.nse)
+    res['plan']['twin'] = lambda: mg.gather_matmat_xla(plan, w_sorted, X)
+    ops = slice_mm_operands(W, device)
+    (ptr, idx, _), Xs = ops['NT']
+    res['slice NT'] = row(ptr, idx, None, W.data, Xs,
+                          sparse(ptr, idx, W.data, W.shape), 20, W.nse)
+    (ptr, idx, perm), Zt = ops['T']
+    res['slice T'] = row(ptr, idx, perm, W.data, Zt,
+                         sparse(ptr, idx, W.data[perm.long()], W.shape), 20,
+                         W.nse)
+    for name, r in res.items():
+        print(f'K10 {name}: device {r["ms"]!r} ms, torch.sparse.mm '
+              f'{r["library_ms"]!r} ms, bound {bound(r["bytes"], 0)[0]!r} ms')
+    return res
+
+
 def time_csr_kernels(W, A, plan, w_sorted, device):
     phase('17 CSR timing: device ms per launch (launches queued back to '
           'back) and the twin\'s ms per call')
     from brainevent_torch.csr import pallas_kernels as pk
     from brainevent_torch.csr._common import event_gate, row_ids_from_indptr
-    from brainevent_torch.ops import mxu_gather as mg
     from brainevent_torch.ops import pair_gather as pg
     gen = torch.Generator(device=device).manual_seed(17)
     n = CSR_N
@@ -1172,19 +1277,22 @@ def time_csr_kernels(W, A, plan, w_sorted, device):
     out['pair_gather'] = dict(ms=device_ms(lambda: pg.pair_gather(*args), 100),
                               plain_ms=host_ms(
                                   lambda: pg.pair_gather_twin(*args), 10))
-    X = torch.randn(MM_N, MM_B, generator=gen, device=device)
-    args = (A.indptr, A.indices, None, A.data, X, False)
-    out['csr_gather_mm'] = dict(
-        ms=device_ms(lambda: mg.csr_gather_mm(*args), 20),
-        plain_ms=host_ms(lambda: mg.csr_gather_mm_twin(*args), 3))
-    flat = w_sorted.reshape(-1).contiguous()
-    plan_args = (plan.row_ptr, plan.row_cols, plan.row_slots, flat, X, False)
-    out['gather_matmat'] = dict(
-        ms=device_ms(lambda: mg.csr_gather_mm(*plan_args), 20),
-        plain_ms=host_ms(lambda: mg.gather_matmat_xla(plan, w_sorted, X), 3))
-    for name in ('pair_gather', 'csr_gather_mm', 'gather_matmat'):
-        print(f'{name}: device {out[name]["ms"]!r} ms, twin '
-              f'{out[name]["plain_ms"]!r} ms')
+    k10 = time_k10(W, A, plan, w_sorted, device)
+    for name, r in k10.items():
+        r['plain_ms'] = host_ms(r.pop('twin'), 3)
+        print(f'K10 {name}: twin {r["plain_ms"]!r} ms')
+    # K10's line is the main path's shape: the slice launches it at
+    # B = 16 once each way a step, so the line takes the mean of the two
+    # directions; each shape, the csrmm cell's B = 256 among them, apart
+    fields = ('ms', 'plain_ms', 'library_ms', 'bytes', 'ops')
+    out['csr_gather_mm'] = {f: (k10['slice NT'][f] + k10['slice T'][f]) / 2
+                            for f in fields}
+    out['csr_gather_mm']['by_shape'] = {
+        name: dict({f: r[f] for f in fields[:3]},
+                   bound_ms=bound(r['bytes'], r['ops'])[0])
+        for name, r in k10.items()}
+    print(f'pair_gather: device {out["pair_gather"]["ms"]!r} ms, twin '
+          f'{out["pair_gather"]["plain_ms"]!r} ms')
     for name in ('csr_gather_mv', 'csr_scatter_mv'):
         out[name] = out[(name, 0.01)]
     # the library yardsticks on the same inputs, and the bytes moved
@@ -1201,8 +1309,6 @@ def time_csr_kernels(W, A, plan, w_sorted, device):
     Wt = torch.sparse_coo_tensor(
         torch.stack([W.indices.long(), rows_w.long()]), homo.expand(W.nse),
         (n, n)).coalesce().to_sparse_csr()
-    A_csr = torch.sparse_csr_tensor(A.indptr.long(), A.indices.long(), A.data,
-                                    A.shape)
     out['csr_gather_mv'].update(
         library_ms=device_ms(lambda: torch.sparse.mm(Wh, sf), 100),
         bytes=4 * (n + 1) + 4 * W.nse + 5 * n, ops=W.nse)
@@ -1211,12 +1317,17 @@ def time_csr_kernels(W, A, plan, w_sorted, device):
         selected_index_add_ms=device_ms(lambda: y.index_add_(0, tgt, vals),
                                         100),
         bytes=5 * n + 4 * tgt.numel(), ops=tgt.numel())
-    out['pair_gather'].update(bytes=12 * W.nse + 8 * n, ops=W.nse)
-    out['csr_gather_mm'].update(
-        library_ms=device_ms(lambda: torch.sparse.mm(A_csr, X), 20),
-        bytes=4 * (MM_N + 1) + 8 * A.nse + 8 * MM_N * MM_B,
-        ops=2 * A.nse * MM_B)
-    for name in ('csr_gather_mv', 'csr_scatter_mv', 'csr_gather_mm'):
+    # K9's function as one call: the SDDMM of the rank-1 product gate
+    # trace^T sampled on W's pattern
+    W_pat = torch.sparse_csr_tensor(W.indptr.long(), W.indices.long(),
+                                    W.data, (n, n))
+    sd = lambda: torch.sparse.sampled_addmm(  # noqa: E731
+        W_pat, gate[:, None], trace[None, :], beta=0.0)
+    check(torch.equal(sd().values(), pg.pair_gather(*args)),
+          'K9 equals torch.sparse.sampled_addmm')
+    out['pair_gather'].update(bytes=12 * W.nse + 8 * n, ops=W.nse,
+                              library_ms=device_ms(sd, 100))
+    for name in ('csr_gather_mv', 'csr_scatter_mv', 'pair_gather'):
         print(f'{name}: library call {out[name]["library_ms"]!r} ms')
     print(f'csr_scatter_mv: index_add_ after selection (the active rows\' '
           f'targets gathered outside the timed call; not the same function) '
@@ -1454,21 +1565,43 @@ def check_jitc_slice(device):
     return out
 
 
+def k12_kwargs(net):
+    """K12's keywords for ``JITCNet``'s E projection: the event scatter
+    over ``net.plan_e``, normal law."""
+    from brainevent_torch.jitc import pallas_kernels as jk
+    from brainevent_torch.jitc.family import _seed
+    plan = net.plan_e
+    s2, _, cl = plan.setup
+    a, b = jk.law_params(1, plan.matrix.data)
+    return dict(law=1, a=a, b=b, seed=_seed(plan.matrix.seed), cl=cl,
+                n_rows=s2.shape[0], n_cols=net.num, logical_cols=net.num,
+                corder=False, event=True)
+
+
 def time_plan_routes(net, spk, mv_kw, device):
     """K12 over the 80k E plan against K12 drawing each stream's setup
     itself, in the three directions of the class surface's 1-D products:
-    device ms per launch (the gathers also compared bitwise)."""
+    the event scatter at the net's recorded spikes *spk* and at 10% and
+    100% of the rows spiking, the gather and the float scatter. Device ms
+    per launch (the gathers also compared bitwise)."""
     from brainevent_torch.jitc import pallas_kernels as jk
     s2, q2, _ = net.plan_e.setup
+    n_rows = s2.shape[0]
     gen = torch.Generator(device=device).manual_seed(21)
+    event = dict(corder=False, event=True)
     cases = {
-        'event scatter (spk @ M)': (spk, dict(corder=False, event=True)),
+        f'event scatter (spk @ M), {int(spk.sum())} spikes': (spk, event),
+        'event scatter, 10% spiking': (torch.rand(
+            n_rows, generator=gen, device=device) < 0.1, event),
+        'event scatter, 100% spiking': (torch.ones(
+            n_rows, dtype=torch.bool, device=device), event),
         'gather (M @ v)': (torch.randn(net.num, generator=gen,
                                        device=device),
                            dict(corder=True, event=False)),
-        'scatter (u @ M)': (torch.randn(s2.shape[0], generator=gen,
+        'scatter (u @ M)': (torch.randn(n_rows, generator=gen,
                                         device=device),
                             dict(corder=False, event=False))}
+    res = {}
     for what, (x, kw) in cases.items():
         kw = dict(mv_kw, **kw)
         ms = {}
@@ -1478,8 +1611,10 @@ def time_plan_routes(net, spk, mv_kw, device):
             check(torch.equal(jk.jitc_walk_mv(s2, q2, x, **kw),
                               jk.jitc_walk_mv(None, None, x, **kw)),
                   'K12 gather, plan vs own setup')
+        res[what] = ms
         print(f'K12 {what} at the 80k E matrix: over the plan {ms["plan"]!r} '
               f'ms, drawing its own setup {ms["own setup"]!r} ms')
+    return res
 
 
 def time_jitc_host(net, state, spike, t, n_rep=1000, n_prof=200):
@@ -1514,20 +1649,8 @@ def time_jitc(slice_out, plans, visits, clen, device, n=JITC_N):
           'time goes; 10 profiled steps at 80k')
     import brainevent_torch as bt
     from brainevent_torch.jitc import pallas_kernels as jk
-    from brainevent_torch.jitc.family import _seed
     res = {}
-    for label in ('4k', '80k'):
-        o = slice_out[label]
-        net, state = o['net'], o['final']
-        jitc_run(net, state, 100, JITC_STEPS)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = jitc_run(net, state, 1000, JITC_STEPS + 100)
-        torch.cuda.synchronize()
-        o['us_timed'] = (time.perf_counter() - t0) / 1000 * 1e6
-        print(f'{label}: {o["us_timed"]!r} us/step over 1000 steps after '
-              f'100 warm-up steps (host clock)')
-        o['last_state'] = state
+    time_jitc_steps(slice_out)
     # K11 and K12 at the main path's shapes: the 80k E plan, and the
     # spikes of the next step from the last timed state
     o = slice_out['80k']
@@ -1536,17 +1659,13 @@ def time_jitc(slice_out, plans, visits, clen, device, n=JITC_N):
     s2, q2, cl = plan.setup
     n_rows, L = s2.shape
     chunk = -(-net.num // 4)
-    t = net.times(1, JITC_STEPS + 1100)[0]
-    spike = net.step(state, t).spike_count != state.spike_count
+    t, spike = recorded_jitc_spikes(net, state)
     spk = spike[:net.n_exc].contiguous()
-    law, (a, b) = 1, jk.law_params(1, plan.matrix.data)
-    mv_kw = dict(law=law, a=a, b=b, seed=_seed(plan.matrix.seed), cl=cl,
-                 n_rows=n_rows, n_cols=net.num, logical_cols=net.num,
-                 corder=False, event=True)
+    law, mv_kw = 1, k12_kwargs(net)
     n_act = int(spk.sum())
     k12_visits = int(jk.jitc_walk_mv.twin(
         s2, q2, spk, **dict(mv_kw, law=0, a=1.0)).sum())
-    setup_kw = dict(seed=_seed(plan.matrix.seed), cl=cl, n_rows=n_rows,
+    setup_kw = dict(seed=mv_kw['seed'], cl=cl, n_rows=n_rows,
                     n_cols=net.num, chunk_size=chunk, stride=32)
     se, qe = torch.empty_like(s2), torch.empty_like(q2)
     res['jitc_walk_setup'] = dict(
@@ -1605,13 +1724,43 @@ def time_jitc(slice_out, plans, visits, clen, device, n=JITC_N):
               f'{4 * n * n / 1e6:.0f} MB output)')
     time_plan_routes(net, spk, mv_kw, device)
     time_jitc_host(net, state, spike, t)
+    profile_jitc(net, state)
+    return res
+
+
+def time_jitc_steps(slice_out):
+    """JITCNet's us/step (host clock) at each scale of *slice_out*, over
+    1000 steps after 100 from the state after the slice's JITC_STEPS;
+    each entry gains ``us_timed`` and ``last_state``."""
+    for label in ('4k', '80k'):
+        o = slice_out[label]
+        net, state = o['net'], o['final']
+        jitc_run(net, state, 100, JITC_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = jitc_run(net, state, 1000, JITC_STEPS + 100)
+        torch.cuda.synchronize()
+        o['us_timed'] = (time.perf_counter() - t0) / 1000 * 1e6
+        print(f'{label}: {o["us_timed"]!r} us/step over 1000 steps after '
+              f'100 warm-up steps (host clock)')
+        o['last_state'] = state
+
+
+def recorded_jitc_spikes(net, state):
+    """The time and the spikes of the step after the timed steps."""
+    t = net.times(1, JITC_STEPS + 1100)[0]
+    return t, net.step(state, t).spike_count != state.spike_count
+
+
+def profile_jitc(net, state):
+    """Kernel us per step over 10 profiled steps after the timed ones."""
     busy_us, wall_us, top = profile_step(
         lambda: jitc_run(net, state, 10, JITC_STEPS + 1100))
-    print(f'80k, 10 profiled steps: kernels {busy_us / 10!r} us of '
-          f'{wall_us / 10!r} us wall per step under the profiler (device '
-          f'idle {1 - busy_us / wall_us!r}); largest kernels (name, '
+    print(f'{net.num // 1000}k, 10 profiled steps: kernels {busy_us / 10!r} '
+          f'us of {wall_us / 10!r} us wall per step under the profiler '
+          f'(device idle {1 - busy_us / wall_us!r}); largest kernels (name, '
           f'launches, us): {top!r}')
-    return res
+    return busy_us / 10
 
 
 # -- the dense slice and the event encoders (K15-K18) ---------------------------
@@ -2802,11 +2951,65 @@ def neuron_mesh_world1(device):
     return neuron_mesh(1, device_type=device.type)
 
 
+def time_tree(tree):
+    """``--tree DIR``: phase 17's K10 timing (``time_k10``) and phase 20's
+    JITCNet and K12 timing (``time_jitc_steps``, ``time_plan_routes``,
+    ``profile_jitc``) of DIR's ``brainevent_torch``, on the inputs of the
+    phases (the CSR pattern, the csrmm cell and its plan; the 4k and 80k
+    nets after JITC_STEPS and the spikes of step JITC_STEPS + 1100), by
+    this file's code. So two checkouts are timed by the same code: run it
+    for each in turns (A, B, B, A). Prints one JSON line."""
+    import os
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    device_info()
+    device = torch.device('cuda:0')
+    import brainevent_torch as bt
+    from brainevent_torch.ops import cuda_build
+    check(os.path.dirname(os.path.dirname(os.path.abspath(bt.__file__)))
+          == tree, ('brainevent_torch not from', tree, bt.__file__))
+    cuda_build.library()
+    print(f'brainevent_torch of {tree}: nvcc '
+          f'{cuda_build.last_build_seconds()!r} s')
+    W = random_csr(CSR_N, CSR_DENSITY, 130, device)
+    A = random_csr(MM_N, MM_DENSITY, 150, device)
+    plan = mm_plan(A, device)
+    k10 = time_k10(W, A, plan, plan.sort_data(A.data), device)
+    slice_out = {}
+    for label, scale in JITC_SCALES.items():
+        net = bt.JITCNet(scale=scale, weight_law='normal', coba=True,
+                         device=device)
+        final, _ = jitc_run(net, net.init_state(), JITC_STEPS)
+        slice_out[label] = dict(net=net, final=final)
+    time_jitc_steps(slice_out)
+    o = slice_out['80k']
+    net, state = o['net'], o['last_state']
+    spk = recorded_jitc_spikes(net, state)[1][:net.n_exc].contiguous()
+    k12 = time_plan_routes(net, spk, k12_kwargs(net), device)
+    print(json.dumps({
+        'tree': tree, 'nvcc_s': cuda_build.last_build_seconds(),
+        'k10': {k: {f: r[f] for f in ('ms', 'library_ms')}
+                for k, r in k10.items()},
+        'k12': k12,
+        'jitcnet_us_per_step': {k: o['us_timed']
+                                for k, o in slice_out.items()},
+        'jitcnet_80k_kernel_us_per_step': profile_jitc(net, state)}))
+    return 0
+
+
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description='Smoke test of brainevent_torch '
+                                 'on one NVIDIA GPU.')
+    ap.add_argument('--tree', help='only time K10, K12 and JITCNet of this '
+                    'checkout\'s brainevent_torch (see time_tree)')
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this needs an '
               'NVIDIA GPU', file=sys.stderr)
         return 2
+    if args.tree:
+        return time_tree(args.tree)
     kind = device_info()
     device = torch.device('cuda:0')
 
@@ -2861,7 +3064,8 @@ def main():
           f'{time.perf_counter() - t0!r} s: {W.nse} entries')
     csr_err = check_csr_event(W, device)
     csr_err['pair_gather'] = check_pair_gather(W, device)
-    A, plan, w_sorted, csr_err['csr_gather_mm'], _ = check_csr_mm(device)
+    A, plan, w_sorted, csr_err['csr_gather_mm'], _ = check_csr_mm(
+        W, device)
     csr_counts, W = check_csr_slice(W, device)
     csr_times = time_csr_kernels(W, A, plan, w_sorted, device)
 
@@ -2906,7 +3110,8 @@ def main():
                 'replaces': op.replaces, 'launches': launches,
                 'max_abs_err': err, 'ms': t['ms'], 'plain_ms': t['plain_ms'],
                 'bound_ms': bound_ms, 'bound_by': bound_by,
-                'library_ms': t.get('library_ms')}
+                'library_ms': t.get('library_ms'),
+                **({'by_shape': t['by_shape']} if 'by_shape' in t else {})}
 
     t4k = times['4k']
     kernels = [

@@ -175,3 +175,115 @@ def test_csrmm_grads_match_jax(transpose):
                                atol=ATOL)
     np.testing.assert_allclose(gX.numpy(), np.asarray(jX), rtol=RTOL,
                                atol=ATOL)
+
+
+# -- K10's stored-order plain sum (csr_gather_mm_ordered) ---------------------------
+
+def _ordered_numpy(indptr, indices, perm, w, X, binary):
+    """The stored-order sum in numpy float32: one entry at a time, the
+    product (or the gated weight) rounded, then the add rounded."""
+    n_x, B = X.shape
+    homo = w.shape == (1,)
+    x = ((X if X.dtype == bool else X > 0) if binary else X).astype(w.dtype)
+    Y = np.zeros((indptr.size - 1, B), w.dtype)
+    for r in range(indptr.size - 1):
+        acc = np.zeros(B, w.dtype)
+        for j in range(indptr[r], indptr[r + 1]):
+            c = indices[j]
+            if not 0 <= c < n_x:
+                continue
+            if homo and binary:
+                acc = acc + x[c]
+                continue
+            wt = w[0] if homo else w[j if perm is None else perm[j]]
+            acc = acc + (np.where(x[c] != 0, wt, w.dtype.type(0)) if binary
+                         else wt * x[c])
+        Y[r] = acc * w[0] if homo and binary else acc
+    return Y
+
+
+def _mm_operand(rng, n, B, kind):
+    if kind == 'float':
+        return rng.normal(size=(n, B)).astype(np.float32)
+    if kind == 'bool':
+        return rng.random((n, B)) < 0.3
+    return np.where(rng.random((n, B)) < 0.3, 1.0,
+                    -rng.random((n, B))).astype(np.float32)
+
+
+@pytest.mark.parametrize('kind', ['float', 'bool', 'gate'])
+@pytest.mark.parametrize('homo', [True, False], ids=['homo', 'hetero'])
+@pytest.mark.parametrize('transpose', [False, True], ids=['NT', 'T'])
+@pytest.mark.parametrize('B', [1, 3, 16, 17, 256])
+def test_csr_gather_mm_ordered_matches_jax_and_numpy(B, transpose, homo,
+                                                     kind):
+    """Bitwise the numpy stored-order loop; within 1e-5 * sum|w x| of the
+    JAX products. NT runs over the CSR arrays, T over the CSC mirror with
+    its slot permutation; the matrix has empty rows and columns."""
+    m, k = 37, 29
+    w, indices, indptr, rng = _csr_case(7 + B, m, k, homo)
+    X = _mm_operand(rng, m if transpose else k, B, kind)
+    binary = kind != 'float'
+    ptr, idx, perm = (torch.from_numpy(indptr), torch.from_numpy(indices),
+                      None)
+    if transpose:
+        ptr, idx, perm = bt._misc.csr_to_csc_index(ptr, idx, shape=(m, k))
+    perm_k = None if homo else perm
+    got = tg.csr_gather_mm_ordered(ptr, idx, perm_k, torch.from_numpy(w),
+                                   torch.from_numpy(X), binary)
+    want = _ordered_numpy(ptr.numpy(), idx.numpy(),
+                          None if perm_k is None else perm_k.numpy(), w, X,
+                          binary)
+    np.testing.assert_array_equal(got.numpy(), want)
+    jfn = jb.binary_csrmm if binary else jf.csrmm
+    ref = np.asarray(jfn(*map(jnp.asarray, (w, indices, indptr, X)),
+                         shape=(m, k), transpose=transpose))
+    xa = (np.abs(X) if kind == 'float' else
+          (X if X.dtype == bool else X > 0).astype(np.float32))
+    bound = np.abs(_dense(np.repeat(np.arange(m), np.diff(indptr)), indices,
+                          np.broadcast_to(w, indices.shape), m, k))
+    bound = (bound.T if transpose else bound) @ xa
+    assert got.shape == ref.shape
+    assert (np.abs(got.numpy() - ref) <= 1e-5 * bound + 1e-30).all()
+
+
+@pytest.mark.parametrize('kind', ['float', 'bool', 'gate'])
+@pytest.mark.parametrize('homo', [True, False], ids=['homo', 'hetero'])
+def test_csr_gather_mm_ordered_drops_out_of_range_columns(homo, kind):
+    """Column ids outside [0, n_x) add nothing: bitwise the numpy loop,
+    within 1e-5 * sum|w x| of the twin, and a row whose every column is
+    out of range is 0."""
+    m, k, B = 30, 20, 5
+    w, indices, indptr, rng = _csr_case(8, m, k, homo)
+    indices = indices.copy()
+    indices[::5] = k + 3
+    indices[1::7] = -1
+    indices[indptr[2]:indptr[3]] = k
+    X = _mm_operand(rng, k, B, kind)
+    binary = kind != 'float'
+    args = (torch.from_numpy(indptr), torch.from_numpy(indices), None,
+            torch.from_numpy(w), torch.from_numpy(X), binary)
+    got = tg.csr_gather_mm_ordered(*args)
+    np.testing.assert_array_equal(
+        got.numpy(), _ordered_numpy(indptr, indices, None, w, X, binary))
+    assert not got[2].any()
+    twin = tg.csr_gather_mm_twin(*args)
+    bound = tg.csr_gather_mm_twin(*args[:3], args[3].abs(),
+                                  args[4].abs() if kind == 'float'
+                                  else args[4], binary)
+    assert bool(((got - twin).abs() <= 1e-5 * bound + 1e-30).all())
+
+
+def test_csr_gather_mm_ordered_float64():
+    """float64 weights and operand sum in float64, bitwise the numpy
+    loop."""
+    m, k, B = 25, 31, 6
+    w, indices, indptr, rng = _csr_case(9, m, k, False)
+    w = w.astype(np.float64)
+    X = rng.normal(size=(k, B))
+    got = tg.csr_gather_mm_ordered(
+        torch.from_numpy(indptr), torch.from_numpy(indices), None,
+        torch.from_numpy(w), torch.from_numpy(X), False)
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(
+        got.numpy(), _ordered_numpy(indptr, indices, None, w, X, False))

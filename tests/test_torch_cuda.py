@@ -1,7 +1,7 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Kernels K1-K19 against their PyTorch twins on a CUDA device.
+"""Kernels K1-K20 against their PyTorch twins on a CUDA device.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so that it also runs where JAX is not installed. ``tests/conftest.py``
@@ -19,10 +19,14 @@ weights exact; heterogeneous K5 (float atomics) within ``1e-5 * sum|w|``
 per target, K6 within ``1e-6 * sum|w|`` per row. K7-K10 (the CSR slice):
 homogeneous binary products exact (int32 counts, scaled once); the others
 within ``1e-5 * sum|w op(x)|`` per output, K7 and K10 bitwise on a repeat
-(no atomics); K9 bitwise (one rounding). K11-K14 (the JITC walk): the
+(no atomics), K10 bitwise its stored-order sum ``csr_gather_mm_ordered``
+at widths 1-300, aligned and offset operands, float32 and float64; K9
+bitwise (one rounding). K11-K14 (the JITC walk): the
 stream setup and the dense matrix bitwise (the kernels compute the twin's
 float32 operations, with its FMAs and its float64 ``log``); the products
-within ``1e-5 * sum|w x|`` per output, the gathers bitwise on a repeat.
+within ``1e-5 * sum|w x|`` per output, the gathers bitwise on a repeat;
+K12's event scatter at 0-100% spiking, 1-64,000 walk rows, with a row
+offset, over a plan and drawing its own setup.
 K15/K16 (the dense event products) within ``1e-5 * sum|W| * gate`` per
 output and bitwise on a repeat, K16 bitwise the ascending-k loop; K17 (dense STDP) bitwise (one rounding,
 the gate being 0 or 1); K18 (the row count) exact; K19 (the dense EI
@@ -422,6 +426,90 @@ def test_csr_gather_mm_kernel_vs_twin(cuda_device, gen, kind, homo,
                                transpose=transpose))
 
 
+def _mm_structure(gen, m, k, device):
+    """A CSR structure with empty rows and a few 1000-entry rows."""
+    counts = gen.integers(0, 12, m)
+    counts[::7] = 0
+    counts[3::101] = 1000
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    indices = gen.integers(0, k, indptr[-1]).astype(np.int32)
+    return (torch.from_numpy(indptr).to(device),
+            torch.from_numpy(indices).to(device))
+
+
+def _offset_operand(x, offset):
+    """*x* copied into a buffer at *offset* elements: contiguous, but not
+    16-byte aligned for an offset that is not a multiple of 16 bytes."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize('kind', ['bool', 'gate', 'identity'])
+@pytest.mark.parametrize('transpose', [False, True], ids=['NT', 'T'])
+@pytest.mark.parametrize('B', [1, 3, 4, 16, 17, 64, 128, 255, 256, 300])
+def test_csr_gather_mm_bitwise_ordered_sum(cuda_device, gen, B, transpose,
+                                           kind):
+    """K10 bitwise its stored-order plain sum, homogeneous and per-entry
+    weights, X 16-byte aligned and not (an offset view), over rows that
+    are empty or hold 1000 entries; NT over the CSR arrays, T over the
+    CSC mirror with its permutation; one launch per call, repeats
+    bitwise."""
+    m, k = 600, 1500
+    indptr, indices = _mm_structure(gen, m, k, cuda_device)
+    ptr, idx, perm = indptr, indices, None
+    if transpose:
+        ptr, idx, perm = bt._misc.csr_to_csc_index(indptr, indices,
+                                                   shape=(m, k))
+    n_x = m if transpose else k
+    binary = kind != 'identity'
+    X0 = _operand(gen, n_x, kind, 0.2 if binary else 1.0, cuda_device,
+                  batch=B)
+    nse = indices.shape[0]
+    for homo in (True, False):
+        w = torch.from_numpy(gen.normal(size=1 if homo else nse).astype(F32))
+        w = w.to(cuda_device)
+        p = None if homo else perm
+        for offset in (0, 1):
+            X = _offset_operand(X0, offset)
+            before = mg.csr_gather_mm.launches
+            got = mg.csr_gather_mm(ptr, idx, p, w, X, binary)
+            torch.cuda.synchronize()
+            assert mg.csr_gather_mm.launches == before + 1
+            want = mg.csr_gather_mm_ordered(ptr, idx, p, w, X, binary)
+            assert got.shape == want.shape == (ptr.shape[0] - 1, B)
+            assert torch.equal(got, want), (homo, offset)
+            assert torch.equal(got, mg.csr_gather_mm(ptr, idx, p, w, X,
+                                                     binary))
+
+
+@pytest.mark.parametrize('kind', ['bool', 'identity'])
+@pytest.mark.parametrize('transpose', [False, True], ids=['NT', 'T'])
+@pytest.mark.parametrize('B', [3, 16, 256])
+def test_csr_gather_mm_float64_bitwise_ordered_sum(cuda_device, gen, B,
+                                                   transpose, kind):
+    """K10's double instance bitwise its float64 stored-order sum."""
+    m, k = 300, 400
+    indptr, indices = _mm_structure(gen, m, k, cuda_device)
+    ptr, idx, perm = indptr, indices, None
+    if transpose:
+        ptr, idx, perm = bt._misc.csr_to_csc_index(indptr, indices,
+                                                   shape=(m, k))
+    binary = kind != 'identity'
+    X = _operand(gen, m if transpose else k, kind, 0.2, cuda_device, batch=B)
+    if not binary:
+        X = X.double()
+    w = torch.from_numpy(gen.normal(size=indices.shape[0])).to(cuda_device)
+    before = mg.csr_gather_mm.launches
+    got = mg.csr_gather_mm(ptr, idx, perm, w, X, binary)
+    torch.cuda.synchronize()
+    assert mg.csr_gather_mm.launches == before + 1
+    assert got.dtype == torch.float64
+    assert torch.equal(got, mg.csr_gather_mm_ordered(ptr, idx, perm, w, X,
+                                                     binary))
+
+
 def test_gather_matmat_kernel_vs_twin(cuda_device, gen):
     M, N, B, nse = 4_000, 3_000, 256, 120_000
     rows, cols = gen.integers(0, M, nse), gen.integers(0, N, nse)
@@ -567,6 +655,42 @@ def test_jitc_products_kernel_vs_twin(cuda_device, gen, law, corder, kind):
             again = op(*plan, x, **kw)
             torch.cuda.synchronize()
             assert torch.equal(got, again), op.name
+
+
+@pytest.mark.parametrize('kind', ['bool', 'events'])
+@pytest.mark.parametrize('rate', [0.0, 1e-4, 0.01, 0.1, 1.0])
+@pytest.mark.parametrize('n_rows', [1, 31, 33, 64_000])
+def test_jitc_event_scatter_kernel_vs_twin(cuda_device, gen, n_rows, rate,
+                                           kind):
+    """K12's event scatter (the active rows only) within 1e-5 * sum|w x|
+    of the twin, over a plan and drawing its own setup, from row 0 and
+    from a row offset; one launch per call."""
+    from brainevent_torch.jitc import pallas_kernels as jk
+    n_cols = 80_000 if n_rows == 64_000 else 5_000
+    cl, chunk = 2_000, -(-n_cols // 4)
+    on = gen.random(n_rows) < rate
+    x = on if kind == 'bool' else np.where(
+        on, 1.0, -0.5 * gen.random(n_rows)).astype(F32)
+    x = torch.from_numpy(x).to(cuda_device)
+    kw = dict(law=1, a=0.6, b=float(F32(0.06)), seed=5, cl=cl,
+              n_rows=n_rows, n_cols=n_cols, logical_cols=n_cols,
+              corder=False, event=True)
+    for row0 in (0, 777):
+        s, q, _ = jk.walk_plan_setup(5, cl, n_rows, n_cols, chunk,
+                                     device=cuda_device, row0=row0)
+        for plan in ((s, q), (None, None)):
+            before = jk.jitc_walk_mv.launches
+            got = jk.jitc_walk_mv(*plan, x, row0=row0, **kw)
+            torch.cuda.synchronize()
+            assert jk.jitc_walk_mv.launches == before + 1
+            want = jk.jitc_walk_mv.twin(*plan, x, row0=row0, **kw)
+            scale = jk.jitc_walk_mv.twin(*plan, x, row0=row0,
+                                         **dict(kw, law=0, a=0.6 + 6 * 0.06))
+            assert got.shape == want.shape == (n_cols,)
+            if rate == 0.0:
+                assert not got.any()
+            assert bool(((got - want).abs() <= 1e-5 * scale).all()), (
+                row0, plan[0] is None)
 
 
 @pytest.mark.parametrize('law', ['scalar', 'normal'])

@@ -230,3 +230,79 @@ def test_backward_through_a_product_raises():
 def test_operand_length_is_checked():
     with pytest.raises(ValueError, match='operand length'):
         bt.jitsmv(0.5, PROB, torch.ones(7), SEED, shape=(300, 200))
+
+
+# -- K12's event scatter: the edge cases of the active-row walk --------------------
+
+def _spikes(rng, n, rate, kind):
+    on = (np.ones(n, bool) if rate == 1.0 else rng.random(n) < rate)
+    if kind == 'bool':
+        return on
+    return np.where(on, 1.0, -0.5 * rng.random(n)).astype(np.float32)
+
+
+@pytest.mark.parametrize('kind', ['bool', 'events'])
+@pytest.mark.parametrize('rate', [0.0, 0.01, 1.0], ids=['none', '1%', 'all'])
+@pytest.mark.parametrize('shape', [(200, 1000), (1000, 1000)],
+                         ids=['1chunk', '4chunks'])
+@pytest.mark.parametrize('law', ['scalar', 'normal'])
+def test_event_scatter_edge_cases_match_jax(law, shape, rate, kind):
+    """The event scatter (``corder=False``) over 1000 walk rows (not a
+    multiple of 32), one chunk (200 walk columns of a 250-wide chunk) and
+    four, no, 1% and every row spiking: within 1e-5 * sum|w x| of the JAX
+    event product; no spikes give exact zeros."""
+    tag, params = LAWS[law]
+    rng = np.random.default_rng(shape[0] + int(100 * rate))
+    x = _spikes(rng, shape[1], rate, kind)
+    name = f'binary_jit{tag}mv'
+    want = getattr(J, name)(*params, PROB, jnp.asarray(x), SEED, shape=shape,
+                            corder=False, backend='jax_raw')
+    got = getattr(bt, name)(*params, PROB, torch.from_numpy(x), SEED,
+                            shape=shape, corder=False)
+    if rate == 0.0:
+        assert not got.any()
+    bound = _abs_dense(law, shape, False, 'mv', False) @ _gate(x, True)
+    _bound_ok(got, want, bound, (name, shape, rate, kind))
+
+
+@pytest.mark.parametrize('kind', ['bool', 'events'])
+@pytest.mark.parametrize('law', ['scalar', 'normal'])
+def test_event_scatter_row0_halves_match_jax(law, kind):
+    """Two halves of the walk rows, each from its own ``row0`` (the
+    sharded ops' split), against the JAX engine's walk of the same
+    halves, and their sum against the whole walk."""
+    from brainevent_tpu.jitc import engine as je
+    from brainevent_tpu.jitc.normal import _normal_weight
+    from brainevent_torch._misc import _initialize_conn_length
+    from brainevent_torch.jitc import pallas_kernels as jk
+    code, (a, b) = (0, (0.5, 0.0)) if law == 'scalar' else (1, (0.6, 0.06))
+    a, b = float(np.float32(a)), float(np.float32(b))
+    n_rows, n_cols, half = 1000, 700, 500
+    cl = _initialize_conn_length(PROB)
+    rng = np.random.default_rng(11)
+    x = _spikes(rng, n_rows, 0.05, kind)
+
+    def jweight(seed, rows, cols):
+        if code == 0:
+            return jnp.full(rows.shape, a, jnp.float32)
+        return _normal_weight((jnp.array([a], jnp.float32),
+                               jnp.array([b], jnp.float32)), seed, rows, cols)
+
+    kw = dict(law=code, a=a, b=b, seed=SEED, cl=cl, n_cols=n_cols,
+              logical_cols=n_cols, corder=False, event=True)
+    parts = []
+    for r0 in (0, half):
+        xi = torch.from_numpy(x[r0:r0 + half])
+        got = jk.jitc_walk_mv(None, None, xi, n_rows=half, row0=r0, **kw)
+        want = je.walk_matvec(jweight, SEED, cl, jnp.asarray(x[r0:r0 + half]),
+                              n_cols, corder=False, logical_cols=n_cols,
+                              event=True, row0=r0)
+        bound = jk.jitc_walk_mv(None, None, xi, n_rows=half, row0=r0,
+                                **dict(kw, law=0, a=a + 6 * b, b=0.0))
+        _bound_ok(got, want, bound.numpy(), ('half', r0))
+        parts.append(got)
+    whole = jk.jitc_walk_mv(None, None, torch.from_numpy(x), n_rows=n_rows,
+                            **kw)
+    bound = jk.jitc_walk_mv(None, None, torch.from_numpy(x), n_rows=n_rows,
+                            **dict(kw, law=0, a=a + 6 * b, b=0.0))
+    _bound_ok(parts[0] + parts[1], whole, bound.numpy(), 'halves sum')
