@@ -2,8 +2,8 @@
 // Licensed under the Apache License, Version 2.0.
 //
 // The row gather of K7 `csr_gather_mv` (csr_event.cu), shared with K3
-// `plan_gather_mv` (plan_gather.cu), which launches its float product
-// (kOp = 2, no permutation) over a gather plan's row index:
+// `plan_gather_mv` and K4 `plan_matvec_dw` (plan_gather.cu), which run its
+// float product (kOp = 2, no permutation) over a gather plan's row index:
 //     y[r] = sum over j in [ptr[r], ptr[r+1]) of w[slot(j)] * op(x[col[j]]).
 // One warp per row; its lanes walk the row 32 entries apart, so the index
 // and weight reads of a warp are coalesced; a lane reads a weight only for
@@ -17,18 +17,19 @@
 
 namespace {
 
+// The warp of row `row` (its lanes: threadIdx.x & 31) sums the row.
 template <int kOp, bool kHomo, bool kPerm, typename T>
-__global__ void csr_gather_mv_kernel(const int* __restrict__ ptr,
-                                     const int* __restrict__ col,
-                                     const int* __restrict__ perm,
-                                     const T* __restrict__ w,
-                                     const void* __restrict__ x,
-                                     const int n_rows, const int n_cols,
-                                     T* __restrict__ y) {
+__device__ __forceinline__ void csr_gather_mv_row(const long long row,
+                                                  const int* __restrict__ ptr,
+                                                  const int* __restrict__ col,
+                                                  const int* __restrict__ perm,
+                                                  const T* __restrict__ w,
+                                                  const void* __restrict__ x,
+                                                  const int n_rows,
+                                                  const int n_cols,
+                                                  T* __restrict__ y) {
     constexpr bool kCount = kHomo && kOp != 2;
     const int lane = threadIdx.x & 31;
-    const long long row =
-        (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
     if (row >= n_rows) return;                  // the whole warp leaves
     const int begin = ptr[row];
     const int end = ptr[row + 1];
@@ -53,6 +54,19 @@ __global__ void csr_gather_mv_kernel(const int* __restrict__ ptr,
             acc += __shfl_xor_sync(0xffffffffu, acc, off);
     }
     if (lane == 0) y[row] = kCount ? static_cast<T>(cnt) * w[0] : acc;
+}
+
+template <int kOp, bool kHomo, bool kPerm, typename T>
+__global__ void csr_gather_mv_kernel(const int* __restrict__ ptr,
+                                     const int* __restrict__ col,
+                                     const int* __restrict__ perm,
+                                     const T* __restrict__ w,
+                                     const void* __restrict__ x,
+                                     const int n_rows, const int n_cols,
+                                     T* __restrict__ y) {
+    csr_gather_mv_row<kOp, kHomo, kPerm, T>(
+        (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5,
+        ptr, col, perm, w, x, n_rows, n_cols, y);
 }
 
 }  // namespace

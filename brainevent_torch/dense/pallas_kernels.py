@@ -97,13 +97,16 @@ def _dense_event_mv_cuda(op, w, s, transpose):
     dbl = is_double(op.name, w)
     device = check_cuda_tensors(op.name, (w, w.dtype), (s, s.dtype))
     rows, cols = w.shape
+    k = rows if transpose else cols
     y = torch.empty(cols if transpose else rows, dtype=w.dtype,
                     device=device)
+    # the gates as 32-bit ballot words, written by the launch's gate pass
+    bits = torch.empty(-(-k // 32), dtype=torch.int32, device=device)
     fn = cuda_build.function('dense_event_mv_launch', [
         ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     op.launch(fn, w.data_ptr(), s.data_ptr(), code, int(transpose), dbl,
-              rows, cols, y.data_ptr(), device.index or 0,
+              rows, cols, bits.data_ptr(), y.data_ptr(), device.index or 0,
               cuda_stream(device))
     return y
 

@@ -31,11 +31,12 @@ plans of the ``(n_hidden, n_conn)`` ELL table
   with ``forward='event'``, kernel K5 (``binary_fcnmv``'s event scatter)
   over the ELL table, which reads only the rows of neurons that spiked;
 - **backward**: one K4 launch per simulated step over the *outgoing* plan
-  gives both ``dspk[i] = sum_k w[i,k] ct[idx[i,k]]`` and ``dw[i,k] =
-  spk[i] ct[idx[i,k]]``, in plan order. Autograd sums ``dw`` over the
-  steps, and the plan-order view's backward (:class:`_SortedView`, a
-  gather by the inverse permutation, never a scatter) brings the sum back
-  to the ELL layout once per train step.
+  gives both ``dspk[i] = sum_k w[i,k] ct[idx[i,k]]`` (over the outgoing
+  plan's row-order weights, one gather per train step, like the
+  forward's) and ``dw[i,k] = spk[i] ct[idx[i,k]]``, in plan order.
+  Autograd sums ``dw`` over the steps, and the plan-order view's backward
+  (:class:`_SortedView`, a gather by the inverse permutation, never a
+  scatter) brings the sum back to the ELL layout once per train step.
 
 K3 and K4 use no float atomics, so a train step with ``forward='plan'``
 repeats bit for bit. K5's heterogeneous sums use float atomics: the event
@@ -107,26 +108,27 @@ def _sorted_view(w_rec, perm, inv):
 
 class _Rec(torch.autograd.Function):
     """``rec = W^T spk``; differentiable with respect to ``w_sorted`` and
-    ``spk`` through one K4 launch over the outgoing plan."""
+    ``spk`` through one K4 launch over the outgoing plan, which reads
+    ``bwd_w``, the outgoing plan's row-order view of the same weights."""
 
     @staticmethod
-    def forward(ctx, w_sorted, spk, fwd_w, model):
+    def forward(ctx, w_sorted, spk, fwd_w, bwd_w, model):
         ops = model._ops
         if model.forward == 'event':
             out = ops.scatter(fwd_w, model._idx, spk, model.n_hidden)
         else:
             out = ops.mv(model._plan_T, fwd_w, spk)
         ctx.model = model
-        ctx.save_for_backward(w_sorted, spk)
+        ctx.save_for_backward(w_sorted, spk, bwd_w)
         return out
 
     @staticmethod
     def backward(ctx, ct):
-        w_sorted, spk = ctx.saved_tensors
+        w_sorted, spk, bwd_w = ctx.saved_tensors
         model = ctx.model
         dspk, dw_sorted = model._ops.mvdw(model._plan, w_sorted, spk,
-                                          ct.contiguous())
-        return dw_sorted, dspk, None, None
+                                          ct.contiguous(), bwd_w)
+        return dw_sorted, dspk, None, None, None
 
 
 @dataclasses.dataclass
@@ -225,11 +227,12 @@ class SurrogateSNN:
         # the weight views, made once per train step
         w_sorted = _sorted_view(params.w_rec, self._plan.perm, self._inv)
         fwd_w = self._fwd_weights(params.w_rec)
+        bwd_w = self._plan.sort_rows(params.w_rec.detach())
         v = torch.zeros(self.n_hidden, device=inputs.device)
         spk = torch.zeros(self.n_hidden, device=inputs.device)
         spikes = []
         for x_t in inputs:
-            rec = _Rec.apply(w_sorted, spk, fwd_w, self)
+            rec = _Rec.apply(w_sorted, spk, fwd_w, bwd_w, self)
             current = x_t @ params.w_in + rec
             v = v * decay + current
             spk = surrogate_spike(v - self.v_th)

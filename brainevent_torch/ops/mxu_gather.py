@@ -27,15 +27,17 @@ slot back to its flat entry (``-1`` at padding). That order is the
 interface the two packages share: weights go in through
 :meth:`GatherPlan.sort_data` and weight gradients come out in plan order.
 
-On a GPU the plan is read row by row. At build time, in numpy, each plan
-also gets a row index: ``row_ptr (M+1,)`` and ``row_slots (nse,)``, the
-plan slots of row ``r`` in increasing slot order at
-``row_slots[row_ptr[r]:row_ptr[r+1]]``, ``row_cols (nse,)``, their
-columns, and ``row_src (nse,)``, their flat-nse entries. The two matvec
-kernels (``csrc/plan_gather.cu``) give each row one warp, which walks the
-row's entries and sums in a fixed order (lane-strided partial sums, then a
-fixed shuffle tree). No float atomics: the same inputs give bitwise-equal
-outputs on every run.
+On a GPU each output is read in the order it wants. At build time, in
+numpy, each plan also gets a row index: ``row_ptr (M+1,)`` and
+``row_slots (nse,)``, the plan slots of row ``r`` in increasing slot order
+at ``row_slots[row_ptr[r]:row_ptr[r+1]]``, ``row_cols (nse,)``, their
+columns, and ``row_src (nse,)``, their flat-nse entries; and ``n_valid
+(n_chunks,)``, each chunk's valid slots, which are a prefix of the chunk
+(the build fills a chunk's slots in turn; padding chunks are whole). The
+two matvec kernels (``csrc/plan_gather.cu``) give each row one warp, which
+walks the row's entries and sums in a fixed order (lane-strided partial
+sums, then a fixed shuffle tree). No float atomics: the same inputs give
+bitwise-equal outputs on every run.
 
 - K3 :data:`plan_gather_mv` (:func:`gather_matvec`):
   ``y[r] = sum_{slots e of row r} w_sorted[e] * x[col_e]``, over the row
@@ -44,9 +46,10 @@ outputs on every run.
   row gather, 8 coalesced bytes a slot;
 - K4 :data:`plan_matvec_dw_op` (:func:`plan_matvec_dw`): K3's ``y`` plus
   ``dw[e] = s[row_e] * x[col_e]`` for every valid slot (0 at padding), in
-  one launch: the surrogate-training backward; it walks the plan slots
-  (``row_slots``) and decodes their columns from ``meta`` and ``b0``,
-  since ``dw`` is written in plan order;
+  one call: the surrogate-training backward. ``y`` is K3's row gather over
+  the weights in row order (a view the caller may pass, else one gather);
+  ``dw`` is one pass over the plan in plan order, which decodes each
+  slot's row and column from ``meta``, ``rb`` and ``b0``;
 - K10 :data:`csr_gather_mm` (``csrc/csr_gather_mm.cu``, :func:`gather_matmat`):
   ``Y[r, :] = sum_j w[slot(j)] * op(X[col_j, :])`` over any CSR-like row
   index with an optional slot permutation: a plan's (``row_ptr``,
@@ -117,7 +120,8 @@ class GatherPlan:
     source index (-1 = padding), and the row index the kernels walk:
     ``row_ptr (M+1,)``, ``row_slots (nse,)``, and for each listed slot its
     column, ``row_cols (nse,)``, and its flat-nse entry, ``row_src
-    (nse,)``. The other fields are static.
+    (nse,)``; ``n_valid (n_chunks,)``: the valid slots of each chunk, its
+    first ``n_valid`` slots. The other fields are static.
     """
     meta: torch.Tensor
     b0: torch.Tensor
@@ -127,6 +131,7 @@ class GatherPlan:
     row_slots: torch.Tensor
     row_cols: torch.Tensor
     row_src: torch.Tensor
+    n_valid: torch.Tensor
     shape: Tuple[int, int]
     nse: int
     chunk: int
@@ -136,7 +141,7 @@ class GatherPlan:
     nbp: int              # padded number of 128-column blocks
 
     _TENSORS = ('meta', 'b0', 'rb', 'perm', 'row_ptr', 'row_slots',
-                'row_cols', 'row_src')
+                'row_cols', 'row_src', 'n_valid')
 
     @property
     def n_chunks(self) -> int:
@@ -201,10 +206,11 @@ def _row_index(meta, b0, rb, perm, row_block: int, n_rows: int):
 def _plan(meta, b0, rb, perm, shape, nse, chunk, row_block, win_blocks,
           n_rb, nbp) -> GatherPlan:
     index = _row_index(meta, b0, rb, perm, row_block, shape[0])
+    n_valid = (perm >= 0).sum(axis=1).astype(np.int32)
     t = torch.from_numpy
     return GatherPlan(t(meta), t(b0), t(rb), t(perm), *map(t, index),
-                      tuple(shape), nse, chunk, row_block, win_blocks, n_rb,
-                      nbp)
+                      t(n_valid), tuple(shape), nse, chunk, row_block,
+                      win_blocks, n_rb, nbp)
 
 
 def build_gather_plan(rows, cols, shape: Tuple[int, int], *,
@@ -374,8 +380,12 @@ def gather_matvec_rows(plan: GatherPlan, w_row: torch.Tensor,
 
 
 def matvec_dw_xla(plan: GatherPlan, w_sorted: torch.Tensor,
-                  s_vec: torch.Tensor, x: torch.Tensor):
-    """Plain PyTorch twin of K4: ``(y, dw)``, ``dw`` 0 at padding slots."""
+                  s_vec: torch.Tensor, x: torch.Tensor,
+                  w_row: Optional[torch.Tensor] = None):
+    """Plain PyTorch twin of K4: ``(y, dw)``, ``dw`` 0 at padding slots.
+    Given the row view ``w_row`` (what K4 reads), ``y`` is
+    :func:`gather_matvec_rows` over it, which adds what the plan-order sum
+    adds in the same order."""
     grow, gcol = _decode(plan)
     valid = plan.perm >= 0
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -383,6 +393,8 @@ def matvec_dw_xla(plan: GatherPlan, w_sorted: torch.Tensor,
         gcol.clamp(0, plan.shape[1] - 1)], zero)
     sv = torch.where(valid, s_vec.to(torch.float32)[
         grow.clamp(0, plan.shape[0] - 1)], zero)
+    if w_row is not None:
+        return gather_matvec_rows(plan, w_row, x), sv * xv
     y = torch.zeros(plan.n_rb * plan.row_block, dtype=torch.float32,
                     device=x.device)
     y.index_add_(0, grow.reshape(-1), (w_sorted * xv).reshape(-1))
@@ -390,25 +402,6 @@ def matvec_dw_xla(plan: GatherPlan, w_sorted: torch.Tensor,
 
 
 # -- the kernels -----------------------------------------------------------------
-
-def _plan_args(op, plan: GatherPlan, w_sorted, *vectors):
-    i32, f32 = torch.int32, torch.float32
-    device = check_cuda_tensors(
-        op.name, (plan.meta, i32), (plan.b0, i32), (plan.row_ptr, i32),
-        (plan.row_slots, i32), (w_sorted, f32), *((v, f32) for v in vectors))
-    M, N = plan.shape
-    if (tuple(w_sorted.shape) != tuple(plan.meta.shape)
-            or plan.row_ptr.shape != (M + 1,)
-            or plan.row_slots.shape != (plan.nse,)):
-        raise ValueError(f'{op.name}: w_sorted {tuple(w_sorted.shape)} or the '
-                         f'row index does not fit the plan')
-    return device, [plan.meta.data_ptr(), plan.b0.data_ptr(),
-                    plan.row_ptr.data_ptr(), plan.row_slots.data_ptr(),
-                    w_sorted.data_ptr(), M, N, plan.chunk]
-
-
-_PLAN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-
 
 def _plan_gather_mv_cuda(op, plan, w_row, x):
     i32, f32 = torch.int32, torch.float32
@@ -431,17 +424,37 @@ def _plan_gather_mv_cuda(op, plan, w_row, x):
     return y
 
 
-def _plan_matvec_dw_cuda(op, plan, w_sorted, s_vec, x):
-    device, args = _plan_args(op, plan, w_sorted, s_vec, x)
+def _plan_matvec_dw_cuda(op, plan, w_sorted, s_vec, x, w_row=None):
+    i32, f32 = torch.int32, torch.float32
     M, N = plan.shape
-    if x.shape != (N,) or s_vec.shape != (M,):
-        raise ValueError(f'{op.name}: s {tuple(s_vec.shape)}, x '
-                         f'{tuple(x.shape)} for shape {plan.shape}')
-    y = torch.empty(M, dtype=torch.float32, device=device)
-    dw = torch.zeros(plan.meta.shape, dtype=torch.float32, device=device)
-    fn = cuda_build.function('plan_matvec_dw_launch', _PLAN_ARGTYPES + [
-        ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
-    op.launch(fn, *args, s_vec.data_ptr(), x.data_ptr(), y.data_ptr(),
+    if (tuple(w_sorted.shape) != tuple(plan.meta.shape) or x.shape != (N,)
+            or s_vec.shape != (M,)):
+        raise ValueError(f'{op.name}: w_sorted {tuple(w_sorted.shape)}, s '
+                         f'{tuple(s_vec.shape)} or x {tuple(x.shape)} does '
+                         f'not fit the plan (meta {tuple(plan.meta.shape)}, '
+                         f'shape {plan.shape})')
+    if w_row is None:
+        w_row = plan.rows_of(w_sorted)
+    device = check_cuda_tensors(
+        op.name, (plan.meta, i32), (plan.b0, i32), (plan.rb, i32),
+        (plan.n_valid, i32), (plan.row_ptr, i32), (plan.row_cols, i32),
+        (w_sorted, f32), (w_row, f32), (s_vec, f32), (x, f32))
+    if (w_row.shape != (plan.nse,) or plan.row_ptr.shape != (M + 1,)
+            or plan.row_cols.shape != (plan.nse,)
+            or plan.n_valid.shape != (plan.n_chunks,)):
+        raise ValueError(f'{op.name}: w_row {tuple(w_row.shape)} or the row '
+                         f'index does not fit the plan ({plan.nse} slots)')
+    y = torch.empty(M, dtype=f32, device=device)
+    # written in full, padding slots too
+    dw = torch.empty(plan.meta.shape, dtype=f32, device=device)
+    fn = cuda_build.function('plan_matvec_dw_launch', [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                                     ctypes.c_void_p])
+    op.launch(fn, plan.meta.data_ptr(), plan.b0.data_ptr(),
+              plan.rb.data_ptr(), plan.n_valid.data_ptr(),
+              plan.row_ptr.data_ptr(), plan.row_cols.data_ptr(),
+              w_row.data_ptr(), M, N, plan.n_chunks, plan.chunk,
+              plan.row_block, s_vec.data_ptr(), x.data_ptr(), y.data_ptr(),
               dw.data_ptr(), device.index or 0, cuda_stream(device))
     return y, dw
 
@@ -475,6 +488,7 @@ def gather_matvec(plan: GatherPlan, w_sorted, x, *,
 
 
 def plan_matvec_dw(plan: GatherPlan, w_sorted, s_vec, x, *,
+                   w_row: Optional[torch.Tensor] = None,
                    force_xla: Optional[bool] = None, passes: int = 3):
     """The fused backward products of one sparsity structure, through K4:
 
@@ -485,10 +499,16 @@ def plan_matvec_dw(plan: GatherPlan, w_sorted, s_vec, x, *,
 
     This is the surrogate-training backward: ``x`` = the recurrent
     cotangent, ``s_vec`` = the step's spikes, ``y`` = dspk, ``dw`` = the
-    weight gradient. ``force_xla`` and ``passes`` are accepted and ignored.
+    weight gradient. ``w_row`` is ``w_sorted`` in row order
+    (:meth:`GatherPlan.sort_rows` of the flat weights, or
+    :meth:`GatherPlan.rows_of`), what K4 reads for ``y``: a caller that
+    launches K4 many times on one weight update makes it once; without it
+    each call makes it (one gather). ``force_xla`` and ``passes`` are
+    accepted and ignored.
     """
     del force_xla, passes
-    return plan_matvec_dw_op(plan, _f32(w_sorted), _f32(s_vec), _f32(x))
+    return plan_matvec_dw_op(plan, _f32(w_sorted), _f32(s_vec), _f32(x),
+                             None if w_row is None else _f32(w_row))
 
 
 class _PlanMatvecVjp(torch.autograd.Function):

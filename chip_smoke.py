@@ -43,10 +43,11 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
    events around launches queued back to back), host-paced time per
    launch, and their twins' time per call;
 7. K3 (``plan_gather_mv``, over each plan's row index with row-order
-   weights) and K4 (``plan_matvec_dw``) against their twins on both plans
-   of the 100k x 100 model, x normal and 0/1 at 18%: y within
-   1e-5 * sum|w x| per row, K3 bitwise K4's y and ``gather_matvec``'s,
-   K4's dw bitwise, repeats bitwise;
+   weights) and K4 (``plan_matvec_dw``, with and without that row view)
+   against their twins on both plans of the 100k x 100 model, x normal
+   and 0/1 at 18%: y within 1e-5 * sum|w x| per row, K3 bitwise K4's y
+   and ``gather_matvec``'s, K4's dw bitwise (0 at padding), K4 with the
+   view bitwise without it, repeats bitwise;
 8. K5 (``fcn_event_scatter``) and K6 (``fcn_event_gather``) against their
    twins at 100k x 100, rates 0, 0.1%, 1% and 100%, homogeneous and
    heterogeneous weights, bool and float spikes: homogeneous exact, K5
@@ -64,8 +65,9 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
 11. learning: the 2,000-neuron net of 4 class-templated inputs, 30 epochs
     at lr 0.5, must lower its loss;
 12. K3-K6 timing at full width: device ms per launch and twin ms per call
-    (K5 and K6 at 0.1% and 1%), and the row-order weight view K3 reads
-    (one gather per train step) apart;
+    (K5 and K6 at 0.1% and 1%; K4 with the row view, as the train step
+    calls it, and without), and the row-order weight views K3 and K4 read
+    (one gather each per train step) apart;
 13. K7 (``csr_gather_mv``) and K8 (``csr_scatter_mv``) against their twins
     at (10k, 10k, 10%): rates 0, 0.1%, 1%, 10% and 100%, homogeneous and
     heterogeneous weights, bool and float spikes, the indexed (``perm``)
@@ -113,7 +115,8 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
     (negatives and NaN among the silent ones), and K16
     (``dense_event_mm``) at (5000, 5000, B = 128) and (10k, 10k, B = 128)
     at 1%, both directions: within 1e-5 * sum|W| gate per output,
-    bitwise on a repeat; K16 bitwise the ascending-k loop
+    bitwise on a repeat; K15's ``s @ W`` bitwise the ascending-row loop at
+    each rate; K16 bitwise the ascending-k loop
     (``ordered_event_mm``) at (5000, 5000, B = 128), 1% and 50%, bool and
     float, both directions;
 22. K17 (``dense_stdp_pre``/``dense_stdp_post``) at (10k, 10k), 1%
@@ -173,9 +176,11 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
     plans and gathers bitwise the whole walk, the scatter within 1e-5 *
     sum|w x|; ``sharded_jitmv`` bitwise ``jitnmv``.
 
-With ``--tree DIR`` it runs only phase 17's K10 timing and phase 20's
-JITCNet and K12 timing, of DIR's ``brainevent_torch`` by this file's code
-(``time_tree``), to compare two checkouts on one card.
+With ``--tree DIR`` it only times DIR's ``brainevent_torch`` by this
+file's code (``time_tree``), to compare two checkouts on one card: phase
+17's K10 timing, phase 20's JITCNet and K12 timing, phase 24's K15 timing,
+phase 10's train steps and phase 23's dense slice; ``--parts`` picks some
+of them.
 
 Each kernel's line also carries its bound (the larger of its bytes over
 the HBM rate and its operations over the float32 rate) and the time of one
@@ -510,10 +515,11 @@ SMALL = dict(n_in=12, n_hidden=128, n_out=4, n_conn=8)
 
 def check_plans(model, device):
     """K3 and K4 on both plans of the full-width model: y within
-    1e-5 * sum|w x| of the twin's per row, dw bitwise, and two launches on
-    the same inputs bitwise equal. K3 runs over the plan's row index with
-    row-order weights (``sort_rows``, and ``gather_matvec``'s reorder of
-    plan-order weights): bitwise K4's y."""
+    1e-5 * sum|w x| of the twin's per row, dw bitwise (0 at padding), and
+    two launches on the same inputs bitwise equal. K3 runs over the plan's
+    row index with row-order weights (``sort_rows``, and
+    ``gather_matvec``'s reorder of plan-order weights): bitwise K4's y,
+    which K4 computes from the same view, passed or made by the call."""
     phase('7 K3 plan_gather_mv / K4 plan_matvec_dw vs twin at 100k x 100 '
           '(tolerance: |dy| <= 1e-5 * sum|w x| per row; dw bitwise; K3 '
           'bitwise K4\'s y)')
@@ -536,9 +542,12 @@ def check_plans(model, device):
             y_twin = mg.gather_matvec_xla(plan, w_sorted, x)
             y_rows = mg.plan_gather_mv.twin(plan, w_row, x)
             y4, dw = mg.plan_matvec_dw(plan, w_sorted, s, x)
+            y4_view, dw_view = mg.plan_matvec_dw(plan, w_sorted, s, x,
+                                                 w_row=w_row)
             y4_twin, dw_twin = mg.matvec_dw_xla(plan, w_sorted, s, x)
             y_again = mg.plan_gather_mv(plan, w_row, x)
-            y4_again, dw_again = mg.plan_matvec_dw(plan, w_sorted, s, x)
+            y4_again, dw_again = mg.plan_matvec_dw(plan, w_sorted, s, x,
+                                                   w_row=w_row)
             torch.cuda.synchronize()
             check(bool(((y - y_twin).abs() <= bound).all()), ('K3', label))
             check(bool(((y - y_rows).abs() <= bound).all()),
@@ -547,6 +556,10 @@ def check_plans(model, device):
                   ('K3 bitwise K4 and gather_matvec', label))
             check(bool(((y4 - y4_twin).abs() <= bound).all()), ('K4', label))
             check(torch.equal(dw, dw_twin), ('K4 dw', label))
+            check(torch.equal(y4_view, y4) and torch.equal(dw_view, dw),
+                  ('K4 with the row view bitwise without it', label))
+            check(bool((dw[plan.perm < 0] == 0).all()), ('K4 dw padding',
+                                                         label))
             check(torch.equal(y, y_again), ('K3 repeat', label))
             check(torch.equal(y4, y4_again) and torch.equal(dw, dw_again),
                   ('K4 repeat', label))
@@ -556,7 +569,8 @@ def check_plans(model, device):
             worst['plan_matvec_dw'] = max(worst['plan_matvec_dw'], e4)
             print(f'{label} plan ({plan.nse} slots, {plan.n_chunks} chunks), '
                   f'x {xkind}: K3 max|dy| {e3!r}, K4 max|dy| {e4!r}, dw '
-                  f'equal, K3 bitwise K4\'s y, repeats bitwise equal')
+                  f'equal (0 at padding), K3 bitwise K4\'s y, K4 with the '
+                  f'row view bitwise without it, repeats bitwise equal')
     return worst
 
 
@@ -674,7 +688,7 @@ def check_training_small(device):
 
 def profile_step(fn):
     """Device busy time of one call of *fn* (``torch.profiler``: the sum of
-    kernel times), the call's wall time under the profiler, and the five
+    kernel times), the call's wall time under the profiler, and the eight
     largest kernels by total time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -687,9 +701,29 @@ def profile_step(fn):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return busy_us, wall_us, [(e.key[:60], e.count, e.self_device_time_total)
                               for e in top]
+
+
+def train_step_times(model, p, x):
+    """Five train steps of *model* from *p* on the host clock (their
+    median), then one profiled step: its kernel time, wall time, idle
+    share and largest kernels."""
+    import brainevent_torch as bt
+    times = []
+    q = p
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, loss = bt.train_step(model, q, x, 3, lr=1e-3)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(loss)), loss)
+    busy_us, wall_us, top = profile_step(
+        lambda: bt.train_step(model, q, x, 3, lr=1e-3))
+    return dict(ms=sorted(times)[2], times_ms=times, kernel_us=busy_us,
+                wall_us=wall_us, idle=1 - busy_us / wall_us, top=top)
 
 
 def check_training_full(model, device):
@@ -708,16 +742,8 @@ def check_training_full(model, device):
     check(bool(torch.isfinite(loss)), loss)
     print(f'warm-up train step: loss {float(loss)!r}, launches '
           f'{counts["plan_gather_mv"]} K3 + {counts["plan_matvec_dw"]} K4')
-    times = []
-    q = p1
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        q, loss = bt.train_step(model, q, x, 3, lr=1e-3)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        check(bool(torch.isfinite(loss)), loss)
-    ms = sorted(times)[2] * 1e3
+    t = train_step_times(model, p1, x)
+    ms = t['ms']
     la, ga = loss_and_grads(model, p, x, 3)
     lb, gb = loss_and_grads(model, p, x, 3)
     torch.cuda.synchronize()
@@ -726,16 +752,15 @@ def check_training_full(model, device):
     g_rec = ga[1]
     check(bool(torch.isfinite(g_rec).all()) and bool((g_rec != 0).any()),
           'w_rec gradient finite and non-zero')
-    busy_us, wall_us, top = profile_step(
-        lambda: bt.train_step(model, q, x, 3, lr=1e-3))
-    print(f'train step: {ms!r} ms (median of 5: '
-          f'{[t * 1e3 for t in times]!r}), {ms / 50 * 1e3!r} us per '
-          f'simulated step (host clock); loss and grads bitwise equal over '
-          f'two runs, |grad w_rec| max {float(g_rec.abs().max())!r}')
-    print(f'profiled train step: kernels {busy_us!r} us of {wall_us!r} us '
-          f'wall under the profiler (device idle {1 - busy_us / wall_us!r} '
-          f'there; {1 - busy_us / (ms * 1e3)!r} of the unprofiled median); '
-          f'largest kernels (name, launches, us): {top!r}')
+    print(f'train step: {ms!r} ms (median of 5: {t["times_ms"]!r}), '
+          f'{ms / 50 * 1e3!r} us per simulated step (host clock); loss and '
+          f'grads bitwise equal over two runs, |grad w_rec| max '
+          f'{float(g_rec.abs().max())!r}')
+    print(f'profiled train step: kernels {t["kernel_us"]!r} us of '
+          f'{t["wall_us"]!r} us wall under the profiler (device idle '
+          f'{t["idle"]!r} there; {1 - t["kernel_us"] / (ms * 1e3)!r} of the '
+          f'unprofiled median); largest kernels (name, launches, us): '
+          f'{t["top"]!r}')
     event = copy.copy(model)
     event.forward = 'event'
     bt.reset_launch_counts()
@@ -793,22 +818,31 @@ def time_new_kernels(model, runs, device):
     p = model.init_params()
     spk = (torch.rand(n, generator=gen) < 0.18).float().to(device)
     ct = torch.randn(n, generator=gen).to(device)
-    # K3 reads the incoming plan's row-order weights, made once per train
-    # step (SurrogateSNN._fwd_weights); that reorder is timed apart
+    # K3 reads the incoming plan's row-order weights and K4 the outgoing
+    # plan's, each made once per train step (SurrogateSNN._fwd_weights,
+    # SurrogateSNN._spikes); those reorders are timed apart
     fwd_w = model._plan_T.sort_rows(p.w_rec)
+    bwd_w = model._plan.sort_rows(p.w_rec)
     w_sorted = model._plan.sort_data(p.w_rec)
     out = {}
     for name, op, args in (
             ('plan_gather_mv', mg.plan_gather_mv, (model._plan_T, fwd_w, spk)),
             ('plan_matvec_dw', mg.plan_matvec_dw_op,
-             (model._plan, w_sorted, spk, ct))):
+             (model._plan, w_sorted, spk, ct, bwd_w))):
         out[name] = dict(ms=device_ms(lambda: op(*args), 50),
                          plain_ms=host_ms(lambda: op.twin(*args), 5))
         print(f'{name} (18% spikes): device {out[name]["ms"]!r} ms, twin '
               f'{out[name]["plain_ms"]!r} ms')
-    reorder_ms = device_ms(lambda: model._plan_T.sort_rows(p.w_rec), 50)
-    print(f'the row-order weight view (sort_rows, one {model._plan_T.nse}-'
-          f'entry gather, once per train step): {reorder_ms!r} ms')
+    no_view_ms = device_ms(lambda: mg.plan_matvec_dw_op(
+        model._plan, w_sorted, spk, ct), 50)
+    print(f'plan_matvec_dw without the row view (the call makes it): '
+          f'{no_view_ms!r} ms')
+    for label, plan in (('incoming (K3)', model._plan_T),
+                        ('outgoing (K4)', model._plan)):
+        reorder_ms = device_ms(lambda: plan.sort_rows(p.w_rec), 50)
+        print(f'the {label} plan\'s row-order weight view (sort_rows, one '
+              f'{plan.nse}-entry gather, once per train step): '
+              f'{reorder_ms!r} ms')
     for rate, (w, idx, s) in runs:
         for op in (fb.fcn_event_scatter, fb.fcn_event_gather):
             args = (w, idx, s, n)
@@ -1792,9 +1826,9 @@ def dense_spikes(shape, rate, kind, gen, device):
 def ordered_event_mm(w, s, transpose):
     """K16's function as the loop its sums follow: ``Y += W[:, i] *
     g(S[i])`` (``W[i, :]`` with *transpose*) over the k rows ``i`` in
-    ascending order. Each product is exact (the gate is 0 or 1), so each
-    add rounds once; a row without an event adds zeros to sums that are
-    never -0.0, so it is left out."""
+    ascending order; with ``S`` one column, K15's ``s @ W``. Each product
+    is exact (the gate is 0 or 1), so each add rounds once; a row without
+    an event adds zeros to sums that are never -0.0, so it is left out."""
     from brainevent_torch.dense import pallas_kernels as dk
     g = dk.product_gate(s, w.dtype)
     m = w.shape[1] if transpose else w.shape[0]
@@ -1807,8 +1841,9 @@ def ordered_event_mm(w, s, transpose):
 def check_dense_products(W, device):
     phase(f'21 K15 dense_event_mv / K16 dense_event_mm vs twin at '
           f'({DENSE_N}, {DENSE_N}) and at {DENSE_MM} (tolerance: |d| <= '
-          f'1e-5 * sum|W| gate per output; repeats bitwise; K16 bitwise the '
-          f'ascending-k loop at {DENSE_MM[0]})')
+          f'1e-5 * sum|W| gate per output; repeats bitwise; K15 s @ W '
+          f'bitwise the ascending-row loop; K16 bitwise the ascending-k loop '
+          f'at {DENSE_MM[0]})')
     from brainevent_torch.dense import pallas_kernels as dk
     gen = torch.Generator(device=device).manual_seed(21)
     worst = {'dense_event_mv': 0.0, 'dense_event_mm': 0.0}
@@ -1829,8 +1864,14 @@ def check_dense_products(W, device):
             for transpose in (True, False):
                 held(dk.dense_event_mv, W, W_abs, s, transpose,
                      ('K15', rate, kind, transpose))
+            got = dk.dense_event_mv(W, s, True)
+            want = ordered_event_mm(W, s[:, None], True)[:, 0]
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), ('K15 s @ W vs the ordered loop',
+                                           rate, kind))
         print(f'K15 rate {rate}, bool and float, T and NT: within '
-              f'tolerance, repeats bitwise')
+              f'tolerance, repeats bitwise; s @ W bitwise the ascending-row '
+              f'loop')
     for n, b in DENSE_MM:
         w, w_abs = W[:n, :n].contiguous(), W_abs[:n, :n].contiguous()
         for kind in ('bool', 'float'):
@@ -2020,14 +2061,56 @@ def check_dense_slice(W0, device):
           'product with the gate) and dx (W.T @ ct) bitwise the twin '
           'route\'s, y within tolerance')
     del grads, gwk, gwt
-    busy_us, wall_us, top = profile_step(
-        lambda: dense_step_loop(W_k, 10, device))
-    print(f'10 profiled steps: kernels {busy_us / 10!r} us of '
-          f'{wall_us / 10!r} us wall per step under the profiler (device '
-          f'idle {1 - busy_us / wall_us!r} there; '
-          f'{1 - busy_us / 10 / (step_ms * 1e3)!r} of the unprofiled '
-          f'steps); largest kernels (name, launches, us): {top!r}')
+    t = dense_slice_times(W_k, device, 0)
+    print(f'10 profiled steps: kernels {t["kernel_us"]!r} us of '
+          f'{t["wall_us"]!r} us wall per step under the profiler (device '
+          f'idle {t["idle"]!r} there; '
+          f'{1 - t["kernel_us"] / (step_ms * 1e3)!r} of the unprofiled '
+          f'steps); largest kernels (name, launches, us): {t["top"]!r}')
     return counts, step_ms, W_k
+
+
+def dense_slice_times(W, device, n_steps):
+    """*n_steps* steps of the dense slice from the matrix *W* on the host
+    clock (ms a step; none for 0), then 10 profiled steps: kernel and wall
+    time a step, idle share and the largest kernels."""
+    step_ms = None
+    if n_steps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense_step_loop(W, n_steps, device)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    busy_us, wall_us, top = profile_step(
+        lambda: dense_step_loop(W, 10, device))
+    return dict(ms=step_ms, kernel_us=busy_us / 10, wall_us=wall_us / 10,
+                idle=1 - busy_us / wall_us, top=top)
+
+
+def time_k15(W, s):
+    """K15 both ways on the (n, n) weights *W* and the bool spikes *s*:
+    device ms per launch, the twin's ms, the bytes and operations of the
+    bound, and ``torch.matmul`` of the float gate (TF32 off)."""
+    from brainevent_torch.dense import pallas_kernels as dk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, n_act, g = W.shape[0], int(s.sum()), s.float()
+    out = {}
+    for name, transpose, lib, n_bytes in (
+            ('dense_event_mv T', True, lambda: torch.matmul(g, W),
+             4 * n * n_act),
+            ('dense_event_mv NT', False, lambda: torch.matmul(W, g),
+             32 * n * n_act)):
+        r = dict(ms=device_ms(lambda: dk.dense_event_mv(W, s, transpose),
+                              200),
+                 plain_ms=host_ms(lambda: dk.dense_event_mv.twin(
+                     W, s, transpose), 20),
+                 library_ms=device_ms(lib, 200),
+                 bytes=n_bytes + n + 4 * n, ops=n * n_act)
+        out[name] = r
+        print(f'{name}: device {r["ms"]!r} ms, twin {r["plain_ms"]!r} ms, '
+              f'library {r["library_ms"]!r} ms, bound '
+              f'{bound(r["bytes"], r["ops"])!r}')
+    return out
 
 
 def time_dense_kernels(W, device):
@@ -2044,7 +2127,6 @@ def time_dense_kernels(W, device):
     x = torch.rand(*ENCODE_SHAPES[0], generator=gen, device=device) < \
         DENSE_RATE
     trace = torch.rand(n, generator=gen, device=device)
-    n_act = int(s.sum())
     g = s.float()
     out = {}
 
@@ -2058,10 +2140,7 @@ def time_dense_kernels(W, device):
               f'library {r["library_ms"]!r} ms, bound '
               f'{bound(n_bytes, n_ops)!r}')
 
-    timed('dense_event_mv T', dk.dense_event_mv, (W, s, True), 200, 20,
-          lambda: torch.matmul(g, W), 4 * n * n_act + n + 4 * n, n * n_act)
-    timed('dense_event_mv NT', dk.dense_event_mv, (W, s, False), 200, 20,
-          lambda: torch.matmul(W, g), 32 * n * n_act + n + 4 * n, n * n_act)
+    out.update(time_k15(W, s))
     # K16 at the slice's 1% (W @ S, the main path) and at 10% and 50%,
     # both directions: the event form's adds grow as m n k rate. The bytes
     # are W once (the rows some column needs, transpose), S and Y.
@@ -2951,14 +3030,27 @@ def neuron_mesh_world1(device):
     return neuron_mesh(1, device_type=device.type)
 
 
-def time_tree(tree):
-    """``--tree DIR``: phase 17's K10 timing (``time_k10``) and phase 20's
-    JITCNet and K12 timing (``time_jitc_steps``, ``time_plan_routes``,
-    ``profile_jitc``) of DIR's ``brainevent_torch``, on the inputs of the
-    phases (the CSR pattern, the csrmm cell and its plan; the 4k and 80k
-    nets after JITC_STEPS and the spikes of step JITC_STEPS + 1100), by
-    this file's code. So two checkouts are timed by the same code: run it
-    for each in turns (A, B, B, A). Prints one JSON line."""
+TREE_PARTS = ('k10', 'jitc', 'k15', 'train', 'dense')
+
+
+def time_tree(tree, parts=TREE_PARTS):
+    """``--tree DIR``: time DIR's ``brainevent_torch`` by this file's code,
+    on the inputs of the phases, so that two checkouts are timed by the
+    same code: run it for each in turns (A, B, B, A). *parts*:
+
+    - ``k10``: phase 17's ``time_k10`` (the CSR pattern, the csrmm cell and
+      its plan);
+    - ``jitc``: phase 20's ``JITCNet`` steps, ``time_plan_routes`` and
+      profiled steps (the 4k and 80k nets after JITC_STEPS and the spikes
+      of step JITC_STEPS + 1100);
+    - ``k15``: phase 24's ``time_k15`` at (10k, 10k, 1%), both ways;
+    - ``train``: phase 10's timed and profiled train steps of the 100k x
+      100 model (``train_step_times``), through the tree's own
+      ``train_step``;
+    - ``dense``: phase 23's dense slice from phase 21's weights, 20 steps
+      on the host clock and 10 profiled (``dense_slice_times``).
+
+    Prints one JSON line."""
     import os
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -2971,29 +3063,56 @@ def time_tree(tree):
     cuda_build.library()
     print(f'brainevent_torch of {tree}: nvcc '
           f'{cuda_build.last_build_seconds()!r} s')
-    W = random_csr(CSR_N, CSR_DENSITY, 130, device)
-    A = random_csr(MM_N, MM_DENSITY, 150, device)
-    plan = mm_plan(A, device)
-    k10 = time_k10(W, A, plan, plan.sort_data(A.data), device)
-    slice_out = {}
-    for label, scale in JITC_SCALES.items():
-        net = bt.JITCNet(scale=scale, weight_law='normal', coba=True,
-                         device=device)
-        final, _ = jitc_run(net, net.init_state(), JITC_STEPS)
-        slice_out[label] = dict(net=net, final=final)
-    time_jitc_steps(slice_out)
-    o = slice_out['80k']
-    net, state = o['net'], o['last_state']
-    spk = recorded_jitc_spikes(net, state)[1][:net.n_exc].contiguous()
-    k12 = time_plan_routes(net, spk, k12_kwargs(net), device)
-    print(json.dumps({
-        'tree': tree, 'nvcc_s': cuda_build.last_build_seconds(),
-        'k10': {k: {f: r[f] for f in ('ms', 'library_ms')}
-                for k, r in k10.items()},
-        'k12': k12,
-        'jitcnet_us_per_step': {k: o['us_timed']
-                                for k, o in slice_out.items()},
-        'jitcnet_80k_kernel_us_per_step': profile_jitc(net, state)}))
+    res = {'tree': tree, 'nvcc_s': cuda_build.last_build_seconds()}
+    if 'k10' in parts:
+        W = random_csr(CSR_N, CSR_DENSITY, 130, device)
+        A = random_csr(MM_N, MM_DENSITY, 150, device)
+        plan = mm_plan(A, device)
+        k10 = time_k10(W, A, plan, plan.sort_data(A.data), device)
+        res['k10'] = {k: {f: r[f] for f in ('ms', 'library_ms')}
+                      for k, r in k10.items()}
+        del W, A, plan
+    if 'jitc' in parts:
+        slice_out = {}
+        for label, scale in JITC_SCALES.items():
+            net = bt.JITCNet(scale=scale, weight_law='normal', coba=True,
+                             device=device)
+            final, _ = jitc_run(net, net.init_state(), JITC_STEPS)
+            slice_out[label] = dict(net=net, final=final)
+        time_jitc_steps(slice_out)
+        o = slice_out['80k']
+        net, state = o['net'], o['last_state']
+        spk = recorded_jitc_spikes(net, state)[1][:net.n_exc].contiguous()
+        res['k12'] = time_plan_routes(net, spk, k12_kwargs(net), device)
+        res['jitcnet_us_per_step'] = {k: o['us_timed']
+                                      for k, o in slice_out.items()}
+        res['jitcnet_80k_kernel_us_per_step'] = profile_jitc(net, state)
+        del slice_out, net, state
+    if 'k15' in parts:
+        gen = torch.Generator(device=device).manual_seed(24)
+        W = torch.randn(DENSE_N, DENSE_N, generator=gen, device=device)
+        s = torch.rand(DENSE_N, generator=gen, device=device) < DENSE_RATE
+        res['k15'] = {k: {f: r[f] for f in ('ms', 'library_ms')}
+                      for k, r in time_k15(W, s).items()}
+        del W
+    if 'train' in parts:
+        model = bt.SurrogateSNN(**BIG, seed=2, device=device)
+        x = torch.rand(50, 100, generator=torch.Generator(
+            device='cpu').manual_seed(10)).to(device)
+        p, _ = bt.train_step(model, model.init_params(), x, 3, lr=1e-3)
+        t = train_step_times(model, p, x)
+        print(f'train step: {t!r}')
+        res['train'] = t
+        del model
+    if 'dense' in parts:
+        gen = torch.Generator(device=device).manual_seed(210)
+        W = bt.Dense(torch.randn(DENSE_N, DENSE_N, generator=gen,
+                                 device=device))
+        dense_step_loop(W, 5, device)
+        t = dense_slice_times(W, device, 20)
+        print(f'dense slice: {t!r}')
+        res['dense'] = t
+    print(json.dumps(res))
     return 0
 
 
@@ -3001,15 +3120,20 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description='Smoke test of brainevent_torch '
                                  'on one NVIDIA GPU.')
-    ap.add_argument('--tree', help='only time K10, K12 and JITCNet of this '
-                    'checkout\'s brainevent_torch (see time_tree)')
+    ap.add_argument('--tree', help='only time this checkout\'s '
+                    'brainevent_torch (see time_tree)')
+    ap.add_argument('--parts', default=','.join(TREE_PARTS),
+                    help='with --tree, the comma-separated parts to time, '
+                    f'of {",".join(TREE_PARTS)} (default: all)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this needs an '
               'NVIDIA GPU', file=sys.stderr)
         return 2
     if args.tree:
-        return time_tree(args.tree)
+        parts = args.parts.split(',')
+        check(set(parts) <= set(TREE_PARTS), ('--parts', parts))
+        return time_tree(args.tree, parts)
     kind = device_info()
     device = torch.device('cuda:0')
 

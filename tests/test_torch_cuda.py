@@ -14,7 +14,8 @@ K1 and K2 are held to bitwise equality: K1 writes the twin's FMAs with
 ``__fmaf_rn`` and is built with ``-fmad=false``; K2's sums are integers.
 K3/K4 (gather plans) sum each row in another order than the twin's
 ``index_add_``: ``|y - twin| <= 1e-5 * sum|w x|`` per row, K3's ``y``
-bitwise K4's, and K4's ``dw`` (one product per slot) bitwise. K5/K6 (``binary_fcnmv``): homogeneous
+bitwise K4's (with and without the row view), and K4's ``dw`` (one
+product per slot) bitwise, 0 at padding. K5/K6 (``binary_fcnmv``): homogeneous
 weights exact; heterogeneous K5 (float atomics) within ``1e-5 * sum|w|``
 per target, K6 within ``1e-6 * sum|w|`` per row. K7-K10 (the CSR slice):
 homogeneous binary products exact (int32 counts, scaled once); the others
@@ -28,8 +29,9 @@ within ``1e-5 * sum|w x|`` per output, the gathers bitwise on a repeat;
 K12's event scatter at 0-100% spiking, 1-64,000 walk rows, with a row
 offset, over a plan and drawing its own setup.
 K15/K16 (the dense event products) within ``1e-5 * sum|W| * gate`` per
-output and bitwise on a repeat, K16 bitwise the ascending-k loop; K17 (dense STDP) bitwise (one rounding,
-the gate being 0 or 1); K18 (the row count) exact; K19 (the dense EI
+output and bitwise on a repeat, K15's ``s @ W`` (at k up to 70,000, float64
+too) and K16 bitwise the ascending-index loop; K17 (dense STDP) bitwise (one
+rounding, the gate being 0 or 1); K18 (the row count) exact; K19 (the dense EI
 propagation) exact and bitwise K2's counts, and every strategy of
 ``einet_pallas_sim`` bitwise the mxu3 route over 2,000 steps. The public
 entries (``chip_smoke.py``'s phase 28 matrix): spikes of nine dtypes
@@ -250,6 +252,83 @@ def test_plan_gather_rows_bitwise_k4(cuda_device, gen, incoming):
     assert torch.equal(y, y4) and torch.equal(y, again)
     bound = 1e-5 * _row_bound(plan, plan.sort_data(w), x) + 1e-30
     assert bool(((y - twin).abs() <= bound).all())
+
+
+# plans of K4's redesign: uneven rows with empty ones, several row blocks
+# and windows (whole padding chunks), small chunks, a chunk that 4 does not
+# divide (the one-slot path), and an empty structure (only padding)
+K4_PLANS = {
+    'square': ((256, 256), 3000, {}),
+    'empty_rows': ((3000, 700), 2000, {}),
+    'row_blocks': ((1000, 700), 6000, dict(row_block=128, win_blocks=2)),
+    'small_chunks': ((517, 333), 4000, dict(chunk=128, row_block=256)),
+    'chunk_102': ((700, 900), 5000, dict(chunk=102)),
+    'empty': ((40, 50), 0, {}),
+}
+
+
+def _k4_check(plan, w, s, x):
+    """K4 through the public entry with and without the row view, one
+    launch each: y bitwise K3's on the same plan and bitwise on a repeat,
+    dw bitwise the twin's, 0 at every padding slot."""
+    w_sorted, w_row = plan.sort_data(w), plan.sort_rows(w)
+    y3 = mg.plan_gather_mv(plan, w_row, x)
+    before = mg.plan_matvec_dw_op.launches
+    y, dw = bt.plan_matvec_dw(plan, w_sorted, s, x)
+    y_view, dw_view = bt.plan_matvec_dw(plan, w_sorted, s, x, w_row=w_row)
+    again = bt.plan_matvec_dw(plan, w_sorted, s, x, w_row=w_row)
+    _, dw_twin = mg.matvec_dw_xla(plan, w_sorted, s, x)
+    torch.cuda.synchronize()
+    assert mg.plan_matvec_dw_op.launches == before + 3
+    assert torch.equal(y, y3) and torch.equal(y_view, y3)
+    assert torch.equal(dw, dw_twin) and torch.equal(dw_view, dw_twin)
+    assert torch.equal(again[0], y) and torch.equal(again[1], dw)
+    assert bool((dw[plan.perm < 0] == 0).all())
+    bound = 1e-5 * _row_bound(plan, w_sorted, x) + 1e-30
+    assert bool(((y - mg.gather_matvec_xla(plan, w_sorted, x)).abs()
+                 <= bound).all())
+
+
+@pytest.mark.parametrize('name', sorted(K4_PLANS))
+def test_plan_matvec_dw_small_plans(cuda_device, gen, name):
+    shape, nse, kw = K4_PLANS[name]
+    rows = gen.integers(0, shape[0], nse)
+    if name == 'empty_rows':            # two rows in three have no entry
+        rows = 3 * (rows // 3)
+    plan = mg.build_gather_plan(rows, gen.integers(0, shape[1], nse), shape,
+                                **kw).to(cuda_device)
+    if nse:
+        assert bool((plan.n_valid < plan.chunk).any())
+    assert bool((plan.n_valid == 0).any())      # a whole padding chunk
+    w = torch.from_numpy(gen.normal(size=nse).astype(F32)).to(cuda_device)
+    s = torch.from_numpy((gen.random(shape[0]) < 0.3).astype(F32)).to(
+        cuda_device)
+    x = torch.from_numpy(gen.normal(size=shape[1]).astype(F32)).to(
+        cuda_device)
+    _k4_check(plan, w, s, x)
+
+
+@pytest.fixture(scope='module')
+def big_plans():
+    """Both plans of the 100k x 100 training model (built once)."""
+    rng = np.random.default_rng(100)
+    n, k = 100_000, 100
+    idx = rng.integers(0, n, (n, k))
+    return n, k, {
+        'out': mg.plan_from_ell(idx, (n, n)),
+        'in': mg.build_gather_plan(idx.reshape(-1),
+                                   np.repeat(np.arange(n), k), (n, n))}
+
+
+@pytest.mark.parametrize('incoming', [False, True], ids=['out', 'in'])
+def test_plan_matvec_dw_at_full_width(cuda_device, big_plans, incoming):
+    n, k, plans = big_plans
+    plan = plans['in' if incoming else 'out'].to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(101)
+    w = torch.randn(n * k, generator=g, device=cuda_device)
+    s = (torch.rand(n, generator=g, device=cuda_device) < 0.18).float()
+    x = torch.randn(n, generator=g, device=cuda_device)
+    _k4_check(plan, w, s, x)
 
 
 @pytest.mark.parametrize('rate', [0.0, 0.001, 0.01, 1.0])
@@ -764,6 +843,63 @@ def test_dense_event_products_kernel_vs_twin(cuda_device, gen, transpose,
         assert bool(((got - want).abs() <= 1e-5 * bound + 1e-30).all()), \
             op.name
         assert torch.equal(got, again), op.name
+
+
+def _k15_check(W, s, transpose):
+    """K15 one launch a call: within 1e-5 * sum|W| gate of the twin and
+    bitwise on a repeat; ``s @ W`` bitwise the ascending-row loop
+    (``chip_smoke.ordered_event_mm`` of ``s`` as one column)."""
+    from brainevent_torch.dense import pallas_kernels as dk
+    op = dk.dense_event_mv
+    before = op.launches
+    got = op(W, s, transpose)
+    again = op(W, s, transpose)
+    want = chip_smoke.ordered_event_mm(W, s[:, None], True)[:, 0] \
+        if transpose else None
+    twin = op.twin(W, s, transpose)
+    bound = op.twin(W.abs(), s, transpose)
+    torch.cuda.synchronize()
+    assert op.launches == before + 2
+    assert got.shape == twin.shape and got.dtype == W.dtype
+    assert torch.equal(got, again)
+    assert not transpose or torch.equal(got, want)
+    assert bool(((got - twin).abs() <= 1e-5 * bound + 1e-30).all())
+
+
+def _k15_weights(k, m, transpose, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((k, m) if transpose else (m, k), generator=g,
+                       device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize('kind', ['bool', 'float'])
+@pytest.mark.parametrize('rate', [0.0, 0.001, 0.01, 0.1, 1.0])
+@pytest.mark.parametrize('m', [1, 33, 10_000])
+@pytest.mark.parametrize('k', [1, 31, 32, 33, 10_000, 70_000])
+def test_dense_event_mv_kernel(cuda_device, gen, k, m, rate, kind):
+    """K15 both ways at k from one gate to 70,000 (five 16,384-gate
+    tiles) and m from 1 to 10,000, float spikes with negatives, NaN and
+    +-0 among the silent ones (``_k15_check``)."""
+    s = _dense_spikes(gen, (k,), rate, kind, cuda_device)
+    if kind == 'float':
+        s[:k // 3] = torch.where(s[:k // 3] > 0, s[:k // 3], torch.tensor(
+            [0.0, -0.0], device=cuda_device).repeat(k)[:k // 3])
+    for transpose in (True, False):
+        _k15_check(_k15_weights(k, m, transpose, torch.float32, cuda_device,
+                                k + m), s, transpose)
+
+
+@pytest.mark.parametrize('rate', [0.001, 0.1, 1.0])
+@pytest.mark.parametrize('km', [(33, 10_000), (10_000, 33), (10_000, 10_000)],
+                         ids=str)
+def test_dense_event_mv_float64_kernel(cuda_device, gen, km, rate):
+    """K15's ``double`` instance (C10) at the same standard."""
+    k, m = km
+    for kind in ('bool', 'float'):
+        s = _dense_spikes(gen, (k,), rate, kind, cuda_device)
+        for transpose in (True, False):
+            _k15_check(_k15_weights(k, m, transpose, torch.float64,
+                                    cuda_device, k), s, transpose)
 
 
 @pytest.mark.parametrize('kind', ['bool', 'float'])

@@ -232,6 +232,51 @@ def test_plan_matvec_dw_matches_jax(name):
     assert (tdw[tp.perm < 0] == 0).all()
 
 
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_plan_matvec_dw_row_view(name):
+    """``plan_matvec_dw`` given the row view K4 reads (``sort_rows``, or
+    ``rows_of`` the plan-order weights) is bitwise the call without it,
+    and within tolerance of the JAX package's."""
+    jp, tp, data, x, s, _, _ = _operands(name)
+    d = torch.from_numpy(data)
+    args = (tp, tp.sort_data(d), torch.from_numpy(s), torch.from_numpy(x))
+    y, dw = bt.plan_matvec_dw(*args)
+    for w_row in (tp.sort_rows(d), tp.rows_of(tp.sort_data(d))):
+        yv, dwv = bt.plan_matvec_dw(*args, w_row=w_row)
+        assert torch.equal(yv, y) and torch.equal(dwv, dw)
+    jy, _ = jg.plan_matvec_dw(jp, jp.sort_data(jnp.asarray(data)),
+                              jnp.asarray(s), jnp.asarray(x))
+    np.testing.assert_allclose(yv.numpy(), np.asarray(jy), rtol=RTOL,
+                               atol=ATOL)
+
+
+def _every_plan(name):
+    """The plan of a case: ``ELL_CASES``' tables, ``CASES``' structures
+    with their knobs, and (``mm_`` names) with the mat-mat plan's."""
+    if name in ELL_CASES:
+        return _plan_and_data(name)[0]
+    mm = name.startswith('mm_')
+    rows, cols, shape, kw, _ = _coo(name[3:] if mm else name)
+    if mm:
+        return tg.build_mm_plan(rows, cols, shape)
+    return tg.build_gather_plan(rows, cols, shape, **kw)
+
+
+@pytest.mark.parametrize('name', sorted(CASES) + sorted(ELL_CASES)
+                         + ['mm_' + n for n in sorted(CASES)])
+def test_n_valid_counts_a_prefix_of_each_chunk(name):
+    """A chunk's valid slots are its first ``n_valid`` slots: K4's dw pass
+    writes 0 past them without reading ``perm``."""
+    plan = _every_plan(name)
+    valid = plan.perm >= 0
+    assert plan.n_valid.dtype == torch.int32
+    assert plan.n_valid.shape == (plan.n_chunks,)
+    assert torch.equal(plan.n_valid, valid.sum(1).to(torch.int32))
+    slot = torch.arange(plan.chunk)[None, :]
+    assert torch.equal(valid, slot < plan.n_valid[:, None])
+    assert int(plan.n_valid.sum()) == plan.nse
+
+
 @pytest.mark.parametrize('shape,k', [((200, 150), 6), ((96, 300), 5)])
 def test_plan_matvec_vjp_grad_matches_jax(shape, k):
     rng = np.random.default_rng(5)

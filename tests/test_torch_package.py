@@ -317,6 +317,8 @@ def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
     plan = mg.plan_from_ell(np.array([[0, 1], [1, 1]]), (2, 2))
     for op, args in ((pk.csr_gather_mv, (ptr, idx, idx, w, x, False)),
                      (mg.plan_gather_mv, (plan, torch.ones(4), x)),
+                     (mg.plan_matvec_dw_op, (plan, plan.sort_data(
+                         torch.ones(4)), x, x)),
                      (pk.csr_scatter_mv, (ptr, idx, None, w, x > 0, True, 2)),
                      (pg.pair_gather, (idx, idx, x, x)),
                      (mg.csr_gather_mm, (ptr, idx, None, w,
@@ -332,7 +334,7 @@ def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
                          2, 3, dtype=i32)))):
         op.cuda(op, *args)
     assert set(seen) == {'csr_gather_mv_launch', 'csr_scatter_mv_launch',
-                         'plan_gather_mv_launch',
+                         'plan_gather_mv_launch', 'plan_matvec_dw_launch',
                          'pair_gather_launch', 'csr_gather_mm_launch',
                          'dense_event_mv_launch', 'dense_event_mm_launch',
                          'dense_stdp_launch', 'event_row_count_launch',

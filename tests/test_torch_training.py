@@ -122,6 +122,26 @@ def test_train_steps_track_jax(pair):
                                    atol=ATOL, err_msg=name)
 
 
+def test_second_train_step_grads_track_jax(pair):
+    """The gradients of the second train step against the JAX package's:
+    the backward's row-order weight view is made from the updated
+    weights, not kept from the first step."""
+    _, jm, model, params = pair
+    x = _inputs(7)
+    xj, label = jnp.asarray(x), jnp.asarray(LABEL)
+    jp, _ = jt.train_step(jm, jm.init_params(), xj, label, lr=0.5)
+    want = jax.grad(lambda p: jt.snn_loss(jm, p, xj, label))(jp)
+    tp, _ = bt.train_step(model, params, torch.from_numpy(x), LABEL, lr=0.5)
+    leaves = [p.clone().requires_grad_(True) for p in tp]
+    loss = bt.snn_loss(model, bt.SNNParams(*leaves), torch.from_numpy(x),
+                       LABEL)
+    grads = torch.autograd.grad(loss, leaves)
+    for name, g, w in zip(bt.SNNParams._fields, grads, want):
+        assert np.abs(np.asarray(w)).max() > 0, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+
+
 def test_event_forward_same_grads_as_plan():
     jm = jt.SurrogateSNN(**KW)
     x = torch.from_numpy(_inputs(3, 8))
