@@ -4,11 +4,15 @@
 // K1 `einet_step`: one step of the EI network's neurons, one thread per
 // neuron.
 //
-// Replaces, together with K2 (event_scatter.cu), the whole-simulation TPU
-// kernels brainevent_tpu/models/pallas_sim.py:einet_pallas_sim_mxu3 (:639)
-// and :einet_pallas_sim_mxu6 (:1368). Those kernels compact spike ids with
-// prefix sums and count hits with one-hot matrix products because a TPU has
-// no atomics; here the ids are appended with one atomicAdd per warp and the
+// With K2 (event_scatter.cu) it runs the loop of two launches a step that
+// K21 (einet_sim.cu) replaced on the main path: the counterpart of the
+// whole-simulation TPU kernels
+// brainevent_tpu/models/pallas_sim.py:einet_pallas_sim_mxu3 (:639) and
+// :einet_pallas_sim_mxu6 (:1368) for a network larger than K21 holds, and
+// the neuron step of the dense strategy (with K19) and of the sharded
+// network (with K20). Those TPU kernels compact spike ids with prefix sums
+// and count hits with one-hot matrix products because a TPU has no
+// atomics; here the ids are appended with one atomicAdd per warp and the
 // counts are integer atomics (K2).
 //
 // Per launch, each thread
@@ -26,18 +30,10 @@
 // spike. The spike list costs one atomicAdd per warp
 // that holds a spike.
 //
-// Exactness: the arithmetic is the plain PyTorch twin's
-// (einet_step_twin), which is bitwise equal to brainevent_tpu's
-// EINet.step under jax.jit on the CPU. XLA contracts three of its
-// multiply-adds into FMAs; they are written out here with __fmaf_rn, and
-// the library is built with -fmad=false so that nvcc adds no others:
-//   g'   = fma(g, decay, w * count)                  (networks.py:163-176)
-//   COBA current = fma(g_e*d_e, e_e - v, (g_i*d_i) * (e_i - v)) + inp
-//   CUBA current = fma(g_e, d_e, -(g_i * d_i)) + inp  (networks.py:167-170)
-//   v'   = fma((v_rest - v) + r*current, dt/tau, v)  (neurons.py:80-81)
-// t is float32(step) * float32(dt), computed on the host: the refractory
-// test (t - t_last) < tau_ref flips on its last bit.
-#include "common.cuh"
+// Exactness: the fold and the update are einet_neuron.cuh's, shared with
+// K21 (einet_sim.cu); they compute the plain PyTorch twin's
+// (einet_step_twin) arithmetic, with its FMAs, bit for bit.
+#include "einet_neuron.cuh"
 
 namespace {
 
@@ -63,42 +59,21 @@ __global__ void einet_step_kernel(float* __restrict__ v,
         float ge = g_e[i];
         float gi = g_i[i];
         if (fold) {
-            const int ce = counts[i];
-            const int ci = counts[num + i];
-            ge = __fmaf_rn(ge, p.decay_e, __fmul_rn(p.w_e, (float)ce));
-            gi = __fmaf_rn(gi, p.decay_i, __fmul_rn(p.w_i, (float)ci));
+            be_einet_fold(ge, gi, counts[i], counts[num + i], p);
             g_e[i] = ge;
             g_i[i] = gi;
             counts[i] = 0;
             counts[num + i] = 0;
         }
         if (step) {
-            const float vi = v[i];
-            float current;
-            if (p.coba) {
-                const float ged = __fmul_rn(ge, p.decay_e);
-                const float gid = __fmul_rn(gi, p.decay_i);
-                current = __fadd_rn(
-                    __fmaf_rn(ged, __fsub_rn(p.e_e, vi),
-                              __fmul_rn(gid, __fsub_rn(p.e_i, vi))),
-                    p.inp);
-            } else {
-                current = __fadd_rn(
-                    __fmaf_rn(ge, p.decay_e, -__fmul_rn(gi, p.decay_i)),
-                    p.inp);
-            }
-            const float tl = t_last[i];
-            const bool refractory = __fsub_rn(t, tl) < p.tau_ref;
-            const float x = __fadd_rn(__fsub_rn(p.v_rest, vi),
-                                      __fmul_rn(p.r, current));
-            float vn = refractory ? vi : __fmaf_rn(x, p.dt_tau, vi);
-            spike = vn >= p.v_th;
+            float vi = v[i];
+            float tl = t_last[i];
+            spike = be_einet_update(vi, tl, ge, gi, p, t);
             if (spike) {
-                vn = p.v_reset;
-                t_last[i] = t;
+                t_last[i] = tl;
                 spike_count[i] += 1;
             }
-            v[i] = vn;
+            v[i] = vi;
         }
     }
 

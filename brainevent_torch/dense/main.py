@@ -93,7 +93,7 @@ class Dense(DataRepresentation):
     def tocoo(self):
         raise UnsupportedOperationError(
             'Dense.tocoo goes through CSR.tocoo, which brainevent_torch does '
-            'not port yet; see ROADMAP.md, Queue A item 9.')
+            'not port yet; see ROADMAP.md, Queue A item 3.')
 
     def transpose(self, axes=None) -> 'Dense':
         if axes is not None:

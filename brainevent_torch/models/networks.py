@@ -26,14 +26,20 @@ Two formulations of one step, bitwise equal to each other and to
 - :meth:`EINet.step` on CPU tensors is the JAX package's structure:
   :func:`lifref_step`, then :meth:`EINet._propagate` (compact the spikes,
   scatter 0/1 hits on two channels, scale by the weights).
-- :meth:`EINet.run` (and :meth:`EINet.step` on a CUDA tensor) runs two ops
-  per step: :data:`einet_step` (kernel K1, ``csrc/einet_step.cu``) and
-  :data:`brainevent_torch.ops.scatter.event_count_scatter` (kernel K2). On
-  the CPU each runs its plain PyTorch twin; on a CUDA device each launches
-  its kernel, on the current stream, with no host sync inside the loop.
+- :meth:`EINet.run` (and :meth:`EINet.step` on a CUDA tensor) runs the
+  whole simulation as one op, :data:`einet_sim` (kernel K21,
+  ``csrc/einet_sim.cu``): one launch per run, the neurons' state in
+  registers across the steps, a grid-wide barrier between steps. Its
+  plain PyTorch twin, which the CPU runs, is :func:`einet_loop` over the
+  twins of two ops per step: :data:`einet_step` (kernel K1,
+  ``csrc/einet_step.cu``) and
+  :data:`brainevent_torch.ops.scatter.event_count_scatter` (kernel K2).
+  The same loop over the two kernels (2n + 1 launches) is the route of
+  the dense strategy, the sharded network, a network larger than K21
+  holds, and a caller that passes ``step_op``/``scatter_op``.
 
 Where XLA contracts multiply-adds into FMAs, both formulations write the
-FMA out (``torch.addcmul`` here, ``__fmaf_rn`` in K1)::
+FMA out (``torch.addcmul`` here, ``__fmaf_rn`` in K1 and K21)::
 
     g'   = fma(g, decay, w * count)
     COBA current = fma(g_e*d_e, e_e - v, (g_i*d_i) * (e_i - v)) + inp
@@ -46,19 +52,23 @@ Constants are float32 values computed in Python (``decay = float32(exp(-dt
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .._error import KernelExecutionError
 from ..ops import cuda_build
 from ..ops.core import KernelOp, check_cuda_tensors, check_device, cuda_stream
-from ..ops.scatter import event_count_scatter, event_scatter_add_multi
+from ..ops.scatter import (event_count_scatter, event_count_scatter_twin,
+                           event_scatter_add_multi)
 from .neurons import LIFRefParams, LIFRefState, f32, lifref_init, lifref_step
 
 __all__ = ['EINet', 'EINetState', 'EINetParams', 'einet_step',
-           'einet_step_twin']
+           'einet_step_twin', 'einet_sim', 'einet_sim_twin', 'einet_loop',
+           'einet_sim_capacity']
 
 
 class EINetState(NamedTuple):
@@ -142,6 +152,110 @@ def _einet_step_cuda(op, v, t_last, g_e, g_i, counts, spike_count, ids,
 einet_step = KernelOp(
     'einet_step', twin=einet_step_twin, cuda=_einet_step_cuda,
     source='brainevent_torch/csrc/einet_step.cu',
+    replaces='brainevent_tpu/models/pallas_sim.py:639')
+
+
+# -- K21: the whole run in one launch -----------------------------------------------
+
+SIM_BLOCK = 256          # threads a block of K21 (BE_SIM_BLOCK in einet_sim.cu)
+SIM_NPT = (1, 2, 4, 8)   # K21's instances: neurons a thread keeps in registers
+
+
+def einet_sim_twin(v, t_last, g_e, g_i, spike_count, conn, times,
+                   p: EINetParams, n_exc: int) -> None:
+    """Plain PyTorch twin of kernel K21, in place: :func:`einet_loop` at
+    the float32 step *times* over the twins of K1 and K2 (the hit counts
+    of the whole ``(num, n_conn)`` table *conn*)."""
+    def propagate(ids, n_ids, counts):
+        event_count_scatter_twin(ids, n_ids, conn, n_exc, counts)
+    out = einet_loop(v, t_last, g_e, g_i, spike_count, times.tolist(), p,
+                     propagate, step_op=einet_step_twin)
+    for dst, src in zip((v, t_last, g_e, g_i, spike_count), out):
+        dst.copy_(src)
+
+
+@functools.lru_cache(maxsize=None)
+def _max_blocks(device_index: int, npt: int) -> int:
+    fn = cuda_build.function('einet_sim_max_blocks', [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    err = fn(npt, device_index, ctypes.byref(out))
+    if err:
+        raise KernelExecutionError(
+            f'einet_sim: occupancy of npt={npt} failed with CUDA error {err} '
+            f'({cuda_build.error_string(err)})')
+    return out.value
+
+
+def einet_sim_max_blocks(device: torch.device, npt: int) -> int:
+    """Blocks of :data:`SIM_BLOCK` threads of K21's instance *npt* that
+    can be co-resident on *device*: the largest grid its cooperative
+    launch takes (asked of the CUDA occupancy calculator once per device
+    and instance)."""
+    return _max_blocks(device.index or 0, npt)
+
+
+def einet_sim_capacity(device: torch.device) -> int:
+    """The most neurons K21 runs on *device*: its NPT = 8 instance at its
+    own occupancy, every co-resident thread holding 8 neurons (811,008 on
+    an H100: three blocks of 256 an SM)."""
+    return einet_sim_max_blocks(device, SIM_NPT[-1]) * SIM_BLOCK * SIM_NPT[-1]
+
+
+def einet_sim_grid(num: int, device: torch.device):
+    """``(npt, blocks)`` of K21 for *num* neurons: the fewest neurons a
+    thread that a co-resident grid covers, and as many blocks as that
+    takes (16 of 256 threads at 4,000 neurons). Raises ``ValueError``
+    above :func:`einet_sim_capacity`."""
+    for npt in SIM_NPT:
+        blocks = -(-num // (npt * SIM_BLOCK))
+        if blocks <= einet_sim_max_blocks(device, npt):
+            return npt, blocks
+    raise ValueError(f'einet_sim: {num} neurons exceed what K21 holds on '
+                     f'{device} ({einet_sim_capacity(device)})')
+
+
+def _einet_sim_cuda(op, v, t_last, g_e, g_i, spike_count, conn, times, p,
+                    n_exc, *, npt=0, blocks=0):
+    """Launch K21 once for ``times.numel()`` steps. *npt* and *blocks*
+    pick the instance and the grid (default: those :func:`einet_sim_grid`
+    picks); no public entry sets them. A grid that cannot be co-resident
+    is refused by the cooperative launch and raises
+    :class:`KernelExecutionError`."""
+    f, i = torch.float32, torch.int32
+    device = check_cuda_tensors(op.name, (v, f), (t_last, f), (g_e, f),
+                                (g_i, f), (spike_count, i), (conn, i),
+                                (times, f))
+    num = p.num
+    if (conn.dim() != 2 or conn.shape[0] != num or times.dim() != 1
+            or any(x.shape != (num,) for x in (v, t_last, g_e, g_i,
+                                                spike_count))):
+        raise ValueError(f'{op.name}: state, conn {tuple(conn.shape)} and '
+                         f'times {tuple(times.shape)} do not match num={num}')
+    if not npt:
+        npt, fewest = einet_sim_grid(num, device)
+    elif npt in SIM_NPT:
+        fewest = -(-num // (npt * SIM_BLOCK))
+    else:
+        raise ValueError(f'{op.name}: npt must be one of {SIM_NPT}, got {npt}')
+    blocks = blocks or fewest
+    if blocks * SIM_BLOCK * npt < num:
+        raise ValueError(f'{op.name}: {blocks} blocks of {SIM_BLOCK} threads '
+                         f'x {npt} neurons do not cover {num} neurons')
+    counts = torch.zeros(2, 2, num, dtype=i, device=device)
+    fn = cuda_build.function('einet_sim_launch', [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.POINTER(EINetParams)] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p])
+    op.launch(fn, v.data_ptr(), t_last.data_ptr(), g_e.data_ptr(),
+              g_i.data_ptr(), spike_count.data_ptr(), conn.data_ptr(),
+              times.data_ptr(), times.numel(), conn.shape[1], int(n_exc),
+              counts.data_ptr(), ctypes.byref(p), npt, blocks,
+              device.index or 0, cuda_stream(device))
+
+
+einet_sim = KernelOp(
+    'einet_sim', twin=einet_sim_twin, cuda=_einet_sim_cuda,
+    source='brainevent_torch/csrc/einet_sim.cu',
     replaces='brainevent_tpu/models/pallas_sim.py:639')
 
 
@@ -285,24 +399,47 @@ class EINet:
     def run(self, n_steps: int, inp: float = 20.0,
             state: Optional[EINetState] = None) -> EINetState:
         """Run ``n_steps`` from *state* (default :meth:`init_state`)
-        through K1 and K2, or their twins on the CPU. *state* is not
+        through K21 in one launch, or its twin on the CPU. *state* is not
         modified."""
         if state is None:
             state = self.init_state()
         return self._simulate(state, self.times(n_steps), inp)
 
     def _simulate(self, state: EINetState, times, inp: float, *,
-                  step_op=einet_step, scatter_op=event_count_scatter
-                  ) -> EINetState:
-        """The step loop (:func:`einet_loop`) with K2 over the whole
-        table. ``chip_smoke.py`` passes the twins as *step_op* and
-        *scatter_op* to run the twin loop on a CUDA device."""
-        def propagate(ids, n_ids, counts):
-            scatter_op(ids, n_ids, self.conn_all, self.n_exc, counts)
-        v, t_last, g_e, g_i, spike_count = einet_loop(
-            state.neurons.v, state.neurons.t_last, state.g_e, state.g_i,
-            state.spike_count, times, self.step_params(inp), propagate,
-            step_op=step_op)
+                  step_op=None, scatter_op=None) -> EINetState:
+        """The run at the float32 step *times*.
+
+        By default one :data:`einet_sim` call: K21 on a CUDA device, its
+        twin (:func:`einet_loop` over the K1 and K2 twins) on the CPU.
+        The route is chosen by size, not on failure: a network above
+        :func:`einet_sim_capacity` (the neurons K21's NPT = 8 instance
+        holds in the registers of a co-resident grid, 811,008 on an
+        H100) runs :func:`einet_loop` over K1 and K2 instead, 2n + 1
+        launches. Passing *step_op* or *scatter_op* runs
+        :func:`einet_loop` with them (K1 or K2 for the one not passed):
+        the dense strategy passes its K19 scatter, ``chip_smoke.py`` the
+        twins or the kernels to compare routes on a card."""
+        p = self.step_params(inp)
+        device = state.neurons.v.device
+        if step_op is None and scatter_op is None and (
+                device.type != 'cuda' or p.num <= einet_sim_capacity(device)):
+            out = [x.to(dtype, copy=True) for x, dtype in (
+                (state.neurons.v, torch.float32),
+                (state.neurons.t_last, torch.float32),
+                (state.g_e, torch.float32), (state.g_i, torch.float32),
+                (state.spike_count, torch.int32))]
+            t = torch.from_numpy(np.asarray(times, dtype=np.float32))
+            einet_sim(*out, self.conn_all, t.to(device), p, self.n_exc)
+            v, t_last, g_e, g_i, spike_count = out
+        else:
+            scatter_op = scatter_op or event_count_scatter
+
+            def propagate(ids, n_ids, counts):
+                scatter_op(ids, n_ids, self.conn_all, self.n_exc, counts)
+            v, t_last, g_e, g_i, spike_count = einet_loop(
+                state.neurons.v, state.neurons.t_last, state.g_e, state.g_i,
+                state.spike_count, times, p, propagate,
+                step_op=step_op or einet_step)
         return EINetState(neurons=LIFRefState(v=v, t_last=t_last), g_e=g_e,
                           g_i=g_i, spike_count=spike_count)
 
@@ -314,8 +451,8 @@ class EINet:
 
 def einet_loop(v, t_last, g_e, g_i, spike_count, times, p: EINetParams,
                propagate, *, step_op=einet_step):
-    """The EI step loop on ``p.num`` neurons, shared by :class:`EINet` and
-    the sharded network: for each time in *times*, K1 then
+    """The EI step loop on ``p.num`` neurons, shared by :class:`EINet`'s
+    routes over two ops a step and the sharded network: for each time in *times*, K1 then
     ``propagate(ids, n_ids, counts)``, which leaves in the int32 ``(2,
     p.num)`` *counts* this step's hits of the spike list *ids* (its
     length at ``n_ids[0]``); then a last K1 that only folds the final

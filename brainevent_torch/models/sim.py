@@ -20,44 +20,53 @@ same signatures and defaults, the same return tuple ``(v, t_last, g_e,
 g_i, spike_count)``. The JAX package runs each strategy as one Pallas
 kernel whose layout (one-hot contractions, mantissa packing, a
 partitioned table, DMA banks) exists because a TPU has no atomics and no
-gather. On a GPU each step is two kernels: K1 ``einet_step``
-(``csrc/einet_step.cu``), which updates the neurons and appends the ids
-of this step's spikes to a device list, and a count kernel over that
-list, whose int32 E/I hit counts K1 folds into the conductances at the
-next step. Every route gives the same counts, so all eight strategies
-return bitwise the same five outputs.
+gather. On a GPU the whole simulation is one launch too, kernel K21
+``einet_sim`` (``csrc/einet_sim.cu``): a persistent cooperative grid keeps
+each neuron's state in registers across the steps, counts its spikes'
+targets into int32 E/I hits with integer atomics, and crosses a grid-wide
+barrier between steps. The dense strategy keeps two kernels a step: K1
+``einet_step`` (``csrc/einet_step.cu``), which updates the neurons and
+appends the ids of this step's spikes to a device list, and K19, which
+counts that list's hits from the dense table; K1 folds them at the next
+step. Every route gives the same counts, so all eight strategies return
+bitwise the same five outputs.
 
 ======== ======================================== ======== ==================
 strategy JAX function (``pallas_sim.py``)          route    why
 ======== ======================================== ======== ==================
-mxu3     ``einet_pallas_sim_mxu3`` (``:639``)       K1 + K2  two-stage compaction
-                                                           is K1's append;
-                                                           packed one-hot
-                                                           factors are K2's
+mxu3     ``einet_pallas_sim_mxu3`` (``:639``)       K21      two-stage compaction
+                                                           and packed one-hot
+                                                           factors are K21's
                                                            integer atomics
-mxu6     ``einet_pallas_sim_mxu6`` (``:1368``)      K1 + K2  K2 reads the plain
+mxu6     ``einet_pallas_sim_mxu6`` (``:1368``)      K21      K21 reads the plain
                                                            row-major table
                                                            from HBM at any size
 dense    ``einet_pallas_sim_dense`` (``:532``)      K1 + K19 the count product
                                                            ``masks @ table``:
                                                            K19 sums the table
                                                            rows of the spikes
-mxu      ``einet_pallas_sim_mxu`` (``:143``)        K1 + K2  branchy scan and
+mxu      ``einet_pallas_sim_mxu`` (``:143``)        K21      branchy scan and
                                                            event buffers are
-                                                           K1's append
-chain    ``einet_pallas_sim_chain`` (``:350``)      K1 + K2  per-synapse RMW
-                                                           chains are K2's
+                                                           K21's warp ballots
+chain    ``einet_pallas_sim_chain`` (``:350``)      K21      per-synapse RMW
+                                                           chains are K21's
                                                            atomics
-mxu2     ``einet_pallas_sim_mxu2`` (``:2763``)      K1 + K2  vectorized
-                                                           compaction is K1's
-                                                           append
-mxu4     ``einet_pallas_sim_mxu4`` (``:2973``)      K1 + K2  chunked state phases
-                                                           are K1's grid
-mxu5     ``einet_pallas_sim_mxu5`` (``:2430``)      K1 + K2  split E/I compaction
-                                                           is K2's channel by id
+mxu2     ``einet_pallas_sim_mxu2`` (``:2763``)      K21      vectorized
+                                                           compaction is K21's
+                                                           warp ballots
+mxu4     ``einet_pallas_sim_mxu4`` (``:2973``)      K21      chunked state phases
+                                                           are K21's grid
+mxu5     ``einet_pallas_sim_mxu5`` (``:2430``)      K21      split E/I compaction
+                                                           is K21's channel by
+                                                           id
 ======== ======================================== ======== ==================
 
-K2 and K19 count in int32 with no capacity, so no strategy needs an
+The seven K21 strategies run :meth:`EINet.run`, so a network larger than
+K21 holds (:func:`~brainevent_torch.models.networks.einet_sim_capacity`,
+811,008 neurons on an H100) runs its route of two kernels a step, K1 and
+K2 (``csrc/event_scatter.cu``), there.
+
+K21, K2 and K19 count in int32 with no capacity, so no strategy needs an
 overflow round, and none copies the TPU's in-degree limit of 255 (the
 mxu4 refusal, the mxu3 to mxu2 fallback at ``pallas_sim.py:716-717``):
 their 8-bit packed fields have no counterpart here. Each function accepts
@@ -111,30 +120,30 @@ def einet_pallas_sim(net: EINet, state: EINetState, n_steps: int,
 
 def _auto_strategy(num: int) -> str:
     """The JAX package's choice: ``'mxu3'`` below 40k neurons, ``'mxu6'``
-    from 40k up. Both run K1/K2 here; the name is kept so that callers and
+    from 40k up. Both run K21 here; the name is kept so that callers and
     tests see the same strategy as in ``brainevent_tpu``."""
     return 'mxu6' if num >= 40_000 else 'mxu3'
 
 
 def _run(net: EINet, state: EINetState, n_steps: int, inp: float):
-    """The K1/K2 route."""
+    """The K21 route: :meth:`EINet.run`, one launch."""
     out = net.run(n_steps, inp, state)
     return (out.neurons.v, out.neurons.t_last, out.g_e, out.g_i,
             out.spike_count)
 
 
-# -- the K1/K2 strategies ------------------------------------------------------------
+# -- the K21 strategies ---------------------------------------------------------------
 
 def einet_pallas_sim_mxu3(net, state, n_steps: int, inp: float = 20.0,
                           platform=None, *, mask_dtype=None,
                           operands: str = 'concat', pack: bool = True,
                           two_stage: bool = True, table_space: str = 'auto',
                           cap_divisor: int = 448, factors: str = 'auto'):
-    """The main path below 40k neurons, through K1 and K2: the two-stage
-    compaction is K1's warp-aggregated append; the mantissa-packed one-hot
-    contraction is K2's int32 atomics, exact at any order and with no
-    capacity, so neither the overflow rounds nor the in-degree fallback to
-    mxu2 is needed. The knobs lay out the TPU kernel and are ignored."""
+    """The main path below 40k neurons, through K21 in one launch: the
+    two-stage compaction is a warp ballot over the spikes; the
+    mantissa-packed one-hot contraction is int32 atomics, exact at any
+    order and with no capacity, so neither the overflow rounds nor the
+    in-degree fallback to mxu2 is needed. The knobs lay out the TPU kernel and are ignored."""
     del platform, mask_dtype, operands, pack, two_stage, table_space
     del cap_divisor, factors
     return _run(net, state, n_steps, inp)
@@ -154,7 +163,7 @@ def einet_pallas_sim_mxu6(net, state, n_steps: int, inp: float = 20.0,
                           dead_skip: 'bool | None' = None,
                           tier_w: int = 0, radix: 'int | str' = 'auto',
                           conn_table=None, _ablate: tuple = ()):
-    """The main path from 40k neurons up, through K1 and K2: K2 reads the
+    """The main path from 40k neurons up, through K21: K21 reads the
     plain row-major table wherever it lies in HBM, so the target-partitioned
     table, its two-level one-hot and its radix channels have no
     counterpart. ``conn_table`` (see :func:`mxu6_conn_table`) and the
@@ -168,10 +177,10 @@ def einet_pallas_sim_mxu6(net, state, n_steps: int, inp: float = 20.0,
 
 def einet_pallas_sim_mxu(net, state, n_steps: int, inp: float = 20.0,
                          platform=None):
-    """Superseded on the TPU by mxu2; here K1 and K2. Its branchy firing
-    scan and per-channel event buffers are K1's warp-aggregated append, its
-    chunked one-hot contraction is K2's int32 atomics, and its per-event
-    overflow fallback is not needed: K2 has no capacity."""
+    """Superseded on the TPU by mxu2; here K21. Its branchy firing scan and
+    per-channel event buffers are a warp ballot over the spikes, its
+    chunked one-hot contraction is int32 atomics, and its per-event
+    overflow fallback is not needed: K21 has no capacity."""
     del platform
     return _run(net, state, n_steps, inp)
 
@@ -179,9 +188,9 @@ def einet_pallas_sim_mxu(net, state, n_steps: int, inp: float = 20.0,
 def einet_pallas_sim_chain(net, state, n_steps: int, inp: float = 20.0,
                            platform=None):
     """Per-synapse read-modify-write chains on the TPU's scalar unit; here
-    K1 and K2. The chains are K2's int32 atomic adds: integer sums do not
-    depend on the order the adds land in, so the counts are exact, and the
-    fold of the chain columns is K1's fold of the counts."""
+    K21. The chains are its int32 atomic adds: integer sums do not depend
+    on the order the adds land in, so the counts are exact, and the fold
+    of the chain columns is its fold of the counts."""
     del platform
     return _run(net, state, n_steps, inp)
 
@@ -189,9 +198,9 @@ def einet_pallas_sim_chain(net, state, n_steps: int, inp: float = 20.0,
 def einet_pallas_sim_mxu2(net, state, n_steps: int, inp: float = 20.0,
                           platform=None):
     """Vectorized compaction (prefix-sum slot map, one-hot id gather) and a
-    stacked one-hot contraction on the TPU; here K1 and K2. The compaction
-    is K1's append and the contraction K2's int32 atomics; the multi-round
-    overflow handling is not needed, since K2 has no capacity."""
+    stacked one-hot contraction on the TPU; here K21. The compaction is a
+    warp ballot and the contraction int32 atomics; the multi-round
+    overflow handling is not needed, since K21 has no capacity."""
     del platform
     return _run(net, state, n_steps, inp)
 
@@ -200,9 +209,9 @@ def einet_pallas_sim_mxu4(net, state, n_steps: int, inp: float = 20.0,
                           platform=None, *, row_chunk: int = 128,
                           table_space: str = 'auto'):
     """mxu3 with its state phases chunked by ``row_chunk`` on the TPU, to
-    bound the Mosaic program size; here K1 and K2, whose grid already
-    covers the neurons in blocks. The JAX function refuses an in-degree
-    above 255 (its 8-bit packed fields); K2's int32 counts have no such
+    bound the Mosaic program size; here K21, whose grid already covers
+    the neurons in blocks. The JAX function refuses an in-degree above
+    255 (its 8-bit packed fields); K21's int32 counts have no such
     limit, so that refusal is not copied."""
     del platform, row_chunk, table_space
     return _run(net, state, n_steps, inp)
@@ -212,8 +221,8 @@ def einet_pallas_sim_mxu5(net, state, n_steps: int, inp: float = 20.0,
                           platform=None, *, mask_dtype=None,
                           table_space: str = 'auto', cap_divisor: int = 448,
                           factors: str = 'unrolled'):
-    """mxu3 with separate E and I compactions on the TPU; here K1 and K2,
-    where K2 picks each event's channel from its id (``id >= n_exc``), so
+    """mxu3 with separate E and I compactions on the TPU; here K21, which
+    picks each event's channel from its id (``id >= n_exc``), so
     the split needs no second pass. The knobs are ignored."""
     del platform, mask_dtype, table_space, cap_divisor, factors
     return _run(net, state, n_steps, inp)
@@ -222,7 +231,7 @@ def einet_pallas_sim_mxu5(net, state, n_steps: int, inp: float = 20.0,
 def mxu6_conn_table(net: EINet, *, rpb: int = 384, group: int = 4,
                     gather: str = 'block', radix='auto'):
     """The table mxu6 would read. The TPU kernel partitions it by target
-    block; K2 reads the plain row-major ``(num, n_conn)`` int32 table, so
+    block; K21 reads the plain row-major ``(num, n_conn)`` int32 table, so
     this returns ``net.conn_all`` as it lies on the device."""
     del rpb, group, gather, radix
     return net.conn_all
@@ -319,7 +328,7 @@ def einet_pallas_sim_dense(net, state, n_steps: int, inp: float = 20.0,
     """The dense formulation, through K1 and K19: the JAX kernel multiplies
     the step's E and I spike masks by the ``(num, num)`` count table; K19
     sums the table rows of the neurons in K1's spike list into the same
-    int32 counts, so all five outputs are bitwise the K1/K2 route's.
+    int32 counts, so all five outputs are bitwise the K21 route's.
 
     Each call builds the table (:func:`dense_count_table`). There is no
     VMEM cap: the table's limit is device memory.

@@ -21,10 +21,11 @@ GPU the scatter is atomics, in the two forms of kernel K2
 (``csrc/event_scatter.cu``):
 
 - :data:`event_scatter_float` (``event_scatter_add`` and
-  ``event_scatter_add_multi`` on CUDA tensors): float32 atomics, exact for
-  0/1 values at any add order. It ports the JAX package's XLA
-  ``event_scatter_add`` (``brainevent_tpu/ops/scatter.py:252``), not a
-  Pallas kernel;
+  ``event_scatter_add_multi`` on CUDA tensors): the value form, atomics in
+  float32, float64, int32 or int64 (its name is from its first instance).
+  float32 is exact for 0/1 values at any add order, and integer sums are
+  exact always. It ports the JAX package's XLA ``event_scatter_add``
+  (``brainevent_tpu/ops/scatter.py:252``), not a Pallas kernel;
 - :data:`event_count_scatter` (the EI network's propagation): int32 hit
   counts per target on two channels, read from the device-side spike list
   that kernel K1 writes.
@@ -64,19 +65,28 @@ def event_scatter_float_twin(targets: torch.Tensor, values: torch.Tensor,
     return out
 
 
+# the value types of the float form's instances (``kind`` of its C entry)
+_KINDS = {torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3}
+
+
 def _event_scatter_float_cuda(op, targets, values, out):
+    if out.dtype not in _KINDS:
+        raise UnsupportedOperationError(
+            f'{op.name}: no instance for {out.dtype} on a CUDA tensor; it '
+            f'sums in {", ".join(map(str, _KINDS))}')
     device = check_cuda_tensors(op.name, (targets, torch.int32),
-                         (values, torch.float32), (out, torch.float32))
+                                (values, out.dtype), (out, out.dtype))
     n_chan, n_events = values.shape
     if targets.shape != (n_events,) or out.shape[0] != n_chan:
         raise ValueError(f'{op.name}: targets {tuple(targets.shape)}, values '
                          f'{tuple(values.shape)}, out {tuple(out.shape)}')
     fn = cuda_build.function('event_scatter_float_launch', [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p])
     op.launch(fn, targets.data_ptr(), values.data_ptr(), n_events, n_chan,
-              out.shape[1], out.data_ptr(), device.index or 0,
-              cuda_stream(device))
+              out.shape[1], out.data_ptr(), _KINDS[out.dtype],
+              device.index or 0, cuda_stream(device))
     return out
 
 
@@ -103,8 +113,13 @@ def event_scatter_add(targets: torch.Tensor, values, n_out: int, *,
         Output dtype; defaults to ``values.dtype``.
 
     Returns a ``(n_out,)`` tensor on the device of *targets*. The sum is
-    taken in float32 for float outputs (as the JAX package's one-hot route
-    does); on a CUDA tensor only float outputs are supported.
+    taken as the JAX package takes it: float32 and float64 in their own
+    type; float16 and bfloat16 in float32 (its one-hot route); int32 and
+    int64 in their own type, wrapping on overflow; int8, int16 and uint8
+    in int32 after the values are cast to the output dtype, then cast
+    back, which wraps as a sum in that dtype does. On a CUDA tensor these
+    run the instances of K2's value form; other output dtypes (bool,
+    complex) sum with ``index_add_`` on the CPU and raise on the card.
     """
     targets = torch.as_tensor(targets)
     values = torch.as_tensor(values, device=targets.device)
@@ -114,19 +129,20 @@ def event_scatter_add(targets: torch.Tensor, values, n_out: int, *,
         mask = torch.as_tensor(mask, device=targets.device)
         targets = torch.where(torch.broadcast_to(mask, targets.shape),
                               targets, n_out)
-    targets = targets.reshape(-1).to(torch.int32)
+    targets = targets.reshape(-1).to(torch.int32).contiguous()
     if not out_dtype.is_floating_point:
-        if targets.device.type == 'cuda':
-            raise UnsupportedOperationError(
-                f'event_scatter_add: {out_dtype} output on a CUDA tensor')
-        out = torch.zeros(n_out, dtype=out_dtype, device=targets.device)
-        valid = (targets >= 0) & (targets < n_out)
-        return out.index_add_(0, targets[valid], values[valid].to(out_dtype))
-    out = torch.zeros(1, n_out, dtype=torch.float32, device=targets.device)
-    event_scatter_float(targets.contiguous(),
-                        values.to(torch.float32).reshape(1, -1).contiguous(),
+        values = values.to(out_dtype)
+    acc = _ACCUMULATE.get(out_dtype, out_dtype)
+    out = torch.zeros(1, n_out, dtype=acc, device=targets.device)
+    event_scatter_float(targets, values.to(acc).reshape(1, -1).contiguous(),
                         out)
     return out[0].to(out_dtype)
+
+
+# output dtypes that sum in a wider type
+_ACCUMULATE = {torch.float16: torch.float32, torch.bfloat16: torch.float32,
+               torch.int8: torch.int32, torch.int16: torch.int32,
+               torch.uint8: torch.int32}
 
 
 def event_scatter_add_multi(targets: torch.Tensor, values: torch.Tensor,

@@ -9,7 +9,8 @@ Run from the root of a checkout, with no arguments::
 
 It builds the CUDA kernels from ``brainevent_torch/csrc`` and drives the
 port's three paths: the COBA EI network (Brette et al. 2007) at 4,000
-neurons through ``einet_pallas_sim`` (kernels K1, K2); the
+neurons through ``einet_pallas_sim`` (kernel K21, the whole run in one
+launch; K1 and K2 above its capacity); the
 surrogate-gradient train step of a 100k-neuron, 10M-synapse recurrent
 network through ``train_step`` (K3, K4; K5 with ``forward='event'``),
 beside the 10M-synapse event product ``binary_fcnmv`` (K5, K6); the
@@ -20,7 +21,7 @@ classes (K11-K14); the dense slice, a 10k x 10k ``Dense`` matrix
 (100M weights) with ``BinaryArray`` products, STDP and the event
 encoders (K15-K18); and the EI strategies of ``einet_pallas_sim``, the
 dense one over the ``(num, num)`` connection-count table (K1 + K19) and
-the superseded ones (K1 + K2); and the multi-device layer over
+the superseded ones (K21); and the multi-device layer over
 ``torch.distributed`` at world size 1 under NCCL (the one process's group,
 through a file store): ``ShardedEINet`` at 4k and 400k (K1 + K20, or K1 +
 the float K2), its count kernel K20 split over four shards in one process,
@@ -28,20 +29,27 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
 
 1. the device (``torch.cuda.get_device_name`` and ``nvidia-smi``);
 2. the kernel build, with its seconds;
-3. K1 (``einet_step``) against its PyTorch twin on the card, on random
+3. K1 (``einet_step``, whose fold and update are ``einet_neuron.cuh``'s,
+   shared with K21) against its PyTorch twin on the card, on random
    states across the refractory boundary, COBA and CUBA, 4k and 400k
    neurons: bitwise equal;
 4. K2 (``event_count_scatter``, and its float form) against its twin on
    random spike lists, up to every neuron spiking at once: equal;
-5. the EI slice: COBA and CUBA at 4k and COBA at 40k (the size from which
-   the JAX package takes its mxu6 route) for 2,000 steps through the
-   kernels, against the twin loop on the same card and inputs: equal spike
-   counts; K1 launched once per step (plus one final fold) and K2 once per
-   step; firing rate within 5-200 Hz;
+5. the EI slice: COBA and CUBA at 4k, COBA at 40k (the size from which
+   the JAX package takes its mxu6 route) and 400k for 2,000 steps through
+   K21 (``einet_sim``), against the twin loop and the K1 + K2 loop on the
+   same card and inputs: all five outputs bitwise; K21 launched once per
+   run, K1 and K2 never; firing rate within 5-200 Hz; then a network
+   above K21's capacity (``einet_sim_capacity``) through ``EINet.run`` on
+   K1 (2,001 launches) and K2 (2,000), bitwise the twin loop;
 6. EI timing, for the record: 4k COBA over 100k steps and 400k COBA over
-   5,000 steps in us/step (host clock); K1's and K2's device time (CUDA
-   events around launches queued back to back), host-paced time per
-   launch, and their twins' time per call;
+   5,000 steps in us/step (host clock) through K21 and through the K1 + K2
+   loop in turns, the K1 + K2 loop of 2,000 steps captured in one CUDA
+   graph (replayed), K21's device time for each NPT instance whose grid
+   fits and its bare barrier loop (the same grid, one barrier a step);
+   K1's and K2's device time (CUDA events around launches queued back to
+   back), host-paced time per launch, and their twins' time per call;
+   K21's line: one launch of 2,000 steps at 4k, device ms, twin ms;
 7. K3 (``plan_gather_mv``, over each plan's row index with row-order
    weights) and K4 (``plan_matvec_dw``, with and without that row view)
    against their twins on both plans of the 100k x 100 model, x normal
@@ -142,7 +150,8 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
     CUBA 4k and COBA 40k for 2,000 steps, all five outputs bitwise the
     ``'mxu3'`` route's, K1 2001 times, K19 2000 times and K2 never, the
     rate in 5-200 Hz, the table's bytes and build time; a burst (inp
-    500, 10 steps); every other strategy name at 4k bitwise mxu3;
+    500, 10 steps); every other strategy name at 4k bitwise mxu3, one K21
+    launch each;
 27. dense timing: COBA 4k us/step over 100k steps after 1,000, dense and
     mxu3 in one run; K19's device ms per launch at 4k and 40k on recorded
     spike lists, its twin's ms, its bound, and ``torch.matmul`` of the
@@ -154,7 +163,12 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
     float64 weights (C10) through each kernel's ``double`` instance, one
     launch, within 1e-12 * sum|w x| of the float64 twin (bitwise where the
     float32 route is exact), and float64 ``csrmv``/``csrmm``, CSR STDP and
-    a CSR weight gradient (K7-K10 on float64);
+    a CSR weight gradient (K7-K10 on float64); ``event_scatter_add`` (K2's
+    value form) with float64 values (C13; within 1e-12 * sum|v| per target
+    of the float64 twin) and int32, int64, int8, int16 and uint8 outputs
+    (C14; bitwise the twin, the narrow ones through the int32 instance and
+    equal to ``index_add_`` in their own dtype on the CPU, wraparound
+    included), one launch each;
 29. K20 (``mega_counts``) on COBA 4k and 400k spike lists recorded from
     runs, split over 4 shards in one process (``row0 = r * n_loc``): each
     partial bitwise its twin, their sum and the shard-major buffer
@@ -179,8 +193,8 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
 With ``--tree DIR`` it only times DIR's ``brainevent_torch`` by this
 file's code (``time_tree``), to compare two checkouts on one card: phase
 17's K10 timing, phase 20's JITCNet and K12 timing, phase 24's K15 timing,
-phase 10's train steps and phase 23's dense slice; ``--parts`` picks some
-of them.
+phase 10's train steps, phase 23's dense slice and phase 6's EI runs;
+``--parts`` picks some of them.
 
 Each kernel's line also carries its bound (the larger of its bytes over
 the HBM rate and its operations over the float32 rate) and the time of one
@@ -190,7 +204,9 @@ PyTorch call computing the same function (``torch.sparse.mm``,
 matrix by the float spikes; their ``index_add_`` over the active rows'
 targets, gathered outside the timed call, is printed beside it as what it
 is, not the same function. Any failure exits non-zero; so does a host without
-CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K20; K15's
+CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K21; K1's and
+K2's launches are those of the run above K21's capacity, K21's its one
+launch of the 4k COBA run, its ms one launch of 2,000 steps; K15's
 line is its ``s @ W`` direction, K10's the mean of the CSR slice's two
 B = 16 directions with each shape apart under ``by_shape``, K19's the 4k
 COBA run, K20's the 400k one); the last is
@@ -324,17 +340,51 @@ def check_k2(nets, device):
     return worst
 
 
-def check_slice(device):
-    phase('5 the slice: einet_pallas_sim at 4k (COBA, CUBA) and 40k (COBA), '
-          '2000 steps (spike counts equal to the twin loop)')
-    import brainevent_torch as bt
+# (label, EINet scale, COBA) of phase 5's runs through K21
+SLICE_NETS = (('4k', 1.0, True), ('4k', 1.0, False), ('40k', 10.0, True),
+              ('400k', 100.0, True))
+EI_STEPS = 2000
+
+
+def state_fields(state):
+    """The five arrays of an ``EINetState``, in ``einet_pallas_sim``'s order."""
+    return (state.neurons.v, state.neurons.t_last, state.g_e, state.g_i,
+            state.spike_count)
+
+
+def k1k2_ops():
+    """``_simulate``'s keywords for the loop of K1 and K2, two launches a
+    step: the route K21 replaced, run explicitly."""
     from brainevent_torch.models import networks as nw
     from brainevent_torch.ops import scatter as sc
-    n_steps = 2000
+    return dict(step_op=nw.einet_step, scatter_op=sc.event_count_scatter)
+
+
+def twin_ops():
+    """``_simulate``'s keywords for the twin loop on the card."""
+    from brainevent_torch.models import networks as nw
+    from brainevent_torch.ops import scatter as sc
+    return dict(step_op=nw.einet_step_twin,
+                scatter_op=sc.event_count_scatter_twin)
+
+
+def check_equal_fields(got, want, what):
+    """All five outputs of two runs bitwise equal."""
+    for name, x, y in zip(('v', 't_last', 'g_e', 'g_i', 'spike_count'), got,
+                          want):
+        check(x.dtype == y.dtype and torch.equal(x, y), (what, name))
+
+
+def check_slice(device):
+    phase(f'5 the slice: einet_pallas_sim at 4k (COBA, CUBA), 40k and 400k '
+          f'(COBA), {EI_STEPS} steps through K21, one launch each: all five '
+          f'outputs bitwise the twin loop and the K1 + K2 loop; above K21\'s '
+          f'capacity EINet.run on K1 + K2, bitwise the twin loop')
+    import brainevent_torch as bt
+    from brainevent_torch.models import networks as nw
+    n_steps = EI_STEPS
     launches = None
-    # 40k neurons is the size from which the JAX package switches to mxu6
-    for label, scale, coba in (('4k', 1.0, True), ('4k', 1.0, False),
-                               ('40k', 10.0, True)):
+    for label, scale, coba in SLICE_NETS:
         net = bt.EINet(scale=scale, coba=coba, device=device)
         state = net.init_state()
         bt.reset_launch_counts()
@@ -345,30 +395,49 @@ def check_slice(device):
         counts = bt.launch_counts()
         if label == '4k' and coba:
             launches = counts
-        check(counts['einet_step'] == n_steps + 1, counts)
-        check(counts['event_count_scatter'] == n_steps, counts)
+        check(counts['einet_sim'] == 1 and counts['einet_step'] == 0
+              and counts['event_count_scatter'] == 0, (label, counts))
         t0 = time.perf_counter()
-        ref = net._simulate(state, net.times(n_steps), 20.0,
-                            step_op=nw.einet_step_twin,
-                            scatter_op=sc.event_count_scatter_twin)
+        ref = net._simulate(state, net.times(n_steps), 20.0, **twin_ops())
         torch.cuda.synchronize()
         t_twin = time.perf_counter() - t0
+        k12 = net._simulate(state, net.times(n_steps), 20.0, **k1k2_ops())
         v, t_last, g_e, g_i, spike_count = out
         for x in (v, t_last, g_e, g_i):
             check(x.shape == (net.num,) and bool(torch.isfinite(x).all()),
                   'finite (num,) state')
         check(spike_count.dtype == torch.int32, spike_count.dtype)
-        check(torch.equal(spike_count, ref.spike_count), (label, coba))
-        dv = float((v - ref.neurons.v).abs().max())
+        check_equal_fields(out, state_fields(ref), (label, coba, 'twin'))
+        check_equal_fields(out, state_fields(k12), (label, coba, 'K1 + K2'))
         rate = float(spike_count.float().mean()) / (n_steps * net.dt * 1e-3)
         check(5.0 < rate < 200.0, rate)
-        print(f'{"COBA" if coba else "CUBA"} {label}: spike counts equal '
-              f'({int(spike_count.sum())} spikes), max|dv| {dv!r}, '
-              f'rate {rate!r} Hz, launches {counts["einet_step"]} K1 + '
-              f'{counts["event_count_scatter"]} K2, kernels '
+        print(f'{"COBA" if coba else "CUBA"} {label}: all five outputs '
+              f'bitwise the twin loop and the K1 + K2 loop '
+              f'({int(spike_count.sum())} spikes), rate {rate!r} Hz, '
+              f'launches {counts["einet_sim"]} K21, {counts["einet_step"]} '
+              f'K1, {counts["event_count_scatter"]} K2; K21 '
               f'{t_kernel / n_steps * 1e6!r} us/step, twin loop '
-              f'{t_twin / n_steps * 1e6!r} us/step (host clock)')
-    return launches
+              f'{t_twin / n_steps * 1e6!r} us/step (host clock, the first '
+              f'call at each size)')
+    # the route by size: above what K21's NPT = 8 instance holds
+    cap = nw.einet_sim_capacity(device)
+    net = bt.EINet(scale=float(cap // 4000 + 1), device=device)
+    check(net.num > cap, (net.num, cap))
+    state = net.init_state()
+    bt.reset_launch_counts()
+    out = state_fields(net.run(n_steps, state=state))
+    torch.cuda.synchronize()
+    big_counts = bt.launch_counts()
+    check(big_counts['einet_sim'] == 0
+          and big_counts['einet_step'] == n_steps + 1
+          and big_counts['event_count_scatter'] == n_steps, big_counts)
+    ref = net._simulate(state, net.times(n_steps), 20.0, **twin_ops())
+    check_equal_fields(out, state_fields(ref), ('above capacity', net.num))
+    print(f'COBA {net.num} (above K21\'s capacity of {cap} neurons): '
+          f'EINet.run on {big_counts["einet_step"]} K1 + '
+          f'{big_counts["event_count_scatter"]} K2 launches, no K21, bitwise '
+          f'the twin loop ({int(out[4].sum())} spikes)')
+    return launches, big_counts
 
 
 def time_run(net, n_steps, warm, strategy='auto'):
@@ -383,6 +452,140 @@ def time_run(net, n_steps, warm, strategy='auto'):
     dt = time.perf_counter() - t0
     rate = float(out[4].float().mean()) / (n_steps * net.dt * 1e-3)
     return dt / n_steps * 1e6, rate, out
+
+
+# (label, steps timed, warm-up steps) of phase 6's EI runs
+EI_TIMES = (('4k', 100_000, 1000), ('400k', 5000, 200))
+GRAPH_STEPS = 2000          # the K1 + K2 loop captured in one CUDA graph
+
+
+def time_routes(net, n_steps, warm):
+    """COBA us/step (host clock) through K21 (``einet_pallas_sim``) and
+    through the K1 + K2 loop from the state *warm* K21 steps in, in turns
+    K21, K1 + K2, K1 + K2, K21; each run checked bitwise against the
+    other route's. Returns ``({route: [us, us]}, rate, K21's final)``."""
+    import brainevent_torch as bt
+    state = net.run(warm)
+    torch.cuda.synchronize()
+    times = net.times(warm + n_steps)[warm:]
+    runs = {'K21': [], 'K1 + K2': []}
+    outs = {}
+    for route in ('K21', 'K1 + K2', 'K1 + K2', 'K21'):
+        kw = {} if route == 'K21' else k1k2_ops()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net._simulate(state, times, 20.0, **kw)
+        torch.cuda.synchronize()
+        runs[route].append((time.perf_counter() - t0) / n_steps * 1e6)
+        outs[route] = state_fields(out)
+    check_equal_fields(outs['K21'], outs['K1 + K2'], ('timed runs', net.num))
+    final = outs['K21']
+    rate = float(final[4].float().mean() - state.spike_count.float().mean()
+                 ) / (n_steps * net.dt * 1e-3)
+    return runs, rate, bt.EINetState(bt.LIFRefState(*final[:2]), *final[2:])
+
+
+def graph_us_per_step(net, state, replays):
+    """The K1 + K2 loop of :data:`GRAPH_STEPS` steps from *state* captured
+    in one ``torch.cuda.CUDAGraph``: us per step on replay (host clock
+    over *replays* replays), a yardstick of the two-kernel form without a
+    launch path, not a route of the package. The replay's outputs are
+    checked bitwise against an eager run of the same loop."""
+    times = net.times(GRAPH_STEPS)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = state_fields(net._simulate(state, times, 20.0, **k1k2_ops()))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = net._simulate(state, times, 20.0, **k1k2_ops())
+    graph.replay()
+    torch.cuda.synchronize()
+    check_equal_fields(state_fields(captured), eager, 'CUDA graph replay')
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        graph.replay()
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) / (replays * GRAPH_STEPS) * 1e6
+    del graph
+    return us
+
+
+def sim_device_ms(net, state, n_steps, **kw):
+    """Device ms of one K21 launch of *n_steps* from *state* (CUDA events
+    around the launch; its copy of the state made beforehand), with the
+    instance and grid of *kw* (default: the package's choice)."""
+    from brainevent_torch.models import networks as nw
+    bufs = [x.clone() for x in state_fields(state)]
+    times = torch.tensor(net.times(n_steps), dtype=torch.float32,
+                         device=bufs[0].device)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    nw.einet_sim.cuda(nw.einet_sim, *bufs, net.conn_all, times,
+                      net.step_params(), net.n_exc, **kw)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), bufs
+
+
+def barrier_ms(net, n_syncs, device):
+    """Device ms of K21's bare barrier loop: *n_syncs* grid barriers on the
+    grid K21 runs for *net*, nothing else."""
+    import ctypes
+    from brainevent_torch.models import networks as nw
+    from brainevent_torch.ops import cuda_build
+    from brainevent_torch.ops.core import cuda_stream
+    _, blocks = nw.einet_sim_grid(net.num, device)
+    fn = cuda_build.function('einet_sim_barriers_launch', [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    err = fn(n_syncs, blocks, device.index or 0, cuda_stream(device))
+    b.record()
+    torch.cuda.synchronize()
+    check(err == 0, ('barrier loop', err))
+    return a.elapsed_time(b), blocks
+
+
+def time_ei(nets, device):
+    """Phase 6's EI timing at :data:`EI_TIMES`: K21 beside the K1 + K2
+    loop (in turns), its CUDA-graph capture, K21's device time by
+    instance (every NPT whose grid fits) and its bare barrier loop."""
+    from brainevent_torch.models import networks as nw
+    res, finals = {}, {}
+    for label, n_steps, warm in EI_TIMES:
+        net = nets[label]
+        runs, rate, final = time_routes(net, n_steps, warm)
+        finals[label] = (warm + n_steps, state_fields(final))
+        graph_us = graph_us_per_step(
+            net, final, max(1, round(n_steps / GRAPH_STEPS)))
+        npt, blocks = nw.einet_sim_grid(net.num, device)
+        by_npt = {}
+        for k in nw.SIM_NPT:
+            need = -(-net.num // (k * nw.SIM_BLOCK))
+            if need <= nw.einet_sim_max_blocks(device, k):
+                ms, _ = sim_device_ms(net, final, n_steps, npt=k)
+                by_npt[k] = ms / n_steps * 1e3
+        bar_ms, _ = barrier_ms(net, n_steps, device)
+        sim_ms, _ = sim_device_ms(net, final, EI_STEPS)
+        res[label] = dict(us=runs, graph_us=graph_us, npt=npt, blocks=blocks,
+                          device_us_by_npt=by_npt,
+                          barrier_us=bar_ms / n_steps * 1e3,
+                          sim_ms=sim_ms, steps=n_steps, final=final)
+        print(f'COBA {label} over {n_steps} steps after {warm} (rate '
+              f'{rate!r} Hz), us/step on the host clock: K21 {runs["K21"]!r}, '
+              f'the K1 + K2 loop {runs["K1 + K2"]!r} (in turns), the K1 + K2 '
+              f'loop of {GRAPH_STEPS} steps as one CUDA graph {graph_us!r} '
+              f'(replayed); K21 device us/step by NPT {by_npt!r} (the '
+              f'package runs NPT {npt}, {blocks} blocks of {nw.SIM_BLOCK}); '
+              f'its bare barrier loop {bar_ms / n_steps * 1e3!r} us/step; one '
+              f'K21 launch of {EI_STEPS} steps {sim_ms!r} ms (device)')
+    return res, finals
 
 
 def device_ms(fn, reps):
@@ -442,6 +645,38 @@ def count_scatter_bytes(n_events, n_conn):
     caller zeroes the counts in a launch of its own, so the rest of the
     buffer is not the kernel's traffic."""
     return 4 * n_events * (1 + n_conn) + 8 * n_events * n_conn
+
+
+def time_k21(net, state, ei, device):
+    """K21's line at the main path's shape: one launch of EI_STEPS steps
+    of COBA 4k from *state* (the timed run's end; device ms from phase
+    6), its twin's ms on the same inputs (bitwise equal), and the work
+    this run needs: the state read and written once, the step times, the
+    rows of the neurons that spiked; 20 operations a neuron a step and
+    one add a hit."""
+    from brainevent_torch.models import networks as nw
+    _, got = sim_device_ms(net, state, EI_STEPS)
+    want = [x.clone() for x in state_fields(state)]
+    times = torch.tensor(net.times(EI_STEPS), dtype=torch.float32,
+                         device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nw.einet_sim_twin(*want, net.conn_all, times, net.step_params(),
+                      net.n_exc)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check_equal_fields(got, want, 'K21 line vs twin')
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    new = got[4] - state.spike_count
+    n_conn = net.conn_all.shape[1]
+    n_bytes = (40 * net.num + 4 * EI_STEPS
+               + 4 * n_conn * int((new > 0).sum()))
+    n_ops = 20 * net.num * EI_STEPS + n_conn * int(new.sum())
+    print(f'K21 one launch of {EI_STEPS} steps at COBA 4k: device '
+          f'{ei["sim_ms"]!r} ms, twin {plain_ms!r} ms, bitwise; '
+          f'{int(new.sum())} spikes, bound {bound(n_bytes, n_ops)!r}')
+    return dict(ms=ei['sim_ms'], plain_ms=plain_ms, bytes=n_bytes,
+                ops=n_ops, err=err)
 
 
 def time_kernels(nets, finals, device):
@@ -2240,19 +2475,20 @@ def check_k19(device):
 
 def run_strategy(net, state, n_steps, strategy, ref, inp=20.0):
     """``einet_pallas_sim(strategy=...)`` from *state*, held against *ref*
-    (the mxu3 route's five outputs): all five bitwise, K1 launched
-    ``n_steps + 1`` times and K19 (dense) or K2 (every other name)
-    ``n_steps`` times. Returns the outputs and the launch counts."""
+    (the mxu3 route's five outputs): all five bitwise; the dense strategy
+    launches K1 ``n_steps + 1`` times and K19 ``n_steps`` times, every
+    other name K21 once, and K2 never runs. Returns the outputs and the
+    launch counts."""
     import brainevent_torch as bt
     bt.reset_launch_counts()
     out = bt.einet_pallas_sim(net, state, n_steps, inp, strategy=strategy)
     torch.cuda.synchronize()
     counts = bt.launch_counts()
     dense = strategy == 'dense'
-    check(counts['einet_step'] == n_steps + 1
+    check(counts['einet_step'] == (n_steps + 1 if dense else 0)
           and counts['einet_dense_hits'] == (n_steps if dense else 0)
-          and counts['event_count_scatter'] == (0 if dense else n_steps),
-          (strategy, counts))
+          and counts['einet_sim'] == (0 if dense else 1)
+          and counts['event_count_scatter'] == 0, (strategy, counts))
     for x, y in zip(out, ref):
         check(x.dtype == y.dtype and torch.equal(x, y),
               (strategy, 'bitwise mxu3'))
@@ -2261,7 +2497,7 @@ def run_strategy(net, state, n_steps, strategy, ref, inp=20.0):
 
 def check_dense_strategies(device):
     phase(f'26 the strategies: einet_pallas_sim(strategy=\'dense\') (K1 + '
-          f'K19) against \'mxu3\' (K1 + K2), COBA and CUBA 4k and COBA 40k, '
+          f'K19) against \'mxu3\' (K21), COBA and CUBA 4k and COBA 40k, '
           f'{DENSE_SIM_STEPS} steps; a burst; every other strategy at 4k '
           f'(all five outputs bitwise)')
     import brainevent_torch as bt
@@ -2309,7 +2545,7 @@ def check_dense_strategies(device):
     for strategy in ('chain', 'mxu', 'mxu2', 'mxu4', 'mxu5', 'mxu6'):
         run_strategy(net, state, n_steps, strategy, ref)
     print(f'chain, mxu, mxu2, mxu4, mxu5, mxu6 at 4k, {n_steps} steps: '
-          f'bitwise mxu3 (K1 + K2)')
+          f'bitwise mxu3, one K21 launch each')
     return launches
 
 
@@ -2607,13 +2843,72 @@ def c10_float_products(device, gen):
     return len(cases), worst
 
 
+def c13_c14_scatter(device, gen):
+    """``event_scatter_add`` on the card in the dtypes of C13 and C14:
+    100k events (targets in [-5, 55), some out of range, a mask) into 50
+    targets, one launch of K2's value form each. float64 values of scale
+    ~1e3 sum in float64, within ``1e-12 * sum|v|`` per target of the
+    float64 twin; int32 and int64 bitwise the twin; int8, int16 and uint8
+    sum in the int32 instance and equal ``index_add_`` in their own dtype
+    on the CPU, wraparound included. Returns the cases and the largest
+    error."""
+    import brainevent_torch as bt
+    from brainevent_torch.ops import scatter as sc
+    n, n_out = 100_000, 50
+    targets = torch.randint(-5, n_out + 5, (n,), generator=gen,
+                            device=device, dtype=torch.int32)
+    mask = torch.rand(n, generator=gen, device=device) < 0.9
+    cases = {
+        torch.float64: torch.randn(n, generator=gen, device=device,
+                                   dtype=torch.float64) * 1e3,
+        torch.int32: torch.randint(-2 ** 30, 2 ** 30, (n,), generator=gen,
+                                   device=device, dtype=torch.int32),
+        torch.int64: torch.randint(-2 ** 62, 2 ** 62, (n,), generator=gen,
+                                   device=device, dtype=torch.int64),
+        torch.int8: torch.randint(-128, 128, (n,), generator=gen,
+                                  device=device).to(torch.int8),
+        torch.int16: torch.randint(-2 ** 15, 2 ** 15, (n,), generator=gen,
+                                   device=device).to(torch.int16),
+        torch.uint8: torch.randint(0, 256, (n,), generator=gen,
+                                   device=device).to(torch.uint8)}
+    op = sc.event_scatter_float
+    worst = 0.0
+    for dtype, values in cases.items():
+        before = op.launches
+        got = bt.event_scatter_add(targets, values, n_out, mask=mask)
+        torch.cuda.synchronize()
+        check(op.launches - before == 1 and got.dtype == dtype,
+              (dtype, op.launches - before, got.dtype))
+        with twins_on_card([op]):
+            want = bt.event_scatter_add(targets, values, n_out, mask=mask)
+        keep = mask & (targets >= 0) & (targets < n_out)
+        cpu = torch.zeros(n_out, dtype=dtype).index_add_(
+            0, targets[keep].long().cpu(), values[keep].cpu())
+        if dtype.is_floating_point:
+            err = float((got - want).abs().max())
+            scale = torch.zeros(n_out, dtype=dtype, device=device).index_add_(
+                0, targets[keep].long(), values[keep].abs())
+            check(bool(((got - want).abs() <= 1e-12 * scale).all()),
+                  ('float64 sum', err))
+            worst = max(worst, err)
+        else:
+            check(torch.equal(got, want) and torch.equal(got.cpu(), cpu),
+                  (dtype, 'equal to the twin and to index_add_'))
+    print(f'event_scatter_add: float64 (C13) within 1e-12 * sum|v| of the '
+          f'float64 twin (max |d| {worst!r}); int32, int64, int8, int16 and '
+          f'uint8 outputs (C14) bitwise the twin and index_add_ in their '
+          f'dtype; one launch each')
+    return len(cases), worst
+
+
 def check_c8(device):
     phase('28 dtypes at the public entries of K5-K10, K12, K13, K15-K18: '
           'spikes in nine dtypes bitwise the bool spikes\' result through '
           'the kernel; float16/bfloat16 weights within 1 ulp of the twin '
           '(on the widened weights, rounded) plus the float32 bound; '
           'float64 weights (C10) through each kernel\'s double instance, '
-          'within 1e-12 * sum|w x| of the float64 twin, bitwise where exact')
+          'within 1e-12 * sum|w x| of the float64 twin, bitwise where exact; '
+          'event_scatter_add in float64 (C13) and integer outputs (C14)')
     gen = torch.Generator(device=device).manual_seed(28)
     n_checked = c8_spike_dtypes(device, gen)
     print(f'spikes: {n_checked} entry x dtype cases bitwise the bool '
@@ -2625,6 +2920,7 @@ def check_c8(device):
           f'{worst!r}); float64 through the double instances at {n64} '
           f'binary entries (max |d| {err64!r}) and {nf} float product, '
           f'STDP and gradient cases (max |d| {errf!r}), one launch each')
+    c13_c14_scatter(device, gen)
 
 
 # -- the multi-device layer: K20, ShardedEINet, the sharded ops (phases 29-31) --
@@ -3030,7 +3326,7 @@ def neuron_mesh_world1(device):
     return neuron_mesh(1, device_type=device.type)
 
 
-TREE_PARTS = ('k10', 'jitc', 'k15', 'train', 'dense')
+TREE_PARTS = ('k10', 'jitc', 'k15', 'train', 'dense', 'ei')
 
 
 def time_tree(tree, parts=TREE_PARTS):
@@ -3048,7 +3344,10 @@ def time_tree(tree, parts=TREE_PARTS):
       100 model (``train_step_times``), through the tree's own
       ``train_step``;
     - ``dense``: phase 23's dense slice from phase 21's weights, 20 steps
-      on the host clock and 10 profiled (``dense_slice_times``).
+      on the host clock and 10 profiled (``dense_slice_times``);
+    - ``ei``: phase 6's COBA runs through ``einet_pallas_sim`` at
+      :data:`EI_TIMES` (``time_run``, twice each), so a design variant of
+      the EI route can be timed beside this tree's.
 
     Prints one JSON line."""
     import os
@@ -3112,6 +3411,15 @@ def time_tree(tree, parts=TREE_PARTS):
         t = dense_slice_times(W, device, 20)
         print(f'dense slice: {t!r}')
         res['dense'] = t
+    if 'ei' in parts:
+        res['ei'] = {}
+        for label, n_steps, warm in EI_TIMES:
+            net = bt.EINet(scale=1.0 if label == '4k' else 100.0,
+                           device=device)
+            runs = [time_run(net, n_steps, warm) for _ in range(2)]
+            res['ei'][label] = [us for us, _, _ in runs]
+            print(f'COBA {label}: {res["ei"][label]!r} us/step over {n_steps} '
+                  f'steps after {warm} (host clock)')
     print(json.dumps(res))
     return 0
 
@@ -3156,16 +3464,13 @@ def main():
 
     k1_err = check_k1(nets, device)
     k2_err = check_k2(nets, device)
-    launches = check_slice(device)
+    launches, big_counts = check_slice(device)
 
     phase('6 timing')
-    finals = {}
-    for label, n_steps, warm in (('4k', 100_000, 1000), ('400k', 5000, 200)):
-        us, rate, final = time_run(nets[label], n_steps, warm)
-        finals[label] = (warm + n_steps, final)
-        print(f'COBA {label}: {us!r} us/step over {n_steps} steps after '
-              f'{warm} warm-up steps, rate {rate!r} Hz')
+    ei_times, finals = time_ei(nets, device)
     times = time_kernels(nets, finals, device)
+    times['k21'] = time_k21(nets['4k'], ei_times['4k']['final'],
+                            ei_times['4k'], device)
     del nets, finals
 
     t0 = time.perf_counter()
@@ -3238,13 +3543,18 @@ def main():
                 **({'by_shape': t['by_shape']} if 'by_shape' in t else {})}
 
     t4k = times['4k']
+    # K1 and K2 on their route by size (above K21's capacity), K21 on the
+    # main path
     kernels = [
-        entry('einet_step', launches['einet_step'], k1_err, dict(
+        entry('einet_step', big_counts['einet_step'], k1_err, dict(
             ms=t4k['k1_ms'], plain_ms=t4k['k1_twin_ms'],
             bytes=t4k['k1_bytes'], ops=20 * 4000)),
-        entry('event_count_scatter', launches['event_count_scatter'], k2_err,
-              dict(ms=t4k['k2_ms'], plain_ms=t4k['k2_twin_ms'],
-                   bytes=t4k['k2_bytes'], library_ms=t4k['k2_library_ms']))]
+        entry('event_count_scatter', big_counts['event_count_scatter'],
+              k2_err, dict(ms=t4k['k2_ms'], plain_ms=t4k['k2_twin_ms'],
+                           bytes=t4k['k2_bytes'],
+                           library_ms=t4k['k2_library_ms'])),
+        entry('einet_sim', launches['einet_sim'], times['k21']['err'],
+              times['k21'])]
     errs = {**plan_err, **fcn_err}
     for op_name, counts in (('plan_gather_mv', plan_counts),
                             ('plan_matvec_dw', plan_counts),

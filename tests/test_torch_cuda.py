@@ -1,7 +1,7 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Kernels K1-K20 against their PyTorch twins on a CUDA device.
+"""Kernels K1-K21 against their PyTorch twins on a CUDA device.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so that it also runs where JAX is not installed. ``tests/conftest.py``
@@ -12,6 +12,12 @@ imports JAX; on such a host run it without that file::
 
 K1 and K2 are held to bitwise equality: K1 writes the twin's FMAs with
 ``__fmaf_rn`` and is built with ``-fmad=false``; K2's sums are integers.
+K2's float64 instance sums within ``1e-12 * sum|v|`` of the float64 twin,
+its integer instances bitwise (C13, C14). K21 (the whole EI run in one
+launch) is bitwise the twin loop and the K1 + K2 loop in all five outputs:
+COBA and CUBA at 4k, 40k and 400k over 2,000 steps, 0-2 steps, an
+all-fire burst, each NPT instance, each run twice (a stale L1 line would
+show only sometimes); above its capacity ``EINet.run`` runs K1 + K2.
 K3/K4 (gather plans) sum each row in another order than the twin's
 ``index_add_``: ``|y - twin| <= 1e-5 * sum|w x|`` per row, K3's ``y``
 bitwise K4's (with and without the row view), and K4's ``dw`` (one
@@ -165,8 +171,8 @@ def test_run_on_kernels_matches_twin_loop(cuda_device, coba):
     out = bt.einet_pallas_sim(net, state, n_steps)
     torch.cuda.synchronize()
     counts = bt.launch_counts()
-    assert counts['einet_step'] == n_steps + 1      # + the final fold
-    assert counts['event_count_scatter'] == n_steps
+    assert counts['einet_sim'] == 1                 # the whole run, K21
+    assert counts['einet_step'] == counts['event_count_scatter'] == 0
     ref = net._simulate(state, net.times(n_steps), 20.0,
                         step_op=nw.einet_step_twin,
                         scatter_op=sc.event_count_scatter_twin)
@@ -176,6 +182,186 @@ def test_run_on_kernels_matches_twin_loop(cuda_device, coba):
         assert torch.equal(got, want)
     rate = float(out[4].float().mean()) / (n_steps * net.dt * 1e-3)
     assert 5.0 < rate < 200.0
+
+
+_fields = chip_smoke.state_fields
+
+
+def _k21(net, state, n, inp=20.0, **kw):
+    """One launch of K21 over *n* steps from *state* (a copy), with the
+    instance and grid of *kw*."""
+    bufs = [x.clone() for x in _fields(state)]
+    times = torch.tensor(net.times(n), dtype=torch.float32,
+                         device=bufs[0].device)
+    before = nw.einet_sim.launches
+    nw.einet_sim.cuda(nw.einet_sim, *bufs, net.conn_all, times,
+                      net.step_params(inp), net.n_exc, **kw)
+    torch.cuda.synchronize()
+    assert nw.einet_sim.launches == before + 1
+    return bufs
+
+
+def _loops(net, state, n, inp=20.0):
+    """The twin loop and the K1 + K2 loop on the card from *state*."""
+    twin = net._simulate(state, net.times(n), inp, **chip_smoke.twin_ops())
+    k12 = net._simulate(state, net.times(n), inp, **chip_smoke.k1k2_ops())
+    torch.cuda.synchronize()
+    return _fields(twin), _fields(k12)
+
+
+def _bitwise(got, want):
+    for name, x, y in zip(('v', 't_last', 'g_e', 'g_i', 'spike_count'), got,
+                          want):
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+
+
+@pytest.mark.parametrize('scale', [1.0, 10.0, 100.0],
+                         ids=['4k', '40k', '400k'])
+@pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
+def test_k21_bitwise_twin_and_k1k2_loops(cuda_device, coba, scale):
+    """K21 through EINet.run, twice (a stale L1 line would show only
+    sometimes), against the twin loop and the K1 + K2 loop: all five
+    outputs bitwise over 2,000 steps."""
+    net = bt.EINet(scale=scale, coba=coba, device=cuda_device)
+    state = net.init_state()
+    twin, k12 = _loops(net, state, 2000)
+    for _ in range(2):
+        bt.reset_launch_counts()
+        out = _fields(net.run(2000, state=state))
+        torch.cuda.synchronize()
+        assert bt.launch_counts()['einet_sim'] == 1
+        _bitwise(out, twin)
+        _bitwise(out, k12)
+
+
+@pytest.mark.parametrize('n', [0, 1, 2])
+@pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
+def test_k21_few_steps(cuda_device, coba, n):
+    net = bt.EINet(scale=1.0, coba=coba, device=cuda_device)
+    state = net.run(300)
+    twin, k12 = _loops(net, state, n)
+    out = _k21(net, state, n)
+    _bitwise(out, twin)
+    _bitwise(out, k12)
+    if n == 0:
+        _bitwise(out, _fields(state))
+
+
+@pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
+def test_k21_all_fire_burst(cuda_device, coba):
+    """Every neuron above threshold and none refractory, inp 500: all fire
+    at the first step (4,000 rows of 80 atomics in one step), and often
+    after."""
+    net = bt.EINet(scale=1.0, coba=coba, seed=3, device=cuda_device)
+    s = net.init_state()
+    v = net.params.v_th + torch.rand(net.num, device=cuda_device)
+    state = s._replace(neurons=s.neurons._replace(
+        v=v, t_last=torch.full_like(v, -1e7)))
+    twin, k12 = _loops(net, state, 200, 500.0)
+    for _ in range(2):
+        out = _k21(net, state, 200, 500.0)
+        _bitwise(out, twin)
+        _bitwise(out, k12)
+    first = _k21(net, state, 1, 500.0)
+    assert int(first[4].min()) == 1
+
+
+@pytest.mark.parametrize('npt', [1, 2, 4, 8])
+@pytest.mark.parametrize('scale', [1.0, 10.0], ids=['4k', '40k'])
+def test_k21_each_instance(cuda_device, scale, npt):
+    """Each NPT instance (the NPT = 8 one only through the launch's
+    instance argument at these sizes), twice, bitwise the loops."""
+    net = bt.EINet(scale=scale, device=cuda_device)
+    state = net.init_state()
+    twin, k12 = _loops(net, state, 2000)
+    for _ in range(2):
+        out = _k21(net, state, 2000, npt=npt)
+        _bitwise(out, twin)
+        _bitwise(out, k12)
+
+
+def test_k21_grid_and_instance(cuda_device):
+    """The package's choice: the fewest neurons a thread whose grid fits,
+    16 blocks of 256 at 4k; a larger grid of the same instance and its
+    most co-resident blocks give the same bits; one more is refused."""
+    net = bt.EINet(scale=1.0, device=cuda_device)
+    assert nw.einet_sim_grid(net.num, cuda_device) == (1, 16)
+    most = nw.einet_sim_max_blocks(cuda_device, 1)
+    state = net.init_state()
+    want = _k21(net, state, 500)
+    _bitwise(_k21(net, state, 500, npt=1, blocks=most), want)
+    before = nw.einet_sim.launches
+    with pytest.raises(bt.KernelExecutionError, match='cooperative'):
+        _k21(net, state, 5, npt=1, blocks=most + 1)
+    assert nw.einet_sim.launches == before
+    _bitwise(_k21(net, state, 500), want)           # the card still runs
+
+
+def test_k21_capacity_routes_by_size(cuda_device):
+    """Above K21's capacity EINet.run keeps the loop of K1 and K2 (2n + 1
+    launches, no K21), bitwise the twin loop; at the capacity's edge it
+    runs K21."""
+    cap = nw.einet_sim_capacity(cuda_device)
+    assert cap == nw.einet_sim_max_blocks(cuda_device, 8) * 256 * 8
+    net = bt.EINet(scale=float(cap // 4000 + 1), device=cuda_device)
+    assert net.num > cap
+    state = net.init_state()
+    bt.reset_launch_counts()
+    out = _fields(net.run(50, state=state))
+    torch.cuda.synchronize()
+    counts = bt.launch_counts()
+    assert (counts['einet_sim'], counts['einet_step'],
+            counts['event_count_scatter']) == (0, 51, 50)
+    twin, _ = _loops(net, state, 50)
+    _bitwise(out, twin)
+    with pytest.raises(ValueError, match='exceed'):
+        nw.einet_sim_grid(net.num, cuda_device)
+    small = bt.EINet(scale=float(cap // 4000), device=cuda_device)
+    bt.reset_launch_counts()
+    small.run(5)
+    assert bt.launch_counts()['einet_sim'] == 1
+
+
+def test_step_on_card_is_one_k21_launch(cuda_device):
+    net = bt.EINet(scale=0.25, device=cuda_device)
+    state = net.init_state()
+    bt.reset_launch_counts()
+    net.step(state, 0.0)
+    assert bt.launch_counts()['einet_sim'] == 1
+    assert bt.launch_counts()['einet_step'] == 0
+
+
+def test_event_scatter_add_float64_and_integer_outputs(cuda_device):
+    """C13 and C14 on the card: K2's float64 and integer instances against
+    the twin (chip_smoke.py's phase 28 check)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    n_cases, err = chip_smoke.c13_c14_scatter(cuda_device, gen)
+    assert n_cases == 6 and err >= 0.0
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.int32, torch.int64])
+def test_event_scatter_float_instances_vs_twin(cuda_device, gen, dtype):
+    """The value form's instances on two channels, with sentinels."""
+    n_out, n_events = 40_000, 300_000
+    targets = torch.from_numpy(gen.integers(-3, n_out + 3, n_events)
+                               .astype(np.int32))
+    if dtype.is_floating_point:
+        values = torch.from_numpy(gen.normal(size=(2, n_events)) * 1e3)
+    else:
+        values = torch.from_numpy(gen.integers(-1000, 1000, (2, n_events))
+                                  ).to(dtype)
+    want = sc.event_scatter_float_twin(targets, values,
+                                       torch.zeros(2, n_out, dtype=dtype))
+    got = sc.event_scatter_float(
+        targets.to(cuda_device), values.to(cuda_device),
+        torch.zeros(2, n_out, dtype=dtype, device=cuda_device)).cpu()
+    torch.cuda.synchronize()
+    if dtype.is_floating_point:
+        scale = sc.event_scatter_float_twin(
+            targets, values.abs(), torch.zeros(2, n_out, dtype=dtype))
+        assert bool(((got - want).abs() <= 1e-12 * scale).all())
+    else:
+        assert torch.equal(got, want)
 
 
 def test_step_on_card_matches_cpu_step(cuda_device):

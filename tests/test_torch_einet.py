@@ -21,6 +21,8 @@ package's own: its count-then-scale engines agree for about 2,000 steps,
 after which chaos amplifies any rounding difference.
 """
 
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +39,7 @@ from brainevent_torch.ops import scatter as ts
 from _torch_one_thread import one_torch_thread  # noqa: F401
 
 N_STEPS = 2000
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _pair(scale, coba, seed=42):
@@ -96,10 +99,114 @@ def test_run_spike_counts_vs_jax_run(coba):
 
 def test_run_launches_twins_not_kernels_on_cpu():
     net = EINet(scale=0.05, device='cpu')
-    before = (tnet.einet_step.launches, ts.event_count_scatter.launches)
+    before = (tnet.einet_step.launches, ts.event_count_scatter.launches,
+              tnet.einet_sim.launches)
     net.run(20)
-    assert (tnet.einet_step.launches,
-            ts.event_count_scatter.launches) == before
+    net.step(net.init_state(), 0.0)
+    assert (tnet.einet_step.launches, ts.event_count_scatter.launches,
+            tnet.einet_sim.launches) == before
+
+
+def _burst(net):
+    """The net's initial state with every neuron above threshold and none
+    refractory: at inp 500 every neuron fires at the first step."""
+    s = net.init_state()
+    v = net.params.v_th + torch.rand(net.num, generator=torch.Generator()
+                                     .manual_seed(3))
+    return s._replace(neurons=s.neurons._replace(
+        v=v, t_last=torch.full_like(s.neurons.t_last, -1e7)))
+
+
+def _twin_loop(net, state, n, inp):
+    return tnet.einet_loop(
+        state.neurons.v, state.neurons.t_last, state.g_e, state.g_i,
+        state.spike_count, net.times(n), net.step_params(inp),
+        lambda ids, n_ids, counts: ts.event_count_scatter_twin(
+            ids, n_ids, net.conn_all, net.n_exc, counts),
+        step_op=tnet.einet_step_twin)
+
+
+@pytest.mark.parametrize('n', [0, 1, 2, 300])
+@pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
+def test_einet_sim_twin_bitwise_the_twin_loop_on_a_burst(coba, n):
+    net = EINet(scale=0.1, coba=coba, seed=7, device='cpu')
+    state = _burst(net)
+    want = _twin_loop(net, state, n, 500.0)
+    got = [x.clone() for x in (state.neurons.v, state.neurons.t_last,
+                               state.g_e, state.g_i, state.spike_count)]
+    before = tnet.einet_sim.launches
+    tnet.einet_sim(*got, net.conn_all,
+                   torch.tensor(net.times(n), dtype=torch.float32),
+                   net.step_params(500.0), net.n_exc)
+    assert tnet.einet_sim.launches == before
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    if n:
+        assert int(got[4].min()) >= 1              # every neuron fired
+    out = net.run(n, 500.0, state)                 # EINet.run: the same
+    for x, y in zip((out.neurons.v, out.neurons.t_last, out.g_e, out.g_i,
+                     out.spike_count), want):
+        assert torch.equal(x, y)
+
+
+def test_run_and_step_go_through_einet_sim_once(monkeypatch):
+    calls = []
+    twin = tnet.einet_sim.twin
+
+    def spy(*args, **kwargs):
+        calls.append(args[6].numel())              # the step times
+        return twin(*args, **kwargs)
+    monkeypatch.setattr(tnet.einet_sim, 'twin', spy)
+    net = EINet(scale=0.05, device='cpu')
+    state = net.run(30)
+    assert calls == [30]
+    net._simulate(state, [3.0], 20.0)        # EINet.step on a CUDA tensor
+    assert calls == [30, 1]
+    # an explicit step or scatter op runs the loop of two ops a step
+    net._simulate(state, net.times(5), 20.0,
+                  scatter_op=ts.event_count_scatter_twin)
+    net._simulate(state, net.times(5), 20.0, step_op=tnet.einet_step_twin)
+    assert calls == [30, 1]
+
+
+def test_einet_sim_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
+    """K21's wrapper declares and passes as many ctypes arguments as
+    ``einet_sim_launch`` has parameters (checked without a card: the entry
+    point is replaced by a recorder), and checks its shapes."""
+    from brainevent_torch.ops import cuda_build
+    seen = {}
+
+    def function(name, argtypes, restype=None):
+        def fn(*cargs):
+            assert len(cargs) == len(argtypes), name
+            seen[name] = cargs
+            return 0
+        return fn
+    monkeypatch.setattr(cuda_build, 'function', function)
+    monkeypatch.setattr(tnet, 'cuda_stream', lambda device: None)
+    net = EINet(scale=0.1, device='cpu')
+    s = net.init_state()
+    bufs = [x.clone() for x in (s.neurons.v, s.neurons.t_last, s.g_e,
+                                s.g_i, s.spike_count)]
+    times = torch.zeros(7)
+    op = tnet.einet_sim
+    op.cuda(op, *bufs, net.conn_all, times, net.step_params(), net.n_exc,
+            npt=2)
+    cargs = seen['einet_sim_launch']
+    text = (ROOT / 'brainevent_torch' / 'csrc' / 'einet_sim.cu').read_text()
+    sig = text[text.index(' einet_sim_launch(') + 18:]
+    assert sig[:sig.index(')')].count(',') + 1 == len(cargs)
+    # n_steps, npt, blocks: 400 neurons, 2 a thread
+    assert (cargs[7], cargs[12], cargs[13]) == (7, 2, 1)
+    with pytest.raises(ValueError, match='cover'):
+        op.cuda(op, *bufs, net.conn_all, times, net.step_params(),
+                net.n_exc, npt=1, blocks=1)
+    with pytest.raises(ValueError, match='npt'):
+        op.cuda(op, *bufs, net.conn_all, times, net.step_params(),
+                net.n_exc, npt=3)
+    with pytest.raises(ValueError, match='num'):
+        op.cuda(op, *bufs, net.conn_all[:-1], times, net.step_params(),
+                net.n_exc, npt=2)
 
 
 @pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])

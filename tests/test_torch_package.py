@@ -125,7 +125,7 @@ def test_build_command_targets_hopper_without_fma_contraction():
         'einet_step.cu', 'event_scatter.cu', 'fcn_event.cu', 'plan_gather.cu',
         'csr_event.cu', 'pair_gather.cu', 'csr_gather_mm.cu', 'jitc_walk.cu',
         'dense_event.cu', 'dense_stdp.cu', 'event_encode.cu',
-        'einet_dense.cu', 'mega_counts.cu'}
+        'einet_dense.cu', 'mega_counts.cu', 'einet_sim.cu'}
     for src in srcs:
         cmd = cuda_build.compile_command(nvcc, 'x.o', src)
         assert 'arch=compute_90a,code=sm_90a' in ' '.join(cmd)
@@ -195,7 +195,8 @@ def test_cu_sources_ship_as_package_data():
                        'pair_gather.cu', 'csr_gather_mm.cu', 'light_rng.cuh',
                        'jitc_walk.cu', 'dense_event.cu', 'dense_stdp.cu',
                        'event_encode.cu', 'einet_dense.cu',
-                       'mega_counts.cu', 'csr_rows.cuh'}
+                       'mega_counts.cu', 'csr_rows.cuh', 'einet_sim.cu',
+                       'einet_neuron.cuh'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 
@@ -259,9 +260,10 @@ def test_replaces_names_a_def_and_no_line_twice():
         by_line.setdefault(op.replaces, set()).add(op.name)
     shared = {k: v for k, v in by_line.items() if len(v) > 1}
     # K1 and K2 split one TPU kernel (einet_pallas_sim_mxu3) into the two
-    # launches of a step; no other line is named twice
+    # launches of a step, and K21 runs it whole in one launch; no other
+    # line is named twice
     assert shared == {'brainevent_tpu/models/pallas_sim.py:639': {
-        'einet_step', 'event_count_scatter'}}
+        'einet_step', 'event_count_scatter', 'einet_sim'}}
     assert by_line['brainevent_tpu/fcn/pallas_kernels.py:260'] == {
         'fcn_event_scatter'}
     for line, name in (('csr/pallas_kernels.py:55', 'csr_gather_mv'),

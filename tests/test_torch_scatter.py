@@ -11,6 +11,8 @@ package's at any add order. With float values the two packages add in
 different orders; the tolerance is rtol 1e-6 (a few float32 ulps).
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,3 +171,61 @@ def test_event_count_scatter_twin_counts(rng):
         row = conn[i][conn[i] < num]
         np.add.at(want[int(i >= n_exc)], row, 1)
     np.testing.assert_array_equal(counts.numpy(), want)
+
+
+@contextlib.contextmanager
+def _x64():
+    """JAX with 64-bit types for the length of the block."""
+    old = jax.config.jax_enable_x64
+    jax.config.update('jax_enable_x64', True)
+    try:
+        yield
+    finally:
+        jax.config.update('jax_enable_x64', old)
+
+
+def test_event_scatter_add_float64_sums_in_float64(rng):
+    """C13: float64 values sum in float64, as the JAX package sums them
+    under x64: 100k events of scale ~1e3 into 50 targets, within 1e-12 *
+    sum|values| per target (a float32 sum misses by ~1e-1)."""
+    n_out = 50
+    targets = rng.integers(0, n_out, 100_000).astype(np.int32)
+    values = rng.normal(size=100_000) * 1e3
+    with _x64():
+        want = np.asarray(js.event_scatter_add(jnp.asarray(targets),
+                                               jnp.asarray(values), n_out))
+    assert want.dtype == np.float64
+    got = ts.event_scatter_add(torch.from_numpy(targets),
+                               torch.from_numpy(values), n_out)
+    assert got.dtype == torch.float64
+    scale = np.bincount(targets, np.abs(values), minlength=n_out)
+    assert np.all(np.abs(got.numpy() - want) <= 1e-12 * scale)
+    np.testing.assert_array_equal(
+        want, np.bincount(targets, values, minlength=n_out))
+
+
+@pytest.mark.parametrize('dtype', ['int8', 'int32', 'int64'])
+def test_event_scatter_add_integer_outputs_match_jax(rng, dtype):
+    """C14: integer outputs, summed in their dtype with wraparound (int8
+    through the int32 sum, cast back), equal to the JAX package's, with a
+    mask and out-of-range targets dropped."""
+    n_out = 300
+    targets = rng.integers(0, n_out + 5, (4000, 4)).astype(np.int32)
+    mask = rng.random((4000, 1)) < 0.7
+    hi = {'int8': 128, 'int32': 2 ** 30, 'int64': 2 ** 40}[dtype]
+    values = rng.integers(-hi, hi, (4000, 4)).astype(dtype)
+    with _x64():
+        want = np.asarray(js.event_scatter_add(
+            jnp.asarray(targets), jnp.asarray(values), n_out,
+            mask=jnp.asarray(mask)))
+    got = ts.event_scatter_add(torch.from_numpy(targets),
+                               torch.from_numpy(values), n_out,
+                               mask=torch.from_numpy(mask))
+    assert str(got.dtype) == f'torch.{dtype}' and want.dtype == dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    if dtype == 'int8':                     # the sums do wrap
+        keep = np.broadcast_to(mask, targets.shape) & (targets < n_out)
+        wide = np.bincount(targets[keep], values[keep].astype(np.int64),
+                           minlength=n_out)
+        assert np.abs(wide).max() > 127
+        np.testing.assert_array_equal(got.numpy(), wide.astype(np.int8))

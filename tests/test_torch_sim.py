@@ -227,3 +227,55 @@ def test_mxu4_takes_an_in_degree_above_255():
     assert int(out[4].sum()) > 0
     _equal(out, sim.einet_pallas_sim_mxu3(net, state, 30, 500.0))
     _equal(out, sim.einet_pallas_sim_dense(net, state, 30, 500.0))
+
+
+# -- the strategies' route: K21 ``einet_sim`` (its twin on the CPU) ------------------
+
+def _burst(net):
+    """The net's initial state with every neuron above threshold and none
+    refractory: at inp 500 every neuron fires at the first step."""
+    s = net.init_state()
+    v = net.params.v_th + torch.rand(net.num, generator=torch.Generator()
+                                     .manual_seed(4))
+    return s._replace(neurons=s.neurons._replace(
+        v=v, t_last=torch.full_like(s.neurons.t_last, -1e7)))
+
+
+@pytest.mark.parametrize('n', [0, 1, 2, 300])
+@pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
+def test_einet_sim_twin_bitwise_einet_loop_on_a_burst(coba, n):
+    from brainevent_torch.models import networks as nw
+    from brainevent_torch.ops import scatter as sc
+    net = EINet(scale=0.1, coba=coba, seed=8, device='cpu')
+    state = _burst(net)
+    want = nw.einet_loop(
+        state.neurons.v, state.neurons.t_last, state.g_e, state.g_i,
+        state.spike_count, net.times(n), net.step_params(500.0),
+        lambda ids, n_ids, counts: sc.event_count_scatter_twin(
+            ids, n_ids, net.conn_all, net.n_exc, counts),
+        step_op=nw.einet_step_twin)
+    got = einet_pallas_sim(net, state, n, 500.0)
+    _equal(got, want)
+    if n:
+        assert int(got[4].min()) >= 1              # every neuron fired
+
+
+@pytest.mark.parametrize('strategy', ['mxu3', 'mxu6', 'mxu', 'chain', 'mxu2',
+                                      'mxu4', 'mxu5'])
+def test_strategies_run_einet_sim_once(monkeypatch, strategy):
+    """Each K21 strategy is one ``einet_sim`` call per run (a spy on its
+    twin); dense is the K1 + K19 loop and never calls it."""
+    from brainevent_torch.models import networks as nw
+    calls = []
+    twin = nw.einet_sim.twin
+
+    def spy(*args, **kwargs):
+        calls.append(args[6].numel())
+        return twin(*args, **kwargs)
+    monkeypatch.setattr(nw.einet_sim, 'twin', spy)
+    net = EINet(scale=0.05, device='cpu')
+    state = net.init_state()
+    einet_pallas_sim(net, state, 12, strategy=strategy)
+    assert calls == [12]
+    einet_pallas_sim(net, state, 12, strategy='dense')
+    assert calls == [12]
