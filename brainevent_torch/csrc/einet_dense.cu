@@ -7,9 +7,12 @@
 // It replaces the count product of
 // brainevent_tpu/models/pallas_sim.py:einet_pallas_sim_dense (:532), which
 // multiplies the (2, num) E/I spike masks by the (num, num) bf16 count table
-// on the MXU every step (:601-607). Only the rows of neurons that spiked
-// contribute to that product, and K1 (einet_step.cu) already writes their ids
-// to a device list, so here each step sums those rows of the table:
+// on the MXU every step (:601-607), on the route above the capacity of
+// K21's table instance (einet_sim.cu), which runs the dense strategy's
+// whole simulation in one launch below it. Only the rows of neurons that
+// spiked contribute to that product, and K1 (einet_step.cu) already writes
+// their ids to a device list, so here each step sums those rows of the
+// table:
 //
 //   counts[0, j] += sum over listed ids i <  n_exc of table[i, j]
 //   counts[1, j] += sum over listed ids i >= n_exc of table[i, j]

@@ -7,10 +7,13 @@
 // brainevent_tpu/models/pallas_sim.py:einet_pallas_sim_mxu3 (:639, its
 // pallas_call at :988 runs a fori_loop over the steps inside the kernel)
 // and :einet_pallas_sim_mxu6 (:1368), on the main path where K1
-// (einet_step.cu) and K2 (event_scatter.cu) took 2n + 1 launches. Its
-// result is bitwise theirs: the fold and the neuron update are
-// einet_neuron.cuh's, shared with K1, and the hit counts are int32 sums,
-// exact at any order of the atomics.
+// (einet_step.cu) and K2 (event_scatter.cu) took 2n + 1 launches; and, in
+// its table instances, :einet_pallas_sim_dense (:532, pallas_call at
+// :618), which multiplies the (2, num) E/I spike masks by the (num, num)
+// count table every step, where K1 and K19 (einet_dense.cu) took 2n + 1
+// launches. Its result is bitwise theirs: the fold and the neuron update
+// are einet_neuron.cuh's, shared with K1, and the hit counts are int32
+// sums, exact at any order of the atomics.
 //
 // Bound: neither bytes nor operations, but the grid barrier between steps
 // and the latency of a step's dependent loads. A step's work is small (at
@@ -26,18 +29,45 @@
 //   - hit counts are double-buffered by parity, int32 (2, 2, num): step k
 //     folds (and zeroes) the buffer step k - 1 filled and adds into the
 //     other one, so one barrier a step orders the two;
-//   - no spike list: each warp, right after the update, adds the targets
-//     of its own spiking neurons (a ballot, then its lanes walk one row at
-//     a time, as K2's do) into this step's counts. The design of K1 + K2
-//     in one grid (append to a list, barrier, a warp an event over the
-//     list, barrier) took 1.5-1.7 us a step more at 4k and 3.1-3.3 at
-//     400k on an H100 (PERF.md, PR 11).
+//   - no spike list in device memory. Where a spike's targets come from
+//     is the instance's SRC:
+//       SRC 0, the rows of conn (num, n_conn): each warp, right after the
+//       update, adds the targets of its own spiking neurons (a ballot,
+//       then its lanes walk one row at a time; einet_scatter.cuh, shared
+//       with K22) into this step's counts. The design of K1 + K2 in one
+//       grid (append to a list, barrier, a warp an event over the list,
+//       barrier) took 1.5-1.7 us a step more at 4k and 3.1-3.3 at 400k on
+//       an H100 (PERF.md, section 6);
+//       SRC 1 and 2, the rows of the (num, num) count table, uint8 or
+//       int32 (dense_count_table): a row is num entries (4 KB at 4k, 40 KB
+//       at 40k), not 80, so a warp alone would walk it in ~80 dependent
+//       rounds of 16-byte loads at 40k. Instead each warp appends its
+//       spikes to a list, and the list's rows are walked by many threads
+//       together: item q of the n_spk x n_vec items is 16-byte piece
+//       q % n_vec of row q / n_vec, U pieces in flight a thread, and every
+//       non-zero entry m at column c adds m to counts[ch][c]. The pieces
+//       are 16 bytes where the row length num * itemsize and the table's
+//       address are multiples of 16, else 4 (uint8) or one entry. Bytes a
+//       step: the spikes' rows, from L2 at 4k (a 16 MB table), from HBM
+//       at 40k (1.6 GB). Two walks, chosen by the caller by the bytes of
+//       a row (networks.table_grid_walk: by block up to 8 KB):
+//         block walk: the list is the block's, in shared memory, and
+//         after one __syncthreads the block walks its own rows; no second
+//         barrier, but a block with several spiking rows walks them alone;
+//         grid walk: the list is the grid's, in device memory, and after
+//         a grid barrier every thread of the grid takes its share of all
+//         the rows; a second barrier a step, and every SM's loads in
+//         flight.
 // Loads of the counts, which other blocks wrote in this launch, bypass L1
-// (__ldcg); conn and times, which nothing writes, go through the
-// read-only path.
+// (__ldcg); conn, the table and times, which nothing writes, go through
+// the read-only path.
 #include <cooperative_groups.h>
 
+#include <cstring>
+#include <type_traits>
+
 #include "einet_neuron.cuh"
+#include "einet_scatter.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -45,41 +75,140 @@ namespace {
 
 constexpr int BE_SIM_BLOCK = 256;
 
-// One warp adds 1 to counts[ch][target] for every target of neuron id
-// (ch = id >= n_exc); targets outside [0, num) are dropped, as K2 drops
-// them.
-__device__ __forceinline__ void be_sim_scatter_row(const int id,
-                                                   const int* __restrict__ conn,
-                                                   const int n_conn,
-                                                   const int n_exc,
-                                                   const int num, int* counts,
-                                                   const int lane) {
-    int* dst = counts + (id >= n_exc ? num : 0);
-    const int* row = conn + static_cast<long long>(id) * n_conn;
-    for (int c = lane; c < n_conn; c += 32) {
-        const unsigned target = static_cast<unsigned>(__ldg(row + c));
-        if (target < static_cast<unsigned>(num)) atomicAdd(dst + target, 1);
+__device__ __forceinline__ bool be_nonzero(const uint4& b) {
+    return (b.x | b.y | b.z | b.w) != 0;
+}
+template <typename V>
+__device__ __forceinline__ bool be_nonzero(const V& b) {
+    return b != 0;
+}
+
+// Add the entries of one piece b of a table row (sizeof(V) / sizeof(T)
+// entries of type T, the first at column dst's) to the counts.
+template <typename T, typename V>
+__device__ __forceinline__ void be_add_piece(const V& b, int* dst) {
+    constexpr int E = sizeof(V) / sizeof(T);
+    if (!be_nonzero(b)) return;
+    T e[E];
+    memcpy(e, &b, sizeof(V));
+#pragma unroll
+    for (int q = 0; q < E; ++q)
+        if (e[q]) atomicAdd(dst + q, static_cast<int>(e[q]));
+}
+
+// The n_spk rows ids[0..n_spk) of the (num, num) table, walked by the
+// threads tid, tid + stride, ... in pieces of type V, U pieces in flight a
+// thread, into add_ct (2, num). kGrid: ids lie in device memory, written
+// by other blocks in this launch (loaded past L1), else in shared memory.
+// The rows go in batches whose item index q < 2^30 + n_vec fits 32 bits.
+template <typename T, typename V, int U, bool kGrid>
+__device__ __forceinline__ void be_table_walk(const T* __restrict__ table,
+                                              const int* ids,
+                                              const unsigned n_spk,
+                                              const int num, const int n_exc,
+                                              int* add_ct, const unsigned tid,
+                                              const unsigned stride) {
+    constexpr unsigned E = sizeof(V) / sizeof(T);
+    const unsigned n_vec = static_cast<unsigned>(num) / E;
+    const unsigned batch = max(1u, (1u << 30) / n_vec);
+    for (unsigned s0 = 0; s0 < n_spk; s0 += batch) {
+        const unsigned total = min(batch, n_spk - s0) * n_vec;
+        for (unsigned q0 = tid; q0 < total; q0 += stride * U) {
+            V buf[U];
+            int row[U];
+            unsigned col[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const unsigned q = q0 + u * stride;
+                row[u] = -1;
+                col[u] = 0;
+                buf[u] = V{};
+                if (q < total) {
+                    const unsigned s = q / n_vec;
+                    col[u] = q - s * n_vec;
+                    row[u] = kGrid ? __ldcg(ids + s0 + s) : ids[s0 + s];
+                    buf[u] = __ldg(reinterpret_cast<const V*>(
+                                       table + static_cast<long long>(row[u]) *
+                                                   num) +
+                                   col[u]);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+                if (row[u] >= 0)
+                    be_add_piece<T>(buf[u],
+                                    add_ct + (row[u] >= n_exc ? num : 0) +
+                                        col[u] * E);
+        }
     }
+}
+
+// be_table_walk in the widest piece the launch allows (vec bytes).
+template <typename T, int U, bool kGrid>
+__device__ __forceinline__ void be_table_walk_vec(
+    const T* __restrict__ table, const int* ids, const unsigned n_spk,
+    const int num, const int n_exc, int* add_ct, const unsigned tid,
+    const unsigned stride, const int vec) {
+    if (vec == 16)
+        be_table_walk<T, uint4, U, kGrid>(table, ids, n_spk, num, n_exc,
+                                          add_ct, tid, stride);
+    else if (sizeof(T) == 1 && vec == 4)
+        be_table_walk<T, unsigned, U, kGrid>(table, ids, n_spk, num, n_exc,
+                                             add_ct, tid, stride);
+    else
+        be_table_walk<T, T, U, kGrid>(table, ids, n_spk, num, n_exc, add_ct,
+                                      tid, stride);
+}
+
+// Append the warp's spikes of one ballot (mask; lane's neuron i) to the
+// list ids behind the counter *n: one atomicAdd a warp.
+__device__ __forceinline__ void be_append(const unsigned mask, const int i,
+                                          const bool spike, const int lane,
+                                          unsigned* n, int* ids) {
+    if (!mask) return;
+    const int leader = __ffs(mask) - 1;
+    unsigned base = 0;
+    if (lane == leader) base = atomicAdd(n, static_cast<unsigned>(__popc(mask)));
+    base = __shfl_sync(0xffffffffu, base, leader);
+    if (spike) ids[base + __popc(mask & ((1u << lane) - 1u))] = i;
 }
 
 // NPT = 8 is held to three blocks an SM (78 registers a thread on an
 // H100, no spills): at its free allocation (95) it ran two, and so held
-// no more neurons than NPT = 4.
-template <int NPT>
-__global__ void __launch_bounds__(BE_SIM_BLOCK, NPT == 8 ? 3 : 1)
+// no more neurons than NPT = 4. So are the table instances of NPT 2 and
+// 4, which at two blocks an SM held fewer neurons than the largest table
+// that fits an 80 GB card (be_sim_max_npt). SRC: 0 conn rows, 1 a uint8
+// table, 2 an int32 table; vec: the bytes of a table piece (16, 4 or the entry's);
+// grid_walk: the table instances' walk by the whole grid, over a list
+// (2, num) by parity in device memory with its two counters behind it
+// (lists), a second barrier a step, in place of each block's walk of its
+// own spikes.
+template <int NPT, int SRC>
+__global__ void __launch_bounds__(BE_SIM_BLOCK,
+                                  NPT == 8 || (SRC && NPT > 1) ? 3 : 1)
 einet_sim_kernel(float* __restrict__ v, float* __restrict__ t_last,
                  float* __restrict__ g_e, float* __restrict__ g_i,
                  int* __restrict__ spike_count,
-                 const int* __restrict__ conn,
+                 const void* __restrict__ targets,
                  const float* __restrict__ times, const int n_steps,
                  const int n_conn, const int n_exc, int* counts,
+                 int* lists, const int vec, const int grid_walk,
                  const EINetParams p) {
+    using T = typename std::conditional<SRC == 2, int, unsigned char>::type;
+    constexpr int U = NPT >= 4 ? 4 : 8;
+    // the block's spiking neurons of a step (table instances)
+    __shared__ int s_ids[SRC ? BE_SIM_BLOCK * NPT : 1];
+    __shared__ unsigned s_n[2];
     cg::grid_group grid = cg::this_grid();
     const int num = p.num;
     const int n_threads = gridDim.x * blockDim.x;
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
     const int lane = threadIdx.x & 31;
     const long long plane = 2LL * num;
+    if constexpr (SRC != 0) {
+        if (threadIdx.x < 2) s_n[threadIdx.x] = 0;
+        __syncthreads();
+    }
 
     float rv[NPT], rt[NPT], re[NPT], ri[NPT];
     int rc[NPT];
@@ -99,6 +228,17 @@ einet_sim_kernel(float* __restrict__ v, float* __restrict__ t_last,
         const int parity = k & 1;
         int* fold_ct = counts + (parity ^ 1) * plane;
         int* add_ct = counts + parity * plane;
+        // The other parity's list length was read by step k - 1's walk,
+        // which every thread finished before the barrier.
+        int* list = lists + parity * num;
+        unsigned* n_list = reinterpret_cast<unsigned*>(lists + plane);
+        if (SRC != 0 && threadIdx.x == 0) {
+            if (grid_walk) {
+                if (blockIdx.x == 0) n_list[parity ^ 1] = 0;
+            } else {
+                s_n[parity ^ 1] = 0;
+            }
+        }
 #pragma unroll
         for (int s = 0; s < NPT; ++s) {
             const int i = j + s * n_threads;
@@ -117,13 +257,31 @@ einet_sim_kernel(float* __restrict__ v, float* __restrict__ t_last,
                 rc[s] += spike;
             }
             // Every thread reaches the ballot: no early return.
-            unsigned mask = __ballot_sync(0xffffffffu, spike);
+            const unsigned mask = __ballot_sync(0xffffffffu, spike);
             const int first = j - lane + s * n_threads;
-            while (mask) {
-                const int src = __ffs(mask) - 1;
-                mask &= mask - 1;
-                be_sim_scatter_row(first + src, conn, n_conn, n_exc, num,
-                                   add_ct, lane);
+            if constexpr (SRC == 0) {
+                be_scatter_spikes<false>(mask, first,
+                                         static_cast<const int*>(targets),
+                                         n_conn, 0, n_exc, num, num, add_ct,
+                                         lane);
+            } else if (grid_walk) {
+                be_append(mask, i, spike, lane, n_list + parity, list);
+            } else {
+                be_append(mask, i, spike, lane, &s_n[parity], s_ids);
+            }
+        }
+        if constexpr (SRC != 0) {
+            const T* table = static_cast<const T*>(targets);
+            if (grid_walk) {
+                grid.sync();
+                be_table_walk_vec<T, U, true>(
+                    table, list, __ldcg(n_list + parity), num, n_exc, add_ct,
+                    j, n_threads, vec);
+            } else {
+                __syncthreads();
+                be_table_walk_vec<T, U, false>(table, s_ids, s_n[parity],
+                                               num, n_exc, add_ct,
+                                               threadIdx.x, BE_SIM_BLOCK, vec);
             }
         }
         grid.sync();
@@ -154,13 +312,41 @@ einet_sim_barriers_kernel(const int n_syncs) {
     for (int k = 0; k < n_syncs; ++k) grid.sync();
 }
 
-// The kernel of the instance npt (1, 2, 4 or 8), or nullptr.
-const void* be_sim_kernel(int npt) {
+// The largest NPT built for each source. Held to three blocks an SM, a
+// table instance of NPT 4 holds ~405k neurons on an H100, more than the
+// ~292k of the largest uint8 table an 80 GB card holds, and NPT 2 ~203k,
+// more than the ~146k of the largest int32 one; larger instances would
+// only lengthen the build (networks.SIM_SOURCE_NPT).
+template <int SRC>
+constexpr int be_sim_max_npt = SRC == 0 ? 8 : (SRC == 1 ? 4 : 2);
+
+template <int NPT, int SRC>
+const void* be_sim_instance() {
+    if constexpr (NPT <= be_sim_max_npt<SRC>)
+        return reinterpret_cast<const void*>(einet_sim_kernel<NPT, SRC>);
+    else
+        return nullptr;
+}
+
+template <int SRC>
+const void* be_sim_kernel_of(int npt) {
     switch (npt) {
-        case 1: return reinterpret_cast<const void*>(einet_sim_kernel<1>);
-        case 2: return reinterpret_cast<const void*>(einet_sim_kernel<2>);
-        case 4: return reinterpret_cast<const void*>(einet_sim_kernel<4>);
-        case 8: return reinterpret_cast<const void*>(einet_sim_kernel<8>);
+        case 1: return be_sim_instance<1, SRC>();
+        case 2: return be_sim_instance<2, SRC>();
+        case 4: return be_sim_instance<4, SRC>();
+        case 8: return be_sim_instance<8, SRC>();
+        default: return nullptr;
+    }
+}
+
+// The kernel of the instance (npt 1, 2, 4 or 8 over conn, src 0; up to 4
+// over a uint8 table, src 1; up to 2 over an int32 one, src 2), or
+// nullptr.
+const void* be_sim_kernel(int npt, int src) {
+    switch (src) {
+        case 0: return be_sim_kernel_of<0>(npt);
+        case 1: return be_sim_kernel_of<1>(npt);
+        case 2: return be_sim_kernel_of<2>(npt);
         default: return nullptr;
     }
 }
@@ -178,12 +364,13 @@ int be_refused(int err) {
 
 }  // namespace
 
-// Blocks of BE_SIM_BLOCK threads of the instance npt that can be
+// Blocks of BE_SIM_BLOCK threads of the instance (npt, src) that can be
 // co-resident on the device: the largest grid a cooperative launch takes.
-BE_EXPORT int einet_sim_max_blocks(int npt, int device, int* blocks) {
+BE_EXPORT int einet_sim_max_blocks(int npt, int src, int device,
+                                   int* blocks) {
     int err = be_begin(device);
     if (err) return err;
-    const void* kernel = be_sim_kernel(npt);
+    const void* kernel = be_sim_kernel(npt, src);
     if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
     int per_sm = 0, sms = 0;
     err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -197,28 +384,41 @@ BE_EXPORT int einet_sim_max_blocks(int npt, int device, int* blocks) {
 }
 
 // v, t_last, g_e, g_i: (num,) float32 and spike_count (num,) int32, read
-// at the start and written at the end; conn: (num, n_conn) int32; times:
-// (n_steps,) float32; counts: (2, 2, num) int32, zeroed by the caller.
-// blocks * BE_SIM_BLOCK * npt
-// must cover num; a grid larger than can be co-resident is refused
-// (cudaErrorCooperativeLaunchTooLarge).
+// at the start and written at the end; targets: conn (num, n_conn) int32
+// (src 0), or the (num, num) count table, uint8 (src 1) or int32 (src 2),
+// read in pieces of vec bytes (16, 4 or the entry's; the row length in
+// bytes and the table's address are multiples of it), by each block's
+// threads (grid_walk 0) or by the whole grid over lists: 2 * num + 2 int32,
+// the last two zeroed by the caller (grid_walk 1); times: (n_steps,)
+// float32; counts: (2, 2, num) int32, zeroed by the caller. blocks *
+// BE_SIM_BLOCK * npt must cover num; a grid larger than can be co-resident
+// is refused (cudaErrorCooperativeLaunchTooLarge).
 BE_EXPORT int einet_sim_launch(float* v, float* t_last, float* g_e,
-                               float* g_i, int* spike_count, const int* conn,
-                               const float* times, int n_steps, int n_conn,
-                               int n_exc, int* counts, const EINetParams* p,
-                               int npt, int blocks, int device,
-                               void* stream) {
+                               float* g_i, int* spike_count,
+                               const void* targets, const float* times,
+                               int n_steps, int n_conn, int n_exc,
+                               int* counts, const EINetParams* p, int npt,
+                               int blocks, int src, int vec, int* lists,
+                               int grid_walk, int device, void* stream) {
     int err = be_begin(device);
     if (err) return err;
     if (p->num <= 0) return be_end();
     if (blocks <= 0 ||
         static_cast<long long>(blocks) * BE_SIM_BLOCK * npt < p->num)
         return static_cast<int>(cudaErrorInvalidValue);
-    const void* kernel = be_sim_kernel(npt);
+    const int item = src == 2 ? 4 : 1;
+    if (src && (vec < item || vec % item ||
+                (static_cast<long long>(p->num) * item) % vec ||
+                reinterpret_cast<unsigned long long>(targets) % vec ||
+                (grid_walk && !lists)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const void* kernel = be_sim_kernel(npt, src);
     if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
     EINetParams params = *p;
-    void* args[] = {&v,     &t_last,  &g_e,    &g_i,   &spike_count, &conn,
-                    &times, &n_steps, &n_conn, &n_exc, &counts,      &params};
+    grid_walk = src && grid_walk;
+    void* args[] = {&v,      &t_last,  &g_e,       &g_i,    &spike_count,
+                    &targets, &times,  &n_steps,   &n_conn, &n_exc,
+                    &counts, &lists,  &vec,       &grid_walk, &params};
     return be_refused(static_cast<int>(cudaLaunchCooperativeKernel(
         kernel, dim3(blocks), dim3(BE_SIM_BLOCK), args, 0,
         static_cast<cudaStream_t>(stream))));

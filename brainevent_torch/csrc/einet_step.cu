@@ -8,9 +8,10 @@
 // K21 (einet_sim.cu) replaced on the main path: the counterpart of the
 // whole-simulation TPU kernels
 // brainevent_tpu/models/pallas_sim.py:einet_pallas_sim_mxu3 (:639) and
-// :einet_pallas_sim_mxu6 (:1368) for a network larger than K21 holds, and
-// the neuron step of the dense strategy (with K19) and of the sharded
-// network (with K20). Those TPU kernels compact spike ids with prefix sums
+// :einet_pallas_sim_mxu6 (:1368) for a network larger than K21 holds, and,
+// with K19, of the dense strategy above K21's table instance's capacity.
+// K21 runs the dense strategy below it, and K22 (einet_shard.cu) the
+// sharded network's step. Those TPU kernels compact spike ids with prefix sums
 // and count hits with one-hot matrix products because a TPU has no
 // atomics; here the ids are appended with one atomicAdd per warp and the
 // counts are integer atomics (K2).

@@ -6,7 +6,8 @@
 // brainevent_tpu/parallel/mega.py:_make_counts_kernel (:122, pallas_call at
 // :238), the single-step mxu6 scatter that each device of the JAX
 // ShardedEINet runs on its own rows of the connection table before one
-// reduce-scatter.
+// reduce-scatter, at mega_local_counts; the sharded network's step runs
+// the same counts inside K22 (einet_shard.cu, through einet_scatter.cuh).
 //
 // A device holds n_loc neurons, the global rows [row0, row0 + n_loc) of
 // the row-major int32 table conn (n_loc, n_conn), and this step's spike

@@ -34,9 +34,12 @@ Two formulations of one step, bitwise equal to each other and to
   twins of two ops per step: :data:`einet_step` (kernel K1,
   ``csrc/einet_step.cu``) and
   :data:`brainevent_torch.ops.scatter.event_count_scatter` (kernel K2).
-  The same loop over the two kernels (2n + 1 launches) is the route of
-  the dense strategy, the sharded network, a network larger than K21
-  holds, and a caller that passes ``step_op``/``scatter_op``.
+  Given the dense strategy's ``(num, num)`` count table, K21's table
+  instance walks the table's rows in place of conn's, and its twin runs
+  :data:`einet_dense_hits` (kernel K19, ``csrc/einet_dense.cu``) in K2's
+  place. The same loop over the kernels (2n + 1 launches) is the route of
+  a network larger than K21 holds and of a caller that passes
+  ``step_op``/``scatter_op``.
 
 Where XLA contracts multiply-adds into FMAs, both formulations write the
 FMA out (``torch.addcmul`` here, ``__fmaf_rn`` in K1 and K21)::
@@ -68,7 +71,8 @@ from .neurons import LIFRefParams, LIFRefState, f32, lifref_init, lifref_step
 
 __all__ = ['EINet', 'EINetState', 'EINetParams', 'einet_step',
            'einet_step_twin', 'einet_sim', 'einet_sim_twin', 'einet_loop',
-           'einet_sim_capacity']
+           'einet_sim_capacity', 'einet_sim_holds', 'einet_dense_hits',
+           'einet_dense_hits_twin']
 
 
 class EINetState(NamedTuple):
@@ -155,19 +159,79 @@ einet_step = KernelOp(
     replaces='brainevent_tpu/models/pallas_sim.py:639')
 
 
+# -- K19: the dense strategy's hits above K21's capacity ----------------------------
+
+def einet_dense_hits_twin(ids: torch.Tensor, n_ids: torch.Tensor,
+                          table: torch.Tensor, n_exc: int,
+                          counts: torch.Tensor) -> torch.Tensor:
+    """``counts[0] += sum of table[i]`` over the first ``n_ids[0]`` ids
+    ``i < n_exc``, ``counts[1]`` over the others, in place, dropping ids
+    outside ``[0, num)``. Plain PyTorch twin of K19."""
+    num = counts.shape[1]
+    sel = ids[:max(0, min(int(n_ids[0]), num))].long()
+    sel = sel[(sel >= 0) & (sel < num)]
+    for ch, rows in enumerate((sel[sel < n_exc], sel[sel >= n_exc])):
+        counts[ch] += table[rows].sum(0, dtype=torch.int32)
+    return counts
+
+
+def _check_table(name, table):
+    if table.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f'{name}: the table must be uint8 or int32, got '
+                        f'{table.dtype}')
+
+
+def _einet_dense_hits_cuda(op, ids, n_ids, table, n_exc, counts):
+    _check_table(op.name, table)
+    i32 = torch.int32
+    device = check_cuda_tensors(op.name, (ids, i32), (n_ids, i32),
+                                (table, table.dtype), (counts, i32))
+    num = table.shape[0]
+    if (table.shape != (num, num) or counts.shape != (2, num)
+            or ids.shape != (num,) or n_ids.numel() < 1):
+        raise ValueError(f'{op.name}: ids {tuple(ids.shape)}, table '
+                         f'{tuple(table.shape)}, counts {tuple(counts.shape)}')
+    fn = cuda_build.function('einet_dense_hits_launch', [
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    op.launch(fn, ids.data_ptr(), n_ids.data_ptr(), table.data_ptr(),
+              int(table.dtype == torch.int32), num, int(n_exc),
+              counts.data_ptr(), device.index or 0, cuda_stream(device))
+    return counts
+
+
+einet_dense_hits = KernelOp(
+    'einet_dense_hits', twin=einet_dense_hits_twin,
+    cuda=_einet_dense_hits_cuda,
+    source='brainevent_torch/csrc/einet_dense.cu',
+    replaces='brainevent_tpu/models/pallas_sim.py:532')
+
+
 # -- K21: the whole run in one launch -----------------------------------------------
 
 SIM_BLOCK = 256          # threads a block of K21 (BE_SIM_BLOCK in einet_sim.cu)
 SIM_NPT = (1, 2, 4, 8)   # K21's instances: neurons a thread keeps in registers
+# K21's target sources (SRC in einet_sim.cu), by the count table's dtype:
+# None the rows of conn, else the rows of the (num, num) table
+SIM_SOURCES = {None: 0, torch.uint8: 1, torch.int32: 2}
+# the NPT instances built for each source (be_sim_max_npt in einet_sim.cu):
+# a table that fits an 80 GB card (~290k neurons uint8, ~145k int32)
+# needs no more than NPT 4 or NPT 2 at three blocks an SM
+SIM_SOURCE_NPT = {None: SIM_NPT, torch.uint8: SIM_NPT[:3],
+                  torch.int32: SIM_NPT[:2]}
 
 
 def einet_sim_twin(v, t_last, g_e, g_i, spike_count, conn, times,
-                   p: EINetParams, n_exc: int) -> None:
+                   p: EINetParams, n_exc: int, table=None) -> None:
     """Plain PyTorch twin of kernel K21, in place: :func:`einet_loop` at
     the float32 step *times* over the twins of K1 and K2 (the hit counts
-    of the whole ``(num, n_conn)`` table *conn*)."""
+    of the whole ``(num, n_conn)`` table *conn*), or of K1 and K19 (the
+    rows of the ``(num, num)`` count *table*, when one is given)."""
     def propagate(ids, n_ids, counts):
-        event_count_scatter_twin(ids, n_ids, conn, n_exc, counts)
+        if table is None:
+            event_count_scatter_twin(ids, n_ids, conn, n_exc, counts)
+        else:
+            einet_dense_hits_twin(ids, n_ids, table, n_exc, counts)
     out = einet_loop(v, t_last, g_e, g_i, spike_count, times.tolist(), p,
                      propagate, step_op=einet_step_twin)
     for dst, src in zip((v, t_last, g_e, g_i, spike_count), out):
@@ -175,82 +239,147 @@ def einet_sim_twin(v, t_last, g_e, g_i, spike_count, conn, times,
 
 
 @functools.lru_cache(maxsize=None)
-def _max_blocks(device_index: int, npt: int) -> int:
+def _max_blocks(device_index: int, npt: int, src: int) -> int:
     fn = cuda_build.function('einet_sim_max_blocks', [
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)])
     out = ctypes.c_int(0)
-    err = fn(npt, device_index, ctypes.byref(out))
+    err = fn(npt, src, device_index, ctypes.byref(out))
     if err:
         raise KernelExecutionError(
-            f'einet_sim: occupancy of npt={npt} failed with CUDA error {err} '
-            f'({cuda_build.error_string(err)})')
+            f'einet_sim: occupancy of npt={npt}, src={src} failed with CUDA '
+            f'error {err} ({cuda_build.error_string(err)})')
     return out.value
 
 
-def einet_sim_max_blocks(device: torch.device, npt: int) -> int:
+def einet_sim_max_blocks(device: torch.device, npt: int,
+                         table_dtype=None) -> int:
     """Blocks of :data:`SIM_BLOCK` threads of K21's instance *npt* that
     can be co-resident on *device*: the largest grid its cooperative
     launch takes (asked of the CUDA occupancy calculator once per device
-    and instance)."""
-    return _max_blocks(device.index or 0, npt)
+    and instance). *table_dtype*: the count table's dtype for a table
+    instance, ``None`` for the rows of conn."""
+    return _max_blocks(device.index or 0, npt, SIM_SOURCES[table_dtype])
 
 
-def einet_sim_capacity(device: torch.device) -> int:
-    """The most neurons K21 runs on *device*: its NPT = 8 instance at its
-    own occupancy, every co-resident thread holding 8 neurons (811,008 on
-    an H100: three blocks of 256 an SM)."""
-    return einet_sim_max_blocks(device, SIM_NPT[-1]) * SIM_BLOCK * SIM_NPT[-1]
+def einet_sim_capacity(device: torch.device, table_dtype=None) -> int:
+    """The most neurons K21 runs on *device*: the largest NPT instance of
+    the source *table_dtype* (:data:`SIM_SOURCE_NPT`; see
+    :func:`einet_sim_max_blocks`) at its own occupancy, every co-resident
+    thread holding NPT neurons (811,008 on an H100 over conn: NPT 8 at
+    three blocks of 256 an SM)."""
+    npt = SIM_SOURCE_NPT[table_dtype][-1]
+    return einet_sim_max_blocks(device, npt, table_dtype) * SIM_BLOCK * npt
 
 
-def einet_sim_grid(num: int, device: torch.device):
+def einet_sim_holds(num: int, device: torch.device, table_dtype=None) -> bool:
+    """Whether a run of *num* neurons on *device* takes K21 (one launch):
+    always on the CPU (its twin), on a card up to
+    :func:`einet_sim_capacity` of the source *table_dtype*. The route is
+    chosen by size, never on failure."""
+    return (device.type != 'cuda'
+            or num <= einet_sim_capacity(device, table_dtype))
+
+
+def einet_sim_grid(num: int, device: torch.device, table_dtype=None):
     """``(npt, blocks)`` of K21 for *num* neurons: the fewest neurons a
     thread that a co-resident grid covers, and as many blocks as that
     takes (16 of 256 threads at 4,000 neurons). Raises ``ValueError``
     above :func:`einet_sim_capacity`."""
-    for npt in SIM_NPT:
+    for npt in SIM_SOURCE_NPT[table_dtype]:
         blocks = -(-num // (npt * SIM_BLOCK))
-        if blocks <= einet_sim_max_blocks(device, npt):
+        if blocks <= einet_sim_max_blocks(device, npt, table_dtype):
             return npt, blocks
     raise ValueError(f'einet_sim: {num} neurons exceed what K21 holds on '
-                     f'{device} ({einet_sim_capacity(device)})')
+                     f'{device} ({einet_sim_capacity(device, table_dtype)})')
+
+
+def table_piece_bytes(table: torch.Tensor) -> int:
+    """The bytes of the pieces K21's table instance reads a row in: 16
+    where the row length ``num * itemsize`` and the table's address are
+    multiples of 16, else 4 (uint8) or one entry."""
+    row = table.shape[1] * table.element_size()
+    for vec in (16, 4, table.element_size()):
+        if row % vec == 0 and table.data_ptr() % vec == 0:
+            return vec
+    raise ValueError(f'einet_sim: the table at {table.data_ptr():#x} is not '
+                     f'aligned to its {table.element_size()}-byte entries')
+
+
+# The longest table row K21's table instance walks by block; longer rows
+# are walked by the whole grid. At NPT 1 (about half a spike a block a
+# step at 20 Hz) the block walk's step grows by ~0.34 us a KB of row and
+# the grid walk's by ~0.13 over its second barrier's ~0.7 us: on an H100
+# the block walk is faster up to 8 KB (8k uint8 neurons), the grid walk
+# from 10 KB, whether the table fits the L2 cache or not (PERF.md, 6).
+TABLE_BLOCK_WALK_ROW_BYTES = 8192
+
+
+def table_grid_walk(table: torch.Tensor) -> bool:
+    """Whether K21's table instance walks the table rows of a step's
+    spikes with the whole grid (a second grid barrier a step) rather
+    than with each block alone: where a row's bytes exceed
+    :data:`TABLE_BLOCK_WALK_ROW_BYTES`, so that a block's few spiking
+    rows take more than one round of its loads in flight."""
+    return (table.shape[1] * table.element_size()
+            > TABLE_BLOCK_WALK_ROW_BYTES)
 
 
 def _einet_sim_cuda(op, v, t_last, g_e, g_i, spike_count, conn, times, p,
-                    n_exc, *, npt=0, blocks=0):
-    """Launch K21 once for ``times.numel()`` steps. *npt* and *blocks*
-    pick the instance and the grid (default: those :func:`einet_sim_grid`
-    picks); no public entry sets them. A grid that cannot be co-resident
-    is refused by the cooperative launch and raises
+                    n_exc, table=None, *, npt=0, blocks=0, grid_walk=None):
+    """Launch K21 once for ``times.numel()`` steps, over the rows of
+    *conn*, or of the ``(num, num)`` count *table* where one is given.
+    *npt* and *blocks* pick the instance and the grid (default: those
+    :func:`einet_sim_grid` picks), *grid_walk* a table's walk (default:
+    :func:`table_grid_walk`); no public entry sets them. A grid that
+    cannot be co-resident is refused by the cooperative launch and raises
     :class:`KernelExecutionError`."""
     f, i = torch.float32, torch.int32
-    device = check_cuda_tensors(op.name, (v, f), (t_last, f), (g_e, f),
-                                (g_i, f), (spike_count, i), (conn, i),
-                                (times, f))
+    pairs = [(v, f), (t_last, f), (g_e, f), (g_i, f), (spike_count, i),
+             (conn, i), (times, f)]
     num = p.num
+    if table is not None:
+        _check_table(op.name, table)
+        pairs.append((table, table.dtype))
+        if table.shape != (num, num):
+            raise ValueError(f'{op.name}: table {tuple(table.shape)} does '
+                             f'not match num={num}')
+    device = check_cuda_tensors(op.name, *pairs)
     if (conn.dim() != 2 or conn.shape[0] != num or times.dim() != 1
             or any(x.shape != (num,) for x in (v, t_last, g_e, g_i,
                                                 spike_count))):
         raise ValueError(f'{op.name}: state, conn {tuple(conn.shape)} and '
                          f'times {tuple(times.shape)} do not match num={num}')
+    dtype = None if table is None else table.dtype
     if not npt:
-        npt, fewest = einet_sim_grid(num, device)
-    elif npt in SIM_NPT:
+        npt, fewest = einet_sim_grid(num, device, dtype)
+    elif npt in SIM_SOURCE_NPT[dtype]:
         fewest = -(-num // (npt * SIM_BLOCK))
     else:
-        raise ValueError(f'{op.name}: npt must be one of {SIM_NPT}, got {npt}')
+        raise ValueError(f'{op.name}: npt must be one of '
+                         f'{SIM_SOURCE_NPT[dtype]}, got {npt}')
     blocks = blocks or fewest
     if blocks * SIM_BLOCK * npt < num:
         raise ValueError(f'{op.name}: {blocks} blocks of {SIM_BLOCK} threads '
                          f'x {npt} neurons do not cover {num} neurons')
     counts = torch.zeros(2, 2, num, dtype=i, device=device)
+    targets, vec, lists = conn, 0, None
+    if table is not None:
+        targets, vec = table, table_piece_bytes(table)
+        if table_grid_walk(table) if grid_walk is None else grid_walk:
+            # the grid's spike lists by parity and their two counters
+            lists = torch.zeros(2 * num + 2, dtype=i, device=device)
     fn = cuda_build.function('einet_sim_launch', [ctypes.c_void_p] * 7 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.POINTER(EINetParams)] + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p])
+        ctypes.c_int] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p])
     op.launch(fn, v.data_ptr(), t_last.data_ptr(), g_e.data_ptr(),
-              g_i.data_ptr(), spike_count.data_ptr(), conn.data_ptr(),
+              g_i.data_ptr(), spike_count.data_ptr(), targets.data_ptr(),
               times.data_ptr(), times.numel(), conn.shape[1], int(n_exc),
               counts.data_ptr(), ctypes.byref(p), npt, blocks,
-              device.index or 0, cuda_stream(device))
+              SIM_SOURCES[dtype], vec,
+              None if lists is None else lists.data_ptr(),
+              int(lists is not None), device.index or 0, cuda_stream(device))
 
 
 einet_sim = KernelOp(
@@ -406,36 +535,44 @@ class EINet:
         return self._simulate(state, self.times(n_steps), inp)
 
     def _simulate(self, state: EINetState, times, inp: float, *,
-                  step_op=None, scatter_op=None) -> EINetState:
+                  step_op=None, scatter_op=None, table=None) -> EINetState:
         """The run at the float32 step *times*.
 
         By default one :data:`einet_sim` call: K21 on a CUDA device, its
-        twin (:func:`einet_loop` over the K1 and K2 twins) on the CPU.
-        The route is chosen by size, not on failure: a network above
-        :func:`einet_sim_capacity` (the neurons K21's NPT = 8 instance
-        holds in the registers of a co-resident grid, 811,008 on an
-        H100) runs :func:`einet_loop` over K1 and K2 instead, 2n + 1
-        launches. Passing *step_op* or *scatter_op* runs
-        :func:`einet_loop` with them (K1 or K2 for the one not passed):
-        the dense strategy passes its K19 scatter, ``chip_smoke.py`` the
-        twins or the kernels to compare routes on a card."""
+        twin (:func:`einet_loop` over the K1 and K2 twins) on the CPU;
+        with a ``(num, num)`` count *table* (the dense strategy's) K21's
+        table instance, whose twin runs K19's twin in K2's place. The
+        route is chosen by size, not on failure (:func:`einet_sim_holds`):
+        a network above :func:`einet_sim_capacity` of the source (the
+        neurons its largest instance holds in the registers of a
+        co-resident grid, 811,008 on an H100 over conn) runs
+        :func:`einet_loop` over K1 and K2 (K19 with a table) instead, 2n +
+        1 launches. Passing *step_op* or *scatter_op* runs
+        :func:`einet_loop` with them (K1, or K2 or K19, for the one not
+        passed): ``chip_smoke.py`` passes the twins or the kernels to
+        compare routes on a card."""
         p = self.step_params(inp)
         device = state.neurons.v.device
-        if step_op is None and scatter_op is None and (
-                device.type != 'cuda' or p.num <= einet_sim_capacity(device)):
+        if step_op is None and scatter_op is None and einet_sim_holds(
+                p.num, device, None if table is None else table.dtype):
             out = [x.to(dtype, copy=True) for x, dtype in (
                 (state.neurons.v, torch.float32),
                 (state.neurons.t_last, torch.float32),
                 (state.g_e, torch.float32), (state.g_i, torch.float32),
                 (state.spike_count, torch.int32))]
             t = torch.from_numpy(np.asarray(times, dtype=np.float32))
-            einet_sim(*out, self.conn_all, t.to(device), p, self.n_exc)
+            einet_sim(*out, self.conn_all, t.to(device), p, self.n_exc,
+                      table=table)
             v, t_last, g_e, g_i, spike_count = out
         else:
-            scatter_op = scatter_op or event_count_scatter
-
             def propagate(ids, n_ids, counts):
-                scatter_op(ids, n_ids, self.conn_all, self.n_exc, counts)
+                if scatter_op is not None:
+                    scatter_op(ids, n_ids, self.conn_all, self.n_exc, counts)
+                elif table is None:
+                    event_count_scatter(ids, n_ids, self.conn_all, self.n_exc,
+                                        counts)
+                else:
+                    einet_dense_hits(ids, n_ids, table, self.n_exc, counts)
             v, t_last, g_e, g_i, spike_count = einet_loop(
                 state.neurons.v, state.neurons.t_last, state.g_e, state.g_i,
                 state.spike_count, times, p, propagate,
@@ -452,8 +589,8 @@ class EINet:
 def einet_loop(v, t_last, g_e, g_i, spike_count, times, p: EINetParams,
                propagate, *, step_op=einet_step):
     """The EI step loop on ``p.num`` neurons, shared by :class:`EINet`'s
-    routes over two ops a step and the sharded network: for each time in *times*, K1 then
-    ``propagate(ids, n_ids, counts)``, which leaves in the int32 ``(2,
+    routes over two ops a step and K21's twins: for each time in *times*,
+    K1 then ``propagate(ids, n_ids, counts)``, which leaves in the int32 ``(2,
     p.num)`` *counts* this step's hits of the spike list *ids* (its
     length at ``n_ids[0]``); then a last K1 that only folds the final
     counts. The five state arrays are copied, not modified; the copies

@@ -24,12 +24,11 @@ gather. On a GPU the whole simulation is one launch too, kernel K21
 ``einet_sim`` (``csrc/einet_sim.cu``): a persistent cooperative grid keeps
 each neuron's state in registers across the steps, counts its spikes'
 targets into int32 E/I hits with integer atomics, and crosses a grid-wide
-barrier between steps. The dense strategy keeps two kernels a step: K1
-``einet_step`` (``csrc/einet_step.cu``), which updates the neurons and
-appends the ids of this step's spikes to a device list, and K19, which
-counts that list's hits from the dense table; K1 folds them at the next
-step. Every route gives the same counts, so all eight strategies return
-bitwise the same five outputs.
+barrier between steps. The dense strategy runs K21's table instance: the
+same grid, barrier and registers, each block (for rows over 8 KB the
+whole grid) walking the rows of its spiking neurons in the ``(num, num)``
+count table in place of their rows of conn. Every route gives the same counts, so all eight strategies
+return bitwise the same five outputs.
 
 ======== ======================================== ======== ==================
 strategy JAX function (``pallas_sim.py``)          route    why
@@ -41,9 +40,9 @@ mxu3     ``einet_pallas_sim_mxu3`` (``:639``)       K21      two-stage compactio
 mxu6     ``einet_pallas_sim_mxu6`` (``:1368``)      K21      K21 reads the plain
                                                            row-major table
                                                            from HBM at any size
-dense    ``einet_pallas_sim_dense`` (``:532``)      K1 + K19 the count product
-                                                           ``masks @ table``:
-                                                           K19 sums the table
+dense    ``einet_pallas_sim_dense`` (``:532``)      K21      the count product
+                                                  (table)  ``masks @ table``:
+                                                           K21 sums the table
                                                            rows of the spikes
 mxu      ``einet_pallas_sim_mxu`` (``:143``)        K21      branchy scan and
                                                            event buffers are
@@ -64,7 +63,9 @@ mxu5     ``einet_pallas_sim_mxu5`` (``:2430``)      K21      split E/I compactio
 The seven K21 strategies run :meth:`EINet.run`, so a network larger than
 K21 holds (:func:`~brainevent_torch.models.networks.einet_sim_capacity`,
 811,008 neurons on an H100) runs its route of two kernels a step, K1 and
-K2 (``csrc/event_scatter.cu``), there.
+K2 (``csrc/event_scatter.cu``), there; the dense strategy above its table
+instance's capacity runs K1 and K19 (``csrc/einet_dense.cu``, which sums
+the table rows of K1's spike list), a size whose table no card holds.
 
 K21, K2 and K19 count in int32 with no capacity, so no strategy needs an
 overflow round, and none copies the TPU's in-degree limit of 255 (the
@@ -76,13 +77,10 @@ package. ``platform`` is accepted for parity; the device of *state*
 decides where a strategy runs.
 """
 
-import ctypes
-
 import torch
 
-from ..ops import cuda_build
-from ..ops.core import KernelOp, check_cuda_tensors, cuda_stream
-from .networks import EINet, EINetState
+from .networks import (EINet, EINetState, einet_dense_hits,
+                       einet_dense_hits_twin)
 
 __all__ = ['einet_pallas_sim', 'einet_pallas_sim_mxu',
            'einet_pallas_sim_mxu2', 'einet_pallas_sim_mxu3',
@@ -237,7 +235,7 @@ def mxu6_conn_table(net: EINet, *, rpb: int = 384, group: int = 4,
     return net.conn_all
 
 
-# -- the dense strategy: the count table and K19 --------------------------------------
+# -- the dense strategy: the count table --------------------------------------------
 
 def dense_count_table(net: EINet) -> torch.Tensor:
     """The ``(num, num)`` connection-count table on the net's device:
@@ -281,65 +279,24 @@ def dense_count_table(net: EINet) -> torch.Tensor:
     return table.view(num, num)
 
 
-def einet_dense_hits_twin(ids: torch.Tensor, n_ids: torch.Tensor,
-                          table: torch.Tensor, n_exc: int,
-                          counts: torch.Tensor) -> torch.Tensor:
-    """``counts[0] += sum of table[i]`` over the first ``n_ids[0]`` ids
-    ``i < n_exc``, ``counts[1]`` over the others, in place, dropping ids
-    outside ``[0, num)``. Plain PyTorch twin of K19."""
-    num = counts.shape[1]
-    sel = ids[:max(0, min(int(n_ids[0]), num))].long()
-    sel = sel[(sel >= 0) & (sel < num)]
-    for ch, rows in enumerate((sel[sel < n_exc], sel[sel >= n_exc])):
-        counts[ch] += table[rows].sum(0, dtype=torch.int32)
-    return counts
-
-
-def _einet_dense_hits_cuda(op, ids, n_ids, table, n_exc, counts):
-    if table.dtype not in (torch.uint8, torch.int32):
-        raise TypeError(f'{op.name}: the table must be uint8 or int32, got '
-                        f'{table.dtype}')
-    i32 = torch.int32
-    device = check_cuda_tensors(op.name, (ids, i32), (n_ids, i32),
-                                (table, table.dtype), (counts, i32))
-    num = table.shape[0]
-    if (table.shape != (num, num) or counts.shape != (2, num)
-            or ids.shape != (num,) or n_ids.numel() < 1):
-        raise ValueError(f'{op.name}: ids {tuple(ids.shape)}, table '
-                         f'{tuple(table.shape)}, counts {tuple(counts.shape)}')
-    fn = cuda_build.function('einet_dense_hits_launch', [
-        ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    op.launch(fn, ids.data_ptr(), n_ids.data_ptr(), table.data_ptr(),
-              int(table.dtype == torch.int32), num, int(n_exc),
-              counts.data_ptr(), device.index or 0, cuda_stream(device))
-    return counts
-
-
-einet_dense_hits = KernelOp(
-    'einet_dense_hits', twin=einet_dense_hits_twin,
-    cuda=_einet_dense_hits_cuda,
-    source='brainevent_torch/csrc/einet_dense.cu',
-    replaces='brainevent_tpu/models/pallas_sim.py:532')
-
-
 def einet_pallas_sim_dense(net, state, n_steps: int, inp: float = 20.0,
                            platform=None):
-    """The dense formulation, through K1 and K19: the JAX kernel multiplies
-    the step's E and I spike masks by the ``(num, num)`` count table; K19
-    sums the table rows of the neurons in K1's spike list into the same
-    int32 counts, so all five outputs are bitwise the K21 route's.
+    """The dense formulation, through K21's table instance in one launch:
+    the JAX kernel multiplies the step's E and I spike masks by the
+    ``(num, num)`` count table; K21 walks the table rows of each step's
+    spikes into the same int32 counts, so all five outputs are bitwise
+    the mxu3 route's.
 
     Each call builds the table (:func:`dense_count_table`). There is no
-    VMEM cap: the table's limit is device memory.
+    VMEM cap: the table's limit is device memory. Above the table
+    instance's capacity (:func:`~.networks.einet_sim_capacity` of the
+    table's dtype), which the uint8 table reaches only past device
+    memory, :meth:`EINet._simulate` runs K1 and K19 (2n + 1 launches)
+    instead; the route is chosen by size, not on failure.
     """
     del platform
-    table = dense_count_table(net)
-
-    def scatter_op(ids, n_ids, _conn_all, n_exc, counts):
-        einet_dense_hits(ids, n_ids, table, n_exc, counts)
     out = net._simulate(state, net.times(n_steps), inp,
-                        scatter_op=scatter_op)
+                        table=dense_count_table(net))
     return (out.neurons.v, out.neurons.t_last, out.g_e, out.g_i,
             out.spike_count)
 

@@ -2,7 +2,9 @@
 # Licensed under the Apache License, Version 2.0.
 
 """The sharded EI network's per-device hit counts: kernel K20
-(``csrc/mega_counts.cu``), the port of ``brainevent_tpu.parallel.mega``.
+(``csrc/mega_counts.cu``), the port of ``brainevent_tpu.parallel.mega``,
+and kernel K22 (``csrc/einet_shard.cu``), which runs a rank's neuron step
+and its counts in one launch (:class:`~.sharding.ShardedEINet`'s step).
 
 Each device of a sharded EI network holds the rows of its own neurons in
 the ``(num, n_conn)`` connection table. A step counts, for every spiking
@@ -28,11 +30,12 @@ from typing import Tuple
 
 import torch
 
+from ..models.networks import EINetParams, einet_step_twin
 from ..ops import cuda_build
 from ..ops.core import KernelOp, check_cuda_tensors, cuda_stream
 
 __all__ = ['MegaScatterLayout', 'mega_local_counts', 'mega_counts',
-           'mega_counts_twin']
+           'mega_counts_twin', 'einet_shard_step', 'einet_shard_step_twin']
 
 
 class MegaScatterLayout:
@@ -99,6 +102,61 @@ def _mega_counts_cuda(op, ids, n_ids, conn, row0, n_exc, counts):
 mega_counts = KernelOp(
     'mega_counts', twin=mega_counts_twin, cuda=_mega_counts_cuda,
     source='brainevent_torch/csrc/mega_counts.cu',
+    replaces='brainevent_tpu/parallel/mega.py:122')
+
+
+# -- K22: the rank's step and partials in one launch -----------------------------------
+
+def einet_shard_step_twin(v, t_last, g_e, g_i, counts, spike_count, partials,
+                          conn, row0: int, n_exc: int, p: EINetParams,
+                          t: float, parity: int, fold: bool,
+                          step: bool) -> None:
+    """Plain PyTorch twin of K22, in place: K1's twin on the rank's
+    ``p.num`` neurons (fold the summed ``(2, n_loc)`` *counts*, which stay
+    as they are, then step at time *t*), then, on a step, K20's twin of
+    the step's spikes into ``partials[parity]`` ``(n_dev, 2, n_loc)``
+    after zeroing ``partials[parity ^ 1]``."""
+    ids = torch.empty(p.num, dtype=torch.int32, device=v.device)
+    n_ids = torch.zeros(2, dtype=torch.int32, device=v.device)
+    einet_step_twin(v, t_last, g_e, g_i, counts.clone(), spike_count, ids,
+                    n_ids, p, t, 0, fold, step)
+    if step:
+        partials[parity ^ 1].zero_()
+        mega_counts_twin(ids, n_ids[:1], conn, row0, n_exc, partials[parity])
+
+
+def _einet_shard_step_cuda(op, v, t_last, g_e, g_i, counts, spike_count,
+                           partials, conn, row0, n_exc, p, t, parity, fold,
+                           step):
+    f, i = torch.float32, torch.int32
+    device = check_cuda_tensors(op.name, (v, f), (t_last, f), (g_e, f),
+                                (g_i, f), (counts, i), (spike_count, i),
+                                (partials, i), (conn, i))
+    n_loc = p.num
+    if (partials.dim() != 4 or partials.shape[0] != 2
+            or partials.shape[2:] != (2, n_loc) or conn.dim() != 2
+            or conn.shape[0] != n_loc or counts.shape != (2, n_loc)
+            or any(x.shape != (n_loc,) for x in (v, t_last, g_e, g_i,
+                                                  spike_count))):
+        raise ValueError(f'{op.name}: state, counts {tuple(counts.shape)}, '
+                         f'partials {tuple(partials.shape)} and conn '
+                         f'{tuple(conn.shape)} do not match n_loc={n_loc}')
+    fn = cuda_build.function('einet_shard_step_launch', [
+        ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(EINetParams), ctypes.c_float] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p])
+    op.launch(fn, v.data_ptr(), t_last.data_ptr(), g_e.data_ptr(),
+              g_i.data_ptr(), counts.data_ptr(), spike_count.data_ptr(),
+              partials.data_ptr(), conn.data_ptr(), conn.shape[1],
+              partials.shape[1] * n_loc, int(row0), int(n_exc),
+              ctypes.byref(p), t, parity, int(fold), int(step),
+              device.index or 0, cuda_stream(device))
+
+
+einet_shard_step = KernelOp(
+    'einet_shard_step', twin=einet_shard_step_twin,
+    cuda=_einet_shard_step_cuda,
+    source='brainevent_torch/csrc/einet_shard.cu',
     replaces='brainevent_tpu/parallel/mega.py:122')
 
 

@@ -9,20 +9,19 @@ block of ``n_loc = num / n_dev`` neurons: their state, and their rows of
 the connection table (the outgoing targets, anywhere in the network). One
 step on a rank:
 
-1. K1 ``einet_step`` on its ``n_loc`` neurons (``EINetParams.num =
-   n_loc``): fold the counts of the previous step, update the membranes,
-   append the local ids of this step's spikes to a device-side list;
-2. count this step's hits into full-length, shard-major partials
-   ``(n_dev, 2, n_loc)`` int32: ``propagate='mxu6'`` through K20
-   (:mod:`.mega`), ``'scatter'`` through ``event_scatter_add`` (the float
-   form of K2, whose 0/1 sums are exact) as the JAX route does;
-3. one ``reduce_scatter_tensor`` of those ``2 * num * 4`` bytes sums the
+1. one launch of K22 ``einet_shard_step`` (:mod:`.mega`) on its ``n_loc``
+   neurons (``EINetParams.num = n_loc``): fold the counts of the previous
+   step, update the membranes, and count this step's hits into
+   full-length, shard-major partials ``(n_dev, 2, n_loc)`` int32, double
+   buffered by parity (the launch zeroes the other parity's);
+2. one ``reduce_scatter_tensor`` of those ``2 * num * 4`` bytes sums the
    partials over the ranks and hands each rank its ``(2, n_loc)`` counts,
-   which K1 folds at the next step. No other collective runs in a step.
+   which K22 folds at the next step. No other collective runs in a step.
 
-Counting first and scaling after the sum keeps every partial an exact
-integer, so the sharded run is bitwise the single-device ``EINet``
-(which runs the same K1 over the same counts), and so bitwise the JAX
+Both JAX routes, ``propagate='scatter'`` and ``'mxu6'``, run so. Counting
+first and scaling after the sum keeps every partial an exact integer, so
+the sharded run is bitwise the single-device ``EINet`` (whose fold and
+update are K22's, ``csrc/einet_neuron.cuh``), and so bitwise the JAX
 ``ShardedEINet`` and ``EINet``.
 
 The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (NCCL for
@@ -40,12 +39,11 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from ..models.networks import EINet, EINetParams, einet_loop
+from ..models.networks import EINet, EINetParams
 from ..models.neurons import LIFRefParams
 from ..ops.core import check_device
-from ..ops.scatter import event_scatter_add
 from . import _comm
-from .mega import mega_counts
+from .mega import einet_shard_step
 
 __all__ = ['ShardedEINet', 'ShardedEINetState', 'neuron_mesh',
            'host_chip_mesh']
@@ -116,9 +114,9 @@ class ShardedEINet:
     seed: int = 0
     indices: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                         repr=False)
-    # 'scatter': per-rank event_scatter_add partials (ops/scatter.py);
-    # 'mxu6': K20 over the rank's rows (parallel/mega.py). Both count
-    # first and are bitwise interchangeable.
+    # the JAX routes, 'scatter' (event_scatter_add partials) and 'mxu6'
+    # (the mega-kernel's); both count first and are bitwise alike, and
+    # both run K22 here
     propagate: str = 'scatter'
 
     def __post_init__(self):
@@ -207,62 +205,52 @@ class ShardedEINet:
     # -- dynamics ----------------------------------------------------------------------
 
     def step_params(self, inp: float = 20.0) -> EINetParams:
-        """The float32 scalars K1 reads, for this rank's ``n_loc``
+        """The float32 scalars K22 reads, for this rank's ``n_loc``
         neurons: ``EINet``'s, from the same fields, so that both round
         alike."""
         p = EINet.step_params(self, inp)
         p.num = self.n_loc
         return p
 
-    def _partials(self, ids, n_ids, full):
-        """This step's hits of the rank's spikes (*ids*, its first
-        ``n_ids[0]`` entries) into *full*, ``(n_dev, 2, n_loc)`` int32."""
-        if self.propagate == 'mxu6':
-            mega_counts(ids, n_ids, self.indices_loc, self.row0, self.n_exc,
-                        full)
-            return
-        # the JAX route: a spike mask over the local rows, one
-        # event_scatter_add of 0/1 values per class into (num,) float32
-        pos = torch.arange(self.n_loc, device=ids.device)
-        sel = torch.where(pos < n_ids, ids.long(), self.n_loc)
-        spike = torch.zeros(self.n_loc + 1, dtype=torch.bool,
-                            device=ids.device)
-        spike[sel] = True
-        spike = spike[:self.n_loc]
-        is_exc = self.row0 + pos < self.n_exc
-        parts = [event_scatter_add(self.indices_loc, 1.0, self.num,
-                                   mask=(spike & cls)[:, None],
-                                   dtype=torch.float32)
-                 for cls in (is_exc, ~is_exc)]
-        full.copy_(torch.stack(parts).view(2, self.n_dev, self.n_loc)
-                   .transpose(0, 1))
-
     def _simulate(self, state: ShardedEINetState, times, inp: float
                   ) -> ShardedEINetState:
-        """:func:`einet_loop` on this rank's neurons: per step K1, the
-        partials and one reduce-scatter into the counts K1 folds next."""
-        full = torch.empty(self.n_dev, 2, self.n_loc, dtype=torch.int32,
-                           device=self.device)
+        """The run on this rank's neurons: per step one K22 launch (fold,
+        update, the step's partials into parity ``k & 1``, the other
+        parity zeroed) and one reduce-scatter of the partials into the
+        counts K22 folds next; a last K22 launch only folds. The state is
+        copied, not modified."""
+        p = self.step_params(inp)
+        f, i = torch.float32, torch.int32
+        v, t_last, g_e, g_i, spike_count = (
+            (x.to_local() if hasattr(x, 'to_local') else x).to(
+                self.device, dtype, copy=True)
+            for x, dtype in zip(state, (f, f, f, f, i)))
+        counts = torch.zeros(2, self.n_loc, dtype=i, device=self.device)
+        partials = torch.zeros(2, self.n_dev, 2, self.n_loc, dtype=i,
+                               device=self.device)
         group = self._axis.group
 
-        def propagate(ids, n_ids, counts):
-            full.zero_()
-            self._partials(ids, n_ids, full)
-            dist.reduce_scatter_tensor(counts.view(-1), full.view(-1),
-                                       group=group)
-        loc = [(x.to_local() if hasattr(x, 'to_local') else x).to(self.device)
-               for x in state]
-        out = einet_loop(*loc, times, self.step_params(inp), propagate)
+        def launch(t, parity, fold, step):
+            einet_shard_step(v, t_last, g_e, g_i, counts, spike_count,
+                             partials, self.indices_loc, self.row0,
+                             self.n_exc, p, t, parity, fold, step)
+        for k, t in enumerate(times):
+            launch(t, k & 1, k > 0, True)
+            dist.reduce_scatter_tensor(counts.view(-1),
+                                       partials[k & 1].view(-1), group=group)
+        if len(times):
+            launch(0.0, 0, True, False)
         return ShardedEINetState(
-            *(_comm.sharded(x, self._axis, self.num) for x in out))
+            *(_comm.sharded(x, self._axis, self.num)
+              for x in (v, t_last, g_e, g_i, spike_count)))
 
     times = EINet.times
 
     # -- public API ----------------------------------------------------------------------
 
     def step_fn(self):
-        """A sharded step ``(state, t, inp=20.0) -> state``: one K1 step,
-        the partials, one reduce-scatter and a K1 fold."""
+        """A sharded step ``(state, t, inp=20.0) -> state``: one K22 step,
+        one reduce-scatter and a K22 fold."""
         return lambda state, t, inp=20.0: self._simulate(
             state, [float(np.float32(t))], inp)
 

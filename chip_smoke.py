@@ -20,12 +20,13 @@ with 10% connectivity, 10M entries (K7-K10); and the JITC slice, the
 classes (K11-K14); the dense slice, a 10k x 10k ``Dense`` matrix
 (100M weights) with ``BinaryArray`` products, STDP and the event
 encoders (K15-K18); and the EI strategies of ``einet_pallas_sim``, the
-dense one over the ``(num, num)`` connection-count table (K1 + K19) and
-the superseded ones (K21); and the multi-device layer over
-``torch.distributed`` at world size 1 under NCCL (the one process's group,
-through a file store): ``ShardedEINet`` at 4k and 400k (K1 + K20, or K1 +
-the float K2), its count kernel K20 split over four shards in one process,
-and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
+dense one over the ``(num, num)`` connection-count table (K21's table
+instance; K1 + K19 above its capacity) and the superseded ones (K21); and
+the multi-device layer over ``torch.distributed`` at world size 1 under
+NCCL (the one process's group, through a file store): ``ShardedEINet`` at
+4k and 400k (K22, one launch and one reduce-scatter a step), K20 and K22
+split over four shards in one process, and the sharded ops (K5-K10,
+K11/K12 with a row offset). Phases:
 
 1. the device (``torch.cuda.get_device_name`` and ``nvidia-smi``);
 2. the kernel build, with its seconds;
@@ -148,14 +149,25 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
     (a multiplicity above 255): exact, bitwise K2;
 26. the strategies: ``einet_pallas_sim(strategy='dense')`` on COBA and
     CUBA 4k and COBA 40k for 2,000 steps, all five outputs bitwise the
-    ``'mxu3'`` route's, K1 2001 times, K19 2000 times and K2 never, the
-    rate in 5-200 Hz, the table's bytes and build time; a burst (inp
-    500, 10 steps); every other strategy name at 4k bitwise mxu3, one K21
-    launch each;
-27. dense timing: COBA 4k us/step over 100k steps after 1,000, dense and
-    mxu3 in one run; K19's device ms per launch at 4k and 40k on recorded
-    spike lists, its twin's ms, its bound, and ``torch.matmul`` of the
-    ``(2, num)`` float32 masks with the float32 table (TF32 off);
+    ``'mxu3'`` route's, one K21 launch (its table instance) and no K1, K2
+    or K19, the rate in 5-200 Hz, the table's bytes and build time; the
+    same runs on the parent's route, the loop of K1 and K19
+    (``dense_k19``: ``EINet._simulate`` with ``step_op=einet_step`` and
+    the table, the route the package keeps above the table instance's
+    capacity, a size no card's memory holds the table of): K1 2001 times
+    and K19 2000 times, bitwise mxu3; an int32 table (a multiplicity
+    above 255) and a burst (inp 500, 10 steps) on both routes; every other
+    strategy name at 4k bitwise mxu3, one K21 launch each; the table
+    instances' occupancy and capacity;
+27. dense timing: COBA 4k over 100k steps and 40k over 20k, after 1,000,
+    us/step of the dense strategy through K21's table instance and
+    through K1 + K19 in turns, mxu3 beside; the table instance's device
+    us/step for each NPT whose grid fits, and at NPT 1 by walk at 8k-30k
+    (``time_walks``); K19's device ms per launch at 4k
+    and 40k on recorded spike lists, its twin's ms, its bound, and
+    ``torch.matmul`` of the ``(2, num)`` float32 masks with the float32
+    table (TF32 off); the table instance's line: one launch of 2,000 steps
+    at 4k against its twin;
 28. the dtypes of the public entries of K5-K8, K10, K12, K13 and K15-K18:
     spikes in nine dtypes (negatives and NaN among the silent ones) give
     the bool spikes' result bitwise through the kernel; float16 and
@@ -175,13 +187,24 @@ and the sharded ops (K5-K10, K11/K12 with a row offset). Phases:
     bitwise K2; a 4k table with an in-degree of 300 per class at one
     target (the JAX route refuses above 255), exact; at world size 1 (the
     main path's shape) one launch bitwise its twin, then K20's device ms,
-    its twin's, its bound and ``index_add_``'s;
+    its twin's, its bound and ``index_add_``'s; ``mega_local_counts``, its
+    package entry, on the 4k list's 4 shards (one K20 launch each), the
+    shards summed bitwise K2; (29b) K22
+    (``einet_shard_step``) on random step states at 4k and 400k, at world
+    size 1 and over 4 shards, each parity, fold and step: the state and
+    both parities of the partials bitwise its twin and one K1 step, a
+    memset and K20 (``k22_vs_k1_k20``), the shards summed bitwise K2;
+    K22's device ms per launch beside K1 + memset + K20's, its twin's ms
+    and its bound;
 30. ``ShardedEINet`` (world size 1, NCCL) at COBA 4k and 400k, both
-    routes, 2,000 steps: all five fields bitwise ``EINet``; K1 2,001 and
-    K20 2,000 launches (mxu6), the float K2 4,000 (scatter); exactly one
+    ``propagate`` routes, 2,000 steps: all five fields bitwise ``EINet``;
+    K22 2,001 launches, K1, K20 and K2 none; exactly one
     ``reduce_scatter_tensor`` of ``2 * num * 4`` bytes per step and no
     other collective (counted by wrapping ``torch.distributed`` here);
-    us/step over 5,000 steps after 200 beside ``EINet`` in one run;
+    the parent's route (``parent_sharded_run``: K1, a memset and K20 a
+    step) bitwise too, K1 2,001 and K20 2,000 launches; us/step over
+    5,000 steps after 200, K22 and the parent's route in turns, beside
+    ``EINet``;
 31. the sharded ops at world size 1 against the single-device entries:
     ``sharded_binary_fcnmv`` (both weights, both directions, ``psum`` and
     ``psum_scatter``), the four CSR wrappers both ways and a weight
@@ -204,12 +227,15 @@ PyTorch call computing the same function (``torch.sparse.mm``,
 matrix by the float spikes; their ``index_add_`` over the active rows'
 targets, gathered outside the timed call, is printed beside it as what it
 is, not the same function. Any failure exits non-zero; so does a host without
-CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K21; K1's and
-K2's launches are those of the run above K21's capacity, K21's its one
-launch of the 4k COBA run, its ms one launch of 2,000 steps; K15's
-line is its ``s @ W`` direction, K10's the mean of the CSR slice's two
-B = 16 directions with each shape apart under ``by_shape``, K19's the 4k
-COBA run, K20's the 400k one); the last is
+CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K22 and K21's
+table instance, ``einet_sim_table``; K1's and K2's launches are those of
+the run above K21's capacity, K21's its one launch of the 4k COBA run, its
+ms one launch of 2,000 steps; K15's line is its ``s @ W`` direction,
+K10's the mean of the CSR slice's two B = 16 directions with each shape
+apart under ``by_shape``; K19's launches the 4k COBA dense run above the
+table instance's capacity, K20's the parent's 400k sharded route, the
+table instance's the 4k COBA dense run, K22's the 400k sharded run); the
+last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -217,6 +243,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -512,14 +539,16 @@ def graph_us_per_step(net, state, replays):
     return us
 
 
-def sim_device_ms(net, state, n_steps, **kw):
-    """Device ms of one K21 launch of *n_steps* from *state* (CUDA events
-    around the launch; its copy of the state made beforehand), with the
-    instance and grid of *kw* (default: the package's choice)."""
+def sim_device_ms(net, state, n_steps, start, **kw):
+    """Device ms of one K21 launch of *n_steps* from *state*, *start*
+    steps into its run, so that the clock goes on from the state's
+    ``t_last`` (CUDA events around the launch; its copy of the state made
+    beforehand), with the instance, grid and table of *kw* (default: the
+    package's choice, over conn)."""
     from brainevent_torch.models import networks as nw
     bufs = [x.clone() for x in state_fields(state)]
-    times = torch.tensor(net.times(n_steps), dtype=torch.float32,
-                         device=bufs[0].device)
+    times = torch.tensor(net.times(start + n_steps)[start:],
+                         dtype=torch.float32, device=bufs[0].device)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -569,14 +598,16 @@ def time_ei(nets, device):
         for k in nw.SIM_NPT:
             need = -(-net.num // (k * nw.SIM_BLOCK))
             if need <= nw.einet_sim_max_blocks(device, k):
-                ms, _ = sim_device_ms(net, final, n_steps, npt=k)
+                ms, _ = sim_device_ms(net, final, n_steps, warm + n_steps,
+                                      npt=k)
                 by_npt[k] = ms / n_steps * 1e3
         bar_ms, _ = barrier_ms(net, n_steps, device)
-        sim_ms, _ = sim_device_ms(net, final, EI_STEPS)
+        sim_ms, _ = sim_device_ms(net, final, EI_STEPS, warm + n_steps)
         res[label] = dict(us=runs, graph_us=graph_us, npt=npt, blocks=blocks,
                           device_us_by_npt=by_npt,
                           barrier_us=bar_ms / n_steps * 1e3,
-                          sim_ms=sim_ms, steps=n_steps, final=final)
+                          sim_ms=sim_ms, steps=n_steps, final=final,
+                          start=warm + n_steps)
         print(f'COBA {label} over {n_steps} steps after {warm} (rate '
               f'{rate!r} Hz), us/step on the host clock: K21 {runs["K21"]!r}, '
               f'the K1 + K2 loop {runs["K1 + K2"]!r} (in turns), the K1 + K2 '
@@ -655,10 +686,11 @@ def time_k21(net, state, ei, device):
     rows of the neurons that spiked; 20 operations a neuron a step and
     one add a hit."""
     from brainevent_torch.models import networks as nw
-    _, got = sim_device_ms(net, state, EI_STEPS)
+    start = ei['start']
+    _, got = sim_device_ms(net, state, EI_STEPS, start)
     want = [x.clone() for x in state_fields(state)]
-    times = torch.tensor(net.times(EI_STEPS), dtype=torch.float32,
-                         device=device)
+    times = torch.tensor(net.times(start + EI_STEPS)[start:],
+                         dtype=torch.float32, device=device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     nw.einet_sim_twin(*want, net.conn_all, times, net.step_params(),
@@ -2410,7 +2442,7 @@ def time_dense_kernels(W, device):
 DENSE_SIM_STEPS = 2000
 # (label, EINet scale, COBA) of the dense strategy's runs against mxu3
 DENSE_SIM_NETS = (('4k', 1.0, True), ('4k', 1.0, False), ('40k', 10.0, True))
-DENSE_TIME_STEPS, DENSE_TIME_WARM = 100_000, 1000
+DENSE_TIME_WARM = 1000
 # (label, EINet scale) of K19's checks and timings: the two sizes of the runs
 K19_NETS = (('4k', 1.0), ('40k', 10.0))
 
@@ -2475,19 +2507,16 @@ def check_k19(device):
 
 def run_strategy(net, state, n_steps, strategy, ref, inp=20.0):
     """``einet_pallas_sim(strategy=...)`` from *state*, held against *ref*
-    (the mxu3 route's five outputs): all five bitwise; the dense strategy
-    launches K1 ``n_steps + 1`` times and K19 ``n_steps`` times, every
-    other name K21 once, and K2 never runs. Returns the outputs and the
-    launch counts."""
+    (the mxu3 route's five outputs): all five bitwise; every name,
+    dense included (K21's table instance), launches K21 once, and K1, K2
+    and K19 never run. Returns the outputs and the launch counts."""
     import brainevent_torch as bt
     bt.reset_launch_counts()
     out = bt.einet_pallas_sim(net, state, n_steps, inp, strategy=strategy)
     torch.cuda.synchronize()
     counts = bt.launch_counts()
-    dense = strategy == 'dense'
-    check(counts['einet_step'] == (n_steps + 1 if dense else 0)
-          and counts['einet_dense_hits'] == (n_steps if dense else 0)
-          and counts['einet_sim'] == (0 if dense else 1)
+    check(counts['einet_sim'] == 1 and counts['einet_step'] == 0
+          and counts['einet_dense_hits'] == 0
           and counts['event_count_scatter'] == 0, (strategy, counts))
     for x, y in zip(out, ref):
         check(x.dtype == y.dtype and torch.equal(x, y),
@@ -2495,11 +2524,47 @@ def run_strategy(net, state, n_steps, strategy, ref, inp=20.0):
     return out, counts
 
 
+def dense_k19(net, state, n_steps, inp=20.0):
+    """The dense strategy's parent route, the loop of K1 and K19 (2n + 1
+    launches), as ``einet_pallas_sim_dense`` runs it: the table built,
+    then ``EINet._simulate`` with K1 as its step op, which routes the
+    table's hits through K19. The package keeps this route above the
+    table instance's capacity, which no card's memory reaches (the uint8
+    table of 405k neurons is 164 GB). Returns the five outputs."""
+    from brainevent_torch.models import networks as nw
+    from brainevent_torch.models import sim
+    out = net._simulate(state, net.times(n_steps), inp,
+                        step_op=nw.einet_step,
+                        table=sim.dense_count_table(net))
+    return (out.neurons.v, out.neurons.t_last, out.g_e, out.g_i,
+            out.spike_count)
+
+
+def run_dense_k19(net, state, n_steps, ref, inp=20.0):
+    """:func:`dense_k19` from *state*: all five outputs bitwise *ref*
+    (mxu3's), K1 ``n_steps + 1`` and K19 ``n_steps`` launches, K21 and K2
+    none. Returns the launch counts."""
+    import brainevent_torch as bt
+    bt.reset_launch_counts()
+    out = dense_k19(net, state, n_steps, inp)
+    torch.cuda.synchronize()
+    counts = bt.launch_counts()
+    check(counts['einet_sim'] == 0 and counts['einet_step'] == n_steps + 1
+          and counts['einet_dense_hits'] == n_steps
+          and counts['event_count_scatter'] == 0, ('K1 + K19', counts))
+    for x, y in zip(out, ref):
+        check(x.dtype == y.dtype and torch.equal(x, y),
+              ('K1 + K19', 'bitwise mxu3'))
+    return counts
+
+
 def check_dense_strategies(device):
-    phase(f'26 the strategies: einet_pallas_sim(strategy=\'dense\') (K1 + '
-          f'K19) against \'mxu3\' (K21), COBA and CUBA 4k and COBA 40k, '
-          f'{DENSE_SIM_STEPS} steps; a burst; every other strategy at 4k '
-          f'(all five outputs bitwise)')
+    phase(f'26 the strategies: einet_pallas_sim(strategy=\'dense\') (K21\'s '
+          f'table instance, one launch) against \'mxu3\' (K21), COBA and '
+          f'CUBA 4k and COBA 40k, {DENSE_SIM_STEPS} steps; the parent\'s '
+          f'route (K1 + K19); an int32 table; a burst; every other strategy '
+          f'at 4k (all five outputs bitwise); the table instances\' '
+          f'occupancy and capacity')
     import brainevent_torch as bt
     from brainevent_torch.models import sim
     n_steps = DENSE_SIM_STEPS
@@ -2518,24 +2583,35 @@ def check_dense_strategies(device):
         t0 = time.perf_counter()
         out, counts = run_strategy(net, state, n_steps, 'dense', ref)
         t_run = time.perf_counter() - t0
-        if label == '4k' and coba:
-            launches = counts
         for x in out[:4]:
             check(x.shape == (net.num,) and bool(torch.isfinite(x).all()),
                   'finite (num,) state')
         rate = float(out[4].float().mean()) / (n_steps * net.dt * 1e-3)
         check(5.0 < rate < 200.0, rate)
+        k19 = run_dense_k19(net, state, n_steps, ref)
+        if label == '4k' and coba:
+            launches = k19, counts
         print(f'{"COBA" if coba else "CUBA"} {label}: dense bitwise mxu3 '
-              f'({int(out[4].sum())} spikes, rate {rate!r} Hz); launches '
-              f'{counts["einet_step"]} K1 + {counts["einet_dense_hits"]} K19 '
-              f'+ {counts["event_count_scatter"]} K2; table {n_bytes} bytes '
-              f'built in {t_table!r} s; {t_run / n_steps * 1e6!r} us/step '
-              f'with the build and the check (host clock)')
+              f'({int(out[4].sum())} spikes, rate {rate!r} Hz), one K21 '
+              f'launch, no K1, K2 or K19; the parent\'s route '
+              f'{k19["einet_step"]} K1 + {k19["einet_dense_hits"]} K19, '
+              f'bitwise mxu3; table {n_bytes} bytes built in {t_table!r} s; '
+              f'{t_run / n_steps * 1e6!r} us/step with the build and the '
+              f'check (host clock)')
+    net = int32_table_net(device)
+    state = net.init_state()
+    ref = bt.einet_pallas_sim(net, state, n_steps, strategy='mxu3')
+    out, _ = run_strategy(net, state, n_steps, 'dense', ref)
+    run_dense_k19(net, state, n_steps, ref)
+    print(f'int32 table ({net.num} neurons, 300 connections, one edge 290 '
+          f'times): dense bitwise mxu3 on K21 and on K1 + K19 '
+          f'({int(out[4].sum())} spikes)')
     # a burst: every neuron driven over threshold (tests/test_models.py:222)
     net = bt.EINet(scale=0.064, seed=3, device=device)
     state = net.init_state()
     ref = bt.einet_pallas_sim(net, state, 10, 500.0, strategy='mxu3')
     out, _ = run_strategy(net, state, 10, 'dense', ref, inp=500.0)
+    run_dense_k19(net, state, 10, ref, inp=500.0)
     check(int(out[4].sum()) > 100, 'burst fires')
     print(f'burst (inp 500, 10 steps, {net.num} neurons): '
           f'{int(out[4].sum())} spikes, bitwise mxu3')
@@ -2546,7 +2622,28 @@ def check_dense_strategies(device):
         run_strategy(net, state, n_steps, strategy, ref)
     print(f'chain, mxu, mxu2, mxu4, mxu5, mxu6 at 4k, {n_steps} steps: '
           f'bitwise mxu3, one K21 launch each')
+    print_sim_capacity(device)
     return launches
+
+
+def print_sim_capacity(device):
+    """K21's co-resident blocks by source and NPT instance, and each
+    source's capacity; a table instance's capacity must exceed the
+    largest table the card's memory holds."""
+    from brainevent_torch.models import networks as nw
+    total = torch.cuda.get_device_properties(device).total_memory
+    for dtype, npts in nw.SIM_SOURCE_NPT.items():
+        blocks = {k: nw.einet_sim_max_blocks(device, k, dtype) for k in npts}
+        cap = nw.einet_sim_capacity(device, dtype)
+        line = (f'K21 over {"conn" if dtype is None else dtype}: blocks by '
+                f'NPT {blocks}, capacity {cap} neurons')
+        if dtype is not None:
+            item = torch.empty((), dtype=dtype).element_size()
+            fits = math.isqrt(total // item)
+            check(cap > fits, ('table capacity', dtype, cap, fits))
+            line += (f'; the largest table {total} bytes of device memory '
+                     f'hold: {fits} neurons')
+        print(line)
 
 
 def recorded_spikes(net, state, steps_done, device):
@@ -2564,35 +2661,110 @@ def recorded_spikes(net, state, steps_done, device):
     return b[6], b[7][parity:parity + 1]
 
 
-def time_dense(device):
-    phase(f'27 dense timing: COBA 4k us/step over {DENSE_TIME_STEPS} steps '
-          f'after {DENSE_TIME_WARM}, dense and mxu3 in one run; K19 device '
-          f'ms per launch (launches queued back to back) at 4k and 40k on '
-          f'recorded spike lists, its twin, its bound, and torch.matmul of '
-          f'the (2, num) float32 masks with the float32 table (TF32 off)')
+def time_dense_routes(net, n_steps, warm):
+    """COBA us/step (host clock, the table build of each call included)
+    of the dense strategy through K21's table instance and through K1 +
+    K19 (:func:`dense_k19`), in turns K21, K1 + K19, K1 + K19,
+    K21, from the state *warm* dense steps in; each run bitwise the
+    other route's. Returns ``({route: [us, us]}, K21's final state)``."""
     import brainevent_torch as bt
+    state = bt.einet_pallas_sim(net, net.init_state(), warm,
+                                strategy='dense')
+    state = bt.EINetState(bt.LIFRefState(state[0], state[1]), *state[2:])
+    runs = {'K21': [], 'K1 + K19': []}
+    outs = {}
+    for route in ('K21', 'K1 + K19', 'K1 + K19', 'K21'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if route == 'K21':
+            out = bt.einet_pallas_sim(net, state, n_steps, strategy='dense')
+        else:
+            out = dense_k19(net, state, n_steps)
+        torch.cuda.synchronize()
+        runs[route].append((time.perf_counter() - t0) / n_steps * 1e6)
+        outs[route] = out
+    check_equal_fields(outs['K21'], outs['K1 + K19'], ('dense timed runs',
+                                                       net.num))
+    final = outs['K21']
+    return runs, bt.EINetState(bt.LIFRefState(*final[:2]), *final[2:])
+
+
+def table_sim_line(net, state, start, table, device):
+    """The table instance's line at COBA 4k: one launch of EI_STEPS steps
+    from *state*, *start* steps in (device ms), its twin's ms on the same
+    inputs (bitwise equal), and the work this run needs: the state read
+    and written once, the step times, the table rows of the neurons that
+    spiked, 20 operations a neuron a step and one add a hit."""
+    from brainevent_torch.models import networks as nw
+    ms, got = sim_device_ms(net, state, EI_STEPS, start, table=table)
+    want = [x.clone() for x in state_fields(state)]
+    times = torch.tensor(net.times(start + EI_STEPS)[start:],
+                         dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nw.einet_sim_twin(*want, net.conn_all, times, net.step_params(),
+                      net.n_exc, table)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check_equal_fields(got, want, 'table instance line vs twin')
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    new = got[4] - state.spike_count
+    n_bytes = (40 * net.num + 4 * EI_STEPS + net.num * table.element_size()
+               * int((new > 0).sum()))
+    n_ops = 20 * net.num * EI_STEPS + net.conn_all.shape[1] * int(new.sum())
+    print(f'K21 table instance, one launch of {EI_STEPS} steps at COBA 4k: '
+          f'device {ms!r} ms, twin {plain_ms!r} ms, bitwise; '
+          f'{int(new.sum())} spikes, bound {bound(n_bytes, n_ops)!r}')
+    return dict(ms=ms, plain_ms=plain_ms, bytes=n_bytes, ops=n_ops, err=err)
+
+
+# (label, EINet scale, steps timed, warm-up steps) of phase 27's dense runs
+DENSE_TIMES = (('4k', 1.0, 100_000, 1000), ('40k', 10.0, 20_000, 1000))
+
+
+def time_dense(device):
+    phase('27 dense timing: COBA 4k and 40k us/step, the dense strategy '
+          'through K21\'s table instance and through K1 + K19 in turns, mxu3 '
+          'beside; the table instance\'s device us/step by NPT; K19 device '
+          'ms per launch (launches queued back to back) at 4k and 40k on '
+          'recorded spike lists, its twin, its bound, and torch.matmul of '
+          'the (2, num) float32 masks with the float32 table (TF32 off)')
+    import brainevent_torch as bt
+    from brainevent_torch.models import networks as nw
     from brainevent_torch.models import sim
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {}
-    for label, scale in K19_NETS:
+    for label, scale, n_steps, warm in DENSE_TIMES:
         net = bt.EINet(scale=scale, device=device)
-        us = {}
-        if label == K19_NETS[0][0]:
-            for strategy in ('mxu3', 'dense'):
-                us[strategy], rate, final = time_run(
-                    net, DENSE_TIME_STEPS, DENSE_TIME_WARM, strategy)
-                print(f'COBA 4k strategy={strategy}: {us[strategy]!r} '
-                      f'us/step over {DENSE_TIME_STEPS} steps after '
-                      f'{DENSE_TIME_WARM} (host clock, the table build '
-                      f'included), rate {rate!r} Hz')
-            steps_done = DENSE_TIME_WARM + DENSE_TIME_STEPS
-        else:
-            final = bt.einet_pallas_sim(net, net.init_state(),
-                                        DENSE_TIME_WARM, strategy='dense')
-            steps_done = DENSE_TIME_WARM
+        runs, final = time_dense_routes(net, n_steps, warm)
+        us = {'dense': runs['K21'], 'K1 + K19': runs['K1 + K19']}
+        us['mxu3'], rate, _ = time_run(net, n_steps, warm, 'mxu3')
+        steps_done = n_steps     # the timed run's clock started at 0
         num = net.num
         table = sim.dense_count_table(net)
-        ids, n_ids = recorded_spikes(net, final, steps_done, device)
+        by_npt = {}
+        for k in nw.SIM_SOURCE_NPT[table.dtype]:
+            need = -(-num // (k * nw.SIM_BLOCK))
+            if need > nw.einet_sim_max_blocks(device, k, table.dtype):
+                continue
+            for walk in ('block', 'grid'):
+                ms, _ = sim_device_ms(net, final, EI_STEPS, steps_done,
+                                      table=table, npt=k,
+                                      grid_walk=walk == 'grid')
+                by_npt[f'{k} {walk}'] = ms / EI_STEPS * 1e3
+        conn_ms, _ = sim_device_ms(net, final, EI_STEPS, steps_done)
+        npt, blocks = nw.einet_sim_grid(num, device, table.dtype)
+        walk = 'grid' if nw.table_grid_walk(table) else 'block'
+        print(f'COBA {label} over {n_steps} steps after {warm} (rate '
+              f'{rate!r} Hz), us/step on the host clock: dense through K21 '
+              f'{us["dense"]!r}, through K1 + K19 {us["K1 + K19"]!r} (in '
+              f'turns), mxu3 {us["mxu3"]!r}; device us/step over {EI_STEPS} '
+              f'steps on from there: the table instance by NPT and walk '
+              f'{by_npt!r} (the package runs NPT {npt}, {blocks} blocks, the '
+              f'{walk} walk), K21 over conn '
+              f'{conn_ms / EI_STEPS * 1e3!r}')
+        ids, n_ids = recorded_spikes(net, state_fields(final), steps_done,
+                                     device)
         n_act = int(n_ids)
         counts = torch.zeros(2, num, dtype=torch.int32, device=device)
         reps, reps_twin = (500, 100) if num < 40_000 else (200, 20)
@@ -2609,11 +2781,59 @@ def time_dense(device):
         del table_f32
         n_bytes = n_act * (num * table.element_size() + 4) + 8 * num
         res[label] = dict(ms=ms, plain_ms=twin_ms, library_ms=lib_ms,
-                          bytes=n_bytes, us_per_step=us, n_act=n_act)
+                          bytes=n_bytes, us_per_step=us, n_act=n_act,
+                          table_device_us_by_npt=by_npt,
+                          conn_device_us=conn_ms / EI_STEPS * 1e3)
         print(f'K19 at {label} ({n_act} spikes of {num}): device {ms!r} ms, '
               f'twin {twin_ms!r} ms, torch.matmul {lib_ms!r} ms, bound '
               f'{bound(n_bytes, 0)!r}')
+        if label == '4k':
+            res['table'] = table_sim_line(net, final, steps_done, table,
+                                          device)
         del table
+    res['walks'] = time_walks(device)
+    return res
+
+
+# EINet scales of phase 27's walk sweep (6k-30k neurons): between the 4k
+# table, which the L2 cache holds, and the 40k one
+WALK_SCALES = (1.5, 2.0, 2.5, 3.0, 4.0, 5.0, 7.5)
+
+
+def time_walks(device):
+    """The table instance's device us/step at NPT 1 by walk, each block its
+    own rows or the whole grid, in turns block, grid, grid, block, over
+    EI_STEPS COBA steps on from DENSE_TIME_WARM mxu3 steps, at each of
+    :data:`WALK_SCALES`; the walks bitwise each other. Returns ``{num:
+    dict}`` with the spikes a step and the package's choice."""
+    import brainevent_torch as bt
+    from brainevent_torch.models import networks as nw
+    from brainevent_torch.models import sim
+    res = {}
+    for scale in WALK_SCALES:
+        net = bt.EINet(scale=scale, device=device)
+        out = bt.einet_pallas_sim(net, net.init_state(), DENSE_TIME_WARM,
+                                  strategy='mxu3')
+        final = bt.EINetState(bt.LIFRefState(*out[:2]), *out[2:])
+        table = sim.dense_count_table(net)
+        us, got = {'block': [], 'grid': []}, {}
+        for walk in ('block', 'grid', 'grid', 'block'):
+            ms, got[walk] = sim_device_ms(net, final, EI_STEPS,
+                                          DENSE_TIME_WARM, table=table,
+                                          npt=1, grid_walk=walk == 'grid')
+            us[walk].append(ms / EI_STEPS * 1e3)
+        check_equal_fields(got['block'], got['grid'], ('walks', net.num))
+        spikes = int((got['grid'][4] - final.spike_count).sum()) / EI_STEPS
+        _, blocks = nw.einet_sim_grid(net.num, device, table.dtype)
+        choice = 'grid' if nw.table_grid_walk(table) else 'block'
+        res[net.num] = dict(us=us, spikes_per_step=spikes, blocks=blocks,
+                            choice=choice)
+        print(f'COBA {net.num} ({table.numel()} byte table, {blocks} blocks '
+              f'at NPT 1, {spikes!r} spikes a step): table instance device '
+              f'us/step, block walk {us["block"]!r}, grid walk '
+              f'{us["grid"]!r} (in turns, bitwise); the package walks by '
+              f'{choice}')
+        del table, net, final, out
     return res
 
 
@@ -3017,6 +3237,36 @@ def k20_vs_k2(net, ids, n_ids, device, n_dev=K20_SHARDS):
     return worst
 
 
+def local_counts_vs_k2(net, ids, n_ids, device, n_dev=K20_SHARDS):
+    """``mega_local_counts``, K20's package entry, on each of *n_dev*
+    shards of one spike list of *net* (as bool spikes): the shards'
+    float32 partials summed bitwise K2's counts. Returns K20's launches,
+    one a shard."""
+    import brainevent_torch as bt
+    from brainevent_torch.ops import scatter as sc
+    from brainevent_torch.parallel import mega
+    num, n_loc = net.num, net.num // n_dev
+    k2 = sc.event_count_scatter(ids, n_ids, net.conn_all, net.n_exc,
+                                torch.zeros(2, num, dtype=torch.int32,
+                                            device=device))
+    spike = torch.zeros(num, dtype=torch.bool, device=device)
+    spike[ids[:int(n_ids)].long()] = True
+    layout = mega.MegaScatterLayout(net.conn_all, net.n_exc, num)
+    total = torch.zeros(2, num, device=device)
+    bt.reset_launch_counts()
+    for r in range(n_dev):
+        rows = slice(r * n_loc, (r + 1) * n_loc)
+        e, i = mega.mega_local_counts(spike[rows], layout.conn_flat[rows],
+                                      layout=layout, row0=r * n_loc)
+        total[0] += e
+        total[1] += i
+    torch.cuda.synchronize()
+    launches = bt.launch_counts()['mega_counts']
+    check(launches == n_dev, ('mega_local_counts launches', launches))
+    check(torch.equal(total, k2.float()), ('mega_local_counts vs K2', num))
+    return launches
+
+
 def indegree_net(device):
     """A 4k network whose target 17 has an in-degree of 300 from each
     class (the case the JAX mega-kernel refuses above 255)."""
@@ -3044,6 +3294,7 @@ def check_k20(device):
         ids, n_ids = recorded_spikes(net, final, DENSE_TIME_WARM, device)
         n_act = int(n_ids)
         worst = max(worst, k20_vs_k2(net, ids, n_ids, device))
+        local_launches = local_counts_vs_k2(net, ids, n_ids, device)
         num, n_conn = net.num, net.conn_all.shape[1]
         # the main path's shape: world size 1, one shard of num neurons
         counts = torch.zeros(1, 2, num, dtype=torch.int32, device=device)
@@ -3065,11 +3316,13 @@ def check_k20(device):
         lib_ms = device_ms(lambda: flat.index_add_(0, tgt, ones), reps)
         n_bytes = count_scatter_bytes(n_act, n_conn)
         res[label] = dict(ms=ms, plain_ms=twin_ms, library_ms=lib_ms,
-                          bytes=n_bytes, n_act=n_act)
+                          bytes=n_bytes, n_act=n_act,
+                          local_launches=local_launches)
         print(f'{label} ({n_act} spikes of {num}): {K20_SHARDS} shards '
-              f'bitwise their twins, summed bitwise K2; K20 device {ms!r} '
-              f'ms, twin {twin_ms!r} ms, index_add_ {lib_ms!r} ms, bound '
-              f'{bound(n_bytes, 0)!r}')
+              f'bitwise their twins, summed bitwise K2; mega_local_counts '
+              f'on the {K20_SHARDS} shards ({local_launches} K20 launches) '
+              f'summed bitwise K2; K20 device {ms!r} ms, twin {twin_ms!r} '
+              f'ms, index_add_ {lib_ms!r} ms, bound {bound(n_bytes, 0)!r}')
         del net, final
     net = indegree_net(device)
     ids = torch.arange(net.num, dtype=torch.int32, device=device)
@@ -3086,6 +3339,182 @@ def check_k20(device):
           ('K20 in-degree', deg[:, 17].tolist()))
     print(f'in-degree {deg[:, 17].tolist()} at target 17 (every neuron '
           f'spiking): exact, bitwise K2 over {K20_SHARDS} shards')
+    return worst, res
+
+
+SHARD_FLAGS = ((0, 0, 1), (1, 1, 1), (0, 1, 1), (1, 1, 0))  # parity, fold, step
+
+
+def shard_buffers(net, n_dev, r, seed, device):
+    """Shard *r* of *n_dev* of a random step state of *net*
+    (:func:`random_step_state`): its ``n_loc`` neurons' K1 buffers, its
+    rows of conn and the row parameters ``(p, row0)``."""
+    bufs, t = random_step_state(net.num, seed, device)
+    n_loc = net.num // n_dev
+    row0 = r * n_loc
+    loc = {k: (b[:, row0:row0 + n_loc] if k == 'counts'
+               else b[row0:row0 + n_loc]).contiguous()
+           for k, b in bufs.items() if k != 'n_ids'}
+    loc['n_ids'] = torch.zeros(2, dtype=torch.int32, device=device)
+    p = net.step_params()
+    p.num = n_loc
+    conn = net.conn_all[row0:row0 + n_loc]
+    return loc, conn, p, row0, t
+
+
+def k22_vs_k1_k20(net, device, n_dev=1, seed=0):
+    """K22 on each of *n_dev* shards of a random step state of *net*, for
+    each of :data:`SHARD_FLAGS`: its five state arrays and both parities
+    of its partials bitwise one K1 step, a memset and K20 on the same
+    shard (and the twin's, its counts left as they were), the other
+    parity zeroed; on a step the shards' partials summed bitwise K2 over
+    the whole net's spikes. Returns the largest error against the
+    twin."""
+    from brainevent_torch.models import networks as nw
+    from brainevent_torch.ops import scatter as sc
+    from brainevent_torch.parallel import mega
+    num, n_loc = net.num, net.num // n_dev
+    worst = 0.0
+    for k, (parity, fold, step) in enumerate(SHARD_FLAGS):
+        total = torch.zeros(n_dev, 2, n_loc, dtype=torch.int32, device=device)
+        for r in range(n_dev):
+            loc, conn, p, row0, t = shard_buffers(net, n_dev, r, seed + k,
+                                                  device)
+            # the parent's step: K1, a memset of the partials, K20
+            k1 = {n: b.clone() for n, b in loc.items()}
+            nw.einet_step(*(k1[n] for n in ORDER), p, t, parity, fold, step)
+            full = torch.zeros(n_dev, 2, n_loc, dtype=torch.int32,
+                               device=device)
+            if step:
+                mega.mega_counts(k1['ids'], k1['n_ids'][parity:parity + 1],
+                                 conn, row0, net.n_exc, full)
+            args = []
+            for _ in range(2):
+                b = {n: x.clone() for n, x in loc.items()}
+                partials = torch.full((2, n_dev, 2, n_loc), 5,
+                                      dtype=torch.int32, device=device)
+                partials[parity].zero_()
+                args.append((b, partials))
+            (kb, kp), (tb, tp) = args
+            fields = ('v', 't_last', 'g_e', 'g_i', 'counts', 'spike_count')
+            mega.einet_shard_step(*(kb[n] for n in fields), kp, conn, row0,
+                                  net.n_exc, p, t, parity, fold, step)
+            mega.einet_shard_step_twin(*(tb[n] for n in fields), tp, conn,
+                                       row0, net.n_exc, p, t, parity, fold,
+                                       step)
+            torch.cuda.synchronize()
+            for n in ('v', 't_last', 'g_e', 'g_i', 'spike_count'):
+                worst = max(worst, float((kb[n] - tb[n]).abs().max()))
+                check(torch.equal(kb[n], tb[n]), ('K22 vs twin', num, r, n))
+                check(torch.equal(kb[n], k1[n]), ('K22 vs K1', num, r, n))
+            check(torch.equal(kb['counts'], loc['counts'])
+                  and torch.equal(tb['counts'], loc['counts']),
+                  ('K22 leaves the counts', num, r))
+            check(torch.equal(kp, tp), ('K22 partials vs twin', num, r))
+            if step:
+                check(torch.equal(kp[parity], full)
+                      and int(kp[parity ^ 1].abs().sum()) == 0,
+                      ('K22 partials vs K20', num, r, parity))
+                total += kp[parity]
+            else:
+                check(bool((kp[parity ^ 1] == 5).all()),
+                      ('a fold alone leaves the partials', num, r))
+        if step:
+            bufs, t = random_step_state(num, seed + k, device)
+            p = net.step_params()
+            nw.einet_step(*(bufs[n] for n in ORDER), p, t, parity, fold, step)
+            k2 = sc.event_count_scatter(
+                bufs['ids'], bufs['n_ids'][parity:parity + 1], net.conn_all,
+                net.n_exc, torch.zeros(2, num, dtype=torch.int32,
+                                       device=device))
+            torch.cuda.synchronize()
+            check(torch.equal(total.transpose(0, 1).reshape(2, num), k2),
+                  ('K22 shards summed vs K2', num, n_dev))
+    return worst
+
+
+def k22_bytes(n_loc, num, n_act, n_conn):
+    """The bytes one K22 step must move: v, t_last, g_e, g_i and two
+    counts read and v, g_e, g_i written a neuron, t_last and spike_count
+    of each spike, its row of conn, and the partials written once: the
+    zeroing of the other parity's ``2 * num`` counts. The atomics of the
+    hits add into partials that the zeroing left in L2 (3.2 MB at 400k),
+    so they move no bytes of their own to HBM."""
+    return 36 * n_loc + 8 * n_act + 4 * n_act * n_conn + 8 * num
+
+
+def time_shard_step(net, final, steps_done, device):
+    """K22's device ms per launch at world size 1 (``n_loc = num``) from a
+    run's final state, queued back to back (fold and step, the parity
+    alternating), beside the parent's K1 + memset + K20 for the same
+    step, and K22's twin's ms; the bytes of the step it took."""
+    from brainevent_torch.models import networks as nw
+    from brainevent_torch.parallel import mega
+    num, n_conn = net.num, net.conn_all.shape[1]
+    p = net.step_params()
+    b = [x.clone() for x in final[:4]]
+    counts = torch.zeros(2, num, dtype=torch.int32, device=device)
+    spike_count = final[4].clone()
+    partials = torch.zeros(2, 1, 2, num, dtype=torch.int32, device=device)
+    clock = [steps_done]
+
+    def k22(op):
+        t = float(F32(clock[0]) * F32(net.dt))
+        op(*b, counts, spike_count, partials, net.conn_all, 0, net.n_exc, p,
+           t, clock[0] & 1, True, True)
+        clock[0] += 1
+
+    before = int(spike_count.sum())
+    k22(mega.einet_shard_step)
+    torch.cuda.synchronize()
+    n_act = int(spike_count.sum()) - before
+    reps, reps_twin = (500, 100) if num < 40_000 else (200, 20)
+    ms = device_ms(lambda: k22(mega.einet_shard_step), reps)
+    twin_ms = host_ms(lambda: k22(mega.einet_shard_step_twin), reps_twin)
+    k1b = [x.clone() for x in final[:4]] + [
+        counts.clone(), spike_count.clone(),
+        torch.zeros(num, dtype=torch.int32, device=device),
+        torch.zeros(2, dtype=torch.int32, device=device)]
+    full = torch.zeros(1, 2, num, dtype=torch.int32, device=device)
+
+    def parent():
+        k = clock[0]
+        t = float(F32(k) * F32(net.dt))
+        nw.einet_step(*k1b, p, t, k & 1, True, True)
+        full.zero_()
+        mega.mega_counts(k1b[6], k1b[7][k & 1:(k & 1) + 1], net.conn_all, 0,
+                         net.n_exc, full)
+        clock[0] += 1
+
+    # three launches a call: a quarter of the calls keeps the queue behind
+    # the sleep kernel within the device's pending-launch limit
+    parent_ms = device_ms(parent, reps // 4)
+    return dict(ms=ms, plain_ms=twin_ms, parent_ms=parent_ms, n_act=n_act,
+                bytes=k22_bytes(num, num, n_act, n_conn))
+
+
+def check_k22(device):
+    phase(f'29b K22 einet_shard_step vs its twin and vs one K1 step, a '
+          f'memset and K20: random step states at COBA 4k and 400k, at world '
+          f'size 1 and over {K20_SHARDS} shards (row0 = r * n_loc), each '
+          f'parity, fold and step: all state and both parities of the '
+          f'partials bitwise, the shards summed bitwise K2; device ms per '
+          f'launch at world size 1 beside K1 + memset + K20')
+    import brainevent_torch as bt
+    worst, res = 0.0, {}
+    for label, scale in SHARD_NETS:
+        net = bt.EINet(scale=scale, device=device)
+        for n_dev in (1, K20_SHARDS):
+            worst = max(worst, k22_vs_k1_k20(net, device, n_dev, seed=29))
+        final = bt.einet_pallas_sim(net, net.init_state(), DENSE_TIME_WARM)
+        t = time_shard_step(net, final, DENSE_TIME_WARM, device)
+        res[label] = t
+        print(f'{label}: K22 bitwise its twin and K1 + memset + K20 at world '
+              f'size 1 and over {K20_SHARDS} shards; a step ({t["n_act"]} '
+              f'spikes of {net.num}): K22 device {t["ms"]!r} ms, K1 + memset '
+              f'+ K20 {t["parent_ms"]!r} ms, twin {t["plain_ms"]!r} ms, '
+              f'bound {bound(t["bytes"], 0)!r}')
+        del net, final
     return worst, res
 
 
@@ -3108,13 +3537,37 @@ def sharded_run(snet, state, n_steps, inp=20.0):
     return out, bt.launch_counts(), calls
 
 
+def parent_sharded_run(snet, state, n_steps, inp=20.0):
+    """The route K22 replaced, on this rank: :func:`einet_loop` over K1
+    and, a step, a memset of the ``(n_dev, 2, n_loc)`` partials, K20 and
+    one ``reduce_scatter_tensor``, composed here from the package's parts
+    (three launches and a collective a step). Returns the five local
+    arrays."""
+    import torch.distributed as dist
+    from brainevent_torch.models.networks import einet_loop
+    from brainevent_torch.parallel import mega
+    full = torch.empty(snet.n_dev, 2, snet.n_loc, dtype=torch.int32,
+                       device=snet.device)
+
+    def propagate(ids, n_ids, counts):
+        full.zero_()
+        mega.mega_counts(ids, n_ids, snet.indices_loc, snet.row0,
+                         snet.n_exc, full)
+        dist.reduce_scatter_tensor(counts.view(-1), full.view(-1),
+                                   group=snet._axis.group)
+    return einet_loop(*(x.to_local() for x in state),
+                      snet.times(n_steps), snet.step_params(inp), propagate)
+
+
 def check_sharded_einet(mesh, device):
     phase(f'30 ShardedEINet on the card (world size 1, NCCL), COBA 4k and '
           f'400k, propagate scatter and mxu6: {SHARD_STEPS} steps, all five '
-          f'fields bitwise EINet; K1 {SHARD_STEPS + 1} and K20 '
-          f'{SHARD_STEPS} launches (mxu6); one reduce-scatter of 2 * num * '
-          f'4 bytes per step and no other collective; us/step over '
-          f'{SHARD_TIME_STEPS} steps after {SHARD_TIME_WARM}, beside EINet')
+          f'fields bitwise EINet; K22 {SHARD_STEPS + 1} launches, K1 and K20 '
+          f'none; one reduce-scatter of 2 * num * 4 bytes per step and no '
+          f'other collective; the parent\'s route (K1 + memset + K20) '
+          f'bitwise too; us/step over {SHARD_TIME_STEPS} steps after '
+          f'{SHARD_TIME_WARM}, K22 and the parent\'s route in turns, beside '
+          f'EINet')
     import brainevent_torch as bt
     res = {}
     for label, scale in SHARD_NETS:
@@ -3131,11 +3584,10 @@ def check_sharded_einet(mesh, device):
                 check(x.to_local().dtype == y.dtype
                       and torch.equal(x.to_local(), y),
                       (label, propagate, 'bitwise EINet'))
-            mx = propagate == 'mxu6'
-            check(counts['einet_step'] == SHARD_STEPS + 1
-                  and counts['mega_counts'] == (SHARD_STEPS if mx else 0)
-                  and counts['event_scatter_float'] == (
-                      0 if mx else 2 * SHARD_STEPS)
+            check(counts['einet_shard_step'] == SHARD_STEPS + 1
+                  and counts['einet_step'] == 0
+                  and counts['mega_counts'] == 0
+                  and counts['event_scatter_float'] == 0
                   and counts['event_count_scatter'] == 0,
                   (label, propagate, counts))
             check([c for c, _ in calls] == ['reduce_scatter_tensor']
@@ -3145,22 +3597,41 @@ def check_sharded_einet(mesh, device):
             print(f'COBA {label} {propagate}: bitwise EINet on all five '
                   f'fields over {SHARD_STEPS} steps '
                   f'({int(ref.spike_count.sum())} spikes); launches '
-                  f'{counts["einet_step"]} K1, {counts["mega_counts"]} K20, '
-                  f'{counts["event_scatter_float"]} K2 float; '
-                  f'{len(calls)} reduce-scatters of {2 * net.num * 4} bytes, '
-                  f'no other collective')
-        # timing, the routes in one run: EINet, then the sharded routes
-        us = {}
-        for route in ('EINet', 'scatter', 'mxu6'):
-            runner = net if route == 'EINet' else sharded_net(net, mesh,
-                                                              route)
-            s0 = state if route == 'EINet' else runner.init_state_from(state)
-            warm = runner.run(SHARD_TIME_WARM, state=s0)
+                  f'{counts["einet_shard_step"]} K22, {counts["einet_step"]} '
+                  f'K1, {counts["mega_counts"]} K20; {len(calls)} '
+                  f'reduce-scatters of {2 * net.num * 4} bytes, no other '
+                  f'collective')
+        # the parent's route, its launches counted (K20's path)
+        snet = sharded_net(net, mesh, 'mxu6')
+        bt.reset_launch_counts()
+        with collective_log() as calls:
+            out = parent_sharded_run(snet, snet.init_state_from(state),
+                                     SHARD_STEPS)
+            torch.cuda.synchronize()
+        counts = bt.launch_counts()
+        check_equal_fields(out, want, (label, 'parent route'))
+        check(counts['einet_step'] == SHARD_STEPS + 1
+              and counts['mega_counts'] == SHARD_STEPS
+              and counts['einet_shard_step'] == 0
+              and len(calls) == SHARD_STEPS, (label, 'parent', counts))
+        res[label, 'parent'] = dict(counts=counts)
+        # timing: EINet, then K22 and the parent's route in turns
+        us = {'EINet': [], 'K22': [], 'K1 + memset + K20': []}
+        s_warm = snet.run(SHARD_TIME_WARM, state=snet.init_state_from(state))
+        warm = net.run(SHARD_TIME_WARM, state=state)
+        for route in ('EINet', 'K22', 'K1 + memset + K20',
+                      'K1 + memset + K20', 'K22', 'EINet'):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            runner.run(SHARD_TIME_STEPS, state=warm)
+            if route == 'EINet':
+                net.run(SHARD_TIME_STEPS, state=warm)
+            elif route == 'K22':
+                snet.run(SHARD_TIME_STEPS, state=s_warm)
+            else:
+                parent_sharded_run(snet, s_warm, SHARD_TIME_STEPS)
             torch.cuda.synchronize()
-            us[route] = (time.perf_counter() - t0) / SHARD_TIME_STEPS * 1e6
+            us[route].append((time.perf_counter() - t0) / SHARD_TIME_STEPS
+                             * 1e6)
         # the step's one collective alone, on the step's buffers
         import torch.distributed as dist
         full = torch.zeros(1, 2, net.num, dtype=torch.int32, device=device)
@@ -3172,9 +3643,9 @@ def check_sharded_einet(mesh, device):
         res[label, 'us'] = us
         print(f'COBA {label} us/step over {SHARD_TIME_STEPS} steps after '
               f'{SHARD_TIME_WARM} (host clock): EINet {us["EINet"]!r}, '
-              f'sharded scatter {us["scatter"]!r}, sharded mxu6 '
-              f'{us["mxu6"]!r}; the reduce-scatter alone '
-              f'{us["reduce_scatter"]!r} us per call')
+              f'sharded K22 {us["K22"]!r}, the parent\'s K1 + memset + K20 '
+              f'{us["K1 + memset + K20"]!r} (in turns); the reduce-scatter '
+              f'alone {us["reduce_scatter"]!r} us per call')
         del net, ref, want
     return res
 
@@ -3326,7 +3797,7 @@ def neuron_mesh_world1(device):
     return neuron_mesh(1, device_type=device.type)
 
 
-TREE_PARTS = ('k10', 'jitc', 'k15', 'train', 'dense', 'ei')
+TREE_PARTS = ('k10', 'jitc', 'k15', 'train', 'dense', 'ei', 'ei_dense')
 
 
 def time_tree(tree, parts=TREE_PARTS):
@@ -3347,7 +3818,10 @@ def time_tree(tree, parts=TREE_PARTS):
       on the host clock and 10 profiled (``dense_slice_times``);
     - ``ei``: phase 6's COBA runs through ``einet_pallas_sim`` at
       :data:`EI_TIMES` (``time_run``, twice each), so a design variant of
-      the EI route can be timed beside this tree's.
+      the EI route can be timed beside this tree's;
+    - ``ei_dense``: phase 27's COBA runs of the dense strategy at
+      :data:`DENSE_TIMES` (``time_run``, twice each, bitwise mxu3) and its
+      one launch's device us/step over EI_STEPS steps on from there.
 
     Prints one JSON line."""
     import os
@@ -3420,6 +3894,24 @@ def time_tree(tree, parts=TREE_PARTS):
             res['ei'][label] = [us for us, _, _ in runs]
             print(f'COBA {label}: {res["ei"][label]!r} us/step over {n_steps} '
                   f'steps after {warm} (host clock)')
+    if 'ei_dense' in parts:
+        from brainevent_torch.models import sim
+        res['ei_dense'] = {}
+        for label, scale, n_steps, warm in DENSE_TIMES:
+            net = bt.EINet(scale=scale, device=device)
+            runs = [time_run(net, n_steps, warm, 'dense') for _ in range(2)]
+            out = runs[-1][2]
+            check_equal_fields(out, time_run(net, n_steps, warm, 'mxu3')[2],
+                               ('dense bitwise mxu3', label))
+            final = bt.EINetState(bt.LIFRefState(*out[:2]), *out[2:])
+            ms, _ = sim_device_ms(net, final, EI_STEPS, n_steps,
+                                  table=sim.dense_count_table(net))
+            res['ei_dense'][label] = dict(
+                us=[us for us, _, _ in runs],
+                device_us=ms / EI_STEPS * 1e3)
+            print(f'COBA {label} dense: {res["ei_dense"][label]!r} (us/step '
+                  f'over {n_steps} steps after {warm}, host clock; device '
+                  f'us/step of one launch over {EI_STEPS} steps)')
     print(json.dumps(res))
     return 0
 
@@ -3520,11 +4012,12 @@ def main():
     del W_end
 
     k19_err = check_k19(device)
-    sim_launches = check_dense_strategies(device)
+    sim_launches, dense_launches = check_dense_strategies(device)
     sim_times = time_dense(device)
     check_c8(device)
 
     k20_err, k20_times = check_k20(device)
+    k22_err, k22_times = check_k22(device)
     mesh = neuron_mesh_world1(device)
     shard_res = check_sharded_einet(mesh, device)
     check_sharded_ops(mesh, device)
@@ -3577,11 +4070,27 @@ def main():
     for op_name in DENSE_OPS:
         kernels.append(entry(op_name, dense_counts[op_name],
                              dense_err[op_name], dense_times[op_name]))
-    kernels.append(entry('einet_dense_hits', sim_launches['einet_dense_hits'],
-                         k19_err, sim_times['4k']))
-    kernels.append(entry('mega_counts',
-                         shard_res['400k', 'mxu6']['counts']['mega_counts'],
-                         k20_err, k20_times['400k']))
+    # K21's table instance and K22 on the dense strategy's and the sharded
+    # network's paths; K19 and K20 left them, and stay as the parent
+    # routes' yardsticks: K19's launches are the parent's dense route's
+    # (phase 26, the route the package keeps above the table capacity),
+    # K20's those of its package entry, mega_local_counts (phase 29)
+    kernels.append(dict(
+        entry('einet_dense_hits', sim_launches['einet_dense_hits'], k19_err,
+              sim_times['4k']),
+        yardstick='the parent dense route, K1 + K19 (dense_k19)'))
+    kernels.append(dict(
+        entry('mega_counts', k20_times['400k']['local_launches'], k20_err,
+              k20_times['400k']),
+        yardstick='the parent sharded step, K1 + memset + K20; launches '
+                  'from mega_local_counts'))
+    table = entry('einet_sim', dense_launches['einet_sim'],
+                  sim_times['table']['err'], sim_times['table'])
+    kernels.append(dict(table, name='einet_sim_table',
+                        replaces='brainevent_tpu/models/pallas_sim.py:532'))
+    kernels.append(entry('einet_shard_step',
+                         shard_res['400k', 'mxu6']['counts'][
+                             'einet_shard_step'], k22_err, k22_times['400k']))
     for k in kernels:
         check(k['launches'] > 0, (k['name'], 'not launched on its path'))
     print(json.dumps({'kernels': kernels}))

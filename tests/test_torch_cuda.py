@@ -1,7 +1,7 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Kernels K1-K21 against their PyTorch twins on a CUDA device.
+"""Kernels K1-K22 against their PyTorch twins on a CUDA device.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so that it also runs where JAX is not installed. ``tests/conftest.py``
@@ -38,15 +38,20 @@ K15/K16 (the dense event products) within ``1e-5 * sum|W| * gate`` per
 output and bitwise on a repeat, K15's ``s @ W`` (at k up to 70,000, float64
 too) and K16 bitwise the ascending-index loop; K17 (dense STDP) bitwise (one
 rounding, the gate being 0 or 1); K18 (the row count) exact; K19 (the dense EI
-propagation) exact and bitwise K2's counts, and every strategy of
-``einet_pallas_sim`` bitwise the mxu3 route over 2,000 steps. The public
+propagation) exact and bitwise K2's counts, K21's table instance (the dense
+strategy in one launch) bitwise the K1 + K19 loop at 4k and 40k over 2,000
+steps, each NPT instance, int32 tables and rows whose bytes are not a
+multiple of 16, and every strategy of ``einet_pallas_sim`` bitwise the
+mxu3 route over 2,000 steps. The public
 entries (``chip_smoke.py``'s phase 28 matrix): spikes of nine dtypes
 bitwise the bool spikes' result through the kernel; float16 and bfloat16
 weights within 1 ulp of the twin on the widened weights, plus the float32
 bound; float64 weights through the kernels' ``double`` instances (C10),
 one launch each, within ``1e-12 * sum|w x|`` of the float64 twin (bitwise
 where the route is exact). K20 (the sharded mega-scatter) exact against
-its twin, its four shards summed bitwise K2; K11/K12 with a row offset
+its twin, its four shards summed bitwise K2; K22 (the sharded step in one
+launch) bitwise its twin and one K1 step, a memset and K20 at 4k and 400k,
+at world size 1 and over four shards; K11/K12 with a row offset
 (``row0``) bitwise the whole walk's rows (gather) and within the float32
 atomic-order bound (scatter).
 """
@@ -1250,6 +1255,146 @@ def test_einet_dense_hits_kernel_vs_twin_and_k2(cuda_device, gen, n_act,
     assert torch.equal(got, want) and torch.equal(got, k2)
 
 
+# -- K21's table instance: the dense strategy in one launch ---------------------------
+
+def _k19_loop(net, state, n, table, inp=20.0):
+    """The loop of K1 and K19 on the card from *state* (the dense route
+    the table instance replaced, 2n + 1 launches)."""
+    bt.reset_launch_counts()
+    out = _fields(net._simulate(state, net.times(n), inp,
+                                step_op=nw.einet_step, table=table))
+    torch.cuda.synchronize()
+    counts = bt.launch_counts()
+    assert (counts['einet_step'], counts['einet_dense_hits']) == (n + 1, n)
+    return out
+
+
+def _table_npts(net, device, dtype):
+    """The NPT instances of the table source whose grid fits *net*."""
+    return [k for k in nw.SIM_SOURCE_NPT[dtype]
+            if -(-net.num // (k * nw.SIM_BLOCK))
+            <= nw.einet_sim_max_blocks(device, k, dtype)]
+
+
+@pytest.mark.parametrize('net_kw', [dict(scale=1.0, coba=True),
+                                    dict(scale=1.0, coba=False),
+                                    dict(scale=10.0, coba=True)],
+                         ids=['coba-4k', 'cuba-4k', 'coba-40k'])
+def test_k21_table_bitwise_k1_k19_loop(cuda_device, net_kw):
+    """The table instance, each NPT whose grid fits with each walk (each
+    block its own rows, or the whole grid) and the package's choice
+    twice, bitwise the K1 + K19 loop and the twin loop over 2,000 steps,
+    in one launch each."""
+    from brainevent_torch.models import sim
+    net = bt.EINet(device=cuda_device, **net_kw)
+    state = net.init_state()
+    table = sim.dense_count_table(net)
+    assert nw.table_piece_bytes(table) == 16
+    # the 4 KB rows of 4k are walked by block, the 40 KB rows of 40k by grid
+    assert nw.table_grid_walk(table) == (net.num == 40_000)
+    want = _k19_loop(net, state, 2000, table)
+    twin = _fields(net._simulate(state, net.times(2000), 20.0,
+                                 step_op=nw.einet_step_twin,
+                                 scatter_op=sc.event_count_scatter_twin))
+    _bitwise(want, twin)
+    npts = _table_npts(net, cuda_device, table.dtype)
+    assert npts[0] == nw.einet_sim_grid(net.num, cuda_device, table.dtype)[0]
+    for npt in npts:
+        for walk in (False, True):
+            _bitwise(_k21(net, state, 2000, table=table, npt=npt,
+                          grid_walk=walk), want)
+    for _ in range(2):
+        chip_smoke.run_strategy(net, state, 2000, 'dense', want)
+
+
+@pytest.mark.parametrize('case', ['uint8-1000', 'uint8-1010', 'int32-4000',
+                                  'int32-1010'])
+def test_k21_table_pieces_and_int32(cuda_device, case):
+    """Rows of num * itemsize bytes that are not a multiple of 16 (4-byte
+    and one-entry pieces), and int32 tables (a multiplicity above 255):
+    bitwise the K1 + K19 loop, each NPT that fits."""
+    from brainevent_torch.models import sim
+    dtype, num = case.split('-')
+    num = int(num)
+    rng = np.random.default_rng(num)
+    n_conn = 300 if dtype == 'int32' else 80
+    conn = rng.integers(0, num, (num, n_conn)).astype(np.int32)
+    if dtype == 'int32':
+        conn[5, :290] = 17
+    net = bt.EINet(scale=num / 4000, n_conn=n_conn, conn_all=conn,
+                   device=cuda_device)
+    assert net.num == num
+    table = sim.dense_count_table(net)
+    assert table.dtype == getattr(torch, dtype)
+    assert nw.table_piece_bytes(table) == {
+        'uint8-1000': 4, 'uint8-1010': 1, 'int32-4000': 16,
+        'int32-1010': 4}[case]
+    state = net.init_state()
+    want = _k19_loop(net, state, 1000, table)
+    for npt in _table_npts(net, cuda_device, table.dtype):
+        for walk in (False, True):
+            _bitwise(_k21(net, state, 1000, table=table, npt=npt,
+                          grid_walk=walk), want)
+
+
+@pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
+def test_k21_table_all_fire_burst(cuda_device, coba):
+    """Every neuron fires at the first step: each block walks 256 table
+    rows at once (or the grid all 4,000); bitwise the K1 + K19 loop,
+    twice each."""
+    from brainevent_torch.models import sim
+    net = bt.EINet(scale=1.0, coba=coba, seed=3, device=cuda_device)
+    s = net.init_state()
+    v = net.params.v_th + torch.rand(net.num, device=cuda_device)
+    state = s._replace(neurons=s.neurons._replace(
+        v=v, t_last=torch.full_like(v, -1e7)))
+    table = sim.dense_count_table(net)
+    want = _k19_loop(net, state, 200, table, 500.0)
+    for _ in range(2):
+        for walk in (False, True):
+            _bitwise(_k21(net, state, 200, 500.0, table=table,
+                          grid_walk=walk), want)
+    assert int(_k21(net, state, 1, 500.0, table=table)[4].min()) == 1
+
+
+def test_k21_table_refuses_a_bad_piece(cuda_device):
+    """A table piece that does not divide the row is refused by the C
+    entry point, and the launch is not counted."""
+    from brainevent_torch.models import sim
+    net = bt.EINet(scale=0.25, device=cuda_device)
+    table = sim.dense_count_table(net)
+    assert nw.table_piece_bytes(table) == 4            # 1000-byte rows
+    before = nw.einet_sim.launches
+    with pytest.raises(bt.KernelExecutionError):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(nw, 'table_piece_bytes', lambda table: 16)
+            _k21(net, net.init_state(), 5, table=table)
+    assert nw.einet_sim.launches == before
+
+
+def test_dense_above_the_table_capacity_runs_k1_k19(cuda_device):
+    """The dense strategy's route above the table instance's capacity, K1 +
+    K19 (chip_smoke.dense_k19: EINet._simulate with K1 as its step op and
+    the table), bitwise mxu3."""
+    net = bt.EINet(scale=1.0, device=cuda_device)
+    state = net.init_state()
+    ref = bt.einet_pallas_sim(net, state, 300, strategy='mxu3')
+    counts = chip_smoke.run_dense_k19(net, state, 300, ref)
+    assert counts['einet_sim'] == 0
+
+
+def test_k21_table_capacity_exceeds_the_largest_table(cuda_device):
+    """Each table instance's capacity, from the largest NPT built for its
+    dtype, exceeds the neurons of the largest table the card's memory
+    holds, so the dense strategy always runs in one launch; the capacity
+    is that instance's co-resident grid."""
+    chip_smoke.print_sim_capacity(cuda_device)
+    for dtype in (torch.uint8, torch.int32):
+        npt = nw.SIM_SOURCE_NPT[dtype][-1]
+        assert nw.einet_sim_capacity(cuda_device, dtype) == (
+            nw.einet_sim_max_blocks(cuda_device, npt, dtype) * 256 * npt)
+
+
 @pytest.mark.parametrize('strategy', ['dense', 'chain', 'mxu', 'mxu2', 'mxu4',
                                       'mxu5', 'mxu6'])
 def test_strategies_match_mxu3_on_card(cuda_device, strategy):
@@ -1306,6 +1451,17 @@ def test_k20_exact_at_in_degree_300(cuda_device):
     ids = torch.arange(net.num, dtype=torch.int32, device=cuda_device)
     n_ids = torch.tensor([net.num], dtype=torch.int32, device=cuda_device)
     assert chip_smoke.k20_vs_k2(net, ids, n_ids, cuda_device) == 0.0
+
+
+@pytest.mark.parametrize('n_dev', [1, 4])
+@pytest.mark.parametrize('scale', [1.0, 100.0], ids=['4k', '400k'])
+def test_k22_bitwise_k1_memset_k20(cuda_device, scale, n_dev):
+    """K22 on random step states, each parity, fold and step, at world
+    size 1 and over four shards in one process (row0 = r * n_loc): the
+    state and both parities of the partials bitwise its twin and one K1
+    step, a memset and K20; the shards summed bitwise K2."""
+    net = bt.EINet(scale=scale, device=cuda_device)
+    assert chip_smoke.k22_vs_k1_k20(net, cuda_device, n_dev, seed=7) == 0.0
 
 
 @pytest.mark.parametrize('corder', [True, False], ids=['gather', 'scatter'])
@@ -1365,9 +1521,14 @@ def test_sharded_einet_on_card_bitwise_einet(cuda_device, world1_mesh,
             ref.spike_count)
     for x, y in zip(out, want):
         assert torch.equal(x.to_local(), y)
-    assert counts['einet_step'] == n_steps + 1
-    assert counts['mega_counts'] == (n_steps if propagate == 'mxu6' else 0)
+    assert counts['einet_shard_step'] == n_steps + 1
+    assert counts['einet_step'] == counts['mega_counts'] == 0
+    assert counts['event_scatter_float'] == 0
     assert calls == [('reduce_scatter_tensor', 2 * net.num * 4)] * n_steps
+    # the parent's route, K1 + memset + K20 a step: the same bits
+    chip_smoke.check_equal_fields(
+        chip_smoke.parent_sharded_run(snet, snet.init_state_from(state),
+                                      n_steps), want, 'parent route')
 
 
 def test_sharded_ops_on_card_match_single_device(cuda_device, world1_mesh,

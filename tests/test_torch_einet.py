@@ -209,6 +209,158 @@ def test_einet_sim_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
                 net.n_exc, npt=2)
 
 
+@pytest.mark.parametrize('scale, dtype, vec', [
+    (0.1, torch.uint8, 16), (0.25, torch.uint8, 4), (0.2525, torch.uint8, 1),
+    (0.1, torch.int32, 16), (0.2525, torch.int32, 4)])
+def test_einet_sim_table_wrapper_passes_source_and_piece(monkeypatch, scale,
+                                                         dtype, vec):
+    """With a table K21's wrapper passes the table as the targets, its
+    source (1 uint8, 2 int32) and the bytes of its pieces (16 where a
+    row's bytes are a multiple of 16, else 4 or one entry); it refuses a
+    table of another dtype or shape (checked without a card)."""
+    from brainevent_torch.ops import cuda_build
+    seen = {}
+
+    def function(name, argtypes, restype=None):
+        def fn(*cargs):
+            assert len(cargs) == len(argtypes), name
+            seen[name] = cargs
+            return 0
+        return fn
+    monkeypatch.setattr(cuda_build, 'function', function)
+    monkeypatch.setattr(tnet, 'cuda_stream', lambda device: None)
+    monkeypatch.setattr(tnet, '_max_blocks', lambda index, npt, src: 1000)
+    net = EINet(scale=scale, device='cpu')
+    s = net.init_state()
+    bufs = [x.clone() for x in (s.neurons.v, s.neurons.t_last, s.g_e,
+                                s.g_i, s.spike_count)]
+    table = torch.zeros(net.num, net.num, dtype=dtype)
+    assert tnet.table_piece_bytes(table) == vec
+    op = tnet.einet_sim
+    op.cuda(op, *bufs, net.conn_all, torch.zeros(3), net.step_params(),
+            net.n_exc, table=table)
+    cargs = seen['einet_sim_launch']
+    assert cargs[5] == table.data_ptr()
+    # rows of at most 8 KB: each block walks its own rows
+    assert cargs[14:18] == (tnet.SIM_SOURCES[dtype], vec, None, 0)
+    op.cuda(op, *bufs, net.conn_all, torch.zeros(3), net.step_params(),
+            net.n_exc, table=table, grid_walk=True)
+    cargs = seen['einet_sim_launch']
+    assert cargs[16] is not None and cargs[17] == 1
+    # the walk by the bytes of a row (views of one entry, no memory)
+    item = table.element_size()
+    longest = tnet.TABLE_BLOCK_WALK_ROW_BYTES // item
+    assert not tnet.table_grid_walk(table)
+    assert not tnet.table_grid_walk(
+        table[:1, :1].expand(longest, longest))
+    assert tnet.table_grid_walk(table[:1, :1].expand(longest + 1,
+                                                      longest + 1))
+    op.cuda(op, *bufs, net.conn_all, torch.zeros(3), net.step_params(),
+            net.n_exc)
+    cargs = seen['einet_sim_launch']
+    assert cargs[5] == net.conn_all.data_ptr()
+    assert cargs[14:18] == (0, 0, None, 0)
+    with pytest.raises(TypeError, match='uint8 or int32'):
+        op.cuda(op, *bufs, net.conn_all, torch.zeros(3), net.step_params(),
+                net.n_exc, table=table.to(torch.int16))
+    with pytest.raises(ValueError, match='table'):
+        op.cuda(op, *bufs, net.conn_all, torch.zeros(3), net.step_params(),
+                net.n_exc, table=table[:-1])
+
+
+@pytest.mark.parametrize('dtype, largest', [(None, 8), (torch.uint8, 4),
+                                            (torch.int32, 2)])
+def test_einet_sim_instances_by_source(monkeypatch, dtype, largest):
+    """Each source builds the NPT instances up to its largest (8 over conn,
+    4 over a uint8 table, 2 over an int32 one, as einet_sim.cu's
+    be_sim_max_npt): the capacity is the largest one's, the grid is
+    chosen among them, and the wrapper refuses any other NPT (checked
+    without a card)."""
+    from brainevent_torch.models import sim
+    from brainevent_torch.ops import cuda_build
+    assert tnet.SIM_SOURCE_NPT[dtype] == tuple(
+        k for k in tnet.SIM_NPT if k <= largest)
+    text = (ROOT / 'brainevent_torch' / 'csrc' / 'einet_sim.cu').read_text()
+    assert 'be_sim_max_npt = SRC == 0 ? 8 : (SRC == 1 ? 4 : 2);' in text
+    seen = []
+    monkeypatch.setattr(tnet, '_max_blocks',
+                        lambda index, npt, src: seen.append(npt) or 3)
+    cpu = torch.device('cpu')
+    assert tnet.einet_sim_capacity(cpu, dtype) == 3 * 256 * largest
+    assert seen == [largest]
+    assert tnet.einet_sim_grid(3 * 256 * largest, cpu, dtype) == (largest, 3)
+    with pytest.raises(ValueError, match='exceed'):
+        tnet.einet_sim_grid(3 * 256 * largest + 1, cpu, dtype)
+    monkeypatch.setattr(cuda_build, 'function',
+                        lambda name, argtypes, restype=None: lambda *a: 0)
+    monkeypatch.setattr(tnet, 'cuda_stream', lambda device: None)
+    net = EINet(scale=0.1, device='cpu')
+    s = net.init_state()
+    bufs = [x.clone() for x in (s.neurons.v, s.neurons.t_last, s.g_e,
+                                s.g_i, s.spike_count)]
+    table = None if dtype is None else sim.dense_count_table(net).to(dtype)
+    op = tnet.einet_sim
+    for npt in tnet.SIM_NPT:
+        if npt <= largest:
+            op.cuda(op, *bufs, net.conn_all, torch.zeros(3),
+                    net.step_params(), net.n_exc, table=table, npt=npt,
+                    grid_walk=False)
+        else:
+            with pytest.raises(ValueError, match='npt'):
+                op.cuda(op, *bufs, net.conn_all, torch.zeros(3),
+                        net.step_params(), net.n_exc, table=table, npt=npt,
+                        grid_walk=False)
+
+
+def test_einet_sim_holds_by_size_with_a_patched_capacity(monkeypatch):
+    """The route rule: a run takes K21 up to the capacity of its source
+    (conn, or the table's dtype) and the loop of two ops a step above it,
+    on a card; always K21's twin on the CPU."""
+    caps = {None: 1000, torch.uint8: 500, torch.int32: 200}
+    monkeypatch.setattr(tnet, 'einet_sim_capacity',
+                        lambda device, table_dtype=None: caps[table_dtype])
+    card, cpu = torch.device('cuda', 0), torch.device('cpu')
+    for dtype, cap in caps.items():
+        assert tnet.einet_sim_holds(cap, card, dtype)
+        assert not tnet.einet_sim_holds(cap + 1, card, dtype)
+        assert tnet.einet_sim_holds(10 * cap, cpu, dtype)
+
+
+@pytest.mark.parametrize('dense', [False, True], ids=['conn', 'table'])
+def test_simulate_above_capacity_runs_the_loop(monkeypatch, dense):
+    """Where the rule says no, EINet._simulate runs einet_loop over K1 and
+    K2, or K19 with a table (their twins on the CPU), never K21, with the
+    same five outputs bitwise."""
+    from brainevent_torch.models import sim
+    net = EINet(scale=0.1, device='cpu')
+    state = net.init_state()
+    table = sim.dense_count_table(net) if dense else None
+    want = net._simulate(state, net.times(40), 20.0, table=table)
+    calls = {'einet_sim': 0, 'einet_step': 0, 'einet_dense_hits': 0,
+             'event_count_scatter': 0}
+    for name, mod in (('einet_sim', tnet), ('einet_step', tnet),
+                      ('einet_dense_hits', tnet),
+                      ('event_count_scatter', tnet)):
+        op = getattr(mod, name)
+
+        def spy(*args, _op=op, _name=name, **kwargs):
+            calls[_name] += 1
+            return _op(*args, **kwargs)
+        monkeypatch.setattr(mod, name, spy)
+    holds = []
+    monkeypatch.setattr(tnet, 'einet_sim_holds',
+                        lambda num, device, dtype: holds.append(
+                            (num, dtype)) and False)
+    got = net._simulate(state, net.times(40), 20.0, table=table)
+    assert holds == [(net.num, None if table is None else table.dtype)]
+    assert calls == {'einet_sim': 0, 'einet_step': 41,
+                     'einet_dense_hits': 40 if dense else 0,
+                     'event_count_scatter': 0 if dense else 40}
+    want = _fields(want)
+    for name, x in _fields(got).items():
+        assert torch.equal(x, want[name]), name
+
+
 @pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
 def test_firing_rate_regime_own_draws(coba):
     # the port's own torch.Generator draws (not JAX's), same band as

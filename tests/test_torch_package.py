@@ -125,7 +125,7 @@ def test_build_command_targets_hopper_without_fma_contraction():
         'einet_step.cu', 'event_scatter.cu', 'fcn_event.cu', 'plan_gather.cu',
         'csr_event.cu', 'pair_gather.cu', 'csr_gather_mm.cu', 'jitc_walk.cu',
         'dense_event.cu', 'dense_stdp.cu', 'event_encode.cu',
-        'einet_dense.cu', 'mega_counts.cu', 'einet_sim.cu'}
+        'einet_dense.cu', 'mega_counts.cu', 'einet_sim.cu', 'einet_shard.cu'}
     for src in srcs:
         cmd = cuda_build.compile_command(nvcc, 'x.o', src)
         assert 'arch=compute_90a,code=sm_90a' in ' '.join(cmd)
@@ -196,7 +196,8 @@ def test_cu_sources_ship_as_package_data():
                        'jitc_walk.cu', 'dense_event.cu', 'dense_stdp.cu',
                        'event_encode.cu', 'einet_dense.cu',
                        'mega_counts.cu', 'csr_rows.cuh', 'einet_sim.cu',
-                       'einet_neuron.cuh'}
+                       'einet_neuron.cuh', 'einet_scatter.cuh',
+                       'einet_shard.cu'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 
@@ -234,7 +235,8 @@ def test_launch_counts_only_successful_launches(monkeypatch):
                            'csr_scatter_mv', 'pair_gather', 'csr_gather_mm',
                            'dense_event_mv', 'dense_event_mm',
                            'dense_stdp_pre', 'dense_stdp_post',
-                           'event_row_count', 'einet_dense_hits'}
+                           'event_row_count', 'einet_dense_hits',
+                           'einet_sim'}
     bt.reset_launch_counts()
     assert set(bt.launch_counts().values()) == {0}
 
@@ -252,6 +254,7 @@ def test_registry_names_are_unique_and_document_their_kernel():
 
 
 def test_replaces_names_a_def_and_no_line_twice():
+    from brainevent_torch.parallel import mega  # noqa: F401 (K20, K22)
     by_line = {}
     for op in core.REGISTRY.values():
         path, line = op.replaces.split(':')
@@ -260,10 +263,13 @@ def test_replaces_names_a_def_and_no_line_twice():
         by_line.setdefault(op.replaces, set()).add(op.name)
     shared = {k: v for k, v in by_line.items() if len(v) > 1}
     # K1 and K2 split one TPU kernel (einet_pallas_sim_mxu3) into the two
-    # launches of a step, and K21 runs it whole in one launch; no other
-    # line is named twice
+    # launches of a step, and K21 runs it whole in one launch; K20 counts
+    # the sharded step's partials and K22 runs the step with them in one
+    # launch; no other line is named twice
     assert shared == {'brainevent_tpu/models/pallas_sim.py:639': {
-        'einet_step', 'event_count_scatter', 'einet_sim'}}
+        'einet_step', 'event_count_scatter', 'einet_sim'},
+        'brainevent_tpu/parallel/mega.py:122': {'mega_counts',
+                                                'einet_shard_step'}}
     assert by_line['brainevent_tpu/fcn/pallas_kernels.py:260'] == {
         'fcn_event_scatter'}
     for line, name in (('csr/pallas_kernels.py:55', 'csr_gather_mv'),
@@ -297,6 +303,7 @@ def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
     from brainevent_torch.csr import pallas_kernels as pk
     from brainevent_torch.dense import pallas_kernels as dk
     from brainevent_torch.events import pallas_kernels as ek
+    from brainevent_torch.models import networks as nw
     from brainevent_torch.models import sim
     from brainevent_torch.ops import mxu_gather as mg
     from brainevent_torch.ops import pair_gather as pg
@@ -310,7 +317,7 @@ def test_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
         return fn
 
     monkeypatch.setattr(cuda_build, 'function', function)
-    for mod in (pk, mg, pg, dk, ek, sim):
+    for mod in (pk, mg, pg, dk, ek, nw):
         monkeypatch.setattr(mod, 'cuda_stream', lambda device: None)
     i32 = torch.int32
     ptr = torch.tensor([0, 2, 3], dtype=i32)
@@ -444,7 +451,7 @@ def test_star_import_names_only_defined_names():
 
 
 def test_new_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
-    """The ELL, JITC walk and K20 wrappers declare as many ctypes
+    """The ELL, JITC walk, K20 and K22 wrappers declare as many ctypes
     arguments as their C entry points have parameters, and pass that
     many (the entry points replaced by a recorder; no card)."""
     from brainevent_torch.fcn import binary as fb
@@ -479,8 +486,20 @@ def test_new_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
     mega.mega_counts.cuda(mega.mega_counts, torch.zeros(4, dtype=i32),
                           torch.zeros(1, dtype=i32), idx, 4, 3,
                           torch.zeros(2, 2, 3, dtype=i32))
+    from brainevent_torch.models.networks import EINetParams
+    state = [torch.zeros(4) for _ in range(4)]
+    mega.einet_shard_step.cuda(
+        mega.einet_shard_step, *state, torch.zeros(2, 4, dtype=i32),
+        torch.zeros(4, dtype=i32), torch.zeros(2, 2, 2, 4, dtype=i32), idx,
+        4, 3, EINetParams(num=4), 0.0, 1, True, True)
+    with pytest.raises(ValueError, match='n_loc=4'):
+        mega.einet_shard_step.cuda(
+            mega.einet_shard_step, *state, torch.zeros(2, 4, dtype=i32),
+            torch.zeros(4, dtype=i32), torch.zeros(2, 2, 4, dtype=i32), idx,
+            4, 3, EINetParams(num=4), 0.0, 1, True, True)
     assert set(seen) == {'fcn_event_scatter_launch',
                          'fcn_event_gather_launch', 'jitc_walk_setup_launch',
-                         'jitc_walk_mv_launch', 'mega_counts_launch'}
+                         'jitc_walk_mv_launch', 'mega_counts_launch',
+                         'einet_shard_step_launch'}
     for name, n in seen.items():
         assert _c_params(name) == n, name

@@ -1,8 +1,10 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""brainevent_torch.parallel's ShardedEINet, mega_local_counts (K20's twin)
-and balance_csr_shards against brainevent_tpu.parallel's.
+"""brainevent_torch.parallel's ShardedEINet (K22's twin on each rank),
+mega_local_counts (K20's twin) and balance_csr_shards against
+brainevent_tpu.parallel's; K22's twin against the parent's K1 + K20 twin
+loop.
 
 The JAX side runs on 4 devices of the 8-device virtual CPU mesh
 (``tests/conftest.py``); its Pallas mega-kernel runs in interpret mode,
@@ -174,6 +176,102 @@ def test_mega_counts_twin_shard_major_sums_to_k2():
                                conn[r * n_loc:(r + 1) * n_loc], r * n_loc,
                                n_exc, total)
     assert torch.equal(total.transpose(0, 1).reshape(2, num), want)
+
+
+# -- K22: the sharded step in one launch (its twin) --------------------------------------
+
+def _shards_run(net, n_dev, n_steps, fused):
+    """*n_steps* of *net* split over *n_dev* shards in one process, the
+    reduce-scatter a sum over the shards: a step is K22's twin on each
+    shard (*fused*), or the parent's K1 twin, a memset and K20's twin;
+    a last fold. Returns the five global arrays."""
+    from brainevent_torch.models import networks as nw
+    num, n_loc = net.num, net.num // n_dev
+    s = net.init_state()
+    cut = [[x[r * n_loc:(r + 1) * n_loc].clone() for x in (
+        s.neurons.v, s.neurons.t_last, s.g_e, s.g_i, s.spike_count)]
+        for r in range(n_dev)]
+    counts = [torch.zeros(2, n_loc, dtype=torch.int32) for _ in range(n_dev)]
+    parts = [torch.zeros(2, n_dev, 2, n_loc, dtype=torch.int32)
+             for _ in range(n_dev)]
+    ids = [torch.zeros(n_loc, dtype=torch.int32) for _ in range(n_dev)]
+    n_ids = [torch.zeros(2, dtype=torch.int32) for _ in range(n_dev)]
+    p = net.step_params()
+    p.num = n_loc
+
+    def launch(r, t, parity, fold, step):
+        v, t_last, g_e, g_i, spike_count = cut[r]
+        conn = net.conn_all[r * n_loc:(r + 1) * n_loc]
+        if fused:
+            tmega.einet_shard_step_twin(v, t_last, g_e, g_i, counts[r],
+                                        spike_count, parts[r], conn,
+                                        r * n_loc, net.n_exc, p, t, parity,
+                                        fold, step)
+            return
+        nw.einet_step_twin(v, t_last, g_e, g_i, counts[r], spike_count,
+                           ids[r], n_ids[r], p, t, parity, fold, step)
+        if step:
+            parts[r][parity].zero_()
+            tmega.mega_counts_twin(ids[r], n_ids[r][parity:parity + 1],
+                                   conn, r * n_loc, net.n_exc,
+                                   parts[r][parity])
+
+    for k, t in enumerate(net.times(n_steps)):
+        for r in range(n_dev):
+            launch(r, t, k & 1, k > 0, True)
+        total = sum(parts[r][k & 1] for r in range(n_dev))
+        for r in range(n_dev):
+            counts[r].copy_(total[r])
+    for r in range(n_dev):
+        launch(r, 0.0, 0, True, False)
+    return [torch.cat([cut[r][i] for r in range(n_dev)]) for i in range(5)]
+
+
+@pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
+@pytest.mark.parametrize('n_dev', [1, 4])
+def test_k22_twin_bitwise_k1_k20_twin_loop(n_dev, coba):
+    """K22's twin on 1 and 4 shards in one process (the reduce-scatter a
+    sum over the shards), 60 steps: all five arrays bitwise the parent's
+    K1 + memset + K20 twin loop, and the single-device run."""
+    from brainevent_torch.models import EINet
+    net = EINet(scale=0.16, coba=coba, seed=21, device='cpu')
+    got = _shards_run(net, n_dev, 60, fused=True)
+    want = _shards_run(net, n_dev, 60, fused=False)
+    ref = net.run(60)
+    for x, y, z in zip(got, want, (ref.neurons.v, ref.neurons.t_last,
+                                   ref.g_e, ref.g_i, ref.spike_count)):
+        assert x.dtype == y.dtype == z.dtype
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert int(got[4].sum()) > 0
+
+
+def test_k22_twin_leaves_counts_and_zeroes_the_other_parity():
+    from brainevent_torch.models import EINet
+    net = EINet(scale=0.1, seed=3, device='cpu')
+    p = net.step_params(500.0)
+    s = net.init_state()
+    v = net.params.v_th + torch.rand(net.num, generator=torch.Generator()
+                                     .manual_seed(3))
+    bufs = [v, torch.full_like(v, -1e7), s.g_e.clone(), s.g_i.clone()]
+    counts = torch.ones(2, net.num, dtype=torch.int32)
+    spike_count = torch.zeros(net.num, dtype=torch.int32)
+    parts = torch.full((2, 1, 2, net.num), 9, dtype=torch.int32)
+    parts[1].zero_()                    # the previous step zeroed parity 1
+    tmega.einet_shard_step_twin(*bufs, counts, spike_count, parts,
+                                net.conn_all, 0, net.n_exc, p, 0.0, 1,
+                                True, True)
+    assert int(spike_count.min()) == 1              # every neuron fired
+    assert bool((counts == 1).all())
+    assert int(parts[0].abs().sum()) == 0
+    want = tmega.mega_counts_twin(
+        torch.arange(net.num, dtype=torch.int32),
+        torch.tensor([net.num], dtype=torch.int32), net.conn_all, 0,
+        net.n_exc, torch.zeros(1, 2, net.num, dtype=torch.int32))
+    assert torch.equal(parts[1], want)
+    tmega.einet_shard_step_twin(*bufs, counts, spike_count, parts,
+                                net.conn_all, 0, net.n_exc, p, 0.0, 0,
+                                True, False)               # a fold alone
+    assert torch.equal(parts[1], want) and int(parts[0].abs().sum()) == 0
 
 
 # -- balance_csr_shards ---------------------------------------------------------------

@@ -264,7 +264,7 @@ def test_einet_sim_twin_bitwise_einet_loop_on_a_burst(coba, n):
                                       'mxu4', 'mxu5'])
 def test_strategies_run_einet_sim_once(monkeypatch, strategy):
     """Each K21 strategy is one ``einet_sim`` call per run (a spy on its
-    twin); dense is the K1 + K19 loop and never calls it."""
+    twin); so is dense, through K21's table instance."""
     from brainevent_torch.models import networks as nw
     calls = []
     twin = nw.einet_sim.twin
@@ -278,4 +278,4 @@ def test_strategies_run_einet_sim_once(monkeypatch, strategy):
     einet_pallas_sim(net, state, 12, strategy=strategy)
     assert calls == [12]
     einet_pallas_sim(net, state, 12, strategy='dense')
-    assert calls == [12]
+    assert calls == [12, 12]

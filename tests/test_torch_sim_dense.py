@@ -1,15 +1,17 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""The dense strategy of ``brainevent_torch.models.sim`` (kernel K19
-over the connection-count table) against the JAX package; the superseded
-strategies are held in ``test_torch_sim.py``.
+"""The dense strategy of ``brainevent_torch.models.sim`` (kernel K21's
+table instance over the connection-count table, K19 above its capacity)
+against the JAX package; the superseded strategies are held in
+``test_torch_sim.py``.
 
-On the CPU the port runs the twins of K1, K2 and K19; the JAX package runs
-its Pallas kernels in interpret mode, as ``tests/test_models.py`` does.
-The bars are that file's: spike counts equal, ``v`` to atol 1e-4 (the
-Pallas kernels' layout is not the XLA step's, so a few ulps may differ),
-and the port's own routes bitwise equal to each other, since K2 and K19
+On the CPU the port runs the twins of K21 (the loop of K1's and K19's
+twins when given a table), K1, K2 and K19; the JAX package runs its
+Pallas kernels in interpret mode, as ``tests/test_models.py`` does. The
+bars are that file's: spike counts equal, ``v`` to atol 1e-4 (the Pallas
+kernels' layout is not the XLA step's, so a few ulps may differ), and the
+port's own routes bitwise equal to each other, since K2, K19 and K21
 count the same integer hits.
 """
 
@@ -22,6 +24,8 @@ from brainevent_tpu.models import EINet as JEINet
 from brainevent_tpu.models import pallas_sim as jps
 from brainevent_torch.interop import einet_from_arrays
 from brainevent_torch.models import EINet, sim
+from brainevent_torch.models import networks as nw
+from brainevent_torch.ops import scatter as ts
 
 from _torch_one_thread import one_torch_thread  # noqa: F401
 
@@ -192,9 +196,118 @@ def test_k19_twin_vs_the_mask_product(case):
 
 
 def test_dense_runs_the_twins_not_kernels_on_cpu():
-    from brainevent_torch.models import networks as nw
     net = EINet(scale=0.05, device='cpu')
-    ops = (nw.einet_step, sim.einet_dense_hits)
+    ops = (nw.einet_step, sim.einet_dense_hits, nw.einet_sim)
     before = [op.launches for op in ops]
     sim.einet_pallas_sim_dense(net, net.init_state(), 20)
     assert [op.launches for op in ops] == before
+
+
+# -- K21's table instance: its twin, einet_sim with a table --------------------------
+
+def _fields(x):
+    if isinstance(x, tuple) and len(x) == 5:
+        return x
+    return (x.neurons.v, x.neurons.t_last, x.g_e, x.g_i, x.spike_count)
+
+
+def _k19_twin_loop(net, state, n, table, inp=20.0):
+    """The loop of the K1 and K19 twins, the dense route K21's table
+    instance replaced."""
+    return nw.einet_loop(
+        *_fields(state), net.times(n), net.step_params(inp),
+        lambda ids, n_ids, counts: nw.einet_dense_hits_twin(
+            ids, n_ids, table, net.n_exc, counts),
+        step_op=nw.einet_step_twin)
+
+
+def _k2_twin_loop(net, state, n, inp=20.0):
+    return nw.einet_loop(
+        *_fields(state), net.times(n), net.step_params(inp),
+        lambda ids, n_ids, counts: ts.event_count_scatter_twin(
+            ids, n_ids, net.conn_all, net.n_exc, counts),
+        step_op=nw.einet_step_twin)
+
+
+def _table_sim(net, state, n, table, inp=20.0):
+    """One einet_sim call with the table (its twin here) on a copy."""
+    got = [x.clone() for x in _fields(state)]
+    nw.einet_sim(*got, net.conn_all,
+                 torch.tensor(net.times(n), dtype=torch.float32),
+                 net.step_params(inp), net.n_exc, table=table)
+    return got
+
+
+@pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
+def test_einet_sim_table_twin_bitwise_k19_loop_and_jax_dense(coba):
+    """einet_sim's twin over the table: bitwise the K1/K19 twin loop and
+    the K1/K2 twin loop; against JAX's einet_pallas_sim_dense in
+    interpret mode, this file's bar (spike counts equal, v to 1e-4)."""
+    jnet, s, net, state = _pair(0.1, coba, seed=1, key=2)
+    table = sim.dense_count_table(net)
+    got = _table_sim(net, state, 30, table)
+    _bitwise(got, _k19_twin_loop(net, state, 30, table))
+    _bitwise(got, _k2_twin_loop(net, state, 30))
+    want = jps.einet_pallas_sim_dense(jnet, s, 30)
+    _counts_equal(got, want)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-4)
+    assert int(got[4].sum()) > 0
+
+
+@pytest.mark.parametrize('n', [1, 2, 40])
+@pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
+def test_einet_sim_table_twin_on_an_all_fire_burst(coba, n):
+    """Every neuron above threshold and none refractory at inp 500: all
+    fire at the first step; bitwise the K1/K19 and K1/K2 twin loops."""
+    net = EINet(scale=0.1, coba=coba, seed=7, device='cpu')
+    s = net.init_state()
+    v = net.params.v_th + torch.rand(net.num, generator=torch.Generator()
+                                     .manual_seed(3))
+    state = s._replace(neurons=s.neurons._replace(
+        v=v, t_last=torch.full_like(v, -1e7)))
+    table = sim.dense_count_table(net)
+    got = _table_sim(net, state, n, table, 500.0)
+    assert int(got[4].min()) >= 1
+    _bitwise(got, _k19_twin_loop(net, state, n, table, 500.0))
+    _bitwise(got, _k2_twin_loop(net, state, n, 500.0))
+    _bitwise(got, sim.einet_pallas_sim_dense(net, state, n, 500.0))
+
+
+def test_einet_sim_int32_table_twin_bitwise_the_loops():
+    """An int32 table (the edge 7 -> 3 280 times, a multiplicity above
+    255): einet_sim's twin bitwise the K1/K19 and K1/K2 twin loops, and
+    the dense strategy bitwise mxu3."""
+    rng = np.random.default_rng(5)
+    num, n_conn = 400, 300
+    conn = rng.integers(0, num, (num, n_conn)).astype(np.int32)
+    conn[7, :280] = 3
+    net = EINet(scale=0.1, n_conn=n_conn, conn_all=conn, device='cpu')
+    table = sim.dense_count_table(net)
+    assert table.dtype == torch.int32 and int(table[7, 3]) >= 280
+    state = net.init_state()
+    got = _table_sim(net, state, 100, table)
+    assert int(got[4].sum()) > 0
+    _bitwise(got, _k19_twin_loop(net, state, 100, table))
+    _bitwise(got, _k2_twin_loop(net, state, 100))
+    _bitwise(sim.einet_pallas_sim_dense(net, state, 100),
+             sim.einet_pallas_sim(net, state, 100, strategy='mxu3'))
+
+
+def test_dense_calls_einet_sim_once_a_run(monkeypatch):
+    """einet_pallas_sim_dense is one einet_sim call a run, with the table
+    (a spy on its twin): K21's table instance on a card."""
+    calls = []
+    twin = nw.einet_sim.twin
+
+    def spy(*args, **kwargs):
+        table = kwargs.get('table')
+        calls.append((args[6].numel(), None if table is None
+                      else tuple(table.shape)))
+        return twin(*args, **kwargs)
+    monkeypatch.setattr(nw.einet_sim, 'twin', spy)
+    net = EINet(scale=0.05, device='cpu')
+    state = net.init_state()
+    sim.einet_pallas_sim_dense(net, state, 12)
+    assert calls == [(12, (net.num, net.num))]
+    sim.einet_pallas_sim(net, state, 7, strategy='dense')
+    assert calls[1:] == [(7, (net.num, net.num))]
