@@ -1,0 +1,9 @@
+"""Put the checkout's root on the path, so that the tests import the
+benchmark (``benchmark_torch``) and the program as a run does."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
