@@ -57,13 +57,14 @@ import ctypes
 import dataclasses
 import functools
 import math
+import numbers
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .._error import KernelExecutionError
-from ..ops import cuda_build
+from ..ops import cuda_build, tracing
 from ..ops.core import KernelOp, check_cuda_tensors, check_device, cuda_stream
 from ..ops.scatter import (event_count_scatter, event_count_scatter_twin,
                            event_scatter_add_multi)
@@ -532,11 +533,12 @@ class EINet:
         modified."""
         if state is None:
             state = self.init_state()
-        return self._simulate(state, self.times(n_steps), inp)
+        return self._simulate(state, n_steps, inp)
 
     def _simulate(self, state: EINetState, times, inp: float, *,
                   step_op=None, scatter_op=None, table=None) -> EINetState:
-        """The run at the float32 step *times*.
+        """The run at the float32 step *times*, or, given a number of
+        steps, at the first that many of :meth:`times`.
 
         By default one :data:`einet_sim` call: K21 on a CUDA device, its
         twin (:func:`einet_loop` over the K1 and K2 twins) on the CPU;
@@ -550,33 +552,59 @@ class EINet:
         1 launches. Passing *step_op* or *scatter_op* runs
         :func:`einet_loop` with them (K1, or K2 or K19, for the one not
         passed): ``chip_smoke.py`` passes the twins or the kernels to
-        compare routes on a card."""
+        compare routes on a card.
+
+        With tracing on (:mod:`~brainevent_torch.ops.tracing`), a call
+        records the span ``brainevent_torch.EINet.run`` (attributes
+        ``num``, ``n_steps`` and ``route``: ``sim``, ``sim_table`` or
+        ``loop``) around its pieces: ``.times`` (given a number of steps),
+        then ``.copies``, ``.upload`` and ``.launch`` on K21's route, or
+        ``.loop``; at most five spans, whatever the number of steps."""
         p = self.step_params(inp)
         device = state.neurons.v.device
         if step_op is None and scatter_op is None and einet_sim_holds(
                 p.num, device, None if table is None else table.dtype):
-            out = [x.to(dtype, copy=True) for x, dtype in (
-                (state.neurons.v, torch.float32),
-                (state.neurons.t_last, torch.float32),
-                (state.g_e, torch.float32), (state.g_i, torch.float32),
-                (state.spike_count, torch.int32))]
-            t = torch.from_numpy(np.asarray(times, dtype=np.float32))
-            einet_sim(*out, self.conn_all, t.to(device), p, self.n_exc,
-                      table=table)
-            v, t_last, g_e, g_i, spike_count = out
+            route = 'sim' if table is None else 'sim_table'
         else:
-            def propagate(ids, n_ids, counts):
-                if scatter_op is not None:
-                    scatter_op(ids, n_ids, self.conn_all, self.n_exc, counts)
-                elif table is None:
-                    event_count_scatter(ids, n_ids, self.conn_all, self.n_exc,
-                                        counts)
-                else:
-                    einet_dense_hits(ids, n_ids, table, self.n_exc, counts)
-            v, t_last, g_e, g_i, spike_count = einet_loop(
-                state.neurons.v, state.neurons.t_last, state.g_e, state.g_i,
-                state.spike_count, times, p, propagate,
-                step_op=step_op or einet_step)
+            route = 'loop'
+        counted = isinstance(times, numbers.Integral)
+        with tracing.span('brainevent_torch.EINet.run', num=p.num,
+                          n_steps=int(times) if counted else len(times),
+                          route=route):
+            if counted:
+                with tracing.span('brainevent_torch.EINet.times'):
+                    times = self.times(times)
+            if route != 'loop':
+                with tracing.span('brainevent_torch.EINet.copies'):
+                    out = [x.to(dtype, copy=True) for x, dtype in (
+                        (state.neurons.v, torch.float32),
+                        (state.neurons.t_last, torch.float32),
+                        (state.g_e, torch.float32),
+                        (state.g_i, torch.float32),
+                        (state.spike_count, torch.int32))]
+                with tracing.span('brainevent_torch.EINet.upload'):
+                    t = torch.from_numpy(np.asarray(times, dtype=np.float32))
+                    t = t.to(device)
+                with tracing.span('brainevent_torch.EINet.launch'):
+                    einet_sim(*out, self.conn_all, t, p, self.n_exc,
+                              table=table)
+                v, t_last, g_e, g_i, spike_count = out
+            else:
+                def propagate(ids, n_ids, counts):
+                    if scatter_op is not None:
+                        scatter_op(ids, n_ids, self.conn_all, self.n_exc,
+                                   counts)
+                    elif table is None:
+                        event_count_scatter(ids, n_ids, self.conn_all,
+                                            self.n_exc, counts)
+                    else:
+                        einet_dense_hits(ids, n_ids, table, self.n_exc,
+                                         counts)
+                with tracing.span('brainevent_torch.EINet.loop'):
+                    v, t_last, g_e, g_i, spike_count = einet_loop(
+                        state.neurons.v, state.neurons.t_last, state.g_e,
+                        state.g_i, state.spike_count, times, p, propagate,
+                        step_op=step_op or einet_step)
         return EINetState(neurons=LIFRefState(v=v, t_last=t_last), g_e=g_e,
                           g_i=g_i, spike_count=spike_count)
 
