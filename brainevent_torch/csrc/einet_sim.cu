@@ -61,6 +61,11 @@
 // Loads of the counts, which other blocks wrote in this launch, bypass L1
 // (__ldcg); conn, the table and times, which nothing writes, go through
 // the read-only path.
+//
+// Over conn rows, a network that one thread-block cluster holds (~11k
+// neurons of 80 targets on an H100) runs the cluster instance below
+// instead: the counts and the rows in shared memory, the cluster's
+// barrier in place of the grid's.
 #include <cooperative_groups.h>
 
 #include <cstring>
@@ -312,6 +317,215 @@ einet_sim_barriers_kernel(const int n_syncs) {
     for (int k = 0; k < n_syncs; ++k) grid.sync();
 }
 
+// -- the cluster instance ----------------------------------------------------
+//
+// K21 over conn rows for a network that one thread-block cluster holds
+// whole (networks.einet_sim_cluster: C = 1-16 blocks, a power of two, the
+// fewest whose share of the neurons, their counts and their conn rows fit
+// a block's shared memory; 8 blocks of 500 neurons at Brette's 4,000 with
+// 80 targets). The grid is that one cluster (cudaLaunchKernelEx with a
+// cluster dimension, not a cooperative launch), so a step's exchange and
+// its barrier stay on chip. At 4k the grid instance's step was half its
+// grid barrier (1.11 of 2.13-2.15 us) and half a chain of dependent L2
+// trips: the two counts past L1, then a spiking warp's conn row, then 80
+// L2 atomics that the next barrier's fence drains. Here:
+//   - block b owns neurons [b * share, (b + 1) * share) and holds their
+//     int32 hit counts, (2 parities, 2 classes, share), in its shared
+//     memory; a spike's target t is added into block t / share's counts
+//     with a distributed shared memory (DSMEM) atomic, and the fold reads
+//     and zeroes the block's own counts;
+//   - before step 0 each block stages its own rows of conn (share x
+//     n_conn) in shared memory, each target as its owner block and slot
+//     (-1 outside [0, num): dropped, as K2 drops it), so a spiking warp
+//     reads its row from its own SM;
+//   - one cluster.sync() a step in place of grid.sync(): its release and
+//     acquire over the cluster's shared memory order the adds and the
+//     fold, with the grid instance's parity double buffering. The barrier
+//     that ends the last step (the one after the staging, at n_steps = 0)
+//     is also the last DSMEM access's: no block leaves while a peer may
+//     still add into its counts.
+// The grid instance keeps its counts in device memory (no DSMEM spans the
+// 391 blocks of 400k); the two share einet_neuron.cuh's fold and update.
+
+// The most blocks of a cluster (non-portable above 8 on an H100) and the
+// most threads of its block.
+constexpr int BE_CLUSTER_MAX = 16;
+constexpr int BE_CLUSTER_THREADS = 1024;
+
+// A staged target: its owner block (rank) and its slot in that block's
+// counts; share <= BE_CLUSTER_THREADS * 4 < 2^16.
+__device__ __forceinline__ int be_cluster_slot(const unsigned t,
+                                               const int share) {
+    const unsigned rank = t / static_cast<unsigned>(share);
+    return static_cast<int>((rank << 16) | (t - rank * share));
+}
+
+// The warp's spikes of one ballot, in the cluster instance: bit b of mask
+// is the spike of the block's neuron first + b (global id gbase + first +
+// b), whose staged row of n_conn targets lies at rows + (first + b) *
+// n_conn. Each target adds 1 to the count of the spike's class at its
+// slot in its owner block's add_ct (the same offset in every block): a
+// DSMEM atomic.
+__device__ __forceinline__ void be_cluster_scatter(
+    unsigned mask, const int first, const int* rows, const int n_conn,
+    const int gbase, const int n_exc, int* add_ct, const int share,
+    const int lane) {
+    while (mask) {
+        const int li = first + __ffs(mask) - 1;
+        mask &= mask - 1;
+        const int* row = rows + li * n_conn;
+        int* dst = add_ct + (gbase + li >= n_exc ? share : 0);
+        for (int c = lane; c < n_conn; c += 32) {
+            const int e = row[c];
+            if (e < 0) continue;
+            atomicAdd(cg::cluster_group::map_shared_rank(dst + (e & 0xffff),
+                                                         e >> 16),
+                      1);
+        }
+    }
+}
+
+// v ... spike_count, conn, times, n_steps, n_conn, n_exc as the grid
+// instance's; share: the neurons a block owns (the last block may own
+// fewer, or none). Thread x keeps the block's neurons x, x + blockDim.x,
+// ... (NPT of them) in registers. Dynamic shared memory: 4 * share counts,
+// then share * n_conn staged targets.
+template <int NPT>
+__global__ void __launch_bounds__(BE_CLUSTER_THREADS, 1)
+einet_sim_cluster_kernel(float* __restrict__ v, float* __restrict__ t_last,
+                         float* __restrict__ g_e, float* __restrict__ g_i,
+                         int* __restrict__ spike_count,
+                         const int* __restrict__ conn,
+                         const float* __restrict__ times, const int n_steps,
+                         const int n_conn, const int n_exc, const int share,
+                         const EINetParams p) {
+    extern __shared__ int s_mem[];
+    int* s_ct = s_mem;                // (2, 2, share)
+    int* s_rows = s_mem + 4 * share;  // (share, n_conn)
+    const int num = p.num;
+    const int nt = blockDim.x;
+    const int base = blockIdx.x * share;  // one cluster is the grid
+    const int own = max(0, min(share, num - base));
+    const int lane = threadIdx.x & 31;
+
+    for (int q = threadIdx.x; q < 4 * share; q += nt) s_ct[q] = 0;
+    const int* rows = conn + static_cast<long long>(base) * n_conn;
+    for (int q = threadIdx.x; q < own * n_conn; q += nt) {
+        const unsigned t = static_cast<unsigned>(__ldg(rows + q));
+        s_rows[q] = t < static_cast<unsigned>(num) ? be_cluster_slot(t, share)
+                                                   : -1;
+    }
+    float rv[NPT], rt[NPT], re[NPT], ri[NPT];
+    int rc[NPT];
+#pragma unroll
+    for (int s = 0; s < NPT; ++s) {
+        const int li = threadIdx.x + s * nt;
+        const int i = base + li;
+        const bool mine = li < own;
+        rv[s] = mine ? v[i] : 0.0f;
+        rt[s] = mine ? t_last[i] : 0.0f;
+        re[s] = mine ? g_e[i] : 0.0f;
+        ri[s] = mine ? g_i[i] : 0.0f;
+        rc[s] = mine ? spike_count[i] : 0;
+    }
+    // every block's counts zeroed before any peer adds into them
+    cg::cluster_group::sync();
+
+    for (int k = 0; k < n_steps; ++k) {
+        const float t = __ldg(times + k);
+        const int parity = k & 1;
+        int* fold_ct = s_ct + (parity ^ 1) * 2 * share;
+        int* add_ct = s_ct + parity * 2 * share;
+#pragma unroll
+        for (int s = 0; s < NPT; ++s) {
+            const int li = threadIdx.x + s * nt;
+            bool spike = false;
+            if (li < own) {
+                if (k > 0) {
+                    const int ce = fold_ct[li];
+                    const int ci = fold_ct[share + li];
+                    be_einet_fold(re[s], ri[s], ce, ci, p);
+                    // zeroed for step k + 1, which adds into this buffer
+                    // after the barrier
+                    if (ce) fold_ct[li] = 0;
+                    if (ci) fold_ct[share + li] = 0;
+                }
+                spike = be_einet_update(rv[s], rt[s], re[s], ri[s], p, t);
+                rc[s] += spike;
+            }
+            // Every thread reaches the ballot: no early return.
+            const unsigned mask = __ballot_sync(0xffffffffu, spike);
+            be_cluster_scatter(mask, li - lane, s_rows, n_conn, base, n_exc,
+                               add_ct, share, lane);
+        }
+        cg::cluster_group::sync();
+    }
+
+    // The last step's counts, folded (the K1 + K2 loop's final fold).
+    const int* last_ct = s_ct + ((n_steps - 1) & 1) * 2 * share;
+#pragma unroll
+    for (int s = 0; s < NPT; ++s) {
+        const int li = threadIdx.x + s * nt;
+        if (li >= own) continue;
+        const int i = base + li;
+        if (n_steps > 0)
+            be_einet_fold(re[s], ri[s], last_ct[li], last_ct[share + li], p);
+        v[i] = rv[s];
+        t_last[i] = rt[s];
+        g_e[i] = re[s];
+        g_i[i] = ri[s];
+        spike_count[i] = rc[s];
+    }
+}
+
+// The cluster's barrier alone: n_syncs cluster barriers, nothing else; its
+// time is the floor under the cluster instance's.
+__global__ void __launch_bounds__(BE_CLUSTER_THREADS, 1)
+einet_sim_cluster_barriers_kernel(const int n_syncs) {
+    for (int k = 0; k < n_syncs; ++k) cg::cluster_group::sync();
+}
+
+// The cluster instances built (networks.SIM_CLUSTER_NPT): NPT 4 holds the
+// 4,096 neurons of a block's 1,024 threads, more than a block's shared
+// memory holds at 11 targets a neuron or more.
+const void* be_cluster_kernel(int npt) {
+    switch (npt) {
+        case 1: return reinterpret_cast<const void*>(einet_sim_cluster_kernel<1>);
+        case 2: return reinterpret_cast<const void*>(einet_sim_cluster_kernel<2>);
+        case 4: return reinterpret_cast<const void*>(einet_sim_cluster_kernel<4>);
+        default: return nullptr;
+    }
+}
+
+// Let kernel take smem bytes of dynamic shared memory and clusters above
+// the portable 8 blocks.
+int be_cluster_attributes(const void* kernel, int smem) {
+    int err = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+    if (err) return err;
+    return static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+}
+
+// A launch of blocks x threads, smem bytes of dynamic shared memory, as
+// one cluster of all the blocks.
+struct BeClusterLaunch {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    BeClusterLaunch(int blocks, int threads, int smem, void* stream) {
+        cfg.gridDim = dim3(blocks);
+        cfg.blockDim = dim3(threads);
+        cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+        cfg.stream = static_cast<cudaStream_t>(stream);
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = blocks;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+    }
+};
+
 // The largest NPT built for each source. Held to three blocks an SM, a
 // table instance of NPT 4 holds ~405k neurons on an H100, more than the
 // ~292k of the largest uint8 table an 80 GB card holds, and NPT 2 ~203k,
@@ -434,4 +648,100 @@ BE_EXPORT int einet_sim_barriers_launch(int n_syncs, int blocks, int device,
         reinterpret_cast<void*>(einet_sim_barriers_kernel), dim3(blocks),
         dim3(BE_SIM_BLOCK), args, 0, static_cast<cudaStream_t>(stream)));
     return be_refused(err);
+}
+
+// The largest cluster (a power of two up to BE_CLUSTER_MAX; 0: none) in
+// which every cluster instance runs at its largest block, BE_CLUSTER_THREADS
+// threads with all the shared memory a block may take (*smem bytes, the
+// device's opt-in limit): cudaOccupancyMaxPotentialClusterSize, confirmed
+// by cudaOccupancyMaxActiveClusters >= 1. A smaller block fits wherever
+// that one does.
+BE_EXPORT int einet_sim_cluster_limits(int device, int* most, int* smem) {
+    int err = be_begin(device);
+    if (err) return err;
+    int optin = 0;
+    err = static_cast<int>(cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+    if (err) return err;
+    int best = BE_CLUSTER_MAX;
+    for (int npt : {1, 2, 4}) {
+        const void* kernel = be_cluster_kernel(npt);
+        err = be_cluster_attributes(kernel, optin);
+        if (err) return be_refused(err);
+        BeClusterLaunch launch(BE_CLUSTER_MAX, BE_CLUSTER_THREADS, optin,
+                               nullptr);
+        int size = 0;
+        err = static_cast<int>(
+            cudaOccupancyMaxPotentialClusterSize(&size, kernel, &launch.cfg));
+        if (err) return be_refused(err);
+        int c = 0;
+        while (c < best && (c ? 2 * c : 1) <= size) c = c ? 2 * c : 1;
+        for (; c > 0; c /= 2) {
+            BeClusterLaunch at(c, BE_CLUSTER_THREADS, optin, nullptr);
+            int active = 0;
+            err = static_cast<int>(
+                cudaOccupancyMaxActiveClusters(&active, kernel, &at.cfg));
+            if (err) return be_refused(err);
+            if (active >= 1) break;
+        }
+        best = c;
+    }
+    *most = best;
+    *smem = optin;
+    return be_end();
+}
+
+// The cluster instance npt (1, 2 or 4) over conn on one cluster of blocks
+// blocks (1-16, a power of two), block b owning neurons [b * share, (b +
+// 1) * share); the state, conn, times, n_steps, n_conn and n_exc as
+// einet_sim_launch's, no counts (they live in shared memory). Its blocks
+// take the fewest warps that hold share neurons at npt each, and share *
+// (n_conn + 4) * 4 bytes of shared memory; a cluster the device cannot
+// schedule is refused and reported.
+BE_EXPORT int einet_sim_cluster_launch(float* v, float* t_last, float* g_e,
+                                       float* g_i, int* spike_count,
+                                       const int* conn, const float* times,
+                                       int n_steps, int n_conn, int n_exc,
+                                       const EINetParams* p, int npt,
+                                       int blocks, int share, int device,
+                                       void* stream) {
+    int err = be_begin(device);
+    if (err) return err;
+    if (p->num <= 0) return be_end();
+    const void* kernel = be_cluster_kernel(npt);
+    const int threads = (share + npt - 1) / npt;
+    const long long smem = 4LL * share * (n_conn + 4LL);
+    if (!kernel || blocks < 1 || blocks > BE_CLUSTER_MAX ||
+        (blocks & (blocks - 1)) || share < 1 || n_conn < 0 ||
+        static_cast<long long>(blocks) * share < p->num ||
+        threads > BE_CLUSTER_THREADS || smem > (1 << 30))
+        return static_cast<int>(cudaErrorInvalidValue);
+    err = be_cluster_attributes(kernel, static_cast<int>(smem));
+    if (err) return be_refused(err);
+    EINetParams params = *p;
+    void* args[] = {&v,       &t_last, &g_e,    &g_i,    &spike_count,
+                    &conn,    &times,  &n_steps, &n_conn, &n_exc,
+                    &share,   &params};
+    BeClusterLaunch launch(blocks, (threads + 31) / 32 * 32,
+                           static_cast<int>(smem), stream);
+    return be_refused(
+        static_cast<int>(cudaLaunchKernelExC(&launch.cfg, kernel, args)));
+}
+
+// n_syncs cluster barriers on one cluster of blocks x threads, each block
+// holding smem bytes of dynamic shared memory (the cluster instance's, so
+// that its blocks spread over as many SMs).
+BE_EXPORT int einet_sim_cluster_barriers_launch(int n_syncs, int blocks,
+                                                int threads, int smem,
+                                                int device, void* stream) {
+    int err = be_begin(device);
+    if (err) return err;
+    const void* kernel =
+        reinterpret_cast<const void*>(einet_sim_cluster_barriers_kernel);
+    err = be_cluster_attributes(kernel, smem);
+    if (err) return be_refused(err);
+    void* args[] = {&n_syncs};
+    BeClusterLaunch launch(blocks, threads, smem, stream);
+    return be_refused(
+        static_cast<int>(cudaLaunchKernelExC(&launch.cfg, kernel, args)));
 }

@@ -29,7 +29,10 @@ Two formulations of one step, bitwise equal to each other and to
 - :meth:`EINet.run` (and :meth:`EINet.step` on a CUDA tensor) runs the
   whole simulation as one op, :data:`einet_sim` (kernel K21,
   ``csrc/einet_sim.cu``): one launch per run, the neurons' state in
-  registers across the steps, a grid-wide barrier between steps. Its
+  registers across the steps, a grid-wide barrier between steps (where
+  one thread-block cluster holds the network, :func:`einet_sim_cluster`,
+  its cluster instance: the hit counts and conn's rows in shared memory,
+  the cluster's barrier). Its
   plain PyTorch twin, which the CPU runs, is :func:`einet_loop` over the
   twins of two ops per step: :data:`einet_step` (kernel K1,
   ``csrc/einet_step.cu``) and
@@ -295,6 +298,59 @@ def einet_sim_grid(num: int, device: torch.device, table_dtype=None):
                      f'{device} ({einet_sim_capacity(device, table_dtype)})')
 
 
+# K21's cluster instances (be_cluster_kernel in einet_sim.cu): neurons a
+# thread keeps in registers, and the most threads of a block
+SIM_CLUSTER_NPT = (1, 2, 4)
+SIM_CLUSTER_THREADS = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_limits(device_index: int) -> tuple:
+    """``(most, smem)``: the largest cluster (a power of two up to 16, 0
+    for none) in which K21's cluster instances run on the device, and the
+    bytes of shared memory a block may take (232,448 on an H100)."""
+    fn = cuda_build.function('einet_sim_cluster_limits', [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)])
+    most, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(device_index, ctypes.byref(most), ctypes.byref(smem))
+    if err:
+        raise KernelExecutionError(
+            f'einet_sim: the cluster query failed with CUDA error {err} '
+            f'({cuda_build.error_string(err)})')
+    return most.value, smem.value
+
+
+def einet_sim_cluster(num: int, n_conn: int, device: torch.device,
+                      table_dtype=None):
+    """``(blocks, share, npt)`` of K21's cluster instance for *num* neurons
+    of *n_conn* targets, or ``None`` where the grid instance runs them.
+
+    The cluster instance runs the whole network on one thread-block
+    cluster: block b owns neurons ``[b * share, (b + 1) * share)``, their
+    hit counts and their rows of conn in its shared memory, and the step's
+    barrier is the cluster's. It takes a run over conn (never a table) on
+    a card where some cluster of C blocks (a power of two, up to the
+    largest the device grants) gives ``share = ceil(num / C)`` whose rows
+    and counts, ``share * (n_conn + 4) * 4`` bytes, fit a block's shared
+    memory, and ``share <= 1024 * npt`` for an instance *npt*; the fewest
+    such blocks, so that the barrier spans the fewest SMs (8 blocks of 500
+    at 4,000 neurons of 80 targets on an H100; ~11k neurons at most
+    there). The route is chosen by size, never on failure."""
+    if table_dtype is not None or device.type != 'cuda':
+        return None
+    most, smem = _cluster_limits(device.index or 0)
+    blocks = 1
+    while blocks <= most:
+        share = -(-num // blocks)
+        if share * (n_conn + 4) * 4 <= smem:
+            for npt in SIM_CLUSTER_NPT:
+                if share <= SIM_CLUSTER_THREADS * npt:
+                    return blocks, share, npt
+        blocks *= 2
+    return None
+
+
 def table_piece_bytes(table: torch.Tensor) -> int:
     """The bytes of the pieces K21's table instance reads a row in: 16
     where the row length ``num * itemsize`` and the table's address are
@@ -330,8 +386,10 @@ def _einet_sim_cuda(op, v, t_last, g_e, g_i, spike_count, conn, times, p,
                     n_exc, table=None, *, npt=0, blocks=0, grid_walk=None):
     """Launch K21 once for ``times.numel()`` steps, over the rows of
     *conn*, or of the ``(num, num)`` count *table* where one is given.
-    *npt* and *blocks* pick the instance and the grid (default: those
-    :func:`einet_sim_grid` picks), *grid_walk* a table's walk (default:
+    By default the cluster instance where :func:`einet_sim_cluster` finds
+    one, else the grid instance that :func:`einet_sim_grid` picks. *npt*
+    and *blocks* pick a grid instance and its grid (so tests can run it
+    where the cluster would), *grid_walk* a table's walk (default:
     :func:`table_grid_walk`); no public entry sets them. A grid that
     cannot be co-resident is refused by the cooperative launch and raises
     :class:`KernelExecutionError`."""
@@ -352,6 +410,20 @@ def _einet_sim_cuda(op, v, t_last, g_e, g_i, spike_count, conn, times, p,
         raise ValueError(f'{op.name}: state, conn {tuple(conn.shape)} and '
                          f'times {tuple(times.shape)} do not match num={num}')
     dtype = None if table is None else table.dtype
+    cluster = (None if npt or blocks
+               else einet_sim_cluster(num, conn.shape[1], device, dtype))
+    if cluster is not None:
+        blocks, share, npt = cluster
+        fn = cuda_build.function('einet_sim_cluster_launch', [
+            ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+            ctypes.POINTER(EINetParams)] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p])
+        op.launch(fn, v.data_ptr(), t_last.data_ptr(), g_e.data_ptr(),
+                  g_i.data_ptr(), spike_count.data_ptr(), conn.data_ptr(),
+                  times.data_ptr(), times.numel(), conn.shape[1],
+                  int(n_exc), ctypes.byref(p), npt, blocks, share,
+                  device.index or 0, cuda_stream(device))
+        return
     if not npt:
         npt, fewest = einet_sim_grid(num, device, dtype)
     elif npt in SIM_SOURCE_NPT[dtype]:
@@ -556,15 +628,22 @@ class EINet:
 
         With tracing on (:mod:`~brainevent_torch.ops.tracing`), a call
         records the span ``brainevent_torch.EINet.run`` (attributes
-        ``num``, ``n_steps`` and ``route``: ``sim``, ``sim_table`` or
-        ``loop``) around its pieces: ``.times`` (given a number of steps),
-        then ``.copies``, ``.upload`` and ``.launch`` on K21's route, or
-        ``.loop``; at most five spans, whatever the number of steps."""
+        ``num``, ``n_steps`` and ``route``: ``sim_cluster`` where K21's
+        cluster instance runs it (:func:`einet_sim_cluster`), ``sim``,
+        ``sim_table`` or ``loop``) around its pieces: ``.times`` (given a
+        number of steps), then ``.copies``, ``.upload`` and ``.launch`` on
+        K21's route, or ``.loop``; at most five spans, whatever the number
+        of steps."""
         p = self.step_params(inp)
         device = state.neurons.v.device
         if step_op is None and scatter_op is None and einet_sim_holds(
                 p.num, device, None if table is None else table.dtype):
-            route = 'sim' if table is None else 'sim_table'
+            if table is not None:
+                route = 'sim_table'
+            elif einet_sim_cluster(p.num, self.conn_all.shape[1], device):
+                route = 'sim_cluster'
+            else:
+                route = 'sim'
         else:
             route = 'loop'
         counted = isinstance(times, numbers.Integral)

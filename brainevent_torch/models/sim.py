@@ -24,7 +24,11 @@ gather. On a GPU the whole simulation is one launch too, kernel K21
 ``einet_sim`` (``csrc/einet_sim.cu``): a persistent cooperative grid keeps
 each neuron's state in registers across the steps, counts its spikes'
 targets into int32 E/I hits with integer atomics, and crosses a grid-wide
-barrier between steps. The dense strategy runs K21's table instance: the
+barrier between steps; a network that one thread-block cluster holds
+(up to ~11k neurons of 80 targets on an H100, Brette's 4k among them)
+runs K21's cluster instance, its counts and rows of conn in the blocks'
+shared memory and the cluster's barrier in place of the grid's
+(:func:`~brainevent_torch.models.networks.einet_sim_cluster`). The dense strategy runs K21's table instance: the
 same grid, barrier and registers, each block (for rows over 8 KB the
 whole grid) walking the rows of its spiking neurons in the ``(num, num)``
 count table in place of their rows of conn. Every route gives the same counts, so all eight strategies

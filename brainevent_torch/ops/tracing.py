@@ -23,7 +23,7 @@ tracing on reads what it recorded::
     net.run(100_000)
     tracing.disable()
     root = next(s for s in tracing.drain() if s.parent_id is None)
-    root.attrs['route']        # 'sim', 'sim_table' or 'loop'
+    root.attrs['route']        # 'sim_cluster', 'sim', 'sim_table' or 'loop'
 
 Span names carry the prefix ``brainevent_torch.``. Spans nest in the
 order they are opened; they are meant for one thread. They are the

@@ -48,6 +48,9 @@ K11/K12 with a row offset). Phases:
    loop in turns, the K1 + K2 loop of 2,000 steps captured in one CUDA
    graph (replayed), K21's device time for each NPT instance whose grid
    fits and its bare barrier loop (the same grid, one barrier a step);
+   where K21 runs its cluster instance (4k), that instance's device time
+   and the bare ``cluster.sync()`` loop of clusters of 2-16 blocks, each
+   block shaped as the instance's;
    K1's and K2's device time (CUDA events around launches queued back to
    back), host-paced time per launch, and their twins' time per call;
    K21's line: one launch of 2,000 steps at 4k, device ms, twin ms;
@@ -581,10 +584,40 @@ def barrier_ms(net, n_syncs, device):
     return a.elapsed_time(b), blocks
 
 
+# the clusters of K21's bare cluster barrier loop
+CLUSTER_FLOORS = (2, 4, 8, 16)
+
+
+def cluster_barrier_ms(n_syncs, blocks, share, npt, n_conn, device):
+    """Device ms of *n_syncs* bare ``cluster.sync()`` barriers on one
+    cluster of *blocks* blocks, each shaped as a block of K21's cluster
+    instance *npt* for *share* neurons of *n_conn* targets (its threads,
+    and its shared memory, so that one block takes an SM)."""
+    import ctypes
+    from brainevent_torch.ops import cuda_build
+    from brainevent_torch.ops.core import cuda_stream
+    fn = cuda_build.function('einet_sim_cluster_barriers_launch', [
+        ctypes.c_int] * 5 + [ctypes.c_void_p])
+    args = (blocks, -(-share // (32 * npt)) * 32, 4 * share * (n_conn + 4),
+            device.index or 0, cuda_stream(device))
+    check(fn(10, *args) == 0, ('cluster barrier loop', blocks))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    err = fn(n_syncs, *args)
+    b.record()
+    torch.cuda.synchronize()
+    check(err == 0, ('cluster barrier loop', blocks, err))
+    return a.elapsed_time(b)
+
+
 def time_ei(nets, device):
     """Phase 6's EI timing at :data:`EI_TIMES`: K21 beside the K1 + K2
-    loop (in turns), its CUDA-graph capture, K21's device time by
-    instance (every NPT whose grid fits) and its bare barrier loop."""
+    loop (in turns), its CUDA-graph capture, K21's device time by grid
+    instance (every NPT whose grid fits) and its bare barrier loop; where
+    the package runs K21's cluster instance, that instance's device time
+    and the bare cluster barrier loop at :data:`CLUSTER_FLOORS`."""
     from brainevent_torch.models import networks as nw
     res, finals = {}, {}
     for label, n_steps, warm in EI_TIMES:
@@ -603,19 +636,35 @@ def time_ei(nets, device):
                 by_npt[k] = ms / n_steps * 1e3
         bar_ms, _ = barrier_ms(net, n_steps, device)
         sim_ms, _ = sim_device_ms(net, final, EI_STEPS, warm + n_steps)
+        n_conn = net.conn_all.shape[1]
+        cluster = nw.einet_sim_cluster(net.num, n_conn, device)
+        floors, cluster_us = {}, None
+        if cluster is not None:
+            ms, _ = sim_device_ms(net, final, n_steps, warm + n_steps)
+            cluster_us = ms / n_steps * 1e3
+            _, share, k = cluster
+            for c in CLUSTER_FLOORS:
+                floors[c] = cluster_barrier_ms(
+                    n_steps, c, share, k, n_conn, device) / n_steps * 1e3
+            print(f'COBA {label}: K21\'s cluster instance (blocks, share, '
+                  f'NPT) {cluster} {cluster_us!r} device us/step; the bare '
+                  f'cluster barrier loop, us/step by blocks {floors!r}')
         res[label] = dict(us=runs, graph_us=graph_us, npt=npt, blocks=blocks,
                           device_us_by_npt=by_npt,
                           barrier_us=bar_ms / n_steps * 1e3,
+                          cluster=cluster, cluster_us=cluster_us,
+                          cluster_barrier_us=floors,
                           sim_ms=sim_ms, steps=n_steps, final=final,
                           start=warm + n_steps)
         print(f'COBA {label} over {n_steps} steps after {warm} (rate '
               f'{rate!r} Hz), us/step on the host clock: K21 {runs["K21"]!r}, '
               f'the K1 + K2 loop {runs["K1 + K2"]!r} (in turns), the K1 + K2 '
               f'loop of {GRAPH_STEPS} steps as one CUDA graph {graph_us!r} '
-              f'(replayed); K21 device us/step by NPT {by_npt!r} (the '
-              f'package runs NPT {npt}, {blocks} blocks of {nw.SIM_BLOCK}); '
-              f'its bare barrier loop {bar_ms / n_steps * 1e3!r} us/step; one '
-              f'K21 launch of {EI_STEPS} steps {sim_ms!r} ms (device)')
+              f'(replayed); K21\'s grid instance device us/step by NPT '
+              f'{by_npt!r} (the fewest: NPT {npt}, {blocks} blocks of '
+              f'{nw.SIM_BLOCK}); its bare barrier loop '
+              f'{bar_ms / n_steps * 1e3!r} us/step; one K21 launch of '
+              f'{EI_STEPS} steps {sim_ms!r} ms (device)')
     return res, finals
 
 

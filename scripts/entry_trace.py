@@ -19,7 +19,8 @@ inputs from the seed, the program, a warm trial. Then:
   kept, so that the allocator works as there): the window's device idle
   share; the share
   idle while the host was inside a root span
-  (``brainevent_torch.EINet.run``); the root spans' host time a step;
+  (``brainevent_torch.EINet.run``); the root spans' host time a step and
+  their routes;
   each span's host time and the idle time inside it and none of its
   children, summed by name; the idle gaps, by the innermost span and
   host op at their middle; and how far each span lies from the
@@ -224,6 +225,8 @@ def measure(cell: str, seed: int, seconds: float, windows: int,
             device_idle_pct=100.0 * (1 - found.busy_s / found.window_s),
             entry_idle_pct=100.0 * parts['entry_idle_ns'] / w_ns,
             entry_us_per_step=parts['entry_ns'] * 1e-3 / steps,
+            routes=sorted({s.attrs['route'] for s in spans
+                           if s.parent_id is None}),
             idle_s_by_span={k: v * 1e-9
                             for k, v in parts['idle_by_span'].items()},
             host_s_by_span={k: v * 1e-9

@@ -18,6 +18,11 @@ launch) is bitwise the twin loop and the K1 + K2 loop in all five outputs:
 COBA and CUBA at 4k, 40k and 400k over 2,000 steps, 0-2 steps, an
 all-fire burst, each NPT instance, each run twice (a stale L1 line would
 show only sometimes); above its capacity ``EINet.run`` runs K1 + K2.
+K21's cluster instance (the default where one cluster holds the network,
+4k among them) bitwise the twin and the grid instance forced at NPT 1:
+COBA and CUBA at 4k, a burst, 1 and 33 neurons, the capacity's edge, few
+targets (NPT 2 and 4), 0-301 steps, two runs chained, targets outside
+``[0, num)``; the ``run`` span's route by size.
 K3/K4 (gather plans) sum each row in another order than the twin's
 ``index_add_``: ``|y - twin| <= 1e-5 * sum|w x|`` per row, K3's ``y``
 bitwise K4's (with and without the row view), and K4's ``dw`` (one
@@ -325,6 +330,172 @@ def test_k21_capacity_routes_by_size(cuda_device):
     bt.reset_launch_counts()
     small.run(5)
     assert bt.launch_counts()['einet_sim'] == 1
+
+
+def _cluster_net(device, num, n_conn=80, coba=True, seed=5):
+    """``(p, n_exc, conn, state)``: EINet's scale-1 parameters on *num*
+    neurons (80% excitatory), *n_conn* targets a neuron drawn in ``[0,
+    num)`` and an initial state drawn as ``EINet`` draws one."""
+    net = bt.EINet(scale=1.0, coba=coba, device=device)
+    gen = torch.Generator().manual_seed(seed)
+    conn = torch.randint(0, num, (num, n_conn), generator=gen,
+                         dtype=torch.int32).to(device)
+    neurons = bt.lifref_init(gen, num, net.params, device=device)
+    zeros = torch.zeros(num, device=device)
+    p = net.step_params()
+    p.num = num
+    return p, int(0.8 * num), conn, [
+        neurons.v, neurons.t_last, zeros, zeros.clone(),
+        torch.zeros(num, dtype=torch.int32, device=device)]
+
+
+def _times(n, device, start=0):
+    """The step times ``float32(i) * float32(0.1)``, ``start <= i < start +
+    n``, as EINet.times makes them."""
+    return torch.from_numpy(np.arange(start, start + n, dtype=F32)
+                            * F32(0.1)).to(device)
+
+
+def _cluster_runs(p, n_exc, conn, state, times):
+    """K21 by default (asserted to be its cluster instance), K21's grid
+    instance at NPT 1 on at least 16 blocks, and the twin, from copies of
+    *state* at the step *times*."""
+    device = conn.device
+    num, n_conn = conn.shape
+    assert nw.einet_sim_cluster(num, n_conn, device) is not None
+    runs = []
+    for kw in ({}, dict(npt=1, blocks=max(16, -(-num // 256))), None):
+        bufs = [x.clone() for x in state]
+        if kw is None:
+            nw.einet_sim_twin(*bufs, conn, times, p, n_exc)
+        else:
+            nw.einet_sim.cuda(nw.einet_sim, *bufs, conn, times, p, n_exc,
+                              **kw)
+        runs.append(bufs)
+    torch.cuda.synchronize()
+    return runs
+
+
+def _cluster_edge(device, n_conn):
+    """The most neurons of *n_conn* targets K21's cluster instance holds
+    on *device*: its largest cluster times the neurons a block holds."""
+    most, smem = nw._cluster_limits(device.index or 0)
+    share = min(smem // (4 * (n_conn + 4)),
+                nw.SIM_CLUSTER_THREADS * nw.SIM_CLUSTER_NPT[-1])
+    return most * share
+
+
+@pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
+def test_k21_cluster_4k_bitwise_twin_and_grid(cuda_device, coba):
+    """At Brette's 4,000 neurons K21 runs its cluster instance (8 blocks
+    of 500 on an H100), twice, bitwise the twin and the grid instance
+    forced at NPT 1 on 16 blocks over 2,000 steps."""
+    net = bt.EINet(scale=1.0, coba=coba, device=cuda_device)
+    assert nw.einet_sim_cluster(net.num, 80, cuda_device) == (8, 500, 1)
+    state = net.init_state()
+    times = _times(2000, cuda_device)
+    for _ in range(2):
+        got, grid, twin = _cluster_runs(net.step_params(), net.n_exc,
+                                        net.conn_all, _fields(state), times)
+        _bitwise(got, twin)
+        _bitwise(grid, twin)
+    assert int(got[4].sum()) > 1000
+
+
+@pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
+def test_k21_cluster_all_fire_burst(cuda_device, coba):
+    """Saturating drive: every neuron fires at the first step (4,000
+    rows of 80 DSMEM atomics in one step), bitwise the twin and the
+    grid instance."""
+    net = bt.EINet(scale=1.0, coba=coba, seed=3, device=cuda_device)
+    s = net.init_state()
+    v = net.params.v_th + torch.rand(net.num, device=cuda_device)
+    state = _fields(s._replace(neurons=s.neurons._replace(
+        v=v, t_last=torch.full_like(v, -1e7))))
+    for n in (1, 200):
+        times = _times(n, cuda_device)
+        got, grid, twin = _cluster_runs(net.step_params(500.0), net.n_exc,
+                                        net.conn_all, state, times)
+        _bitwise(got, twin)
+        _bitwise(grid, twin)
+    assert int(_cluster_runs(net.step_params(500.0), net.n_exc,
+                             net.conn_all, state, times[:1])[0][4].min()) == 1
+
+
+@pytest.mark.parametrize('num, n_conn', [
+    (1, 80), (33, 80), ('edge', 80), (2000, 8), (8000, 8)],
+    ids=['num1', 'num33', 'edge', 'npt2', 'npt4'])
+def test_k21_cluster_sizes(cuda_device, num, n_conn):
+    """One neuron, 33 (a block of two warps, one neuron on the second),
+    the capacity's edge (one neuron more takes the grid), and few targets
+    (NPT 2 and 4): bitwise the twin and the grid over 500 steps."""
+    if num == 'edge':
+        num = _cluster_edge(cuda_device, n_conn)
+        assert nw.einet_sim_cluster(num + 1, n_conn, cuda_device) is None
+        assert nw.einet_sim_cluster(num, n_conn, cuda_device)[0] > 1
+    p, n_exc, conn, state = _cluster_net(cuda_device, num, n_conn)
+    times = _times(500, cuda_device)
+    got, grid, twin = _cluster_runs(p, n_exc, conn, state, times)
+    _bitwise(got, twin)
+    _bitwise(grid, twin)
+
+
+@pytest.mark.parametrize('n', [0, 1, 2, 301])
+def test_k21_cluster_few_and_odd_steps(cuda_device, n):
+    net = bt.EINet(scale=1.0, device=cuda_device)
+    state = _fields(net.run(300))
+    times = _times(n, cuda_device, start=300)
+    got, grid, twin = _cluster_runs(net.step_params(), net.n_exc,
+                                    net.conn_all, state, times)
+    _bitwise(got, twin)
+    _bitwise(grid, twin)
+    if n == 0:
+        _bitwise(got, state)
+
+
+def test_k21_cluster_chained_runs(cuda_device):
+    """Two runs through the returned state (the clock going on) equal one
+    run of all their steps, bitwise the twin."""
+    net = bt.EINet(scale=1.0, device=cuda_device)
+    state = _fields(net.init_state())
+    p, times = net.step_params(), _times(301, cuda_device)
+    first = _cluster_runs(p, net.n_exc, net.conn_all, state, times[:150])[0]
+    second = _cluster_runs(p, net.n_exc, net.conn_all, first, times[150:])
+    whole = _cluster_runs(p, net.n_exc, net.conn_all, state, times)
+    _bitwise(second[0], whole[2])
+    _bitwise(second[0], whole[0])
+
+
+def test_k21_cluster_drops_targets_outside(cuda_device):
+    """Targets outside [0, num) (negative, num, far past it) are dropped,
+    as the twin and the grid instance drop them."""
+    p, n_exc, conn, state = _cluster_net(cuda_device, 4000)
+    bad = torch.tensor([-1, 4000, 4007, 2 ** 31 - 1, -2 ** 31],
+                       dtype=torch.int32, device=cuda_device)
+    conn[::3, ::7] = bad[torch.arange(conn[::3, ::7].numel(),
+                                      device=cuda_device).remainder(5)
+                         ].view(conn[::3, ::7].shape)
+    times = _times(1000, cuda_device)
+    got, grid, twin = _cluster_runs(p, n_exc, conn, state, times)
+    _bitwise(got, twin)
+    _bitwise(grid, twin)
+    assert int(got[4].sum()) > 100
+
+
+def test_run_span_route_by_size_on_card(cuda_device):
+    """With tracing on, EINet.run's span names the cluster instance at 4k
+    and the grid above the cluster's capacity (12k neurons)."""
+    from brainevent_torch.ops import tracing
+    routes = []
+    for scale in (1.0, 3.0):
+        net = bt.EINet(scale=scale, device=cuda_device)
+        tracing.enable()
+        try:
+            net.run(10)
+        finally:
+            tracing.disable()
+        routes.append(tracing.drain()[0].attrs['route'])
+    assert routes == ['sim_cluster', 'sim']
 
 
 def test_step_on_card_is_one_k21_launch(cuda_device):

@@ -169,10 +169,9 @@ def test_run_and_step_go_through_einet_sim_once(monkeypatch):
     assert calls == [30, 1]
 
 
-def test_einet_sim_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
-    """K21's wrapper declares and passes as many ctypes arguments as
-    ``einet_sim_launch`` has parameters (checked without a card: the entry
-    point is replaced by a recorder), and checks its shapes."""
+def _recording_launches(monkeypatch):
+    """Replace the C entry points by recorders of their arguments, each
+    call checked against its declared argument count, keyed by name."""
     from brainevent_torch.ops import cuda_build
     seen = {}
 
@@ -184,6 +183,14 @@ def test_einet_sim_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
         return fn
     monkeypatch.setattr(cuda_build, 'function', function)
     monkeypatch.setattr(tnet, 'cuda_stream', lambda device: None)
+    return seen
+
+
+def test_einet_sim_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
+    """K21's wrapper declares and passes as many ctypes arguments as
+    ``einet_sim_launch`` has parameters (checked without a card: the entry
+    point is replaced by a recorder), and checks its shapes."""
+    seen = _recording_launches(monkeypatch)
     net = EINet(scale=0.1, device='cpu')
     s = net.init_state()
     bufs = [x.clone() for x in (s.neurons.v, s.neurons.t_last, s.g_e,
@@ -218,17 +225,7 @@ def test_einet_sim_table_wrapper_passes_source_and_piece(monkeypatch, scale,
     source (1 uint8, 2 int32) and the bytes of its pieces (16 where a
     row's bytes are a multiple of 16, else 4 or one entry); it refuses a
     table of another dtype or shape (checked without a card)."""
-    from brainevent_torch.ops import cuda_build
-    seen = {}
-
-    def function(name, argtypes, restype=None):
-        def fn(*cargs):
-            assert len(cargs) == len(argtypes), name
-            seen[name] = cargs
-            return 0
-        return fn
-    monkeypatch.setattr(cuda_build, 'function', function)
-    monkeypatch.setattr(tnet, 'cuda_stream', lambda device: None)
+    seen = _recording_launches(monkeypatch)
     monkeypatch.setattr(tnet, '_max_blocks', lambda index, npt, src: 1000)
     net = EINet(scale=scale, device='cpu')
     s = net.init_state()
@@ -324,6 +321,133 @@ def test_einet_sim_holds_by_size_with_a_patched_capacity(monkeypatch):
         assert tnet.einet_sim_holds(cap, card, dtype)
         assert not tnet.einet_sim_holds(cap + 1, card, dtype)
         assert tnet.einet_sim_holds(10 * cap, cpu, dtype)
+
+
+H100 = (16, 232448)      # the largest cluster an H100 grants, its block's bytes
+
+
+@pytest.mark.parametrize('limits, num, n_conn, want', [
+    (H100, 4000, 80, (8, 500, 1)),            # Brette's size
+    (H100, 11056, 80, (16, 691, 1)),          # the capacity's edge at 80
+    (H100, 11057, 80, None),
+    ((8, 232448), 5528, 80, (8, 691, 1)),     # a device of 8 CTAs: half
+    ((8, 232448), 5529, 80, None),
+    ((0, 232448), 4000, 80, None),            # a device that grants none
+    (H100, 1, 80, (1, 1, 1)),
+    (H100, 33, 80, (1, 33, 1)),
+    (H100, 2000, 8, (1, 2000, 2)),            # few targets: more a thread
+    (H100, 8000, 8, (2, 4000, 4)),
+    (H100, 16 * 4096 + 1, 0, None),           # past 1,024 threads x NPT 4
+], ids=str)
+def test_einet_sim_cluster_rule(monkeypatch, limits, num, n_conn, want):
+    """The cluster instance's route by size (the device's largest cluster
+    and a block's shared memory patched, checked without a card): the
+    fewest blocks C whose share = ceil(num / C) of rows and counts,
+    share * (n_conn + 4) * 4 bytes, fit a block and whose share a block's
+    1,024 threads hold at the least NPT; else the grid (None)."""
+    monkeypatch.setattr(tnet, '_cluster_limits', lambda index: limits)
+    card = torch.device('cuda', 0)
+    assert tnet.einet_sim_cluster(num, n_conn, card) == want
+    if want is not None:
+        blocks, share, npt = want
+        assert share * (n_conn + 4) * 4 <= limits[1] and blocks * share >= num
+        # never a table, never the CPU
+        for dtype in (torch.uint8, torch.int32):
+            assert tnet.einet_sim_cluster(num, n_conn, card, dtype) is None
+        assert tnet.einet_sim_cluster(num, n_conn, torch.device('cpu')) is None
+
+
+def test_einet_sim_cluster_instances_match_the_source():
+    """The cluster instances the rule picks among are those einet_sim.cu
+    builds, and a block's most threads is its launch bound."""
+    text = (ROOT / 'brainevent_torch' / 'csrc' / 'einet_sim.cu').read_text()
+    for npt in tnet.SIM_CLUSTER_NPT:
+        assert (f'case {npt}: return reinterpret_cast<const void*>('
+                f'einet_sim_cluster_kernel<{npt}>);') in text
+    assert text.count('einet_sim_cluster_kernel<') == len(tnet.SIM_CLUSTER_NPT)
+    assert (f'BE_CLUSTER_THREADS = {tnet.SIM_CLUSTER_THREADS};') in text
+    assert 'for (int npt : {1, 2, 4})' in text
+
+
+def _rule_on_a_card(monkeypatch, limits):
+    """The cluster rule of a device of *limits*, asked for a card whatever
+    the tensors' device (so the CPU's twin, or a recorder, runs)."""
+    monkeypatch.setattr(tnet, '_cluster_limits', lambda index: limits)
+    rule = tnet.einet_sim_cluster
+    asked = []
+
+    def on_a_card(num, n_conn, device, table_dtype=None):
+        asked.append((num, n_conn))
+        return rule(num, n_conn, torch.device('cuda', 0), table_dtype)
+    monkeypatch.setattr(tnet, 'einet_sim_cluster', on_a_card)
+    return asked
+
+
+def test_einet_sim_wrapper_takes_the_cluster_by_default(monkeypatch):
+    """K21's wrapper launches the cluster instance where the rule finds
+    one (as many ctypes arguments as ``einet_sim_cluster_launch`` has
+    parameters; blocks, share and NPT the rule's), and the grid instance
+    where a test forces one with ``npt``/``blocks``, or the rule finds
+    none (checked without a card: the entry points are recorders)."""
+    seen = _recording_launches(monkeypatch)
+    asked = _rule_on_a_card(monkeypatch, H100)
+    monkeypatch.setattr(tnet, '_max_blocks', lambda index, npt, src: 1000)
+    net = EINet(scale=1.0, device='cpu')
+    s = net.init_state()
+    bufs = [x.clone() for x in (s.neurons.v, s.neurons.t_last, s.g_e,
+                                s.g_i, s.spike_count)]
+    op = tnet.einet_sim
+    op.cuda(op, *bufs, net.conn_all, torch.zeros(7), net.step_params(),
+            net.n_exc)
+    cargs = seen.pop('einet_sim_cluster_launch')
+    assert not seen
+    text = (ROOT / 'brainevent_torch' / 'csrc' / 'einet_sim.cu').read_text()
+    sig = text[text.index(' einet_sim_cluster_launch(') + 26:]
+    assert sig[:sig.index(')')].count(',') + 1 == len(cargs)
+    assert cargs[5] == net.conn_all.data_ptr()
+    # n_steps, n_conn, n_exc; npt, blocks, share
+    assert cargs[7:10] == (7, 80, net.n_exc)
+    assert cargs[11:14] == (1, 8, 500)
+    op.cuda(op, *bufs, net.conn_all, torch.zeros(7), net.step_params(),
+            net.n_exc, npt=1, blocks=16)
+    assert list(seen) == ['einet_sim_launch']
+    assert seen.pop('einet_sim_launch')[12:14] == (1, 16)
+    assert asked == [(4000, 80)]              # a forced grid asks nothing
+    monkeypatch.setattr(tnet, '_cluster_limits', lambda index: (0, 232448))
+    op.cuda(op, *bufs, net.conn_all, torch.zeros(7), net.step_params(),
+            net.n_exc)
+    assert seen.pop('einet_sim_launch')[12:14] == (1, 16)
+
+
+@pytest.mark.parametrize('dense, limits, route', [
+    (False, H100, 'sim_cluster'), (False, (0, 232448), 'sim'),
+    (True, H100, 'sim_table')], ids=['conn', 'no_cluster', 'table'])
+def test_run_span_route_sim_cluster(monkeypatch, dense, limits, route):
+    """The ``run`` span's route is ``sim_cluster`` where the rule gives
+    the cluster (here the rule of a device of *limits* asked for a card,
+    its twin run on the CPU), ``sim`` on a device that grants no
+    cluster, ``sim_table`` for a table whatever the size; the state is
+    the twin's, bitwise."""
+    from brainevent_torch.models import sim
+    from brainevent_torch.ops import tracing
+    asked = _rule_on_a_card(monkeypatch, limits)
+    net = EINet(scale=0.1, device='cpu')
+    table = sim.dense_count_table(net) if dense else None
+    state = net.init_state()
+    want = _fields(net._simulate(state, net.times(30), 20.0, table=table))
+    tracing.disable()
+    tracing.drain()
+    tracing.enable()
+    try:
+        got = net._simulate(state, 30, 20.0, table=table)
+    finally:
+        tracing.disable()
+    root = tracing.drain()[0]
+    assert root.name == 'brainevent_torch.EINet.run'
+    assert root.attrs == dict(num=net.num, n_steps=30, route=route)
+    assert asked == ([] if dense else [(400, 80)] * 2)
+    for name, x in _fields(got).items():
+        assert torch.equal(x, want[name]), name
 
 
 @pytest.mark.parametrize('dense', [False, True], ids=['conn', 'table'])
