@@ -1,0 +1,7 @@
+"""``device_idle_pct.ei_40k``: the share of the profiled window in which no
+kernel, copy or memset ran on the card, in percent. Moves
+``ei_40k_us_per_step``."""
+
+from benchmark_torch.harness import readers
+
+read = readers.device_idle_pct

@@ -18,7 +18,8 @@ from benchmark_torch.reference import lif_ei
 from _tiny import SEED, TRIALS
 
 CPU = torch.device('cpu')
-CELLS = {'coba_ei.4k': bt.EINet, 'jitc_coba_ei.80k': bt.JITCNet}
+CELLS = {'coba_ei.4k': bt.EINet, 'cuba_ei.400k': bt.EINet,
+         'jitc_coba_ei.80k': bt.JITCNet}
 
 
 def measure(cell):
@@ -101,8 +102,8 @@ def lost_spikes(monkeypatch, cls):
     monkeypatch.setattr(cls, 'run', altered)
 
 
-FAULTS = [('coba_ei.4k', f) for f in (unchanged, no_input, one_entry,
-                                      lost_spikes)]
+FAULTS = [(cell, f) for cell in ('coba_ei.4k', 'cuba_ei.400k')
+          for f in (unchanged, no_input, one_entry, lost_spikes)]
 FAULTS += [('jitc_coba_ei.80k', f) for f in (unchanged, no_input,
                                              lost_spikes)]
 

@@ -23,18 +23,22 @@ def fields(out):
                 g_i=out.g_i, spike_count=out.spike_count)
 
 
+# CUBA's rest lies 6 mV above the initial mean, not 15: its neurons take
+# longer to their first spike, and its trial is longer to spike as much
+@pytest.mark.parametrize('config, n_steps', [('coba_ei', 400),
+                                             ('cuba_ei', 800)])
 @pytest.mark.parametrize('scale', [0.25, 1.0])
-def test_coba_ei_reference_is_the_program_bit_for_bit(scale):
-    cfg = spec.load_part('configs', 'coba_ei')
-    ref = spec.load_module('reference', 'coba_ei')
+def test_ei_reference_is_the_program_bit_for_bit(config, n_steps, scale):
+    cfg = spec.load_part('configs', config)
+    ref = spec.load_module('reference', config)
     inputs = ref.make_inputs(cfg, dict(scale=scale, initial_states=2),
                              SEED, CPU)
     net = bt.EINet(scale=scale, **cfg['network'], conn_all=inputs['conn'],
                    device=CPU)
     state = inputs['states'][1]
-    got = fields(net.run(400, inp=cfg['drive']['inp'],
+    got = fields(net.run(n_steps, inp=cfg['drive']['inp'],
                          state=program_state(bt.EINetState, state)))
-    want = ref.simulate(cfg, {}, inputs, state, 400)
+    want = ref.simulate(cfg, {}, inputs, state, n_steps)
     assert int(want['spike_count'].sum()) > net.num // 2
     assert ref.compare(cfg, inputs, got, want) == {
         f'{k}_mismatch': 0 for k in lif_ei.FIELDS}

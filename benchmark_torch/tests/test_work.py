@@ -1,5 +1,6 @@
 """The work counts against hand-computed values at tiny sizes."""
 
+import pytest
 import torch
 
 from benchmark_torch.harness import readers, spec
@@ -7,16 +8,19 @@ from benchmark_torch.harness.roofline import least_seconds
 from benchmark_torch.harness.trace import Trace
 
 
-def test_coba_ei_work_by_hand():
-    work = spec.load_module('work', 'coba_ei')
+@pytest.mark.parametrize('config, per_neuron_step',
+                         [('coba_ei', 20), ('cuba_ei', 16)])
+def test_ei_work_by_hand(config, per_neuron_step):
+    work = spec.load_module('work', config)
     inputs = dict(conn=torch.zeros(10, 3, dtype=torch.int32))
     counts = [torch.tensor([0, 2, 0, 1, 0, 0, 0, 0, 0, 5]),
               torch.zeros(10, dtype=torch.int32)]
     total = sum(work.reduce({}, inputs, dict(spike_count=c)) for c in counts)
     ops, nbytes = work.count({}, inputs, total, 2, 7)
-    # 20 a neuron a step, 1 a hit (8 spikes x 3 targets); the state read
-    # and written once (40 a neuron), the rows of the 3 neurons that spiked
-    assert ops == 2 * 20 * 10 * 7 + 8 * 3
+    # per_neuron_step a neuron a step, 1 a hit (8 spikes x 3 targets); the
+    # state read and written once (40 a neuron), the rows of the 3 neurons
+    # that spiked
+    assert ops == 2 * per_neuron_step * 10 * 7 + 8 * 3
     assert nbytes == 2 * 40 * 10 + 4 * 3 * 3
 
 
