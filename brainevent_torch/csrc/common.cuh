@@ -127,3 +127,29 @@ static inline int be_begin(int device) {
 static inline int be_end() {
     return static_cast<int>(cudaGetLastError());
 }
+
+// The result of a cooperative launch: a refusal (a grid too large to be
+// co-resident) is returned and cleared, so that the next launch's
+// cudaGetLastError() does not report it again.
+static inline int be_refused(int err) {
+    if (err) {
+        cudaGetLastError();
+        return err;
+    }
+    return be_end();
+}
+
+// Blocks of `threads` threads of `kernel` that can be co-resident on the
+// device: the largest grid a cooperative launch of it takes.
+static inline int be_coresident_blocks(const void* kernel, int threads,
+                                       int device, int* blocks) {
+    int per_sm = 0, sms = 0;
+    int err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, threads, 0));
+    if (err) return err;
+    err = static_cast<int>(
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+    if (err) return err;
+    *blocks = per_sm * sms;
+    return 0;
+}

@@ -565,17 +565,6 @@ const void* be_sim_kernel(int npt, int src) {
     }
 }
 
-// The result of a cooperative launch: a refusal (a grid too large to be
-// co-resident) is returned and cleared, so that the next launch's
-// cudaGetLastError() does not report it again.
-int be_refused(int err) {
-    if (err) {
-        cudaGetLastError();
-        return err;
-    }
-    return be_end();
-}
-
 }  // namespace
 
 // Blocks of BE_SIM_BLOCK threads of the instance (npt, src) that can be
@@ -586,15 +575,7 @@ BE_EXPORT int einet_sim_max_blocks(int npt, int src, int device,
     if (err) return err;
     const void* kernel = be_sim_kernel(npt, src);
     if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
-    int per_sm = 0, sms = 0;
-    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, BE_SIM_BLOCK, 0));
-    if (err) return err;
-    err = static_cast<int>(
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
-    if (err) return err;
-    *blocks = per_sm * sms;
-    return 0;
+    return be_coresident_blocks(kernel, BE_SIM_BLOCK, device, blocks);
 }
 
 // v, t_last, g_e, g_i: (num,) float32 and spike_count (num,) int32, read

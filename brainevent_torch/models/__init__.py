@@ -2,12 +2,15 @@
 # Licensed under the Apache License, Version 2.0.
 
 """SNN model components: LIF neurons, the CUBA/COBA EI networks (stored
-and implicit connectivity) and surrogate-gradient training."""
+and implicit connectivity), the Potjans-Diesmann cortical microcircuit and
+surrogate-gradient training."""
 
 from .neurons import (
     LIFRefParams, LIFRefState, lifref_init, lifref_step, surrogate_spike,
 )
 from .jitc_net import JITCNet, JITCNetState
+from .microcircuit import (MicrocircuitNet, MicrocircuitParams,
+                           MicrocircuitState, build_microcircuit)
 from .networks import EINet, EINetState
 from .sim import (
     dense_count_table, einet_pallas_sim, einet_pallas_sim_chain,
@@ -20,6 +23,8 @@ from .training import SNNParams, SurrogateSNN, snn_loss, train_step
 __all__ = [
     'LIFRefParams', 'LIFRefState', 'lifref_init', 'lifref_step',
     'surrogate_spike', 'EINet', 'EINetState', 'JITCNet', 'JITCNetState',
+    'MicrocircuitNet', 'MicrocircuitParams', 'MicrocircuitState',
+    'build_microcircuit',
     'einet_pallas_sim', 'einet_pallas_sim_mxu', 'einet_pallas_sim_mxu2',
     'einet_pallas_sim_mxu3', 'einet_pallas_sim_mxu4', 'einet_pallas_sim_mxu5',
     'einet_pallas_sim_mxu6', 'einet_pallas_sim_chain',

@@ -26,7 +26,9 @@ the multi-device layer over ``torch.distributed`` at world size 1 under
 NCCL (the one process's group, through a file store): ``ShardedEINet`` at
 4k and 400k (K22, one launch and one reduce-scatter a step), K20 and K22
 split over four shards in one process, and the sharded ops (K5-K10,
-K11/K12 with a row offset). Phases:
+K11/K12 with a row offset); and the Potjans-Diesmann cortical
+microcircuit at full scale through ``MicrocircuitNet`` (K23, a whole
+trial in one launch). Phases:
 
 1. the device (``torch.cuda.get_device_name`` and ``nvidia-smi``);
 2. the kernel build, with its seconds;
@@ -215,6 +217,14 @@ K11/K12 with a row offset). Phases:
     K11/K12 at the 80k E projection in halves with ``row0`` 0 and n/2:
     plans and gathers bitwise the whole walk, the scatter within 1e-5 *
     sum|w x|; ``sharded_jitmv`` bitwise ``jitnmv``.
+32. K23 (``mc_sim``) on the Potjans-Diesmann microcircuit at full scale
+    (77,169 neurons, 298,880,968 synapses, a delay ring of D = 64): after
+    a first launch of 1,000 steps, ``MicrocircuitNet.run`` of 2,000 steps
+    in one K23 launch and no other kernel, all five state arrays bitwise
+    the twin loop (``mc_loop``) on the card from the same state and a
+    second launch; K23's grid and the most blocks co-resident, the rates
+    by population, K23's device ms, the twin's and the bound of the work
+    ``benchmark_torch/work/pd_microcircuit.py`` counts for that launch.
 
 With ``--tree DIR`` it only times DIR's ``brainevent_torch`` by this
 file's code (``time_tree``), to compare two checkouts on one card: phase
@@ -230,15 +240,15 @@ PyTorch call computing the same function (``torch.sparse.mm``,
 matrix by the float spikes; their ``index_add_`` over the active rows'
 targets, gathered outside the timed call, is printed beside it as what it
 is, not the same function. Any failure exits non-zero; so does a host without
-CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K22 and K21's
+CUDA. The line before the last is ``{"kernels": [...]}`` (K1-K23 and K21's
 table instance, ``einet_sim_table``; K1's and K2's launches are those of
 the run above K21's capacity, K21's its one launch of the 4k COBA run, its
 ms one launch of 2,000 steps; K15's line is its ``s @ W`` direction,
 K10's the mean of the CSR slice's two B = 16 directions with each shape
 apart under ``by_shape``; K19's launches the 4k COBA dense run above the
 table instance's capacity, K20's the parent's 400k sharded route, the
-table instance's the 4k COBA dense run, K22's the 400k sharded run); the
-last is
+table instance's the 4k COBA dense run, K22's the 400k sharded run,
+K23's the full-scale microcircuit's run of phase 32); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -3832,6 +3842,85 @@ def check_sharded_ops(mesh, device):
           f'(1e-5 * sum|w x|); sharded_jitmv bitwise jitnmv')
 
 
+# -- the microcircuit (K23) ---------------------------------------------
+
+MC_SCALE = 1.0      # phase 32's microcircuit: 77,169 neurons, 2.99e8 synapses
+MC_WARM = 1000      # steps before the checked launch
+MC_STEPS = 2000     # steps of the checked and the timed launch
+
+
+def check_microcircuit(device, scale=MC_SCALE):
+    """Phase 32: K23 on the microcircuit at *scale*: a short first launch,
+    then ``MicrocircuitNet.run`` of :data:`MC_STEPS` steps (one K23 launch
+    and no other kernel) bitwise the twin (``mc_loop``) on the card from
+    the same state, a second launch from that state bitwise the first,
+    its device ms (CUDA events) and the work it needed
+    (``benchmark_torch/work/pd_microcircuit.py``'s count)."""
+    phase(f'32 K23 mc_sim: MicrocircuitNet at scale {scale}, {MC_STEPS} '
+          f'steps after {MC_WARM} in one launch, bitwise the twin loop '
+          f'(mc_loop) on the card and a second launch; device ms and bound')
+    import brainevent_torch as bt
+    from brainevent_torch.models import microcircuit as mc
+    from benchmark_torch.work import pd_microcircuit as work
+    t0 = time.perf_counter()
+    net = bt.MicrocircuitNet(scale=scale, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    blocks = mc.mc_sim_grid(net.num, device)
+    most = mc._max_blocks(device.index or 0)
+    warm = net.run(MC_WARM, state=net.init_state())
+    torch.cuda.synchronize()
+    bt.reset_launch_counts()
+    out = net.run(MC_STEPS, state=warm)
+    torch.cuda.synchronize()
+    counts = bt.launch_counts()
+    check(counts['mc_sim'] == 1
+          and sum(counts.values()) == counts['mc_sim'], counts)
+    fields = ('v', 'i_syn', 'ref', 'ring', 'spike_count')
+    p = net.step_params(warm.key, warm.step)
+    rows = (net.row_ptr, net.targets, net.weights, net.delays)
+    want = [getattr(warm, k).clone() for k in fields]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc.mc_loop(*want, *rows, MC_STEPS, p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for k, x in zip(fields, want):
+        check(torch.equal(getattr(out, k), x), ('K23 vs twin', k))
+    again = [getattr(warm, k).clone() for k in fields]
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    mc.mc_sim(*again, *rows, MC_STEPS, p)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b)
+    for k, x in zip(fields, again):
+        check(torch.equal(getattr(out, k), x), ('K23 repeat', k))
+    new = out.spike_count - warm.spike_count
+    check(int(new.sum()) > 0, 'the microcircuit is silent')
+    inputs = dict(num=net.num, depth=net.depth,
+                  net=dict(degree=(net.row_ptr[1:] - net.row_ptr[:-1])))
+    total = work.reduce(None, inputs, dict(spike_count=new))
+    n_ops, n_bytes = work.count(None, inputs, total, 1, MC_STEPS)
+    seconds = MC_STEPS * net.params.dt * 1e-3
+    rates = [float(new[i:j].double().mean()) / seconds
+             for i, j in zip(net.pop_start[:-1], net.pop_start[1:])]
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f'MicrocircuitNet at scale {scale}: {net.num} neurons, '
+          f'{net.targets.numel()} synapses, D {net.depth}, built in '
+          f'{build_s!r} s; K23 on {blocks} blocks of {mc.MC_BLOCK} (at most '
+          f'{most} co-resident); launches {counts["mc_sim"]} K23 and no '
+          f'other kernel; all five state arrays bitwise the twin loop and a '
+          f'second launch; {int(new.sum())} spikes, {int(total[0])} synapse '
+          f'events; rates by population {rates!r} Hz; K23 {ms!r} ms device '
+          f'({ms / MC_STEPS * 1e3!r} us/step), twin {plain_ms!r} ms, bound '
+          f'{bound_ms!r} ms ({bound_by})')
+    return dict(launches=counts['mc_sim'], ms=ms, plain_ms=plain_ms,
+                bytes=n_bytes, ops=n_ops, err=0.0)
+
+
 def neuron_mesh_world1(device):
     """The process group of this one process (NCCL on the card, through a
     file store in a temporary directory: no TCP port) and a 1-D neuron
@@ -4071,6 +4160,7 @@ def main():
     shard_res = check_sharded_einet(mesh, device)
     check_sharded_ops(mesh, device)
     torch.distributed.destroy_process_group()
+    mc_res = check_microcircuit(device)
 
     from brainevent_torch.ops.core import REGISTRY
 
@@ -4140,6 +4230,7 @@ def main():
     kernels.append(entry('einet_shard_step',
                          shard_res['400k', 'mxu6']['counts'][
                              'einet_shard_step'], k22_err, k22_times['400k']))
+    kernels.append(entry('mc_sim', mc_res['launches'], mc_res['err'], mc_res))
     for k in kernels:
         check(k['launches'] > 0, (k['name'], 'not launched on its path'))
     print(json.dumps({'kernels': kernels}))

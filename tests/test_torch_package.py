@@ -125,7 +125,8 @@ def test_build_command_targets_hopper_without_fma_contraction():
         'einet_step.cu', 'event_scatter.cu', 'fcn_event.cu', 'plan_gather.cu',
         'csr_event.cu', 'pair_gather.cu', 'csr_gather_mm.cu', 'jitc_walk.cu',
         'dense_event.cu', 'dense_stdp.cu', 'event_encode.cu',
-        'einet_dense.cu', 'mega_counts.cu', 'einet_sim.cu', 'einet_shard.cu'}
+        'einet_dense.cu', 'mega_counts.cu', 'einet_sim.cu', 'einet_shard.cu',
+        'mc_sim.cu'}
     for src in srcs:
         cmd = cuda_build.compile_command(nvcc, 'x.o', src)
         assert 'arch=compute_90a,code=sm_90a' in ' '.join(cmd)
@@ -197,7 +198,7 @@ def test_cu_sources_ship_as_package_data():
                        'event_encode.cu', 'einet_dense.cu',
                        'mega_counts.cu', 'csr_rows.cuh', 'einet_sim.cu',
                        'einet_neuron.cuh', 'einet_scatter.cuh',
-                       'einet_shard.cu'}
+                       'einet_shard.cu', 'mc_sim.cu'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 
@@ -241,11 +242,25 @@ def test_launch_counts_only_successful_launches(monkeypatch):
     assert set(bt.launch_counts().values()) == {0}
 
 
+# kernels of the port's own, which replace no TPU kernel (replaces=None):
+# K23, the microcircuit's trial, has no counterpart in the JAX package
+PORT_ONLY = {'mc_sim'}
+
+
+def _ported():
+    """The registry's ops that port a TPU kernel: all but PORT_ONLY, each
+    of which says so with ``replaces=None``."""
+    assert {op.name for op in core.REGISTRY.values()
+            if op.replaces is None} == PORT_ONLY
+    return [op for op in core.REGISTRY.values() if op.name not in PORT_ONLY]
+
+
 def test_registry_names_are_unique_and_document_their_kernel():
     with pytest.raises(bt.KernelRegistrationError):
         bt.KernelOp('einet_step', twin=None, cuda=None, source='', replaces='')
     for op in core.REGISTRY.values():
         assert (ROOT / op.source).is_file()
+    for op in _ported():
         path, line = op.replaces.split(':')
         # the float form of K2 and K8 port the JAX package's XLA routes
         if op.name not in ('event_scatter_float', 'csr_scatter_mv'):
@@ -256,7 +271,7 @@ def test_registry_names_are_unique_and_document_their_kernel():
 def test_replaces_names_a_def_and_no_line_twice():
     from brainevent_torch.parallel import mega  # noqa: F401 (K20, K22)
     by_line = {}
-    for op in core.REGISTRY.values():
+    for op in _ported():
         path, line = op.replaces.split(':')
         text = (ROOT / path).read_text().splitlines()[int(line) - 1]
         assert text.lstrip().startswith('def '), (op.name, text)
