@@ -25,24 +25,32 @@
 // The shape is K21's grid instance (einet_sim.cu) at one neuron a
 // thread: a persistent, cooperative grid (every block co-resident, or the
 // launch is refused) crossed by one grid.sync() a step; thread i owns
-// neuron i and keeps its V, I, ref and spike count in registers for the
-// whole trial; right after its update each warp ballots its spikes and
-// walks their rows, lanes over synapses, with an int32 atomicAdd into the
-// ring. At 80 registers three blocks of MC_BLOCK fit an SM, 396 blocks
-// (101,376 neurons, scale 1.31) on an H100's 132 SMs. One barrier a step is enough:
-// since d >= 1 and D > d, no scatter of step t writes the slot step t
-// reads and clears, and every write into that slot came before the
+// neuron i and keeps its V, I, ref, spike count and row bounds in
+// registers for the whole trial. At most 80 registers (launch bounds of
+// three blocks an SM) fit three blocks of MC_BLOCK an SM, 396 blocks
+// (101,376 neurons, scale 1.31) on an H100's 132 SMs. One barrier a step
+// is enough: since d >= 1 and D > d, no scatter of step t writes the slot
+// step t reads and clears, and every write into that slot came before the
 // previous barrier. The ring, which other blocks' atomics wrote in this
 // launch, is read past L1 (__ldcg); the rows through the read-only path.
 //
 // Rows are long (~3.9k synapses a neuron at full scale, 6.5k from L4I,
-// against K21's 80), and the rows (2.09 GB) lie past L2: a warp's walk is
-// a chain of trips to HBM, one a round of 32 x MC_UNROLL synapses, and the
-// step waits for its longest row. A lane keeps MC_UNROLL synapses' loads
-// in flight before their atomics: 16 took 17.1 us a step at full scale on
-// an H100, against 34.3 at 8 and 19.9 at 32 (128 registers, at which one
-// neuron a thread is not co-resident at full scale: timed at two a thread
-// on 151 blocks).
+// against K21's 80), and the rows (2.09 GB) lie past L2; ~25 spikes and
+// 97k synapse events a step move ~680 KB, 0.2 us at HBM's rate, and the
+// step waits for the block with the most synapses to add. A warp walking
+// its own spikes' rows took 13 trips to HBM for an L4I row, in turn for
+// two spikes of one warp, while the block's other warps waited at the
+// barrier (15.0 of 17.1 us a step on an H100). So after its update each
+// spiking thread takes a slot in the block's list in shared memory (its
+// row's bounds), and after one __syncthreads() the whole block walks each
+// listed row, thread j the synapses beg + j + MC_BLOCK u, MC_UNROLL a round,
+// loading its next round before the int32 atomicAdds of this one; a block
+// with no spike skips the walk on a uniform branch. What bounds it now is
+// one SM's rate of atomics to scattered addresses, about one a ns on an
+// H100 (6,500 alone took 6.8 us from one block), over the busiest block's
+// ~6.7k synapses (the median step): 7.9 us a step. MC_UNROLL 8 at 80
+// registers keeps 396 blocks co-resident; 4 took 8.1 us, 16 spills (14.2),
+// and without the early loads 8 and 16 took 9.3 and 9.4.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -80,29 +88,42 @@ struct McParams {
 namespace {
 
 constexpr int MC_BLOCK = 256;
-constexpr int MC_UNROLL = 16;
+constexpr int MC_UNROLL = 8;
 constexpr unsigned MC_T_MUL = 0x9E3779B9u;
 constexpr unsigned MC_I_MUL = 0x85EBCA6Bu;
 
-// One warp adds the synapses of row id into the ring's slots after step t.
-__device__ __forceinline__ void mc_scatter_row(
-    const int id, const int* __restrict__ row_ptr,
-    const int* __restrict__ targets, const short* __restrict__ weights,
-    const unsigned char* __restrict__ delays, int* ring, const unsigned t,
-    const unsigned dmask, const int num, const int lane) {
-    const int beg = __ldg(row_ptr + id);
-    const int end = __ldg(row_ptr + id + 1);
-    for (int c0 = beg + lane; c0 < end; c0 += 32 * MC_UNROLL) {
-        int tg[MC_UNROLL], w[MC_UNROLL];
-        unsigned d[MC_UNROLL];
+// One round of a thread's walk: the synapses c0 + MC_BLOCK u below end.
+__device__ __forceinline__ void mc_load(
+    const int c0, const int end, const int* __restrict__ targets,
+    const short* __restrict__ weights, const unsigned char* __restrict__ delays,
+    int* tg, int* w, unsigned* d) {
 #pragma unroll
-        for (int u = 0; u < MC_UNROLL; ++u) {
-            const int c = c0 + 32 * u;
-            const bool in = c < end;
-            tg[u] = in ? __ldg(targets + c) : -1;
-            w[u] = in ? __ldg(weights + c) : 0;
-            d[u] = in ? __ldg(delays + c) : 0u;
-        }
+    for (int u = 0; u < MC_UNROLL; ++u) {
+        const int c = c0 + MC_BLOCK * u;
+        const bool in = c < end;
+        tg[u] = in ? __ldg(targets + c) : -1;
+        w[u] = in ? __ldg(weights + c) : 0;
+        d[u] = in ? __ldg(delays + c) : 0u;
+    }
+}
+
+// The block adds the synapses [beg, end) of one row into the ring's slots
+// after step t; each thread loads its next round before the atomics of
+// this one.
+__device__ __forceinline__ void mc_scatter_row(
+    const int beg, const int end, const int* __restrict__ targets,
+    const short* __restrict__ weights, const unsigned char* __restrict__ delays,
+    int* ring, const unsigned t, const unsigned dmask, const int num) {
+    int c0 = beg + static_cast<int>(threadIdx.x);
+    if (c0 >= end) return;
+    int tg[MC_UNROLL], w[MC_UNROLL];
+    unsigned d[MC_UNROLL];
+    mc_load(c0, end, targets, weights, delays, tg, w, d);
+    while (true) {
+        const int c1 = c0 + MC_BLOCK * MC_UNROLL;
+        int tg2[MC_UNROLL], w2[MC_UNROLL];
+        unsigned d2[MC_UNROLL];
+        mc_load(c1, end, targets, weights, delays, tg2, w2, d2);
 #pragma unroll
         for (int u = 0; u < MC_UNROLL; ++u) {
             if (static_cast<unsigned>(tg[u]) >= static_cast<unsigned>(num))
@@ -110,10 +131,18 @@ __device__ __forceinline__ void mc_scatter_row(
             const unsigned slot = (t + d[u]) & dmask;
             atomicAdd(ring + static_cast<long long>(slot) * num + tg[u], w[u]);
         }
+        if (c1 >= end) break;
+#pragma unroll
+        for (int u = 0; u < MC_UNROLL; ++u) {
+            tg[u] = tg2[u];
+            w[u] = w2[u];
+            d[u] = d2[u];
+        }
+        c0 = c1;
     }
 }
 
-__global__ void __launch_bounds__(MC_BLOCK)
+__global__ void __launch_bounds__(MC_BLOCK, 3)
 mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
               int* __restrict__ ref, int* ring, int* __restrict__ spike_count,
               const int* __restrict__ row_ptr, const int* __restrict__ targets,
@@ -121,20 +150,27 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
               const unsigned char* __restrict__ delays, const int n_steps,
               const McParams p) {
     __shared__ unsigned s_thr[MC_MAX_POPS * MC_KMAX];
+    // The step's spiking rows, [beg, end), and their count: two counters,
+    // by the step's parity, so that one is cleared while the other is read.
+    __shared__ int2 s_rows[MC_BLOCK];
+    __shared__ int s_n[2];
     for (int q = threadIdx.x; q < MC_MAX_POPS * MC_KMAX; q += blockDim.x)
         s_thr[q] = p.thr[q];
+    if (threadIdx.x < 2) s_n[threadIdx.x] = 0;
     __syncthreads();
     cg::grid_group grid = cg::this_grid();
     const int num = p.num;
     const unsigned dmask = static_cast<unsigned>(p.depth) - 1u;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const int lane = threadIdx.x & 31;
     const bool own = i < num;
 
     float rv = own ? v[i] : 0.0f;
     float ri = own ? i_syn[i] : 0.0f;
     int rr = own ? ref[i] : 0;
     int rc = own ? spike_count[i] : 0;
+    const int2 row =
+        own ? make_int2(__ldg(row_ptr + i), __ldg(row_ptr + i + 1))
+            : make_int2(0, 0);
     // the offset of the neuron's population in the threshold table
     int pop = 0;
     while (pop + 1 < p.n_pops && i >= p.pop_start[pop + 1]) ++pop;
@@ -144,7 +180,6 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
         const unsigned t = p.step0 + static_cast<unsigned>(k);
         int* now = ring + static_cast<long long>(t & dmask) * num;
         const unsigned h = lr_mix32(p.key ^ (t * MC_T_MUL));
-        bool spike = false;
         if (own) {
             int in = __ldcg(now + i);
             if (in) now[i] = 0;
@@ -159,21 +194,21 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
             else
                 rr -= 1;
             ri = __fmaf_rn(ri, p.p11, __fmul_rn(p.q, __int2float_rn(in)));
-            spike = rv >= p.v_th;
-            if (spike) {
+            if (rv >= p.v_th) {
                 rv = p.v_reset;
                 rr = p.ref_steps;
                 rc += 1;
+                s_rows[atomicAdd(s_n + (k & 1), 1)] = row;
             }
         }
-        // Every thread reaches the ballot: no early return.
-        unsigned mask = __ballot_sync(0xffffffffu, spike);
-        while (mask) {
-            const int id = i - lane + __ffs(mask) - 1;
-            mask &= mask - 1;
-            mc_scatter_row(id, row_ptr, targets, weights, delays, ring, t,
-                           dmask, num, lane);
-        }
+        // The next step's counter was last read before the previous
+        // grid.sync(), and is next added to after this step's.
+        if (threadIdx.x == 0) s_n[(k & 1) ^ 1] = 0;
+        __syncthreads();
+        const int n = s_n[k & 1];
+        for (int r = 0; r < n; ++r)
+            mc_scatter_row(s_rows[r].x, s_rows[r].y, targets, weights, delays,
+                           ring, t, dmask, num);
         grid.sync();
     }
 

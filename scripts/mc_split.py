@@ -19,6 +19,14 @@ transient, then times in turns, by CUDA events around one launch of
 no_rows``, in µs a step. It also prints the populations' rates over the
 timed steps of the first ``whole`` launch, the spikes and synapse events a
 step, K23's grid and the memory peak.
+
+Then, from the warm state, :data:`LAUNCHES` one-step K23 launches, each
+from the last one's state, give each step's spikes (the ``spike_count``
+differences) and so what K23's blocks walk (``engagement``): the share of
+block-steps with at least two spiking rows (of all block-steps, and of
+those with one or more), the most rows a block had in a step, and the
+median and 99th percentile over steps of the synapses of the step's
+busiest block, whose walk sets the scatter's time.
 """
 
 import argparse
@@ -30,6 +38,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+LAUNCHES = 300  # one-step launches of the engagement counter
 
 
 def power_limit() -> str:
@@ -37,6 +46,37 @@ def power_limit() -> str:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=30)
     return out.stdout.strip()
+
+
+def engagement(net, state, blocks: int, launches: int = LAUNCHES) -> dict:
+    """What K23's blocks walk over *launches* one-step launches from
+    *state* (see the module's docstring)."""
+    import torch
+    from brainevent_torch.models import microcircuit as mc
+
+    def by_block(x):
+        return torch.nn.functional.pad(
+            x.to(torch.int64), (0, blocks * mc.MC_BLOCK - net.num)).view(
+                blocks, mc.MC_BLOCK)
+    degree = by_block(net.row_ptr[1:] - net.row_ptr[:-1])
+    rows, synapses = [], []
+    for _ in range(launches):
+        out = net.run(1, state=state)
+        spiked = by_block(out.spike_count - state.spike_count)
+        rows.append(spiked.sum(1))
+        synapses.append((spiked * degree).sum(1))
+        state = out
+    rows = torch.stack(rows)
+    busiest = torch.stack(synapses).max(1).values.double()
+    median, p99 = torch.quantile(busiest, torch.tensor(
+        [0.5, 0.99], dtype=busiest.dtype, device=busiest.device)).tolist()
+    return dict(launches=launches,
+                multi_row_share=float((rows >= 2).double().mean()),
+                multi_row_share_of_busy=float((rows >= 2).sum())
+                / max(int((rows >= 1).sum()), 1),
+                max_rows=int(rows.max()),
+                busiest_block_synapses_median=median,
+                busiest_block_synapses_p99=p99)
 
 
 def main(argv=None) -> int:
@@ -114,6 +154,7 @@ def main(argv=None) -> int:
                   zip(net.pop_start[:-1], net.pop_start[1:])],
         spikes_per_step=float(counts.sum()) / args.steps,
         events_per_step=float((counts * degree).sum()) / args.steps,
+        engagement=engagement(net, state, blocks),
         memory_peak_bytes=torch.cuda.max_memory_allocated(device))))
     return 0
 

@@ -360,3 +360,38 @@ def test_k23_chains_and_leaves_its_state(cuda_device):
         assert torch.equal(getattr(half, k), getattr(whole, k)), k
         assert torch.equal(getattr(state, k), before[k]), k
     assert mc.mc_sim_grid(net.num, cuda_device) == -(-net.num // mc.MC_BLOCK)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('empty_rows', [False, True])
+def test_k23_walks_a_full_list_bit_for_bit(cuda_device, empty_rows):
+    """The second block's MC_BLOCK neurons all spike at the first step, so
+    that block's list of rows is full; with *empty_rows*, every third row
+    of the network holds no synapse, some of that block's among them."""
+    net, inputs = setup(0.02, cuda_device)
+    if empty_rows:
+        degree = (net.row_ptr[1:] - net.row_ptr[:-1]).long()
+        kept = torch.arange(net.num, device=cuda_device) % 3 != 0
+        keep = torch.repeat_interleave(kept, degree)
+        row_ptr = torch.zeros(net.num + 1, dtype=torch.int64,
+                              device=cuda_device)
+        torch.cumsum(degree * kept, 0, out=row_ptr[1:])
+        net = bt.MicrocircuitNet(
+            scale=0.02, device=cuda_device, row_ptr=row_ptr,
+            targets=net.targets[keep], weights=net.weights[keep],
+            delays=net.delays[keep])
+        assert net.depth == inputs['depth']
+    state = program_state(inputs['states'][0])
+    block = slice(mc.MC_BLOCK, 2 * mc.MC_BLOCK)
+    v, i_syn, refr = state.v.clone(), state.i_syn.clone(), state.ref.clone()
+    v[block], i_syn[block], refr[block] = 2 * (PARAMS.v_th - PARAMS.e_l), 0, 0
+    state = state._replace(v=v, i_syn=i_syn, ref=refr)
+    first = [getattr(state, k).clone() for k in ref.FIELDS]
+    rows = (net.row_ptr, net.targets, net.weights, net.delays)
+    mc.mc_loop(*first, *rows, 1, net.step_params(state.key, state.step))
+    assert bool((first[-1] - state.spike_count)[block].eq(1).all())
+    got = net.run(50, state=state)
+    want = [getattr(state, k).clone() for k in ref.FIELDS]
+    mc.mc_loop(*want, *rows, 50, net.step_params(state.key, state.step))
+    for k, x in zip(ref.FIELDS, want):
+        assert torch.equal(getattr(got, k), x), k
