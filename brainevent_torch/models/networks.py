@@ -623,8 +623,8 @@ class EINet:
         :func:`einet_loop` over K1 and K2 (K19 with a table) instead, 2n +
         1 launches. Passing *step_op* or *scatter_op* runs
         :func:`einet_loop` with them (K1, or K2 or K19, for the one not
-        passed): ``chip_smoke.py`` passes the twins or the kernels to
-        compare routes on a card.
+        passed): the card tests (``tests/test_torch_cuda.py``) pass the
+        twins or the kernels to compare routes on a card.
 
         With tracing on (:mod:`~brainevent_torch.ops.tracing`), a call
         records the span ``brainevent_torch.EINet.run`` (attributes

@@ -19,7 +19,8 @@ This is the port's counterpart of ``brainevent_tpu.ops.core.XLACustomKernel``,
 cut to what the EI-network path needs. Each :class:`KernelOp` holds
 
 - ``twin``: a plain PyTorch function. It runs for tensors on the CPU, and
-  tests and ``chip_smoke.py`` call it directly to check the kernel;
+  the card tests (``tests/test_torch_cuda.py``) call it directly to check
+  the kernel;
 - ``cuda``: the wrapper that checks its tensors and launches the kernel
   through :meth:`KernelOp.launch`;
 - ``launches``: a plain integer, raised by one in :meth:`KernelOp.launch`

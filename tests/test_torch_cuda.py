@@ -1,7 +1,8 @@
 # Copyright 2026 The brainevent-tpu Authors.
 # Licensed under the Apache License, Version 2.0.
 
-"""Kernels K1-K22 against their PyTorch twins on a CUDA device.
+"""Kernels K1-K22 against their PyTorch twins on a CUDA device, and the
+port's slices and routes through them at the sizes of its main paths.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so that it also runs where JAX is not installed. ``tests/conftest.py``
@@ -48,7 +49,7 @@ strategy in one launch) bitwise the K1 + K19 loop at 4k and 40k over 2,000
 steps, each NPT instance, int32 tables and rows whose bytes are not a
 multiple of 16, and every strategy of ``einet_pallas_sim`` bitwise the
 mxu3 route over 2,000 steps. The public
-entries (``chip_smoke.py``'s phase 28 matrix): spikes of nine dtypes
+entries (``tests/_torch_card.py``'s matrix): spikes of nine dtypes
 bitwise the bool spikes' result through the kernel; float16 and bfloat16
 weights within 1 ulp of the twin on the widened weights, plus the float32
 bound; float64 weights through the kernels' ``double`` instances (C10),
@@ -58,11 +59,9 @@ its twin, its four shards summed bitwise K2; K22 (the sharded step in one
 launch) bitwise its twin and one K1 step, a memset and K20 at 4k and 400k,
 at world size 1 and over four shards; K11/K12 with a row offset
 (``row0``) bitwise the whole walk's rows (gather) and within the float32
-atomic-order bound (scatter).
+atomic-order bound (scatter); ``ShardedEINet`` and the sharded ops at world
+size 1 under NCCL bitwise the single-device routes.
 """
-
-import pathlib
-import sys
 
 import numpy as np
 import pytest
@@ -75,13 +74,12 @@ from brainevent_torch.models import training as tr
 from brainevent_torch.ops import mxu_gather as mg
 from brainevent_torch.ops import scatter as sc
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-import chip_smoke  # noqa: E402  (its dtype matrix and strategy check)
+import _torch_card as card
+from _torch_dist import CollectiveLog
 
 pytestmark = pytest.mark.cuda
 
 F32 = np.float32
-ORDER = ('v', 't_last', 'g_e', 'g_i', 'counts', 'spike_count', 'ids', 'n_ids')
 
 
 @pytest.fixture
@@ -96,35 +94,21 @@ def gen():
     return np.random.default_rng(20260816)
 
 
-def _step_buffers(gen, num, device):
-    step = 777
-    back = gen.integers(45, 56, num)
-    t_last = (np.maximum(step - back, 0).astype(F32) * F32(0.1)).astype(F32)
-    t_last[gen.random(num) < 0.2] = F32(-1e7)
-    arrays = dict(
-        v=gen.uniform(-70.0, -49.0, num).astype(F32), t_last=t_last,
-        g_e=gen.uniform(0.0, 3.0, num).astype(F32),
-        g_i=gen.uniform(0.0, 20.0, num).astype(F32),
-        counts=gen.integers(0, 6, (2, num)).astype(np.int32),
-        spike_count=gen.integers(0, 50, num).astype(np.int32),
-        ids=np.zeros(num, np.int32), n_ids=np.zeros(2, np.int32))
-    return ({k: torch.from_numpy(a).to(device) for k, a in arrays.items()},
-            float(F32(step) * F32(0.1)))
-
-
+@pytest.mark.parametrize('scale', [1.0, 100.0], ids=['4k', '400k'])
 @pytest.mark.parametrize('coba', [1, 0], ids=['coba', 'cuba'])
 @pytest.mark.parametrize('flags', [(0, 1, 1), (1, 1, 1), (0, 0, 1),
                                    (1, 1, 0)], ids=str)
-def test_einet_step_kernel_vs_twin(cuda_device, gen, coba, flags):
+def test_einet_step_kernel_vs_twin(cuda_device, gen, coba, flags, scale):
     parity, fold, step = flags
-    net = bt.EINet(scale=1.0, device=cuda_device)
+    net = bt.EINet(scale=scale, device=cuda_device)
     p = net.step_params()
     p.coba = coba
-    bufs, t = _step_buffers(gen, net.num, cuda_device)
+    bufs, t = card.step_buffers(gen, net.num, cuda_device)
     ref = {k: b.clone() for k, b in bufs.items()}
     before = nw.einet_step.launches
-    nw.einet_step(*(bufs[k] for k in ORDER), p, t, parity, fold, step)
-    nw.einet_step_twin(*(ref[k] for k in ORDER), p, t, parity, fold, step)
+    nw.einet_step(*(bufs[k] for k in card.ORDER), p, t, parity, fold, step)
+    nw.einet_step_twin(*(ref[k] for k in card.ORDER), p, t, parity, fold,
+                       step)
     torch.cuda.synchronize()
     assert nw.einet_step.launches == before + 1
     for k in ('v', 't_last', 'g_e', 'g_i', 'counts', 'spike_count', 'n_ids'):
@@ -154,9 +138,15 @@ def test_event_scatter_multi_kernel_vs_twin(cuda_device, gen, binary):
                                    rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize('n_act', [0, 17, 40_000])
-def test_event_count_scatter_kernel_vs_twin(cuda_device, gen, n_act):
-    num, n_conn, n_exc = 40_000, 80, 32_000
+@pytest.mark.parametrize('share', [0, 17, 0.01, 1.0],
+                         ids=['0', '17', '1%', 'all'])
+@pytest.mark.parametrize('num', [40_000, 400_000], ids=['40k', '400k'])
+def test_event_count_scatter_kernel_vs_twin(cuda_device, gen, num, share):
+    """K2 equal to its twin, and its float form on the same events (each
+    spike's targets with 0/1 values in its class's channel) equal to
+    both: the sums are integers, exact in any order."""
+    n_conn, n_exc = 80, int(0.8 * num)
+    n_act = share if isinstance(share, int) else int(share * num)
     conn = torch.from_numpy(gen.integers(0, num, (num, n_conn))
                             .astype(np.int32))
     ids = torch.from_numpy(gen.permutation(num).astype(np.int32))
@@ -170,6 +160,15 @@ def test_event_count_scatter_kernel_vs_twin(cuda_device, gen, n_act):
     torch.cuda.synchronize()
     assert sc.event_count_scatter.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    sel = ids[:n_act].long()
+    is_exc = (sel < n_exc).float()
+    values = torch.stack([is_exc, 1 - is_exc])[:, :, None].expand(
+        2, n_act, n_conn).reshape(2, -1).contiguous()
+    out = sc.event_scatter_float(
+        conn[sel].reshape(-1).to(cuda_device), values.to(cuda_device),
+        torch.zeros(2, num, device=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want.float())
 
 
 @pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
@@ -194,7 +193,7 @@ def test_run_on_kernels_matches_twin_loop(cuda_device, coba):
     assert 5.0 < rate < 200.0
 
 
-_fields = chip_smoke.state_fields
+_fields = card.fields
 
 
 def _k21(net, state, n, inp=20.0, **kw):
@@ -213,8 +212,8 @@ def _k21(net, state, n, inp=20.0, **kw):
 
 def _loops(net, state, n, inp=20.0):
     """The twin loop and the K1 + K2 loop on the card from *state*."""
-    twin = net._simulate(state, net.times(n), inp, **chip_smoke.twin_ops())
-    k12 = net._simulate(state, net.times(n), inp, **chip_smoke.k1k2_ops())
+    twin = net._simulate(state, net.times(n), inp, **card.twin_ops())
+    k12 = net._simulate(state, net.times(n), inp, **card.k1k2_ops())
     torch.cuda.synchronize()
     return _fields(twin), _fields(k12)
 
@@ -231,7 +230,7 @@ def _bitwise(got, want):
 def test_k21_bitwise_twin_and_k1k2_loops(cuda_device, coba, scale):
     """K21 through EINet.run, twice (a stale L1 line would show only
     sometimes), against the twin loop and the K1 + K2 loop: all five
-    outputs bitwise over 2,000 steps."""
+    outputs bitwise over 2,000 steps; COBA fires at 5-200 Hz."""
     net = bt.EINet(scale=scale, coba=coba, device=cuda_device)
     state = net.init_state()
     twin, k12 = _loops(net, state, 2000)
@@ -242,6 +241,8 @@ def test_k21_bitwise_twin_and_k1k2_loops(cuda_device, coba, scale):
         assert bt.launch_counts()['einet_sim'] == 1
         _bitwise(out, twin)
         _bitwise(out, k12)
+    rate = float(out[4].float().mean()) / (2000 * net.dt * 1e-3)
+    assert not coba or 5.0 < rate < 200.0
 
 
 @pytest.mark.parametrize('n', [0, 1, 2])
@@ -309,20 +310,20 @@ def test_k21_grid_and_instance(cuda_device):
 
 def test_k21_capacity_routes_by_size(cuda_device):
     """Above K21's capacity EINet.run keeps the loop of K1 and K2 (2n + 1
-    launches, no K21), bitwise the twin loop; at the capacity's edge it
-    runs K21."""
+    launches, no K21), bitwise the twin loop over 2,000 steps; at the
+    capacity's edge it runs K21."""
     cap = nw.einet_sim_capacity(cuda_device)
     assert cap == nw.einet_sim_max_blocks(cuda_device, 8) * 256 * 8
     net = bt.EINet(scale=float(cap // 4000 + 1), device=cuda_device)
     assert net.num > cap
     state = net.init_state()
     bt.reset_launch_counts()
-    out = _fields(net.run(50, state=state))
+    out = _fields(net.run(2000, state=state))
     torch.cuda.synchronize()
     counts = bt.launch_counts()
     assert (counts['einet_sim'], counts['einet_step'],
-            counts['event_count_scatter']) == (0, 51, 50)
-    twin, _ = _loops(net, state, 50)
+            counts['event_count_scatter']) == (0, 2001, 2000)
+    twin, _ = _loops(net, state, 2000)
     _bitwise(out, twin)
     with pytest.raises(ValueError, match='exceed'):
         nw.einet_sim_grid(net.num, cuda_device)
@@ -509,9 +510,9 @@ def test_step_on_card_is_one_k21_launch(cuda_device):
 
 def test_event_scatter_add_float64_and_integer_outputs(cuda_device):
     """C13 and C14 on the card: K2's float64 and integer instances against
-    the twin (chip_smoke.py's phase 28 check)."""
+    the twin."""
     gen = torch.Generator(device=cuda_device).manual_seed(13)
-    n_cases, err = chip_smoke.c13_c14_scatter(cuda_device, gen)
+    n_cases, err = card.c13_c14_scatter(cuda_device, gen)
     assert n_cases == 6 and err >= 0.0
 
 
@@ -631,10 +632,14 @@ K4_PLANS = {
 
 def _k4_check(plan, w, s, x):
     """K4 through the public entry with and without the row view, one
-    launch each: y bitwise K3's on the same plan and bitwise on a repeat,
-    dw bitwise the twin's, 0 at every padding slot."""
+    launch each: y bitwise K3's on the same plan (over the row view, and
+    through ``gather_matvec``) and bitwise on a repeat, dw bitwise the
+    twin's, 0 at every padding slot; K3 within the tolerance of the
+    row-order twin."""
     w_sorted, w_row = plan.sort_data(w), plan.sort_rows(w)
+    assert torch.equal(w_row, plan.rows_of(w_sorted))
     y3 = mg.plan_gather_mv(plan, w_row, x)
+    assert torch.equal(bt.gather_matvec(plan, w_sorted, x), y3)
     before = mg.plan_matvec_dw_op.launches
     y, dw = bt.plan_matvec_dw(plan, w_sorted, s, x)
     y_view, dw_view = bt.plan_matvec_dw(plan, w_sorted, s, x, w_row=w_row)
@@ -648,6 +653,8 @@ def _k4_check(plan, w, s, x):
     assert bool((dw[plan.perm < 0] == 0).all())
     bound = 1e-5 * _row_bound(plan, w_sorted, x) + 1e-30
     assert bool(((y - mg.gather_matvec_xla(plan, w_sorted, x)).abs()
+                 <= bound).all())
+    assert bool(((y3 - mg.plan_gather_mv.twin(plan, w_row, x)).abs()
                  <= bound).all())
 
 
@@ -682,14 +689,17 @@ def big_plans():
                                    np.repeat(np.arange(n), k), (n, n))}
 
 
+@pytest.mark.parametrize('x_kind', ['normal', 'spikes'])
 @pytest.mark.parametrize('incoming', [False, True], ids=['out', 'in'])
-def test_plan_matvec_dw_at_full_width(cuda_device, big_plans, incoming):
+def test_plan_matvec_dw_at_full_width(cuda_device, big_plans, incoming,
+                                      x_kind):
     n, k, plans = big_plans
     plan = plans['in' if incoming else 'out'].to(cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(101)
     w = torch.randn(n * k, generator=g, device=cuda_device)
     s = (torch.rand(n, generator=g, device=cuda_device) < 0.18).float()
-    x = torch.randn(n, generator=g, device=cuda_device)
+    x = (torch.randn(n, generator=g, device=cuda_device) if x_kind == 'normal'
+         else (torch.rand(n, generator=g, device=cuda_device) < 0.18).float())
     _k4_check(plan, w, s, x)
 
 
@@ -699,7 +709,7 @@ def test_plan_matvec_dw_at_full_width(cuda_device, big_plans, incoming):
 @pytest.mark.parametrize('transpose', [True, False], ids=['T', 'NT'])
 def test_fcn_event_kernels_vs_twin(cuda_device, gen, rate, spikes, homo,
                                    transpose):
-    n, k = 50_000, 100
+    n, k = 100_000, 100
     idx = torch.from_numpy(gen.integers(0, n, (n, k)).astype(np.int32))
     w = torch.from_numpy((gen.normal(size=1) if homo
                           else gen.normal(size=(n, k))).astype(F32))
@@ -726,30 +736,82 @@ def test_fcn_event_kernels_vs_twin(cuda_device, gen, rate, spikes, homo,
                                                 transpose=transpose))
 
 
+def _loss_and_grads(model, p, x, label):
+    leaves = [q.clone().requires_grad_(True) for q in p]
+    loss = bt.snn_loss(model, bt.SNNParams(*leaves), x, label)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+# (n_in, n_hidden, n_out, n_conn) and simulated steps: a small net; the
+# 2,000-neuron net that must learn 4 class-templated inputs; the training
+# slice at full width (10M recurrent synapses)
+TRAIN_NETS = {'small': ((12, 128, 4, 8), 20), 'learn': ((40, 2000, 4, 32), 50),
+              'full': ((100, 100_000, 10, 100), 50)}
+
+
+@pytest.mark.parametrize('width', ['small', 'learn', 'full'])
 @pytest.mark.parametrize('forward', ['plan', 'event'])
-def test_training_kernels_vs_twin_route(cuda_device, forward):
-    model = bt.SurrogateSNN(n_in=12, n_hidden=128, n_out=4, n_conn=8,
-                            seed=3, forward=forward, device=cuda_device)
-    twin = bt.SurrogateSNN(n_in=12, n_hidden=128, n_out=4, n_conn=8, seed=3,
-                           forward=forward, device=cuda_device)
-    twin._ops = tr._RecOps(*(op.twin for op in tr._KERNEL_OPS))
-    x = torch.from_numpy(np.random.default_rng(0).random((20, 12))
-                         .astype(F32)).to(cuda_device)
+def test_training_kernels_vs_twin_route(cuda_device, forward, width):
+    """A train step launches K3 (K5 with ``forward='event'``) and K4 once a
+    simulated step; the gradient of ``w_rec`` is finite and not zero, and
+    with ``forward='plan'`` (no float atomics) the loss and gradients are
+    bitwise over two calls. The small net
+    against the twin route: spike trains equal, loss and gradients within
+    tolerance, and the loss and parameters again after 10 train steps
+    (at full width the twin's other sum order could flip a spike). The
+    2,000-neuron net lowers its loss over 30 epochs at lr 0.5."""
+    (n_in, n_hidden, n_out, n_conn), T = TRAIN_NETS[width]
+    kw = dict(n_in=n_in, n_hidden=n_hidden, n_out=n_out, n_conn=n_conn,
+              seed=3, forward=forward, device=cuda_device)
+    model = bt.SurrogateSNN(**kw)
+    xs = np.random.default_rng(0).random((n_out, T, n_in)).astype(F32)
+    if width == 'learn':
+        xs *= 0.2
+        for c in range(n_out):
+            xs[c, :, 10 * c:10 * c + 10] += 1.0
+    xs = torch.from_numpy(xs).to(cuda_device)
+    x = xs[1]
     p = model.init_params()
     bt.reset_launch_counts()
-    assert torch.equal(model._spikes(p, x), twin._spikes(p, x))
+    _, loss = bt.train_step(model, p, x, 1)
+    torch.cuda.synchronize()
     counts = bt.launch_counts()
-    key = 'fcn_event_scatter' if forward == 'event' else 'plan_gather_mv'
-    assert counts[key] == 20
-    grads = []
-    for m in (model, twin):
-        leaves = [q.clone().requires_grad_(True) for q in p]
-        loss = bt.snn_loss(m, bt.SNNParams(*leaves), x, 1)
-        grads.append((loss.detach(), torch.autograd.grad(loss, leaves)))
-    (la, ga), (lb, gb) = grads
-    torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
-    for a, b in zip(ga, gb):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    key, other = (('fcn_event_scatter', 'plan_gather_mv') if forward == 'event'
+                  else ('plan_gather_mv', 'fcn_event_scatter'))
+    assert (counts[key], counts['plan_matvec_dw'], counts[other]) == (T, T, 0)
+    assert forward == 'event' or sum(counts.values()) == 2 * T
+    assert bool(torch.isfinite(loss))
+    (la, ga), (lb, gb) = (_loss_and_grads(model, p, x, 1) for _ in range(2))
+    assert forward == 'event' or (
+        torch.equal(la, lb) and all(map(torch.equal, ga, gb)))
+    assert bool(torch.isfinite(ga[1]).all()) and bool((ga[1] != 0).any())
+    if width == 'small':
+        twin = bt.SurrogateSNN(**kw)
+        twin._ops = tr._RecOps(*(op.twin for op in tr._KERNEL_OPS))
+        assert torch.equal(model._spikes(p, x), twin._spikes(p, x))
+        lb, gb = _loss_and_grads(twin, p, x, 1)
+        torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
+        for a, b in zip(ga, gb):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+        pa, pb = p, p
+        for _ in range(10):
+            pa, la = bt.train_step(model, pa, x, 1)
+            pb, lb = bt.train_step(twin, pb, x, 1)
+            torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
+        for a, b in zip(pa, pb):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    if width == 'learn':
+
+        def mean_loss(q):
+            with torch.no_grad():
+                return float(sum(bt.snn_loss(model, q, xs[c], c)
+                                 for c in range(n_out)) / n_out)
+
+        l0 = mean_loss(p)
+        for _ in range(30):
+            for c in range(n_out):
+                p, _ = bt.train_step(model, p, xs[c], c, lr=0.5)
+        assert mean_loss(p) < l0
 
 
 # -- the CSR slice: K7-K10 ---------------------------------------------------------
@@ -776,16 +838,18 @@ def _operand(gen, n, kind, rate, device, batch=None):
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
-@pytest.mark.parametrize('rate', [0.0, 0.01, 1.0])
+@pytest.mark.parametrize('rate', [0.0, 0.001, 0.01, 0.1, 1.0])
 @pytest.mark.parametrize('kind', ['bool', 'gate', 'identity'])
 @pytest.mark.parametrize('homo', [True, False], ids=['homo', 'hetero'])
 @pytest.mark.parametrize('perm', [False, True], ids=['plain', 'perm'])
 @pytest.mark.parametrize('transpose', [True, False], ids=['K8', 'K7'])
 def test_csr_matvec_kernels_vs_twin(cuda_device, gen, rate, kind, homo, perm,
                                     transpose):
+    """K7 and K8 at 10% of (11k, 10k), 11M entries (the CSR slice's size,
+    and not square)."""
     from brainevent_torch.csr import pallas_kernels as pk
-    m, k = 6_000, 5_000
-    indptr, indices = _random_csr(gen, m, k, 0.02, cuda_device)
+    m, k = 11_000, 10_000
+    indptr, indices = _random_csr(gen, m, k, 0.1, cuda_device)
     nse = indices.shape[0]
     w = torch.from_numpy(gen.normal(size=1 if homo else nse).astype(F32))
     w = w.to(cuda_device)
@@ -811,10 +875,33 @@ def test_csr_matvec_kernels_vs_twin(cuda_device, gen, rate, kind, homo, perm,
         assert torch.equal(got, op(indptr, indices, p, w, x, binary))
 
 
-@pytest.mark.parametrize('sides', ['both', 'rows', 'cols'])
+@pytest.mark.parametrize('sides', ['both', 'rows', 'cols', 'stdp'])
 def test_pair_gather_kernel_vs_twin(cuda_device, gen, sides):
+    """K9 bitwise its twin at 10M entries with -1 rows and columns out of
+    range, both sides or one; and (``stdp``) the CSR STDP updates of a
+    10k x 10k CSR at 10%, clip [0, 1], bitwise ``W + twin``, clipped."""
     from brainevent_torch.ops import pair_gather as pg
-    n, nse = 30_000, 2_000_003
+    if sides == 'stdp':
+        from brainevent_torch.csr._common import (event_gate,
+                                                  row_ids_from_indptr)
+        indptr, indices = _random_csr(gen, 10_000, 10_000, 0.1, cuda_device)
+        W = bt.CSR((torch.from_numpy(gen.random(indices.shape[0]).astype(F32))
+                    .to(cuda_device), indices, indptr), shape=(10_000, 10_000))
+        rows = row_ids_from_indptr(W.indptr, W.nse)
+        spk = torch.from_numpy(gen.random(10_000) < 0.01).to(cuda_device)
+        trace = torch.from_numpy(gen.random(10_000).astype(F32)).to(
+            cuda_device)
+        before = pg.pair_gather.launches
+        pre = W.update_on_pre(spk, trace, 0.0, 1.0).data
+        post = W.update_on_post(trace, spk, 0.0, 1.0).data
+        torch.cuda.synchronize()
+        assert pg.pair_gather.launches == before + 2
+        assert torch.equal(pre, (W.data + pg.pair_gather_twin(
+            rows, W.indices, event_gate(spk), trace)).clamp(0.0, 1.0))
+        assert torch.equal(post, (W.data + pg.pair_gather_twin(
+            rows, W.indices, trace, event_gate(spk))).clamp(0.0, 1.0))
+        return
+    n, nse = 30_000, 10_000_003
     rows = gen.integers(-1, n, nse).astype(np.int32)
     cols = gen.integers(0, n + 5, nse).astype(np.int32)
     args = [torch.from_numpy(a).to(cuda_device) for a in (
@@ -835,10 +922,18 @@ def test_pair_gather_kernel_vs_twin(cuda_device, gen, sides):
 @pytest.mark.parametrize('kind', ['bool', 'gate', 'identity'])
 @pytest.mark.parametrize('homo', [True, False], ids=['homo', 'hetero'])
 @pytest.mark.parametrize('transpose', [False, True], ids=['NT', 'T'])
-def test_csr_gather_mm_kernel_vs_twin(cuda_device, gen, kind, homo,
+@pytest.mark.parametrize('shape', [(3_000, 2_500, 0.02, 200),
+                                   (10_000, 10_000, 0.01, 256),
+                                   (10_000, 10_000, 0.1, 16)],
+                         ids=['3k', 'csrmm', 'slice'])
+def test_csr_gather_mm_kernel_vs_twin(cuda_device, gen, shape, kind, homo,
                                       transpose):
-    m, k, B = 3_000, 2_500, 200
-    indptr, indices = _random_csr(gen, m, k, 0.02, cuda_device)
+    """K10 through ``csrmm``/``binary_csrmm`` within ``1e-5 * sum|w x|``
+    of the twin (homogeneous binary exact), bitwise its stored-order sum
+    and on a repeat: at (3k, 2.5k, 2%, B = 200), the csrmm cell (10k, 10k,
+    1%, B = 256) and the CSR slice's (10k, 10k, 10%, B = 16)."""
+    m, k, density, B = shape
+    indptr, indices = _random_csr(gen, m, k, density, cuda_device)
     nse = indices.shape[0]
     w = torch.from_numpy(gen.normal(size=1 if homo else nse).astype(F32))
     w = w.to(cuda_device)
@@ -863,6 +958,8 @@ def test_csr_gather_mm_kernel_vs_twin(cuda_device, gen, kind, homo,
         assert torch.equal(got, want)
     else:
         assert bool(((got - want).abs() <= 1e-5 * bound + 1e-30).all())
+    assert torch.equal(got, mg.csr_gather_mm_ordered(
+        ptr, idx, None if homo else perm, w, X, binary))
     assert torch.equal(got, fn(w, indices, indptr, X, shape=(m, k),
                                transpose=transpose))
 
@@ -951,8 +1048,15 @@ def test_csr_gather_mm_float64_bitwise_ordered_sum(cuda_device, gen, B,
                                                      binary))
 
 
-def test_gather_matmat_kernel_vs_twin(cuda_device, gen):
-    M, N, B, nse = 4_000, 3_000, 256, 120_000
+@pytest.mark.parametrize('shape', [(4_000, 3_000, 120_000),
+                                   (10_000, 10_000, 1_000_000)],
+                         ids=['4k', 'csrmm'])
+def test_gather_matmat_kernel_vs_twin(cuda_device, gen, shape):
+    """``gather_matmat`` over an mm plan (K10 over its row index) within
+    ``1e-5 * sum|w x|`` of the twin, bitwise its stored-order sum and on a
+    repeat; at the csrmm cell's size, 1M entries, too."""
+    M, N, nse = shape
+    B = 256
     rows, cols = gen.integers(0, M, nse), gen.integers(0, N, nse)
     plan = mg.build_mm_plan(rows, cols, (M, N)).to(cuda_device)
     w_sorted = plan.sort_data(torch.from_numpy(
@@ -963,32 +1067,99 @@ def test_gather_matmat_kernel_vs_twin(cuda_device, gen):
     bound = mg.gather_matmat_xla(plan, w_sorted.abs(), X.abs())
     torch.cuda.synchronize()
     assert bool(((got - want).abs() <= 1e-5 * bound + 1e-30).all())
+    assert torch.equal(got, mg.csr_gather_mm_ordered(
+        plan.row_ptr, plan.row_cols, plan.row_slots, w_sorted.reshape(-1), X,
+        False))
     assert torch.equal(got, bt.gather_matmat(plan, w_sorted, X))
 
 
-def test_csr_slice_on_card_matches_cpu(cuda_device, gen):
-    n = 2_000
-    dense = ((gen.random((n, n)) < 0.05) * gen.random((n, n))).astype(F32)
-    W_cpu = bt.CSR.fromdense(torch.from_numpy(dense))
-    W = bt.CSR((W_cpu.data.to(cuda_device), W_cpu.indices, W_cpu.indptr),
-               shape=W_cpu.shape)
-    pre, post = torch.zeros(n), torch.zeros(n)
-    for _ in range(5):
-        spk = torch.from_numpy(gen.random(n) < 0.05)
-        pspk = torch.from_numpy(gen.random(n) < 0.05)
-        pre, post = pre * 0.9 + spk, post * 0.9 + pspk
-        for M, dev in ((W_cpu, 'cpu'), (W, cuda_device)):
-            a = bt.BinaryArray(spk.to(dev)) @ M
-            b = M @ bt.BinaryArray(pspk.to(dev))
-            assert a.shape == (n,) and b.shape == (n,)
-        W_cpu = W_cpu.update_on_pre(spk, post, 0.0, 1.0).update_on_post(
+CSR_OPS = ('csr_gather_mv', 'csr_scatter_mv', 'pair_gather', 'csr_gather_mm')
+
+
+def _csr_slice(W, inputs):
+    """The CSR slice, a step per entry of *inputs* ``(spk, pspk, X, Z)``:
+    the event products both ways, trace decay, STDP with clip [0, 1],
+    ``W @ X`` and ``Z @ W``; the final matrix and each step's products."""
+    dev = W.device
+    pre = post = torch.zeros(W.shape[0], device=dev)
+    outs = []
+    for spk, pspk, X, Z in inputs:
+        spk, pspk, X, Z = (t.to(dev) for t in (spk, pspk, X, Z))
+        a = bt.BinaryArray(spk) @ W
+        b = W @ bt.BinaryArray(pspk)
+        pre, post = pre * 0.95 + spk, post * 0.95 + pspk
+        W = W.update_on_pre(spk, post, 0.0, 1.0).update_on_post(
             pre, pspk, 0.0, 1.0)
-        W = W.update_on_pre(spk.to(cuda_device), post.to(cuda_device), 0.0,
-                            1.0).update_on_post(pre.to(cuda_device),
-                                                pspk.to(cuda_device), 0.0,
-                                                1.0)
+        outs.append((a, b, W @ X, Z @ W))
+    return W, outs
+
+
+def _rel(a, b):
+    """``max|a - b|`` over ``max(max|b|, 1)``, on the CPU."""
+    a, b = a.cpu(), b.cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1.0))
+
+
+@pytest.mark.parametrize('reference', ['cpu', 'twins'])
+def test_csr_slice_on_card_matches_cpu(cuda_device, gen, reference):
+    """The CSR slice on the card against the same steps on a reference:
+    the CPU (2k x 2k at 5%, 5 steps) or the twins on the card (10k x 10k
+    at 10%, 10M entries, 100 steps). ``W.data`` bitwise at the end (K9's
+    one rounding), the products within 1e-5 relative, K7 and K8 once and
+    K9 and K10 twice a step; a backward through ``W @ v`` (dW bitwise, dv
+    within 1e-5 relative); ``W @ X`` at B = 256 in one launch."""
+    from brainevent_torch.ops.core import REGISTRY
+    n, density, n_steps, rate = ((2_000, 0.05, 5, 0.05) if reference == 'cpu'
+                                 else (10_000, 0.1, 100, 0.01))
+    indptr, indices = _random_csr(gen, n, n, density, 'cpu')
+    data = torch.from_numpy(gen.random(indices.shape[0]).astype(F32))
+
+    def csr(dev):
+        return bt.CSR((data.to(dev), indices, indptr), shape=(n, n))
+
+    inputs = [tuple(torch.from_numpy(a) for a in (
+        gen.random(n) < rate, gen.random(n) < rate,
+        gen.normal(size=(n, 16)).astype(F32),
+        gen.normal(size=(16, n)).astype(F32))) for _ in range(n_steps)]
+    ops = [REGISTRY[name] for name in CSR_OPS]
+
+    def twins():
+        return card.twins_on_card(ops if reference == 'twins' else [])
+
+    ref_dev = cuda_device if reference == 'twins' else torch.device('cpu')
+    bt.reset_launch_counts()
+    W, outs = _csr_slice(csr(cuda_device), inputs)
     torch.cuda.synchronize()
-    assert torch.equal(W.data.cpu(), W_cpu.data)     # K9 bitwise
+    counts = bt.launch_counts()
+    assert {k: counts[k] for k in CSR_OPS} == dict(
+        csr_gather_mv=n_steps, csr_scatter_mv=n_steps,
+        pair_gather=2 * n_steps, csr_gather_mm=2 * n_steps)
+    with twins():
+        W_ref, outs_ref = _csr_slice(csr(ref_dev), inputs)
+    assert torch.equal(W.data.cpu(), W_ref.data.cpu())     # K9 bitwise
+    for got, want in zip(outs, outs_ref):
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and _rel(a, b) <= 1e-5
+    v = torch.from_numpy(gen.normal(size=n).astype(F32))
+    ct = torch.from_numpy(gen.normal(size=n).astype(F32))
+    X = torch.from_numpy(gen.normal(size=(n, 256)).astype(F32))
+    grads = []
+    for M, dev, ctx in ((W, cuda_device, lambda: card.twins_on_card([])),
+                        (W_ref, ref_dev, twins)):
+        w = M.data.clone().requires_grad_(True)
+        vv = v.to(dev).requires_grad_(True)
+        with ctx():
+            y = M.with_data(w) @ vv
+            grads.append((y.detach(), *torch.autograd.grad(
+                y, (vv, w), ct.to(dev)), M @ X.to(dev)))
+    (yk, gvk, gwk, Yk), (yt, gvt, gwt, Yt) = grads
+    torch.cuda.synchronize()
+    assert torch.equal(gwk.cpu(), gwt.cpu())
+    for a, b in ((yk, yt), (gvk, gvt), (Yk, Yt)):
+        assert _rel(a, b) <= 1e-5
+    bt.reset_launch_counts()
+    W @ X.to(cuda_device)
+    assert bt.launch_counts()['csr_gather_mm'] == 1
 
 
 def test_new_ops_raise_without_kernel_library(cuda_device, monkeypatch,
@@ -1025,48 +1196,82 @@ def test_new_ops_raise_without_kernel_library(cuda_device, monkeypatch,
 JITC_LAWS = [(0, 0.5, 0.0), (1, 0.6, 0.06), (2, 0.48, 0.24)]
 
 
+@pytest.mark.parametrize('shape', [(1000, 777, 0.05), (5120, 5120, 0.01)],
+                         ids=['1000x777', '5120'])
 @pytest.mark.parametrize('law', JITC_LAWS, ids=['scalar', 'normal',
                                                 'uniform'])
-def test_jitc_setup_and_todense_kernels_bitwise(cuda_device, law):
+def test_jitc_setup_and_todense_kernels_bitwise(cuda_device, law, shape):
+    """K14 (both strides, both orders) and K11 (both strides) bitwise the
+    twins; at (5120, 5120, 1%) under the normal law, the class surface
+    (``M @ v``, ``v @ M``, ``plan @ B``, ``M @ B``, ``B.T @ M``) within 1e-5
+    relative of the products with its dense matrices, launching K11 twice,
+    K12 twice, K13 three times (stride 32 once) and K14 once a stride."""
+    from brainevent_torch._misc import _initialize_conn_length
     from brainevent_torch.jitc import pallas_kernels as jk
     code, a, b = law
-    m, k = 1000, 777
+    m, k, prob = shape
+    cl, chunk = _initialize_conn_length(prob), -(-k // 4)
     for corder in (True, False):
         for op in (jk.jitc_walk_todense, jk.jitc_walk_todense4):
             got = torch.zeros(m, k, device=cuda_device)
-            op(got, None, None, law=code, a=a, b=b, seed=5, cl=40,
+            op(got, None, None, law=code, a=a, b=b, seed=5, cl=cl,
                corder=corder)
             want = op.twin(torch.zeros_like(got), None, None, law=code, a=a,
-                           b=b, seed=5, cl=40, corder=corder)
+                           b=b, seed=5, cl=cl, corder=corder)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (op.name, corder)
     for stride in (32, 4):
-        n_rows, n_cols, chunk = 1000, 777, 195
-        L = -(-n_cols // chunk) * stride
-        s, q = (torch.empty(n_rows, L, dtype=torch.int32, device=cuda_device)
+        L = -(-k // chunk) * stride
+        s, q = (torch.empty(m, L, dtype=torch.int32, device=cuda_device)
                 for _ in range(2))
-        kw = dict(seed=9, cl=40, n_rows=n_rows, n_cols=n_cols,
-                  chunk_size=chunk, stride=stride)
+        kw = dict(seed=9, cl=cl, n_rows=m, n_cols=k, chunk_size=chunk,
+                  stride=stride)
         jk.jitc_walk_setup(s, q, **kw)
         s2, q2 = jk.jitc_walk_setup.twin(torch.empty_like(s),
                                          torch.empty_like(q), **kw)
         torch.cuda.synchronize()
         assert torch.equal(s, s2) and torch.equal(q, q2)
+    if code != 1 or m != k:
+        return
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    M = bt.JITCNormalR((a, b, prob, 2024), shape=(m, k), corder=True,
+                       device=cuda_device)
+    v = torch.randn(k, generator=g, device=cuda_device)
+    B = torch.randn(k, 256, generator=g, device=cuda_device)
+    bt.reset_launch_counts()
+    D, D4 = M.todense(), M.mm.todense()
+    outs = {'M @ v': (M @ v, D @ v), 'v @ M': (v @ M, v @ D),
+            'plan @ B': (M.build_walk_plan() @ B, D @ B),
+            'M @ B': (M @ B, D4 @ B), 'B.T @ M': (B.T @ M, B.T @ D4)}
+    torch.cuda.synchronize()
+    assert {n: c for n, c in bt.launch_counts().items()
+            if n.startswith('jitc')} == {
+        'jitc_walk_setup': 2, 'jitc_walk_mv': 2, 'jitc_walk_mm': 1,
+        'jitc_walk_mm4': 2, 'jitc_walk_todense': 1, 'jitc_walk_todense4': 1}
+    for what, (got, want) in outs.items():
+        assert got.shape == want.shape, what
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5, what
 
 
 @pytest.mark.parametrize('kind', ['bool', 'events', 'float'])
 @pytest.mark.parametrize('corder', [True, False], ids=['gather', 'scatter'])
 @pytest.mark.parametrize('law', JITC_LAWS, ids=['scalar', 'normal',
                                                 'uniform'])
-def test_jitc_products_kernel_vs_twin(cuda_device, gen, law, corder, kind):
-    """K12 and K13 within 1e-5 * sum|w x| of the twin; gathers bitwise on
-    a repeat."""
+@pytest.mark.parametrize('dims', [(2000, 1500, 100, 40), (5120, 5120, 200, 16),
+                                  (5120, 5120, 200, 256)],
+                         ids=['2000x1500', '5120-B16', '5120-B256'])
+def test_jitc_products_kernel_vs_twin(cuda_device, gen, dims, law, corder,
+                                      kind):
+    """K12 (over a plan and drawing its own setup) and K13 (both strides)
+    within 1e-5 * sum|w x| of the twin; gathers bitwise on a repeat. At
+    (5120, 5120, 1%) each output also within 1e-5 of its sum over the
+    dense |W| the walk of its stride draws (K14) times the gate."""
     from brainevent_torch.jitc import pallas_kernels as jk
     code, a, b = law
-    n_rows, n_cols = 2000, 1500
+    n_rows, n_cols, cl, n_b = dims
     in_len = n_cols if corder else n_rows
     chunk = -(-n_cols // 4)
-    s, q, _ = jk.walk_plan_setup(3, 100, n_rows, n_cols, chunk,
+    s, q, _ = jk.walk_plan_setup(3, cl, n_rows, n_cols, chunk,
                                  device=cuda_device)
 
     def operand(shape):
@@ -1075,14 +1280,21 @@ def test_jitc_products_kernel_vs_twin(cuda_device, gen, law, corder, kind):
         x = gen.normal(size=shape).astype(F32)
         return torch.from_numpy(x).to(cuda_device)
 
-    kw = dict(law=code, a=a, b=b, seed=3, cl=100, n_rows=n_rows,
+    kw = dict(law=code, a=a, b=b, seed=3, cl=cl, n_rows=n_rows,
               n_cols=n_cols, logical_cols=n_cols, corder=corder,
               event=kind != 'float')
     absw = dict(kw, a=abs(a), law=code if code != 1 else 0, b=b)
+    dense = {}
+    if n_rows == n_cols:
+        for stride, op in ((32, jk.jitc_walk_todense),
+                           (4, jk.jitc_walk_todense4)):
+            dense[stride] = op(torch.zeros(n_rows, n_cols, device=cuda_device),
+                               None, None, law=code, a=a, b=b, seed=3, cl=cl,
+                               corder=corder).abs()
     for op, x, plan in ((jk.jitc_walk_mv, operand(in_len), (s, q)),
                         (jk.jitc_walk_mv, operand(in_len), (None, None)),
-                        (jk.jitc_walk_mm, operand((in_len, 40)), (s, q)),
-                        (jk.jitc_walk_mm4, operand((in_len, 40)),
+                        (jk.jitc_walk_mm, operand((in_len, n_b)), (s, q)),
+                        (jk.jitc_walk_mm4, operand((in_len, n_b)),
                          (None, None))):
         got = op(*plan, x, **kw)
         want = op.twin(*plan, x, **kw)
@@ -1092,6 +1304,11 @@ def test_jitc_products_kernel_vs_twin(cuda_device, gen, law, corder, kind):
         assert got.shape == want.shape
         tol = 1e-5 * scale.abs() + 1e-5 * float(want.abs().max())
         assert bool(((got - want).abs() <= tol).all()), op.name
+        if dense:
+            gate = (x.float() if x.dtype == torch.bool else
+                    (x > 0).float() if kw['event'] else x.abs())
+            bound = dense[4 if op is jk.jitc_walk_mm4 else 32] @ gate
+            card.within(got, want, bound, op.name)
         if corder:
             again = op(*plan, x, **kw)
             torch.cuda.synchronize()
@@ -1134,36 +1351,55 @@ def test_jitc_event_scatter_kernel_vs_twin(cuda_device, gen, n_rows, rate,
                 row0, plan[0] is None)
 
 
+@pytest.mark.parametrize('scale', [1.0, 20.0], ids=['4k', '80k'])
 @pytest.mark.parametrize('law', ['scalar', 'normal'])
-def test_jitc_net_on_card_matches_twin(cuda_device, law):
-    """200 steps of a 4k JITCNet through K12 and through its twin on the
-    card: the scalar law's spike counts equal, the normal law's rate
-    within 2%; one K12 launch per projection per step."""
-    from contextlib import contextmanager
+def test_jitc_net_on_card_matches_twin(cuda_device, law, scale):
+    """2,000 steps of a JITCNet (4k, and 80k at scale 20) through K12, one
+    launch per projection per step after the two plans' K11; 20 of its
+    steps, from the run's states, equal to the twin route's (spikes and v
+    bitwise, drives within 1e-5 relative). The scalar law's spike counts
+    equal the twin loop's over the whole run; the normal law fires at
+    1-200 Hz, its rate over the first 200 steps within 2% of the twin
+    loop's."""
     from brainevent_torch.jitc import pallas_kernels as jk
-
-    @contextmanager
-    def twin_route():
-        saved = jk.jitc_walk_mv.cuda
-        jk.jitc_walk_mv.cuda = lambda op_, *a, **k: op_.twin(*a, **k)
-        try:
-            yield
-        finally:
-            jk.jitc_walk_mv.cuda = saved
-
-    net = bt.JITCNet(scale=1.0, weight_law=law, device=cuda_device)
-    state = net.init_state()
+    n_steps = 2000
     bt.reset_launch_counts()
-    got = net.run(200, state=state)
+    net = bt.JITCNet(scale=scale, weight_law=law, device=cuda_device)
+    assert bt.launch_counts()['jitc_walk_setup'] == 2
+    state = s = net.init_state()
+    kept = []
+    bt.reset_launch_counts()
+    for i, t in enumerate(net.times(n_steps)):
+        if i % 100 == 0:
+            kept.append((t, s))
+        if i == 200:
+            first = s
+        s = net.step(s, t)
     torch.cuda.synchronize()
-    assert bt.launch_counts()['jitc_walk_mv'] == 400
-    with twin_route():
-        want = net.run(200, state=state)
-    torch.cuda.synchronize()
+    assert {k: c for k, c in bt.launch_counts().items()
+            if k.startswith('jitc')} == dict(
+        jitc_walk_setup=0, jitc_walk_mv=2 * n_steps, jitc_walk_mm=0,
+        jitc_walk_mm4=0, jitc_walk_todense=0, jitc_walk_todense4=0)
+    twin_route = lambda: card.twins_on_card([jk.jitc_walk_mv])  # noqa: E731
+    for t, st in kept:
+        a = net.step(st, t)
+        with twin_route():
+            b = net.step(st, t)
+        torch.cuda.synchronize()
+        assert torch.equal(a.spike_count, b.spike_count)
+        assert torch.equal(a.neurons.v, b.neurons.v)
+        for x, y in ((a.g_e, b.g_e), (a.g_i, b.g_i)):
+            assert float((x - y).abs().max() / y.abs().max().clamp(
+                min=1e-30)) <= 1e-5
     if law == 'scalar':
-        assert torch.equal(got.spike_count, want.spike_count)
+        with twin_route():
+            want = net.run(n_steps, state=state)
+        assert torch.equal(s.spike_count, want.spike_count)
     else:
-        r_got = float(net.firing_rate_hz(got, 200))
+        assert 1.0 < float(net.firing_rate_hz(s, n_steps)) < 200.0
+        with twin_route():
+            want = net.run(200, state=state)
+        r_got = float(net.firing_rate_hz(first, 200))
         r_want = float(net.firing_rate_hz(want, 200))
         assert abs(r_got - r_want) <= 0.02 * r_want
 
@@ -1184,17 +1420,20 @@ def _dense_spikes(gen, shape, rate, kind, device):
 @pytest.mark.parametrize('kind', ['bool', 'float'])
 @pytest.mark.parametrize('rate', [0.0, 0.01, 1.0])
 @pytest.mark.parametrize('transpose', [True, False], ids=['T', 'NT'])
-def test_dense_event_products_kernel_vs_twin(cuda_device, gen, transpose,
-                                             rate, kind):
+@pytest.mark.parametrize('shape', [(1500, 1100, 70), (10_000, 10_000, 128)],
+                         ids=['1500x1100', '10k'])
+def test_dense_event_products_kernel_vs_twin(cuda_device, gen, shape,
+                                             transpose, rate, kind):
     """K15 and K16 within 1e-5 * sum|W| * gate per output of the twin, and
-    bitwise on a repeat."""
+    bitwise on a repeat; at the dense slice's (10k, 10k), B = 128, too."""
     from brainevent_torch.dense import pallas_kernels as dk
-    W = torch.from_numpy(gen.normal(size=(1500, 1100)).astype(F32)).to(
+    m, k, n_b = shape
+    W = torch.from_numpy(gen.normal(size=(m, k)).astype(F32)).to(
         cuda_device)
     n_in = W.shape[0] if transpose else W.shape[1]
     for op, s in ((dk.dense_event_mv, _dense_spikes(gen, (n_in,), rate, kind,
                                                     cuda_device)),
-                  (dk.dense_event_mm, _dense_spikes(gen, (n_in, 70), rate,
+                  (dk.dense_event_mm, _dense_spikes(gen, (n_in, n_b), rate,
                                                     kind, cuda_device))):
         got = op(W, s, transpose)
         want = op.twin(W, s, transpose)
@@ -1210,13 +1449,13 @@ def test_dense_event_products_kernel_vs_twin(cuda_device, gen, transpose,
 def _k15_check(W, s, transpose):
     """K15 one launch a call: within 1e-5 * sum|W| gate of the twin and
     bitwise on a repeat; ``s @ W`` bitwise the ascending-row loop
-    (``chip_smoke.ordered_event_mm`` of ``s`` as one column)."""
+    (``card.ordered_event_mm`` of ``s`` as one column)."""
     from brainevent_torch.dense import pallas_kernels as dk
     op = dk.dense_event_mv
     before = op.launches
     got = op(W, s, transpose)
     again = op(W, s, transpose)
-    want = chip_smoke.ordered_event_mm(W, s[:, None], True)[:, 0] \
+    want = card.ordered_event_mm(W, s[:, None], True)[:, 0] \
         if transpose else None
     twin = op.twin(W, s, transpose)
     bound = op.twin(W.abs(), s, transpose)
@@ -1267,30 +1506,34 @@ def test_dense_event_mv_float64_kernel(cuda_device, gen, km, rate):
 @pytest.mark.parametrize('kind', ['bool', 'float'])
 @pytest.mark.parametrize('rate', [0.0, 0.01, 0.5])
 @pytest.mark.parametrize('transpose', [True, False], ids=['T', 'NT'])
-def test_dense_event_mm_bitwise_ordered_loop(cuda_device, gen, transpose,
-                                             rate, kind):
+@pytest.mark.parametrize('shape', [(300, 333, 77), (5000, 5000, 128)],
+                         ids=['300x333', '5000'])
+def test_dense_event_mm_bitwise_ordered_loop(cuda_device, gen, shape,
+                                             transpose, rate, kind):
     """K16 is the plain ascending-k sum: bitwise ``Y += W[:, i] * g(S[i])``
-    over i in order (``chip_smoke.ordered_event_mm``), at a shape off the
-    kernel's 64-row tiles, float spikes with negatives and NaN among the
-    silent ones."""
+    over i in order (``card.ordered_event_mm``), at a shape off the
+    kernel's 64-row tiles and at (5000, 5000, B = 128), float spikes with
+    negatives and NaN among the silent ones."""
     from brainevent_torch.dense import pallas_kernels as dk
-    m, k, n = 300, 333, 77
+    m, k, n = shape
     W = torch.from_numpy(gen.normal(size=(k, m) if transpose else (m, k))
                          .astype(F32)).to(cuda_device)
     S = _dense_spikes(gen, (k, n), rate, kind, cuda_device)
     got = dk.dense_event_mm(W, S, transpose)
-    want = chip_smoke.ordered_event_mm(W, S, transpose)
+    want = card.ordered_event_mm(W, S, transpose)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize('shape', [(1000, 1200), (301, 257)], ids=str)
+@pytest.mark.parametrize('shape', [(1000, 1200), (301, 257),
+                                   (10_000, 10_000)], ids=str)
 @pytest.mark.parametrize('clip', [(None, None), (-1.0, 1.0), (None, 0.25)],
                          ids=str)
 @pytest.mark.parametrize('kind', ['bool', 'float'])
 def test_dense_stdp_kernel_vs_twin(cuda_device, gen, kind, clip, shape):
     """K17 on-pre and on-post bitwise the twins, with and without the clip,
-    on rows that take 16-byte accesses and rows that do not."""
+    on rows that take 16-byte accesses and rows that do not, and on the
+    dense slice's 100M weights."""
     from brainevent_torch.dense import pallas_kernels as dk
     m, n = shape
     W = torch.from_numpy(gen.normal(size=shape).astype(F32)).to(cuda_device)
@@ -1327,43 +1570,107 @@ def test_event_row_count_kernel_vs_twin(cuda_device, gen, shape, kind):
     on = gen.random(shape) < 0.05
     x = (on if kind == 'bool' else
          np.where(on, gen.choice([1.0, -1.0, np.nan], shape), 0.0).astype(F32))
-    xd = torch.from_numpy(x).to(cuda_device)
+    xd, xc = torch.from_numpy(x).to(cuda_device), torch.from_numpy(x)
     got = ek.event_row_count(xd)
     torch.cuda.synchronize()
     assert torch.equal(got, ek.event_row_count_twin(xd))
-    for fn in (bt.binary_2d_csr_encode_p_call, bt.binary_2d_csc_encode_p_call,
-               bt.binary_2d_pair_stream_encode_p_call,
-               bt.binary_2d_array_index_p_call,
-               bt.binary_2d_compact_only_p_call):
-        for a, b in zip(fn(xd), fn(torch.from_numpy(x))):
+    indptr = torch.cat([torch.zeros(1, dtype=torch.int32),
+                        torch.cumsum(got.cpu(), 0, dtype=torch.int32)])
+    for fn, args_d, args_c in (
+            (bt.binary_2d_csr_encode_p_call, (xd,), (xc,)),
+            (bt.binary_2d_csc_encode_p_call, (xd,), (xc,)),
+            (bt.binary_2d_pair_stream_encode_p_call, (xd,), (xc,)),
+            (bt.binary_2d_array_index_p_call, (xd,), (xc,)),
+            (bt.binary_2d_compact_only_p_call, (xd,), (xc,)),
+            (bt.binary_2d_row_sparse_encode_p_call, (xd,), (xc,)),
+            (bt.binary_2d_csr_fill_p_call, (xd, indptr.to(cuda_device)),
+             (xc, indptr)),
+            (bt.binary_1d_array_index_p_call, (xd[0],), (xc[0],))):
+        for a, b in zip(fn(*args_d), fn(*args_c)):
             assert torch.equal(a.cpu(), b), fn.__name__
 
 
-def test_dense_slice_routes_through_k15_k18(cuda_device, gen):
-    """One step of the dense slice on the card launches K15 twice, K16
-    once, K17 twice and K18 once."""
-    n = 2000
-    W = bt.Dense(torch.from_numpy(gen.normal(size=(n, n)).astype(F32)).to(
-        cuda_device))
-    pre = torch.from_numpy(gen.random(n) < 0.01).to(cuda_device)
-    post = torch.from_numpy(gen.random(n) < 0.01).to(cuda_device)
-    S = torch.from_numpy(gen.random((n, 64)) < 0.01).to(cuda_device)
-    tr = torch.rand(n, device=cuda_device)
+DENSE_OPS = ('dense_event_mv', 'dense_event_mm', 'dense_stdp_pre',
+             'dense_stdp_post', 'event_row_count')
+
+
+def _dense_slice(W, n_steps, device, bounds=False):
+    """The dense slice from ``Dense`` *W*: a step is ``s @ W`` and ``W @
+    s`` at 1%, the traces' decay, STDP on-pre and on-post with clip [-1,
+    1], ``W @ S`` (S (n, 128) at 1%) and the encoders of S. Returns the
+    final matrix, each step's products and counts, and with *bounds* the
+    products' ``sum|W| gate`` bounds."""
+    from brainevent_torch.dense import pallas_kernels as dk
+    g = torch.Generator(device=device).manual_seed(23)
+    n = W.shape[0]
+    pre_tr = post_tr = torch.zeros(n, device=device)
+    outs, bnds = [], []
+    for _ in range(n_steps):
+        pre = torch.rand(n, generator=g, device=device) < 0.01
+        post = torch.rand(n, generator=g, device=device) < 0.01
+        S = torch.rand(n, 128, generator=g, device=device) < 0.01
+        a = bt.BinaryArray(pre) @ W
+        b = W @ bt.BinaryArray(post)
+        pre_tr, post_tr = pre_tr * 0.95 + pre, post_tr * 0.95 + post
+        W = W.update_on_pre(pre, post_tr, -1.0, 1.0)
+        W = W.update_on_post(pre_tr, post, -1.0, 1.0)
+        c = W @ bt.BinaryArray(S)
+        _, indptr = bt.binary_2d_csr_encode_p_call(S)
+        outs.append((a, b, c, bt.CompactBinary.from_array(S).n_active,
+                     indptr[-1:]))
+        if bounds:
+            w_abs = W.data.abs()
+            bnds.append((dk.dense_event_mv.twin(w_abs, pre, True),
+                         dk.dense_event_mv.twin(w_abs, post, False),
+                         dk.dense_event_mm.twin(w_abs, S, False)))
+    return W, outs, bnds
+
+
+def test_dense_slice_routes_through_k15_k18(cuda_device):
+    """100 steps of the dense slice at (10k, 10k), 100M weights, launch K15
+    twice, K16 once, K17 twice and K18 once a step; against the same steps
+    through the twins on the card, ``W.data`` bitwise at the end (K17's
+    one rounding), the products within 1e-5 * sum|W| gate, the encoders'
+    counts equal. A backward through ``W @ BinaryArray(float spikes)``:
+    dW and dx bitwise the twin route's, y within tolerance."""
+    from brainevent_torch.ops.core import REGISTRY
+    n, n_steps = 10_000, 100
+    ops = [REGISTRY[name] for name in DENSE_OPS]
+    W0 = bt.Dense(torch.randn(n, n, generator=torch.Generator(
+        device=cuda_device).manual_seed(210), device=cuda_device))
     bt.reset_launch_counts()
-    bt.BinaryArray(pre) @ W
-    W @ bt.BinaryArray(post)
-    W = W.update_on_pre(pre, tr, -1.0, 1.0)
-    W = W.update_on_post(tr, post, -1.0, 1.0)
-    W @ bt.BinaryArray(S)
-    bt.CompactBinary.from_array(S)
-    bt.binary_2d_csr_encode_p_call(S)
+    W, outs, _ = _dense_slice(W0, n_steps, cuda_device)
     torch.cuda.synchronize()
     counts = bt.launch_counts()
-    assert {k: counts[k] for k in ('dense_event_mv', 'dense_event_mm',
-                                   'dense_stdp_pre', 'dense_stdp_post',
-                                   'event_row_count')} == {
-        'dense_event_mv': 2, 'dense_event_mm': 1, 'dense_stdp_pre': 1,
-        'dense_stdp_post': 1, 'event_row_count': 1}
+    assert {k: counts[k] for k in DENSE_OPS} == dict(
+        dense_event_mv=2 * n_steps, dense_event_mm=n_steps,
+        dense_stdp_pre=n_steps, dense_stdp_post=n_steps,
+        event_row_count=n_steps)
+    with card.twins_on_card(ops):
+        W_t, outs_t, bnds = _dense_slice(W0, n_steps, cuda_device, True)
+    assert torch.equal(W.data, W_t.data)
+    for got, want, bound in zip(outs, outs_t, bnds):
+        for a, b, c in zip(got[:3], want[:3], bound):
+            card.within(a, b, c, 'dense slice product')
+        for a, b in zip(got[3:], want[3:]):
+            assert torch.equal(a, b), 'encoder counts'
+    del outs, outs_t, bnds, W_t
+    g = torch.Generator(device=cuda_device).manual_seed(231)
+    x = torch.nan_to_num(_dense_spikes(np.random.default_rng(231), (n,),
+                                       0.01, 'float', cuda_device))
+    ct = torch.randn(n, generator=g, device=cuda_device)
+    grads = []
+    for route in (card.twins_on_card([]), card.twins_on_card(ops)):
+        data = W.data.clone().requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        with route:
+            y = bt.Dense(data) @ bt.BinaryArray(xx)
+            grads.append((y.detach(), *torch.autograd.grad(y, (data, xx),
+                                                           ct)))
+        del data
+    (yk, gwk, gxk), (yt, gwt, gxt) = grads
+    assert torch.equal(gwk, gwt) and torch.equal(gxk, gxt)
+    card.within(yk, yt, bt.Dense(W.data.abs()) @ bt.BinaryArray(x), 'y')
 
 
 def test_event_operands_route_through_k15_k16_on_card(cuda_device, gen):
@@ -1395,17 +1702,22 @@ def test_event_operands_route_through_k15_k16_on_card(cuda_device, gen):
 
 # -- K19 and the strategies of einet_pallas_sim ---------------------------------------
 
-@pytest.mark.parametrize('table_dtype', ['uint8', 'int32'])
+@pytest.mark.parametrize('table_dtype', ['uint8', 'int32', 'uint8-40k'])
 @pytest.mark.parametrize('n_act', [0, 1, 400, 4000, 10 ** 6])
 def test_einet_dense_hits_kernel_vs_twin_and_k2(cuda_device, gen, n_act,
                                                 table_dtype):
+    """K19 equal to its twin and to K2's counts on a spike list with ids
+    outside ``[0, num)``: 4k with a uint8 table and an int32 one (a
+    multiplicity above 255), 40k with a uint8 table."""
     from brainevent_torch.models import sim
-    num, n_exc = 4000, 3200
+    table_dtype, _, size = table_dtype.partition('-')
+    num = 40_000 if size == '40k' else 4000
+    n_exc = int(0.8 * num)
     n_conn = 80 if table_dtype == 'uint8' else 300
     conn = gen.integers(0, num, (num, n_conn)).astype(np.int32)
     if table_dtype == 'int32':
         conn[5, :290] = 17                    # a multiplicity above 255
-    net = bt.EINet(scale=1.0, n_conn=n_conn, conn_all=conn,
+    net = bt.EINet(scale=num / 4000, n_conn=n_conn, conn_all=conn,
                    device=cuda_device)
     table = sim.dense_count_table(net)
     assert table.dtype == getattr(torch, table_dtype)
@@ -1475,7 +1787,7 @@ def test_k21_table_bitwise_k1_k19_loop(cuda_device, net_kw):
             _bitwise(_k21(net, state, 2000, table=table, npt=npt,
                           grid_walk=walk), want)
     for _ in range(2):
-        chip_smoke.run_strategy(net, state, 2000, 'dense', want)
+        card.run_strategy(net, state, 2000, 'dense', want)
 
 
 @pytest.mark.parametrize('case', ['uint8-1000', 'uint8-1010', 'int32-4000',
@@ -1483,7 +1795,8 @@ def test_k21_table_bitwise_k1_k19_loop(cuda_device, net_kw):
 def test_k21_table_pieces_and_int32(cuda_device, case):
     """Rows of num * itemsize bytes that are not a multiple of 16 (4-byte
     and one-entry pieces), and int32 tables (a multiplicity above 255):
-    bitwise the K1 + K19 loop, each NPT that fits."""
+    bitwise the K1 + K19 loop over 2,000 steps, each NPT that fits, and
+    the dense strategy in one launch."""
     from brainevent_torch.models import sim
     dtype, num = case.split('-')
     num = int(num)
@@ -1501,11 +1814,12 @@ def test_k21_table_pieces_and_int32(cuda_device, case):
         'uint8-1000': 4, 'uint8-1010': 1, 'int32-4000': 16,
         'int32-1010': 4}[case]
     state = net.init_state()
-    want = _k19_loop(net, state, 1000, table)
+    want = _k19_loop(net, state, 2000, table)
     for npt in _table_npts(net, cuda_device, table.dtype):
         for walk in (False, True):
-            _bitwise(_k21(net, state, 1000, table=table, npt=npt,
+            _bitwise(_k21(net, state, 2000, table=table, npt=npt,
                           grid_walk=walk), want)
+    card.run_strategy(net, state, 2000, 'dense', want)
 
 
 @pytest.mark.parametrize('coba', [True, False], ids=['coba', 'cuba'])
@@ -1545,13 +1859,15 @@ def test_k21_table_refuses_a_bad_piece(cuda_device):
 
 def test_dense_above_the_table_capacity_runs_k1_k19(cuda_device):
     """The dense strategy's route above the table instance's capacity, K1 +
-    K19 (chip_smoke.dense_k19: EINet._simulate with K1 as its step op and
-    the table), bitwise mxu3."""
+    K19 (``EINet._simulate`` with K1 as its step op and the table; no K21
+    or K2), bitwise mxu3."""
+    from brainevent_torch.models import sim
     net = bt.EINet(scale=1.0, device=cuda_device)
     state = net.init_state()
     ref = bt.einet_pallas_sim(net, state, 300, strategy='mxu3')
-    counts = chip_smoke.run_dense_k19(net, state, 300, ref)
-    assert counts['einet_sim'] == 0
+    _bitwise(_k19_loop(net, state, 300, sim.dense_count_table(net)), ref)
+    counts = bt.launch_counts()
+    assert counts['einet_sim'] == counts['event_count_scatter'] == 0
 
 
 def test_k21_table_capacity_exceeds_the_largest_table(cuda_device):
@@ -1559,69 +1875,91 @@ def test_k21_table_capacity_exceeds_the_largest_table(cuda_device):
     dtype, exceeds the neurons of the largest table the card's memory
     holds, so the dense strategy always runs in one launch; the capacity
     is that instance's co-resident grid."""
-    chip_smoke.print_sim_capacity(cuda_device)
+    import math
+    total = torch.cuda.get_device_properties(cuda_device).total_memory
     for dtype in (torch.uint8, torch.int32):
         npt = nw.SIM_SOURCE_NPT[dtype][-1]
-        assert nw.einet_sim_capacity(cuda_device, dtype) == (
+        cap = nw.einet_sim_capacity(cuda_device, dtype)
+        assert cap == (
             nw.einet_sim_max_blocks(cuda_device, npt, dtype) * 256 * npt)
+        item = torch.empty((), dtype=dtype).element_size()
+        assert cap > math.isqrt(total // item)
 
 
 @pytest.mark.parametrize('strategy', ['dense', 'chain', 'mxu', 'mxu2', 'mxu4',
                                       'mxu5', 'mxu6'])
 def test_strategies_match_mxu3_on_card(cuda_device, strategy):
-    # 200 steps here; chip_smoke.py phase 26 runs the same check over 2,000
-    n_steps = 200
+    n_steps = 2000
     net = bt.EINet(scale=1.0, coba=True, device=cuda_device)
     state = net.init_state()
     ref = bt.einet_pallas_sim(net, state, n_steps, strategy='mxu3')
-    chip_smoke.run_strategy(net, state, n_steps, strategy, ref)
+    card.run_strategy(net, state, n_steps, strategy, ref)
 
 
 # -- the dtypes the public entries take (ops/operand.py) -------------------------------
-# the matrix is chip_smoke.py's (phase 28); each part runs here on its own
+# the matrix is tests/_torch_card.py's; each part runs here on its own
 
 def _c8_gen(device):
     return torch.Generator(device=device).manual_seed(28)
 
 
 def test_spike_dtypes_on_card_equal_bool_spikes(cuda_device):
-    assert chip_smoke.c8_spike_dtypes(cuda_device, _c8_gen(cuda_device)) == (
-        13 * len(chip_smoke.C8_SPIKE_DTYPES))
+    assert card.c8_spike_dtypes(cuda_device, _c8_gen(cuda_device)) == (
+        13 * len(card.C8_SPIKE_DTYPES))
 
 
 def test_half_weights_on_card_within_one_ulp(cuda_device):
-    worst = chip_smoke.c8_half_weights(cuda_device, _c8_gen(cuda_device))
+    worst = card.c8_half_weights(cuda_device, _c8_gen(cuda_device))
     assert set(worst) == {'torch.float16', 'torch.bfloat16'}
 
 
 def test_float64_weights_on_card_are_refused(cuda_device):
     # C10 closed: float64 weights launch the double instances and are held
     # against the float64 twins (the name is the earlier test's)
-    n, _ = chip_smoke.c8_float64_weights(cuda_device, _c8_gen(cuda_device))
+    n, _ = card.c8_float64_weights(cuda_device, _c8_gen(cuda_device))
     assert n == 10
 
 
 def test_float64_float_products_on_card(cuda_device):
-    n, _ = chip_smoke.c10_float_products(cuda_device, _c8_gen(cuda_device))
+    n, _ = card.c10_float_products(cuda_device, _c8_gen(cuda_device))
     assert n == 5
 
 
 # -- the multi-device layer: K20, K11/K12 with row0, ShardedEINet (world 1) ----------
 
+@pytest.mark.parametrize('scale', [1.0, 100.0], ids=['4k', '400k'])
 @pytest.mark.parametrize('n_act', [0, 1, 40, 4000])
-def test_k20_shards_vs_twin_and_k2(cuda_device, gen, n_act):
-    net = bt.EINet(scale=1.0, device=cuda_device)
+def test_k20_shards_vs_twin_and_k2(cuda_device, gen, n_act, scale):
+    """K20 at world size 1 and over four shards in one process (row0 = r *
+    n_loc): each partial bitwise its twin, the shards summed and the
+    shard-major buffer bitwise K2; ``mega_local_counts`` on the four
+    shards, one K20 launch each, summed bitwise K2."""
+    net = bt.EINet(scale=scale, device=cuda_device)
     ids = torch.from_numpy(gen.permutation(net.num).astype(np.int32)).to(
         cuda_device)
     n_ids = torch.tensor([n_act], dtype=torch.int32, device=cuda_device)
-    assert chip_smoke.k20_vs_k2(net, ids, n_ids, cuda_device) == 0.0
+    for n_dev in (1, 4):
+        assert card.k20_vs_k2(net, ids, n_ids, cuda_device, n_dev) == 0.0
+    assert card.local_counts_vs_k2(net, ids, n_ids, cuda_device) == 4
 
 
 def test_k20_exact_at_in_degree_300(cuda_device):
-    net = chip_smoke.indegree_net(cuda_device)
+    """Every neuron spiking into a target of in-degree 300 a class (the
+    JAX mega-kernel refuses above 255): the counts equal the in-degrees,
+    and the four shards bitwise their twins and K2."""
+    from brainevent_torch.parallel import mega
+    net = card.indegree_net(cuda_device)
     ids = torch.arange(net.num, dtype=torch.int32, device=cuda_device)
     n_ids = torch.tensor([net.num], dtype=torch.int32, device=cuda_device)
-    assert chip_smoke.k20_vs_k2(net, ids, n_ids, cuda_device) == 0.0
+    assert card.k20_vs_k2(net, ids, n_ids, cuda_device) == 0.0
+    counts = mega.mega_counts(ids, n_ids, net.conn_all, 0, net.n_exc,
+                              torch.zeros(1, 2, net.num, dtype=torch.int32,
+                                          device=cuda_device))
+    deg = torch.stack([
+        torch.bincount(net.conn_all[:3200].reshape(-1).long(), minlength=4000),
+        torch.bincount(net.conn_all[3200:].reshape(-1).long(),
+                       minlength=4000)]).to(torch.int32)
+    assert torch.equal(counts[0], deg) and int(deg[:, 17].min()) >= 300
 
 
 @pytest.mark.parametrize('n_dev', [1, 4])
@@ -1632,7 +1970,7 @@ def test_k22_bitwise_k1_memset_k20(cuda_device, scale, n_dev):
     state and both parities of the partials bitwise its twin and one K1
     step, a memset and K20; the shards summed bitwise K2."""
     net = bt.EINet(scale=scale, device=cuda_device)
-    assert chip_smoke.k22_vs_k1_k20(net, cuda_device, n_dev, seed=7) == 0.0
+    assert card.k22_vs_k1_k20(net, cuda_device, n_dev, seed=7) == 0.0
 
 
 @pytest.mark.parametrize('corder', [True, False], ids=['gather', 'scatter'])
@@ -1670,40 +2008,163 @@ def test_jitc_row0_halves_match_whole_walk(cuda_device, gen, corder):
 
 
 @pytest.fixture(scope='module')
-def world1_mesh():
+def world1_mesh(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the CUDA kernels have no CPU form')
-    mesh = chip_smoke.neuron_mesh_world1(torch.device('cuda'))
+    mesh = card.neuron_mesh_world1(torch.device('cuda'),
+                                   tmp_path_factory.mktemp('pg'))
     yield mesh
     torch.distributed.destroy_process_group()
 
 
+@pytest.mark.parametrize('scale', [1.0, 100.0], ids=['4k', '400k'])
 @pytest.mark.parametrize('propagate', ['scatter', 'mxu6'])
 def test_sharded_einet_on_card_bitwise_einet(cuda_device, world1_mesh,
-                                             propagate):
-    n_steps = 200
-    net = bt.EINet(scale=1.0, coba=True, device=cuda_device)
+                                             propagate, scale):
+    """``ShardedEINet`` at world size 1 (NCCL) over 2,000 steps: all five
+    fields bitwise ``EINet``; K22 2,001 launches and K1, K2, K20 none;
+    exactly one ``reduce_scatter_tensor`` of ``2 * num * 4`` bytes a step
+    and no other collective. The parent's route (K1, a memset and K20 a
+    step) bitwise too, with K1 2,001 and K20 2,000 launches."""
+    import dataclasses
+    from brainevent_torch.parallel import ShardedEINet
+    n_steps = 2000
+    net = bt.EINet(scale=scale, coba=True, device=cuda_device)
     state = net.init_state()
-    ref = net.run(n_steps, state=state)
-    snet = chip_smoke.sharded_net(net, world1_mesh, propagate)
-    out, counts, calls = chip_smoke.sharded_run(
-        snet, snet.init_state_from(state), n_steps)
-    want = (ref.neurons.v, ref.neurons.t_last, ref.g_e, ref.g_i,
-            ref.spike_count)
+    want = _fields(net.run(n_steps, state=state))
+    snet = ShardedEINet.from_einet(net, world1_mesh)
+    if propagate != 'scatter':
+        snet = dataclasses.replace(snet, propagate=propagate)
+    bt.reset_launch_counts()
+    with CollectiveLog() as log:
+        out = snet.run(n_steps, 20.0, state=snet.init_state_from(state))
+        torch.cuda.synchronize()
     for x, y in zip(out, want):
         assert torch.equal(x.to_local(), y)
+    counts = bt.launch_counts()
     assert counts['einet_shard_step'] == n_steps + 1
     assert counts['einet_step'] == counts['mega_counts'] == 0
-    assert counts['event_scatter_float'] == 0
-    assert calls == [('reduce_scatter_tensor', 2 * net.num * 4)] * n_steps
-    # the parent's route, K1 + memset + K20 a step: the same bits
-    chip_smoke.check_equal_fields(
-        chip_smoke.parent_sharded_run(snet, snet.init_state_from(state),
-                                      n_steps), want, 'parent route')
+    assert counts['event_scatter_float'] == counts['event_count_scatter'] == 0
+    assert log.calls == [('reduce_scatter_tensor', 2 * net.num * 4)] * n_steps
+    bt.reset_launch_counts()
+    with CollectiveLog() as log:
+        out = card.parent_sharded_run(snet, snet.init_state_from(state),
+                                      n_steps)
+        torch.cuda.synchronize()
+    _bitwise(out, want)
+    counts = bt.launch_counts()
+    assert (counts['einet_step'], counts['mega_counts'],
+            counts['einet_shard_step']) == (n_steps + 1, n_steps, 0)
+    assert len(log.calls) == n_steps
 
 
-def test_sharded_ops_on_card_match_single_device(cuda_device, world1_mesh,
-                                                 monkeypatch):
-    monkeypatch.setattr(chip_smoke, 'SHARD_OPS_N', 4000)
-    monkeypatch.setattr(chip_smoke, 'SHARD_JITC', (6400, 8000))
-    chip_smoke.check_sharded_ops(world1_mesh, cuda_device)
+def test_sharded_ops_on_card_match_single_device(cuda_device, world1_mesh):
+    """The sharded ops at world size 1 against the single-device entries:
+    ``sharded_binary_fcnmv`` (both weights, both directions, ``psum`` and
+    ``psum_scatter``; 20k x 20k, 80 a row), the four CSR wrappers both ways
+    and a weight gradient (4000 x 3000 at 2%), bitwise, K5's and K8's
+    float atomics within ``1e-5 * sum|w x|``; K11/K12 at the 80k E
+    projection of ``JITCNet(scale=20)`` (64,000 x 80,000) in two halves,
+    ``row0`` 0 and 32,000: the plan halves and the gathers bitwise the
+    whole walk, the scatter's within ``1e-5 * sum|w x|``;
+    ``sharded_jitmv`` bitwise ``jitnmv``."""
+    from brainevent_torch import parallel as par
+    from brainevent_torch._misc import _initialize_conn_length
+    from brainevent_torch.jitc import pallas_kernels as jk
+    mesh, device = world1_mesh, cuda_device
+    gen = torch.Generator(device=device).manual_seed(31)
+    n = m = 20_000
+    idx = torch.randint(0, m, (n, 80), generator=gen, device=device,
+                        dtype=torch.int32)
+    w_ell = torch.randn(n, 80, generator=gen, device=device)
+    spk = {True: torch.rand(n, generator=gen, device=device) < 0.01,
+           False: torch.rand(m, generator=gen, device=device) < 0.01}
+    for homo in (True, False):
+        w = w_ell[0, :1] if homo else w_ell
+        for transpose in (True, False):
+            for reduce in (('psum', 'psum_scatter') if transpose
+                           else ('psum',)):
+                s = spk[transpose]
+                got = par.sharded_binary_fcnmv(
+                    w, idx, s, mesh=mesh, shape=(n, m), transpose=transpose,
+                    reduce=reduce).to_local()
+                want = bt.binary_fcnmv(w, idx, s, shape=(n, m),
+                                       transpose=transpose)
+                if transpose and not homo:          # K5's float atomics
+                    card.within(got, want, bt.binary_fcnmv(
+                        w.abs(), idx, s, shape=(n, m), transpose=True))
+                else:
+                    assert torch.equal(got, want), (homo, transpose, reduce)
+    cm, ck = 4000, 3000
+    on = torch.rand(cm, ck, generator=gen, device=device) < 0.02
+    A = bt.CSR.fromdense(torch.where(on, torch.randn(
+        cm, ck, generator=gen, device=device), 0.0))
+    args, shape = (A.indices, A.indptr), A.shape
+    plan = par.balance_csr_shards(A.indices, A.indptr, 1, shape=shape)
+    x = {r: torch.randn(r, generator=gen, device=device) for r in (cm, ck)}
+    X = {r: torch.randn(r, 16, generator=gen, device=device)
+         for r in (cm, ck)}
+    for name, single, sharded, op_of in (
+            ('binary_csrmv', bt.binary_csrmv, par.sharded_binary_csrmv,
+             lambda r: x[r] > 1.0),
+            ('csrmv', bt.csrmv, par.sharded_csrmv, lambda r: x[r]),
+            ('binary_csrmm', bt.binary_csrmm, par.sharded_binary_csrmm,
+             lambda r: X[r] > 1.0),
+            ('csrmm', bt.csrmm, par.sharded_csrmm, lambda r: X[r])):
+        for transpose in (True, False):
+            o = op_of(cm if transpose else ck)
+            got = sharded(A.data, *args, o, mesh=mesh, shape=shape,
+                          transpose=transpose, plan=plan).to_local()
+            want = single(A.data, *args, o, shape=shape, transpose=transpose)
+            if transpose and got.dim() == 1:        # K8's float atomics
+                card.within(got, want, single(
+                    A.data.abs(), *args, o.abs() if o.is_floating_point()
+                    else o, shape=shape, transpose=True), name)
+            else:
+                assert torch.equal(got, want), (name, transpose)
+    cot = torch.randn(ck, generator=gen, device=device)
+    s_pre = torch.rand(cm, generator=gen, device=device) < 0.01
+    grads = []
+    for fn in (lambda w: par.sharded_binary_csrmv(
+            w, *args, s_pre, mesh=mesh, shape=shape, plan=plan).to_local(),
+            lambda w: bt.binary_csrmv(w, *args, s_pre, shape=shape,
+                                      transpose=True)):
+        wg = A.data.clone().requires_grad_(True)
+        (fn(wg) * cot).sum().backward()
+        grads.append(wg.grad)
+    assert torch.equal(*grads), 'sharded CSR weight gradient (K9)'
+    n_rows, n_cols = 64_000, 80_000
+    kw = dict(law=1, a=0.6, b=float(F32(0.06)), seed=42,
+              cl=_initialize_conn_length(80 / n_cols), logical_cols=n_cols)
+    chunk, half = -(-n_cols // 4), n_rows // 2
+    s_all, q_all, _ = jk.walk_plan_setup(42, kw['cl'], n_rows, n_cols, chunk,
+                                         device=device)
+    halves = [jk.walk_plan_setup(42, kw['cl'], half, n_cols, chunk,
+                                 device=device, row0=r0)
+              for r0 in (0, half)]
+    assert torch.equal(torch.cat([h[0] for h in halves]), s_all)
+    assert torch.equal(torch.cat([h[1] for h in halves]), q_all)
+    v = torch.randn(n_cols, generator=gen, device=device)
+    whole = jk.jitc_walk_mv(None, None, v, n_rows=n_rows, n_cols=n_cols,
+                            corder=True, event=False, **kw)
+    for own in (True, False):
+        parts = [jk.jitc_walk_mv(*((None, None) if own else halves[i][:2]), v,
+                                 n_rows=half, n_cols=n_cols, corder=True,
+                                 event=False, row0=i * half, **kw)
+                 for i in range(2)]
+        assert torch.equal(torch.cat(parts), whole), own
+    s = torch.rand(n_rows, generator=gen, device=device) < 0.002
+    whole = jk.jitc_walk_mv(None, None, s, n_rows=n_rows, n_cols=n_cols,
+                            corder=False, event=True, **kw)
+    parts = sum(jk.jitc_walk_mv(None, None, s[i * half:(i + 1) * half],
+                                n_rows=half, n_cols=n_cols, corder=False,
+                                event=True, row0=i * half, **kw)
+                for i in range(2))
+    visits = jk.jitc_walk_mv(None, None, s, n_rows=n_rows, n_cols=n_cols,
+                             corder=False, event=True,
+                             **dict(kw, law=0, a=1.0, b=0.0))
+    card.within(parts, whole, visits * (0.6 + 6 * 0.06), 'K12 row0 scatter')
+    got = par.sharded_jitmv('n', (0.6, 0.06), 80 / n_cols, v, 42, mesh=mesh,
+                            shape=(n_rows, n_cols)).to_local()
+    assert torch.equal(got, bt.jitnmv(0.6, 0.06, 80 / n_cols, v, 42,
+                                      shape=(n_rows, n_cols)))

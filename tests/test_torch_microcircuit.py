@@ -333,20 +333,29 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('scale', [0.02, 1.0])
-def test_k23_is_the_twin_bit_for_bit(cuda_device, scale):
+@pytest.mark.parametrize('scale, warm', [(0.02, 0), (1.0, 0), (1.0, 1000)],
+                         ids=['0.02', '1.0', '1.0-after-1000'])
+def test_k23_is_the_twin_bit_for_bit(cuda_device, scale, warm):
+    """``run`` of 2,000 steps, from a drawn state or *warm* steps on from
+    it, is one K23 launch and no other kernel, bit for bit the twin and a
+    second launch from the same state."""
     net, inputs = setup(scale, cuda_device)
     state = program_state(inputs['states'][0])
-    before = mc.mc_sim.launches
+    if warm:
+        state = net.run(warm, state=state)
+    core.reset_launch_counts()
     got = net.run(2000, state=state)
     torch.cuda.synchronize()
-    assert mc.mc_sim.launches == before + 1
+    counts = core.launch_counts()
+    assert counts['mc_sim'] == 1 and sum(counts.values()) == 1, counts
+    again = net.run(2000, state=state)
     out = [getattr(state, k).clone() for k in ref.FIELDS]
     mc.mc_loop(*out, net.row_ptr, net.targets, net.weights, net.delays, 2000,
                net.step_params(state.key, state.step))
     for k, want in zip(ref.FIELDS, out):
         assert torch.equal(getattr(got, k), want), k
-    assert int(got.spike_count.sum()) > 0
+        assert torch.equal(getattr(again, k), want), k
+    assert int((got.spike_count - state.spike_count).sum()) > 0
 
 
 @pytest.mark.cuda

@@ -56,8 +56,9 @@ def test_import_with_jax_blocked():
     assert proc.stdout.strip() == 'ok'
 
 
-@pytest.mark.parametrize('path', sorted(PKG.rglob('*.py')) +
-                         [ROOT / 'chip_smoke.py'], ids=lambda p: p.name)
+@pytest.mark.parametrize('path', sorted(PKG.rglob('*.py')) + [
+    ROOT / 'scripts' / 'kernel_times.py', ROOT / 'tests' / '_torch_card.py'],
+    ids=lambda p: p.name)
 def test_no_jax_import(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
