@@ -53,7 +53,8 @@ from .neurons import f32
 
 __all__ = ['MicrocircuitNet', 'MicrocircuitState', 'MicrocircuitParams',
            'McParams', 'build_microcircuit', 'synapse_counts',
-           'poisson_thresholds', 'mc_sim', 'mc_loop', 'mc_sim_grid']
+           'poisson_thresholds', 'McPlan', 'mc_plan', 'mc_sim', 'mc_loop',
+           'mc_sim_grid']
 
 # rows: the target population, columns: the source, both in the order
 # L2/3E, L2/3I, L4E, L4I, L5E, L5I, L6E, L6I
@@ -70,6 +71,7 @@ CONN_PROBS = (
 MC_MAX_POPS = 8          # populations K23 takes (MC_MAX_POPS in mc_sim.cu)
 MC_KMAX = 16             # Poisson thresholds a population (MC_KMAX)
 MC_BLOCK = 256           # threads a block of K23, one neuron each (MC_BLOCK)
+MC_LISTS = 3             # K23's lists of spiking rows, by step mod 3 (MC_LISTS)
 T_MUL = 0x9E3779B9       # the hash's step and neuron multipliers
 I_MUL = 0x85EBCA6B
 
@@ -301,6 +303,39 @@ def mc_loop(v, i_syn, ref, ring, spike_count, row_ptr, targets, weights,
 
 # -- K23: the whole trial in one launch ------------------------------------------------
 
+class McPlan(NamedTuple):
+    """What K23 reads besides the network: the rows' synapses of delay 1
+    as a CSR of their own (``near_ptr`` int32 ``(num + 1,)``,
+    ``near_targets`` int32, ``near_weights`` int16, in the rows' order),
+    which the spiking neuron's block adds in the step of the spike, and
+    the scratch of the grid's lists of spiking rows (``lists`` int32
+    ``(MC_LISTS, num, 2)``, ``counts`` int32 ``(MC_LISTS,)``), whose
+    synapses of delay >= 2 every block adds a share of one step later.
+    One launch at a time uses a plan's scratch (launches on one stream)."""
+    near_ptr: torch.Tensor
+    near_targets: torch.Tensor
+    near_weights: torch.Tensor
+    lists: torch.Tensor
+    counts: torch.Tensor
+
+
+def mc_plan(row_ptr, targets, weights, delays) -> McPlan:
+    """The :class:`McPlan` of a network, CSR by source (int32 targets,
+    int16 weights, uint8 delays), on its device: the delay-1 synapses'
+    positions (``nonzero``), each row's first of them counted at
+    ``row_ptr`` (``searchsorted``); the arrays are not copied or
+    changed."""
+    near = torch.nonzero(delays == 1).flatten()
+    near_ptr = torch.searchsorted(near, row_ptr.to(near.dtype))
+    num = row_ptr.numel() - 1
+
+    def scratch(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=row_ptr.device)
+    return McPlan(near_ptr=near_ptr.to(torch.int32),
+                  near_targets=targets[near], near_weights=weights[near],
+                  lists=scratch(MC_LISTS, num, 2), counts=scratch(MC_LISTS))
+
+
 @functools.lru_cache(maxsize=None)
 def _max_blocks(device_index: int) -> int:
     fn = cuda_build.function('mc_sim_max_blocks', [
@@ -328,28 +363,39 @@ def mc_sim_grid(num: int, device: torch.device) -> int:
 
 
 def _mc_sim_cuda(op, v, i_syn, ref, ring, spike_count, row_ptr, targets,
-                 weights, delays, n_steps, p):
+                 weights, delays, n_steps, p, plan: McPlan):
+    """K23's launch; *plan* is :func:`mc_plan` of the rows."""
     f, i = torch.float32, torch.int32
     device = check_cuda_tensors(op.name, (v, f), (i_syn, f), (ref, i),
                                 (ring, i), (spike_count, i), (row_ptr, i),
                                 (targets, i), (weights, torch.int16),
-                                (delays, torch.uint8))
+                                (delays, torch.uint8), (plan.near_ptr, i),
+                                (plan.near_targets, i),
+                                (plan.near_weights, torch.int16),
+                                (plan.lists, i), (plan.counts, i))
     num = p.num
     n_syn = targets.numel()
+    n_near = plan.near_targets.numel()
     if (any(x.shape != (num,) for x in (v, i_syn, ref, spike_count))
             or ring.shape != (p.depth, num) or row_ptr.shape != (num + 1,)
-            or weights.numel() != n_syn or delays.numel() != n_syn):
-        raise ValueError(f'{op.name}: state, ring {tuple(ring.shape)} and '
-                         f'rows do not match num={num}, D={p.depth}')
+            or weights.numel() != n_syn or delays.numel() != n_syn
+            or plan.near_ptr.shape != (num + 1,)
+            or plan.near_weights.numel() != n_near
+            or plan.lists.shape != (MC_LISTS, num, 2)
+            or plan.counts.shape != (MC_LISTS,)):
+        raise ValueError(f'{op.name}: state, ring {tuple(ring.shape)}, rows '
+                         f'and plan do not match num={num}, D={p.depth}')
     blocks = mc_sim_grid(num, device)
-    fn = cuda_build.function('mc_sim_launch', [ctypes.c_void_p] * 9 + [
+    fn = cuda_build.function('mc_sim_launch', [ctypes.c_void_p] * 14 + [
         ctypes.c_int, ctypes.POINTER(McParams)] + [ctypes.c_int] * 2 + [
         ctypes.c_void_p])
     op.launch(fn, v.data_ptr(), i_syn.data_ptr(), ref.data_ptr(),
               ring.data_ptr(), spike_count.data_ptr(), row_ptr.data_ptr(),
               targets.data_ptr(), weights.data_ptr(), delays.data_ptr(),
-              int(n_steps), ctypes.byref(p), blocks, device.index or 0,
-              cuda_stream(device))
+              plan.near_ptr.data_ptr(), plan.near_targets.data_ptr(),
+              plan.near_weights.data_ptr(), plan.lists.data_ptr(),
+              plan.counts.data_ptr(), int(n_steps), ctypes.byref(p), blocks,
+              device.index or 0, cuda_stream(device))
 
 
 mc_sim = KernelOp('mc_sim', twin=mc_loop, cuda=_mc_sim_cuda,
@@ -378,6 +424,11 @@ class MicrocircuitNet:
         it, to share one network with another program.
     device : torch device, default the card (``'cuda'``)
         CUDA tensors run K23; ``device='cpu'`` runs :func:`mc_loop`.
+
+    The net keeps the given arrays as they are, and beside them ``plan``
+    (:func:`mc_plan`: the delay-1 synapses as a CSR of their own and K23's
+    scratch) and ``grid_share``, the share of the synapses of delay >= 2,
+    which K23's grid pass adds.
     """
     scale: float = 1.0
     params: MicrocircuitParams = MicrocircuitParams()
@@ -425,6 +476,11 @@ class MicrocircuitNet:
             raise ValueError('every delay must be at least one step')
         # the next power of two above the largest delay
         self.depth = 1 << max_delay.bit_length()
+        self.plan = mc_plan(self.row_ptr, self.targets, self.weights,
+                            self.delays)
+        # the share of the synapses K23's grid pass adds (delay >= 2)
+        n_near = self.plan.near_targets.numel()
+        self.grid_share = (n_syn - n_near) / n_syn if n_syn else 0.0
         lam = [k * prm.bg_rate * prm.dt * 1e-3 for k in prm.k_ext]
         self.thresholds = [poisson_thresholds(x) for x in lam]
 
@@ -485,13 +541,18 @@ class MicrocircuitNet:
 
         With tracing on (:mod:`~brainevent_torch.ops.tracing`), a call
         records the span ``brainevent_torch.MicrocircuitNet.run``
-        (attributes ``num``, ``n_steps`` and ``route``: ``sim`` on a card,
-        ``loop`` on the CPU) around ``.copies`` and ``.launch``."""
+        (attributes ``num``, ``n_steps``, ``route``: ``sim`` on a card,
+        ``loop`` on the CPU, and ``grid_share``: the share of the synapses
+        that K23's grid pass adds, those of delay >= 2) around ``.copies``
+        and ``.launch``."""
         if state is None:
             state = self.init_state()
         route = 'sim' if state.v.device.type == 'cuda' else 'loop'
+        # the twin reads the rows alone
+        extra = dict(plan=self.plan) if route == 'sim' else {}
         with tracing.span('brainevent_torch.MicrocircuitNet.run',
-                          num=self.num, n_steps=int(n_steps), route=route):
+                          num=self.num, n_steps=int(n_steps), route=route,
+                          grid_share=self.grid_share):
             p = self.step_params(state.key, state.step)
             with tracing.span('brainevent_torch.MicrocircuitNet.copies'):
                 out = [x.to(dtype, copy=True) for x, dtype in (
@@ -500,6 +561,6 @@ class MicrocircuitNet:
                     (state.spike_count, torch.int32))]
             with tracing.span('brainevent_torch.MicrocircuitNet.launch'):
                 mc_sim(*out, self.row_ptr, self.targets, self.weights,
-                       self.delays, int(n_steps), p)
+                       self.delays, int(n_steps), p, **extra)
         return MicrocircuitState(*out, key=state.key,
                                  step=state.step + int(n_steps))

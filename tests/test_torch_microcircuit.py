@@ -256,13 +256,108 @@ def test_the_run_records_its_spans():
     root = spans[0]
     assert root.name == 'brainevent_torch.MicrocircuitNet.run'
     assert root.parent_id is None
-    assert root.attrs == dict(num=net.num, n_steps=5, route='loop')
+    share = float((net.delays >= 2).double().mean())
+    assert root.attrs == dict(num=net.num, n_steps=5, route='loop',
+                              grid_share=pytest.approx(share, abs=1e-12))
+    assert 0.98 < share < 1
     assert [s.name for s in spans[1:]] == [
         'brainevent_torch.MicrocircuitNet.copies',
         'brainevent_torch.MicrocircuitNet.launch']
     assert all(s.parent_id == root.span_id for s in spans[1:])
     net.run(5, state=program_state(inputs['states'][0]))
     assert tracing.drain() == []
+
+
+# -- the plan: the delay-1 CSR and the grid's scratch ------------------------------
+
+def hand_made_rows(num: int) -> dict:
+    """A network of *num* neurons whose every third row is empty, the
+    others of 1 + (i mod 7) synapses, of delays 1, 2, 3, 1, ... in turn."""
+    degree = torch.tensor([0 if i % 3 == 0 else 1 + i % 7
+                           for i in range(num)])
+    row_ptr = torch.zeros(num + 1, dtype=torch.int32)
+    torch.cumsum(degree, 0, out=row_ptr[1:])
+    n_syn = int(row_ptr[-1])
+    j = torch.arange(n_syn)
+    return dict(row_ptr=row_ptr,
+                targets=((j * 7919) % num).to(torch.int32),
+                weights=(j % 101 - 50).to(torch.int16),
+                delays=(1 + j % 3).to(torch.uint8))
+
+
+def network_arrays(kind: str) -> dict:
+    if kind == 'drawn':
+        return {k: x.clone() for k, x in setup(0.02)[1]['program'].items()}
+    return hand_made_rows(sum(PARAMS.sizes(0.02)))
+
+
+@pytest.mark.parametrize('kind', ['drawn', 'hand-made'])
+def test_the_plan_holds_each_rows_delay_1_synapses_in_order(kind):
+    arrays = network_arrays(kind)
+    given = {k: x.clone() for k, x in arrays.items()}
+    net = bt.MicrocircuitNet(scale=0.02, device='cpu', **arrays)
+    plan = net.plan
+    assert plan.near_ptr.dtype == plan.near_targets.dtype == torch.int32
+    assert plan.near_weights.dtype == torch.int16
+    rp = net.row_ptr.tolist()
+    near = plan.near_ptr.tolist()
+    d, tg, w = net.delays, net.targets, net.weights
+    for i in range(net.num):
+        one = torch.nonzero(d[rp[i]:rp[i + 1]] == 1).flatten() + rp[i]
+        assert near[i + 1] - near[i] == one.numel(), i
+        assert torch.equal(plan.near_targets[near[i]:near[i + 1]], tg[one])
+        assert torch.equal(plan.near_weights[near[i]:near[i + 1]], w[one])
+    assert near[0] == 0 and near[-1] == int((d == 1).sum()) > 0
+    if kind == 'hand-made':
+        assert (net.row_ptr[1:] == net.row_ptr[:-1]).sum() > net.num // 4
+    # the given arrays are the net's, unchanged and not copied
+    for k, x in given.items():
+        assert torch.equal(arrays[k], x), k
+        assert getattr(net, k).data_ptr() == arrays[k].data_ptr(), k
+    assert plan.lists.shape == (mc.MC_LISTS, net.num, 2)
+    assert plan.counts.shape == (mc.MC_LISTS,)
+    assert plan.lists.dtype == plan.counts.dtype == torch.int32
+
+
+@pytest.mark.parametrize('kind', ['drawn', 'hand-made'])
+def test_grid_share_is_the_share_of_delays_of_two_or_more(kind):
+    arrays = network_arrays(kind)
+    n_syn = arrays['delays'].numel()
+    want = int((arrays['delays'] >= 2).sum()) / n_syn
+    net = bt.MicrocircuitNet(scale=0.02, device='cpu', **arrays)
+    assert net.grid_share == want
+    tracing.drain()
+    tracing.enable()
+    try:
+        net.run(3, state=net.init_state())
+    finally:
+        tracing.disable()
+    root = tracing.drain()[0]
+    assert root.name == 'brainevent_torch.MicrocircuitNet.run'
+    assert root.attrs['grid_share'] == want
+
+
+@pytest.mark.parametrize('delay', [1, 2])
+def test_grid_share_of_one_delay_everywhere(delay):
+    arrays = network_arrays('hand-made')
+    arrays['delays'] = torch.full_like(arrays['delays'], delay)
+    net = bt.MicrocircuitNet(scale=0.02, device='cpu', **arrays)
+    assert net.grid_share == (0.0 if delay == 1 else 1.0)
+    n_near = net.plan.near_targets.numel()
+    assert n_near == (arrays['delays'].numel() if delay == 1 else 0)
+    assert net.depth == 1 << delay.bit_length()
+
+
+def test_an_empty_network_has_an_empty_plan():
+    num = sum(PARAMS.sizes(0.02))
+    net = bt.MicrocircuitNet(
+        scale=0.02, device='cpu',
+        row_ptr=torch.zeros(num + 1, dtype=torch.int32),
+        targets=torch.zeros(0, dtype=torch.int32),
+        weights=torch.zeros(0, dtype=torch.int16),
+        delays=torch.zeros(0, dtype=torch.uint8))
+    assert net.grid_share == 0.0
+    assert not net.plan.near_ptr.any() and net.plan.near_targets.numel() == 0
 
 
 # -- the kernel's interface, without a card ---------------------------------------
@@ -302,11 +397,12 @@ def test_the_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
         assert mc.mc_sim_grid(net.num, CPU) == 7
         before = mc.mc_sim.launches
         mc._mc_sim_cuda(mc.mc_sim, *out, net.row_ptr, net.targets,
-                        net.weights, net.delays, 10, net.step_params(1, 0))
+                        net.weights, net.delays, 10, net.step_params(1, 0),
+                        plan=net.plan)
         assert mc.mc_sim.launches == before + 1
     finally:
         mc._max_blocks.cache_clear()
-    assert seen == {'mc_sim_max_blocks': 2, 'mc_sim_launch': 14}
+    assert seen == {'mc_sim_max_blocks': 2, 'mc_sim_launch': 19}
 
 
 def test_a_grid_that_cannot_be_co_resident_is_refused(monkeypatch):
@@ -374,9 +470,11 @@ def test_k23_chains_and_leaves_its_state(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize('empty_rows', [False, True])
 def test_k23_walks_a_full_list_bit_for_bit(cuda_device, empty_rows):
-    """The second block's MC_BLOCK neurons all spike at the first step, so
-    that block's list of rows is full; with *empty_rows*, every third row
-    of the network holds no synapse, some of that block's among them."""
+    """The first three blocks' 3 MC_BLOCK neurons all spike at the first
+    step, so their blocks' lists of delay-1 rows are full and the grid's
+    list of the step holds more than one chunk of MC_BLOCK rows; with
+    *empty_rows*, every third row of the network holds no synapse, some of
+    those blocks' among them."""
     net, inputs = setup(0.02, cuda_device)
     if empty_rows:
         degree = (net.row_ptr[1:] - net.row_ptr[:-1]).long()
@@ -391,7 +489,7 @@ def test_k23_walks_a_full_list_bit_for_bit(cuda_device, empty_rows):
             delays=net.delays[keep])
         assert net.depth == inputs['depth']
     state = program_state(inputs['states'][0])
-    block = slice(mc.MC_BLOCK, 2 * mc.MC_BLOCK)
+    block = slice(0, 3 * mc.MC_BLOCK)
     v, i_syn, refr = state.v.clone(), state.i_syn.clone(), state.ref.clone()
     v[block], i_syn[block], refr[block] = 2 * (PARAMS.v_th - PARAMS.e_l), 0, 0
     state = state._replace(v=v, i_syn=i_syn, ref=refr)
@@ -404,3 +502,56 @@ def test_k23_walks_a_full_list_bit_for_bit(cuda_device, empty_rows):
     mc.mc_loop(*want, *rows, 50, net.step_params(state.key, state.step))
     for k, x in zip(ref.FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
+
+
+def twin_run(net, state, n_steps):
+    out = [getattr(state, k).clone() for k in ref.FIELDS]
+    mc.mc_loop(*out, net.row_ptr, net.targets, net.weights, net.delays,
+               n_steps, net.step_params(state.key, state.step))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scale', [0.02, 1.0])
+@pytest.mark.parametrize('n_steps', [1, 2])
+def test_k23_adds_its_last_steps_spikes_before_it_returns(cuda_device, scale,
+                                                         n_steps):
+    """A run of one or two steps from a drawn state (a fifth of the
+    neurons above threshold at once) leaves in the ring every synapse its
+    spikes sent, the last step's too, as the twin does; and a run chained
+    on from it goes on as one run."""
+    net, inputs = setup(scale, cuda_device)
+    state = program_state(inputs['states'][0])
+    got = net.run(n_steps, state=state)
+    want = twin_run(net, state, n_steps)
+    for k, x in zip(ref.FIELDS, want):
+        assert torch.equal(getattr(got, k), x), k
+    assert int((got.spike_count - state.spike_count).sum()) > net.num // 10
+    on = net.run(3, state=got)
+    whole = net.run(n_steps + 3, state=state)
+    for k in ref.FIELDS:
+        assert torch.equal(getattr(on, k), getattr(whole, k)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('delays', ['all 1', 'none 1'])
+def test_k23_takes_networks_of_one_kind_of_delay(cuda_device, delays):
+    """Every delay 1 (D = 2: the grid pass adds nothing), or none (the
+    owner's walk adds nothing): bit for bit the twin over 200 steps."""
+    base, inputs = setup(0.02, cuda_device)
+    d = (torch.ones_like(base.delays) if delays == 'all 1'
+         else base.delays.clamp(min=2))
+    net = bt.MicrocircuitNet(scale=0.02, device=cuda_device,
+                             row_ptr=base.row_ptr, targets=base.targets,
+                             weights=base.weights, delays=d)
+    assert net.grid_share == (0.0 if delays == 'all 1' else 1.0)
+    assert net.depth == (2 if delays == 'all 1' else base.depth)
+    state = program_state(inputs['states'][1])
+    state = state._replace(ring=torch.zeros(net.depth, net.num,
+                                            dtype=torch.int32,
+                                            device=cuda_device))
+    got = net.run(200, state=state)
+    want = twin_run(net, state, 200)
+    for k, x in zip(ref.FIELDS, want):
+        assert torch.equal(getattr(got, k), x), k
+    assert int((got.spike_count - state.spike_count).sum()) > 0
