@@ -21,9 +21,10 @@ the same names. It imports ``torch`` and ``numpy``, never ``jax``. Each op
 has a plain PyTorch twin, which runs for CPU tensors, and a CUDA kernel,
 which runs for CUDA tensors; the kernels are compiled by ``nvcc`` at first
 use (:mod:`brainevent_torch.ops.cuda_build`). Entry points that create
-tensors (``EINet``, ``JITCNet``, ``MicrocircuitNet``, ``SurrogateSNN``,
-the JITC matrices, the ``interop`` builders, ``dense_from_arrays`` among
-them) place them on the card unless given ``device='cpu'``.
+tensors (``EINet``, ``JITCNet``, ``MicrocircuitNet``, ``HpcStdpNet``,
+``SurrogateSNN``, the JITC matrices, the ``interop`` constructors,
+``dense_from_arrays`` among them) place them on the card unless given
+``device='cpu'``.
 """
 
 from ._version import __version__, __version_info__
@@ -69,7 +70,8 @@ from .models import (
     einet_pallas_sim_dense, dense_count_table, mxu6_conn_table, SNNParams,
     SurrogateSNN, snn_loss, train_step, JITCNet, JITCNetState,
     MicrocircuitNet, MicrocircuitParams, MicrocircuitState,
-    build_microcircuit,
+    build_microcircuit, HpcStdpNet, HpcStdpParams, HpcStdpState,
+    build_hpc_network,
 )
 from .jitc import (
     JITCModeView, JITCWalkPlan, JITCScalarMatrix, JITCScalarR, JITCScalarC,
@@ -118,7 +120,8 @@ __all__ = [
     'einet_from_arrays', 'surrogate_snn_from_arrays', 'csr_from_arrays',
     'csc_from_arrays', 'jitc_net_from_arrays', 'JITCNet', 'JITCNetState',
     'MicrocircuitNet', 'MicrocircuitParams', 'MicrocircuitState',
-    'build_microcircuit',
+    'build_microcircuit', 'HpcStdpNet', 'HpcStdpParams', 'HpcStdpState',
+    'build_hpc_network',
     'JITCModeView', 'JITCWalkPlan', 'JITCScalarMatrix', 'JITCScalarR',
     'JITCScalarC', 'jits', 'jitsmv', 'jitsmm', 'binary_jitsmv',
     'binary_jitsmm', 'jitsmv_plan', 'jitsmm_plan', 'JITCNormalMatrix',

@@ -63,18 +63,14 @@
 // and the grid's ~97k atomics a step into the L2-resident ring (adding
 // each twice costs ~1.0 us more), behind the latencies of the delay-1
 // walk, the list's scan and the rows' loads: 4.6-4.7 us a step.
-#include <cooperative_groups.h>
-
-#include <cstdint>
-
+// The ring, the Poisson draw, the lists and the grid pass's scan, share
+// and search are sim_grid.cuh's, which K24 (stdp_sim.cu) shares.
 #include "common.cuh"
-#include "light_rng.cuh"
-
-namespace cg = cooperative_groups;
+#include "sim_grid.cuh"
 
 // The most populations, and the Poisson table's thresholds a population.
 constexpr int MC_MAX_POPS = 8;
-constexpr int MC_KMAX = 16;
+constexpr int MC_KMAX = SG_KMAX;
 
 // The scalars of one network and trial; the same layout as McParams in
 // brainevent_torch/models/microcircuit.py (ctypes). The floats are
@@ -99,25 +95,11 @@ struct McParams {
 
 namespace {
 
-constexpr int MC_BLOCK = 256;
-constexpr int MC_WARPS = MC_BLOCK / 32;
+constexpr int MC_BLOCK = SG_BLOCK;
 // The spiking-row lists (and their counters) K23 keeps, by step mod 3.
 constexpr int MC_LISTS = 3;
 // Synapses a thread of the grid pass loads before it adds them.
 constexpr int MC_PASS_UNROLL = 2;
-constexpr unsigned MC_T_MUL = 0x9E3779B9u;
-constexpr unsigned MC_I_MUL = 0x85EBCA6Bu;
-
-// Brings the bytes [a, b) into L2, in 16-byte bounds, without waiting.
-__device__ __forceinline__ void mc_prefetch(const void* a, const void* b) {
-    const unsigned long long lo =
-        reinterpret_cast<unsigned long long>(a) & ~15ull;
-    const unsigned long long hi =
-        (reinterpret_cast<unsigned long long>(b) + 15ull) & ~15ull;
-    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(lo),
-                 "r"(static_cast<unsigned>(hi - lo))
-                 : "memory");
-}
 
 // Whether a neuron in state (v, i, ref) spikes at its next step: the
 // update's own arithmetic (mc_sim_kernel) on that state.
@@ -127,42 +109,9 @@ __device__ __forceinline__ bool mc_spikes_next(const float v, const float i,
     return (ref == 0 ? __fmaf_rn(i, p.p21, __fmul_rn(v, p.p22)) : v) >= p.v_th;
 }
 
-// The block's shared view of one chunk of a step's list, of m rows (row:
-// this thread's, read by the caller): each row's first synapse in s_beg
-// and the exclusive sums of their lengths in s_off (s_off[m] the chunk's
-// synapses, returned).
-__device__ __forceinline__ int mc_scan(const int2 row, const int m,
-                                       int* s_off, int* s_beg, int* s_wsum) {
-    const int j = threadIdx.x, lane = j & 31, warp = j >> 5;
-    int x = j < m ? row.y - row.x : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, o);
-        if (lane >= o) x += y;
-    }
-    __syncthreads();  // the last chunk's view has been read
-    if (lane == 31) s_wsum[warp] = x;
-    s_beg[j] = row.x;
-    __syncthreads();
-    int pre = 0;
-#pragma unroll
-    for (int q = 0; q < MC_WARPS; ++q) pre += q < warp ? s_wsum[q] : 0;
-    s_off[j + 1] = pre + x;
-    if (j == 0) s_off[0] = 0;
-    __syncthreads();
-    return s_off[m];
-}
-
-// This block's contiguous 1/gridDim.x of a chunk's *total* synapses.
-__device__ __forceinline__ void mc_share(const int total, int* lo, int* hi) {
-    const long long b = blockIdx.x, nb = gridDim.x;
-    *lo = static_cast<int>(total * b / nb);
-    *hi = static_cast<int>(total * (b + 1) / nb);
-}
-
 // One round of a thread's share of a chunk: the chunk's synapses e0 +
-// MC_BLOCK u below hi, each found in its row by a binary search of s_off
-// over the chunk's m rows; a synapse past hi reads as delay 0.
+// MC_BLOCK u below hi, each found in its row by sg_find over the chunk's
+// m rows; a synapse past hi reads as delay 0.
 __device__ __forceinline__ void mc_pass_load(
     const int e0, const int hi, const int m, const int* s_off,
     const int* s_beg, const int* __restrict__ targets,
@@ -175,12 +124,8 @@ __device__ __forceinline__ void mc_pass_load(
         w[u] = 0;
         d[u] = 0u;
         if (e < hi) {
-            int lo = 0, up = m;
-            while (up - lo > 1) {
-                const int mid = (lo + up) >> 1;
-                if (s_off[mid] <= e) lo = mid; else up = mid;
-            }
-            const int c = s_beg[lo] + (e - s_off[lo]);
+            const int r = sg_find(e, m, s_off);
+            const int c = s_beg[r] + (e - s_off[r]);
             tg[u] = __ldg(targets + c);
             w[u] = __ldg(weights + c);
             d[u] = __ldg(delays + c);
@@ -229,7 +174,7 @@ __device__ __forceinline__ void mc_pass_chunks(
         const int m = min(n - c0, MC_BLOCK);
         const int2 row = j < m ? __ldcg(list + c0 + j) : make_int2(0, 0);
         int lo, hi;
-        mc_share(mc_scan(row, m, s_off, s_beg, s_wsum), &lo, &hi);
+        sg_share(sg_scan(row, m, s_off, s_beg, s_wsum), &lo, &hi);
         mc_pass_rounds(lo + j, hi, m, s_off, s_beg, targets, weights, delays,
                        ring, ts, dmask, num);
     }
@@ -251,10 +196,10 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
     // one step's list is walked while the next one's is made.
     __shared__ int2 s_rows[2][MC_BLOCK];
     __shared__ int s_n[2];
-    // The grid pass's view of a chunk of the last step's list (mc_scan).
+    // The grid pass's view of a chunk of the last step's list (sg_scan).
     __shared__ int s_off[MC_BLOCK + 1];
     __shared__ int s_beg[MC_BLOCK];
-    __shared__ int s_wsum[MC_WARPS];
+    __shared__ int s_wsum[SG_WARPS];
     for (int q = threadIdx.x; q < MC_MAX_POPS * MC_KMAX; q += blockDim.x)
         s_thr[q] = p.thr[q];
     if (threadIdx.x < 2) s_n[threadIdx.x] = 0;
@@ -303,17 +248,12 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
         const int tg0 = c0 < q0.y ? __ldg(near_targets + c0) : 0;
         const int w0 = c0 < q0.y ? __ldg(near_weights + c0) : 0;
 
-        int* now = ring + static_cast<long long>(t & dmask) * num;
-        const unsigned h = lr_mix32(p.key ^ (t * MC_T_MUL));
+        int* now = sg_slot(ring, t, dmask, num);
+        const unsigned h = sg_step_hash(p.key, t);
         if (own) {
             int in = __ldcg(now + i);
             if (in) now[i] = 0;
-            const unsigned u =
-                lr_mix32(h ^ (static_cast<unsigned>(i) * MC_I_MUL));
-            int events = 0;
-#pragma unroll
-            for (int m = 0; m < MC_KMAX; ++m) events += u >= s_thr[rp + m];
-            in += events * p.w_ext;
+            in += sg_poisson(h, i, s_thr + rp) * p.w_ext;
             if (rr == 0)
                 rv = __fmaf_rn(ri, p.p21, __fmul_rn(rv, p.p22));
             else
@@ -325,11 +265,11 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
                 rc += 1;
                 if (row.y > row.x) {
                     // read by the grid pass in the next step
-                    mc_prefetch(targets + row.x, targets + row.y);
-                    mc_prefetch(weights + row.x, weights + row.y);
-                    mc_prefetch(delays + row.x, delays + row.y);
-                    lists[static_cast<long long>(cur) * num +
-                          atomicAdd(counts + cur, 1)] = row;
+                    sg_prefetch(targets + row.x, targets + row.y);
+                    sg_prefetch(weights + row.x, weights + row.y);
+                    sg_prefetch(delays + row.x, delays + row.y);
+                    sg_append(lists + static_cast<long long>(cur) * num,
+                              counts + cur, row);
                 }
             }
             if (near.y > near.x && mc_spikes_next(rv, ri, rr, p))
@@ -342,7 +282,7 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
         // This step's count was read by every thread before the update.
         if (j == 0) s_n[k & 1] = 0;
         // The block's spikes' delay-1 synapses, read by step k + 1.
-        int* soon = ring + static_cast<long long>((t + 1u) & dmask) * num;
+        int* soon = sg_slot(ring, t + 1u, dmask, num);
         if (c0 < q0.y) atomicAdd(soon + tg0, w0);
         for (int c = c0 + MC_BLOCK; c < q0.y; c += MC_BLOCK)
             atomicAdd(soon + __ldg(near_targets + c),
@@ -358,7 +298,7 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
         if (pn) {
             const int pm = min(pn, MC_BLOCK);
             int lo, hi;
-            mc_share(mc_scan(prow, pm, s_off, s_beg, s_wsum), &lo, &hi);
+            sg_share(sg_scan(prow, pm, s_off, s_beg, s_wsum), &lo, &hi);
             int tg[MC_PASS_UNROLL], w[MC_PASS_UNROLL];
             unsigned d[MC_PASS_UNROLL];
             mc_pass_load(lo + j, hi, pm, s_off, s_beg, targets, weights,

@@ -2,12 +2,14 @@
 # Licensed under the Apache License, Version 2.0.
 
 """SNN model components: LIF neurons, the CUBA/COBA EI networks (stored
-and implicit connectivity), the Potjans-Diesmann cortical microcircuit and
-surrogate-gradient training."""
+and implicit connectivity), the Potjans-Diesmann cortical microcircuit,
+NEST's HPC benchmark network with STDP and surrogate-gradient training."""
 
 from .neurons import (
     LIFRefParams, LIFRefState, lifref_init, lifref_step, surrogate_spike,
 )
+from .hpc_stdp import (HpcStdpNet, HpcStdpParams, HpcStdpState,
+                       build_hpc_network)
 from .jitc_net import JITCNet, JITCNetState
 from .microcircuit import (MicrocircuitNet, MicrocircuitParams,
                            MicrocircuitState, build_microcircuit)
@@ -24,7 +26,8 @@ __all__ = [
     'LIFRefParams', 'LIFRefState', 'lifref_init', 'lifref_step',
     'surrogate_spike', 'EINet', 'EINetState', 'JITCNet', 'JITCNetState',
     'MicrocircuitNet', 'MicrocircuitParams', 'MicrocircuitState',
-    'build_microcircuit',
+    'build_microcircuit', 'HpcStdpNet', 'HpcStdpParams', 'HpcStdpState',
+    'build_hpc_network',
     'einet_pallas_sim', 'einet_pallas_sim_mxu', 'einet_pallas_sim_mxu2',
     'einet_pallas_sim_mxu3', 'einet_pallas_sim_mxu4', 'einet_pallas_sim_mxu5',
     'einet_pallas_sim_mxu6', 'einet_pallas_sim_chain',

@@ -29,6 +29,12 @@ Span names carry the prefix ``brainevent_torch.``. Spans nest in the
 order they are opened; they are meant for one thread. They are the
 entries' boundaries, a few a call whatever its number of steps; the
 launch counts of :mod:`~brainevent_torch.ops.core` count the kernels.
+
+Beside the spans, an entry may add what its kernels counted to a named
+counter (:func:`count`), only while tracing is on (:func:`enabled`): a
+number, or a one-element tensor that stays where it is, so that the entry
+does not wait for the card. :func:`drain_counts` reads them back, returns
+the sums and forgets them.
 """
 
 import itertools
@@ -37,7 +43,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ['Span', 'span', 'enable', 'disable', 'drain']
+__all__ = ['Span', 'span', 'enable', 'disable', 'enabled', 'drain',
+           'count', 'drain_counts']
 
 
 class Span(NamedTuple):
@@ -53,6 +60,7 @@ class Span(NamedTuple):
 
 _enabled = False
 _finished = []
+_counts = {}
 _open = []                      # (span id, run id) of the open spans
 _ids = itertools.count()
 
@@ -122,3 +130,23 @@ def drain() -> list:
     spans = sorted(_finished, key=lambda s: s.span_id)
     _finished.clear()
     return spans
+
+
+def enabled() -> bool:
+    """Whether spans and counts are being recorded."""
+    return _enabled
+
+
+def count(name: str, value) -> None:
+    """Add *value* (an int, or a one-element tensor, read back only by
+    :func:`drain_counts`) to the counter *name* while tracing is on."""
+    if _enabled:
+        _counts.setdefault(name, []).append(value)
+
+
+def drain_counts() -> dict:
+    """``{counter: sum}`` (ints) since the last call, and forget them."""
+    out = {name: sum(int(v) for v in values)
+           for name, values in _counts.items()}
+    _counts.clear()
+    return out

@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with a card::
     python3 scripts/kernel_times.py
     python3 scripts/kernel_times.py --tree DIR [--parts k10,jitc,...]
 
-With no arguments it times each kernel, K1-K23 and K21's table instance,
+With no arguments it times each kernel, K1-K24 and K21's table instance,
 at the shapes of the path that launches it, and prints two JSON lines:
 ``{"kernels": [...]}``, one entry a kernel (its device ms a call, its
 twin's ms, the least time of the work the call must do and what bounds
@@ -79,6 +79,8 @@ WALK_SCALES = (1.5, 2.0, 2.5, 3.0, 4.0, 5.0, 7.5)
 SHARD_NETS = (('4k', 1.0), ('400k', 100.0))
 MC_SCALE = 1.0      # the microcircuit: 77,169 neurons, 2.99e8 synapses
 MC_WARM, MC_STEPS = 1000, 2000      # its timed launch, after the warm-up
+HPC_SCALE = 10.0    # the HPC benchmark network: 112,500 neurons, 1.27e9 synapses
+HPC_WARM, HPC_STEPS = 1000, 1000    # its timed launch, after the warm-up
 TREE_PARTS = ('k10', 'jitc', 'k15', 'train', 'dense', 'ei', 'ei_dense')
 
 
@@ -1287,6 +1289,58 @@ def time_k23(device):
                                           net.pop_start[1:])])
 
 
+# -- the HPC benchmark network with STDP (K24) -------------------------------------
+
+def time_k24(device):
+    """K24 on NEST's HPC benchmark network at HPC_SCALE: one launch of
+    HPC_STEPS steps after HPC_WARM (device ms, CUDA events), the twin
+    (``stdp_loop``) on the card from the same state (bitwise equal), and
+    the work ``benchmark_torch/work/hpc_stdp.py`` counts for that launch
+    (the state read and written once; not the weights' copy, which
+    ``run`` makes)."""
+    import brainevent_torch as bt
+    from brainevent_torch.models import hpc_stdp as hs
+    from benchmark_torch.work import hpc_stdp as work
+    net = bt.HpcStdpNet(scale=HPC_SCALE, device=device)
+    warm = net.run(HPC_WARM, state=net.init_state())
+    p = net.step_params(warm.key, warm.step)
+    rows = (net.targets, net.plastic_ptr, net.static_ptr, net.plan.col_ptr,
+            net.plan.col_pos, net.plan.col_src)
+    got = [getattr(warm, k).clone() for k in hs.STATE_FIELDS]
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    hs.stdp_sim(*got, *rows, HPC_STEPS, p, scratch=net.plan)
+    b.record()
+    torch.cuda.synchronize()
+    want = [getattr(warm, k).clone() for k in hs.STATE_FIELDS]
+    t0 = time.perf_counter()
+    hs.stdp_loop(*want, *rows, HPC_STEPS, p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(same_bits(got, want), 'K24 vs twin')
+    out = dict(zip(hs.STATE_FIELDS, got), step=warm.step + HPC_STEPS)
+    out['spike_count'] = out['spike_count'] - warm.spike_count
+    # the facilitations of the launch: those of its E spikes, but for the
+    # last d steps', and those the warm state's last d steps owed
+    owed = warm.spiked.to(torch.int64).sum(0) - warm.spiked[warm.step
+                                                            % net.depth]
+    inputs = dict(num=net.num, ne=net.n_exc, depth=net.depth,
+                  net=dict(targets=net.targets, plastic_ptr=net.plastic_ptr,
+                           static_ptr=net.static_ptr, weights=net.weights))
+    total = work.reduce(None, inputs, out)
+    total[2] += (owed * inputs['degrees'][2]).sum()
+    n_ops, n_bytes = work.count(None, inputs, total, 1, HPC_STEPS)
+    n_bytes -= 8 * net.n_plastic  # the trial's copy of the weights: run's
+    seconds = HPC_STEPS * net.params.dt * 1e-3
+    new = out['spike_count'].double()
+    return dict(ms=a.elapsed_time(b), plain_ms=plain_ms, bytes=n_bytes,
+                ops=n_ops, blocks=hs.stdp_sim_grid(net.num, device),
+                rates_hz=[float(new[:net.n_exc].mean()) / seconds,
+                          float(new[net.n_exc:].mean()) / seconds])
+
+
 # -- the two modes ---------------------------------------------------------------
 
 def device_line():
@@ -1333,6 +1387,8 @@ def time_kernels_line(device):
     details['k20'], details['k22'] = k20, k22
     phase('K23: the microcircuit')
     k23 = details['k23'] = time_k23(device)
+    phase('K24: the HPC benchmark network with STDP')
+    k24 = details['k24'] = time_k24(device)
 
     def entry(op_name, t, **extra):
         op = REGISTRY[op_name]
@@ -1366,7 +1422,7 @@ def time_kernels_line(device):
         dict(entry('einet_sim', dense['table']), name='einet_sim_table',
              replaces='brainevent_tpu/models/pallas_sim.py:532'),
         entry('einet_shard_step', k22['400k']),
-        entry('mc_sim', k23)]
+        entry('mc_sim', k23), entry('stdp_sim', k24)]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'details': details}, default=str))
     return 0

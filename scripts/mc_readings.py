@@ -1,7 +1,9 @@
-"""The readings the limits of ``pd_microcircuit.77k`` are set from, on the
-card: ``benchmark_torch/readings.py`` for the microcircuit's driver.
+"""The readings the limits of ``pd_microcircuit.77k`` and ``hpc_stdp.112k``
+are set from, on the card: ``benchmark_torch/readings.py`` for the cells
+that run through a driver of their own (``mc_trials``, ``stdp_trials``).
 
-    python3 scripts/mc_readings.py --program <seed,...> --control <seed,...>
+    python3 scripts/mc_readings.py [--cell pd_microcircuit.77k] \
+        --program <seed,...> --control <seed,...>
 
 For each ``--program`` seed: set-up as a run makes it, one trial of the
 cell's length from the first initial state through the program, then the
@@ -28,6 +30,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--program', default='')
     parser.add_argument('--control', default='')
+    parser.add_argument('--cell', default=CELL)
     args = parser.parse_args(argv)
     os.environ['BRAINEVENT_TORCH_BUILD_DIR'] = str(
         ROOT / 'benchmark_torch' / '.cache' / 'kernels')
@@ -39,7 +42,7 @@ def main(argv=None) -> int:
     device = dev.require_cuda(1)
     print(f'device {torch.cuda.get_device_name(device)}; nvidia-smi: '
           f'{dev.power_limit()}', flush=True)
-    cell = spec.load_part('workloads', CELL)
+    cell = spec.load_part('workloads', args.cell)
     cfg = spec.load_part('configs', cell['config'])
     traffic = spec.load_part('traffic', cell['traffic'])
     ref = spec.load_module('reference', cell['config'])
@@ -64,7 +67,7 @@ def main(argv=None) -> int:
             t2 = time.perf_counter()
             values = ref.compare(cfg, inputs, got, want)
             print(json.dumps(dict(
-                kind=kind, cell=CELL, seed=seed, readings=values,
+                kind=kind, cell=args.cell, seed=seed, readings=values,
                 spikes=int(want['spike_count'].sum()),
                 reference_s=t2 - t1, seconds=t2 - t0)), flush=True)
             del inputs, got, want

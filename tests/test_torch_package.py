@@ -127,7 +127,7 @@ def test_build_command_targets_hopper_without_fma_contraction():
         'csr_event.cu', 'pair_gather.cu', 'csr_gather_mm.cu', 'jitc_walk.cu',
         'dense_event.cu', 'dense_stdp.cu', 'event_encode.cu',
         'einet_dense.cu', 'mega_counts.cu', 'einet_sim.cu', 'einet_shard.cu',
-        'mc_sim.cu'}
+        'mc_sim.cu', 'stdp_sim.cu'}
     for src in srcs:
         cmd = cuda_build.compile_command(nvcc, 'x.o', src)
         assert 'arch=compute_90a,code=sm_90a' in ' '.join(cmd)
@@ -199,7 +199,8 @@ def test_cu_sources_ship_as_package_data():
                        'event_encode.cu', 'einet_dense.cu',
                        'mega_counts.cu', 'csr_rows.cuh', 'einet_sim.cu',
                        'einet_neuron.cuh', 'einet_scatter.cuh',
-                       'einet_shard.cu', 'mc_sim.cu'}
+                       'einet_shard.cu', 'mc_sim.cu', 'sim_grid.cuh',
+                       'stdp_sim.cu'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 
@@ -244,8 +245,9 @@ def test_launch_counts_only_successful_launches(monkeypatch):
 
 
 # kernels of the port's own, which replace no TPU kernel (replaces=None):
-# K23, the microcircuit's trial, has no counterpart in the JAX package
-PORT_ONLY = {'mc_sim'}
+# K23, the microcircuit's trial, and K24, the HPC benchmark network's, have
+# no counterpart in the JAX package
+PORT_ONLY = {'mc_sim', 'stdp_sim'}
 
 
 def _ported():
@@ -384,6 +386,7 @@ _NO_DEVICE = {
     'SurrogateSNN': lambda: bt.SurrogateSNN(n_in=4, n_hidden=64, n_out=2,
                                             n_conn=4),
     'JITCNet': lambda: bt.JITCNet(scale=0.05),
+    'HpcStdpNet': lambda: bt.HpcStdpNet(scale=0.001),
     'lifref_init': lambda: bt.lifref_init(None, 8, bt.LIFRefParams()),
     'einet_from_arrays': lambda: bt.einet_from_arrays(
         np.zeros((200, 4), np.int32), 160, *(np.zeros(200, np.float32),) * 4,
