@@ -52,9 +52,17 @@ then, NEST's ``send()`` applied eagerly (the whole delay dendritic):
    D][j]``;
 3. the spikes of t add 1 to their neuron's K+ and K-.
 
-:meth:`HpcStdpNet.run` runs a trial on a card as one launch of kernel K24
-(``csrc/stdp_sim.cu``), and on the CPU as :func:`stdp_loop`, plain
-PyTorch; they give the same bits.
+:meth:`HpcStdpNet.run` runs a trial on a card as launches of kernel K24
+(``csrc/stdp_sim.cu``) of at most LAUNCH_STEPS steps, and on the CPU
+as :func:`stdp_loop`, plain PyTorch; they give the same bits. :func:`stdp_loop`
+makes 1 as written, a pass over the columns of the step's post spikes
+(:func:`stdp_columns`). K24 makes each synapse's facilitations where
+NEST's ``send()`` does, at the next spike of its source, in the walk of
+its row and before its depression, oldest first, with K+ of their steps
+from a history of the launch; and the facilitations still owed at its
+last step in one pass over the E rows (the flush). Between two spikes of
+i nothing else writes a synapse i -> j and K+_i only decays, so these are
+the eager rule's facilitations, in its order, on its operands.
 """
 
 import ctypes
@@ -73,16 +81,22 @@ from .microcircuit import I_MUL, T_MUL, poisson_thresholds
 from .neurons import f32
 
 __all__ = ['HpcStdpNet', 'HpcStdpState', 'HpcStdpParams', 'StdpParams',
-           'StdpPlan', 'build_hpc_network', 'stdp_plan', 'stdp_sim',
+           'StdpPlan', 'build_hpc_network', 'stdp_columns',
+           'stdp_plan', 'stdp_counts', 'spike_capacity', 'stdp_sim',
            'stdp_loop', 'stdp_sim_grid', 'stdp_pow_cuda', 'propagator_31',
            'propagator_32']
 
 HPC_BLOCK = 256          # threads a block of K24 (SG_BLOCK in sim_grid.cuh)
 HPC_NPT = 2              # neurons a thread of K24 owns at most (STDP_NPT)
 HPC_KMAX = 16            # the Poisson draw's thresholds (SG_KMAX)
+HPC_HTILE = 8            # steps of a tile of K24's K+ history (STDP_HTILE)
+LAUNCH_STEPS = 10240     # the most steps of one K24 launch, by default
 STATE_FIELDS = ('v', 'i_syn', 'di', 'ref', 'ring', 'spike_count', 'weights',
                 'kplus', 'khist', 'spiked')
 MAX_SYNAPSES = 2 ** 31 - 1  # the rows' positions are int32
+# the counters of a run, in the order of K24's (3,) buffer
+COUNTERS = tuple(f'brainevent_torch.HpcStdpNet.{name}' for name in (
+    'depressions', 'facilitations', 'flush_facilitations'))
 
 
 def _lambert_wm1(x: float) -> float:
@@ -281,13 +295,33 @@ def _segments(ptr: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
             + torch.arange(int(lens.sum()), device=ptr.device))
 
 
+def stdp_columns(targets, plastic_ptr) -> tuple:
+    """The plastic synapses by target, which :func:`stdp_loop` reads, on
+    the network's device: each E neuron's column ``col_ptr`` (int32 ``(NE
+    + 1,)``), and each entry's position ``col_pos`` and source ``col_src``
+    (int32 ``(P,)``), a column's entries in the order of their position (a
+    stable sort)."""
+    ne = plastic_ptr.numel() - 1
+    tp = targets[:int(plastic_ptr[-1])]
+    order = torch.sort(tp, stable=True).indices.to(torch.int32)
+    col_ptr = torch.zeros(ne + 1, dtype=torch.int64, device=targets.device)
+    torch.cumsum(torch.bincount(tp, minlength=ne), 0, out=col_ptr[1:])
+    rows = torch.repeat_interleave(
+        torch.arange(ne, dtype=torch.int32, device=targets.device),
+        (plastic_ptr[1:] - plastic_ptr[:-1]).long())
+    return (col_ptr.to(torch.int32), order,
+            torch.index_select(rows, 0, order))
+
+
 def stdp_loop(v, i_syn, di, ref, ring, spike_count, weights, kplus, khist,
-              spiked, targets, plastic_ptr, static_ptr, col_ptr, col_pos,
-              col_src, n_steps: int, p: StdpParams,
-              counters: Optional[torch.Tensor] = None) -> None:
+              spiked, targets, plastic_ptr, static_ptr, n_steps: int,
+              p: StdpParams, counters: Optional[torch.Tensor] = None) -> None:
     """Plain PyTorch twin of K24, in place: *n_steps* steps from
-    ``p.step0`` (see the module's docstring). *counters* (int64, (2,)),
-    where given, is set to the depressions and facilitations made."""
+    ``p.step0`` (see the module's docstring), each facilitation in the
+    step d after its post spike, over the columns (:func:`stdp_columns`).
+    *counters* (int64, (3,)), where given, is set to the depressions and
+    facilitations made, and 0: nothing is left to a flush."""
+    col_ptr, col_pos, col_src = stdp_columns(targets, plastic_ptr)
     num, ne, d = p.num, p.n_exc, p.delay
     dmask = p.depth - 1
     device = v.device
@@ -349,7 +383,7 @@ def stdp_loop(v, i_syn, di, ref, ring, spike_count, weights, kplus, khist,
             flat.index_add_(0, ((t + d) & dmask) * num + targets[es].long(),
                             units)
         if counters is not None:
-            counters += torch.tensor([ep.numel(), e.numel()],
+            counters += torch.tensor([ep.numel(), e.numel(), 0],
                                      device=counters.device)
         # 3. the spikes of t into the traces
         se = spike[:ne]
@@ -360,46 +394,63 @@ def stdp_loop(v, i_syn, di, ref, ring, spike_count, weights, kplus, khist,
 
 # -- K24: the whole trial in one launch ------------------------------------------------
 
+def spike_capacity(launch_steps: int, delay: int, ref_steps: int,
+                   resets_below_threshold: bool = True) -> int:
+    """Entries of an E neuron's spike list in a K24 launch of at most
+    *launch_steps* steps: its spikes of the *delay* steps before the
+    launch, which a state may hold in any of them, and those of the
+    launch, one every ``ref_steps + 1`` steps at the fastest (a neuron
+    spikes again only once the membrane is integrated again), or every
+    step where the reset is not below the threshold."""
+    period = ref_steps + 1 if resets_below_threshold else 1
+    return delay + -(-launch_steps // period)
+
+
 class StdpPlan(NamedTuple):
-    """What K24 reads besides the network: the CSC of the plastic
-    synapses (``col_ptr`` int32 ``(NE + 1,)``; each entry's position
-    ``col_pos`` and source ``col_src``, int32 ``(P,)``, a column's entries
-    in the order of their position), and K24's scratch: the lists of a
-    step's spiking rows (``dlists`` int32 ``(2, 2 num, 2)``, by parity)
-    and of the spiking columns (``flists`` int32 ``(D, NE, 2)``, by step
-    mod D), their counters (``counts`` int32 ``(2 + D,)``) and K+ of the
-    last two steps (``kbuf`` float32 ``(2, NE)``). One launch at a time
-    uses a plan's scratch (launches on one stream)."""
-    col_ptr: torch.Tensor
-    col_pos: torch.Tensor
-    col_src: torch.Tensor
+    """K24's scratch for launches of at most ``steps`` steps: the lists of
+    a step's spiking rows (``dlists`` int32 ``(2, 2 num, 4)``, by parity:
+    each row's bounds, its source and the source's walk before), their
+    counters and those of the grid passes' ranges (``counts`` int32, see
+    :func:`stdp_counts`); the K+ history of a launch (``kph`` float32
+    ``(steps / HPC_HTILE, NE, HPC_HTILE)``: K+ of each E neuron in each
+    step before its spike, in tiles of HPC_HTILE steps);
+    each E neuron's spike steps (``spikes`` int32 ``(NE, cap)``, cap from
+    :func:`spike_capacity`), its record (``recent`` int32 ``(NE, 16)``: the
+    count and the 15 newest, newest first) and its row's last walk (``last_walk``
+    int32 ``(NE,)``). One launch at a time uses a plan's scratch (launches
+    on one stream)."""
+    steps: int
     dlists: torch.Tensor
-    flists: torch.Tensor
     counts: torch.Tensor
-    kbuf: torch.Tensor
+    kph: torch.Tensor
+    spikes: torch.Tensor
+    recent: torch.Tensor
+    last_walk: torch.Tensor
 
 
-def stdp_plan(targets, plastic_ptr, num: int, depth: int) -> StdpPlan:
-    """The :class:`StdpPlan` of a network on its device: the plastic
-    synapses sorted by target (a stable sort) and K24's scratch."""
-    ne = plastic_ptr.numel() - 1
-    n_plastic = int(plastic_ptr[-1])
-    tp = targets[:n_plastic]
-    order = torch.sort(tp, stable=True).indices.to(torch.int32)
-    col_ptr = torch.zeros(ne + 1, dtype=torch.int64, device=targets.device)
-    torch.cumsum(torch.bincount(tp, minlength=ne), 0, out=col_ptr[1:])
-    rows = torch.repeat_interleave(
-        torch.arange(ne, dtype=torch.int32, device=targets.device),
-        (plastic_ptr[1:] - plastic_ptr[:-1]).long())
-    col_src = torch.index_select(rows, 0, order)
-    del rows
+def stdp_counts(num: int, n_exc: int) -> int:
+    """The counters of K24's scratch: the rows' lists' by parity, then a
+    walk's ranges' by parity, one for each chunk of HPC_BLOCK rows of a
+    step's list (at most 2 num rows), then the flush's, one a chunk of E
+    rows."""
+    return 2 + 2 * -(-2 * num // HPC_BLOCK) + -(-n_exc // HPC_BLOCK)
+
+
+def stdp_plan(num: int, n_exc: int, steps: int, cap: int,
+              device) -> StdpPlan:
+    """K24's :class:`StdpPlan` for *num* neurons, *n_exc* of them E, on
+    *device*: launches of at most *steps* steps (the history rounded up to
+    whole tiles), spike lists of *cap* entries."""
+    steps = -(-steps // HPC_HTILE) * HPC_HTILE
 
     def scratch(*shape, dtype=torch.int32):
-        return torch.zeros(shape, dtype=dtype, device=targets.device)
-    return StdpPlan(col_ptr=col_ptr.to(torch.int32), col_pos=order,
-                    col_src=col_src, dlists=scratch(2, 2 * num, 2),
-                    flists=scratch(depth, ne, 2), counts=scratch(2 + depth),
-                    kbuf=scratch(2, ne, dtype=torch.float32))
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return StdpPlan(steps=steps, dlists=scratch(2, 2 * num, 4),
+                    counts=scratch(stdp_counts(num, n_exc)),
+                    kph=scratch(steps // HPC_HTILE, n_exc, HPC_HTILE,
+                                dtype=torch.float32),
+                    spikes=scratch(n_exc, cap), recent=scratch(n_exc, 16),
+                    last_walk=scratch(n_exc))
 
 
 @functools.lru_cache(maxsize=None)
@@ -431,53 +482,62 @@ def stdp_sim_grid(num: int, device: torch.device) -> int:
 
 
 def _stdp_sim_cuda(op, v, i_syn, di, ref, ring, spike_count, weights, kplus,
-                   khist, spiked, targets, plastic_ptr, static_ptr, col_ptr,
-                   col_pos, col_src, n_steps, p, scratch: StdpPlan,
+                   khist, spiked, targets, plastic_ptr, static_ptr, n_steps,
+                   p, scratch: StdpPlan,
                    counters: Optional[torch.Tensor] = None):
-    """K24's launch; *scratch* is the :func:`stdp_plan` whose columns are
-    given."""
+    """K24's launch of *n_steps*, at most ``scratch.steps``; *scratch* is a
+    :func:`stdp_plan` of the network."""
     f, i = torch.float32, torch.int32
     tensors = [(v, f), (i_syn, f), (di, f), (ref, i), (ring, i),
                (spike_count, i), (weights, f), (kplus, f), (khist, f),
                (spiked, torch.uint8), (targets, i), (plastic_ptr, i),
-               (static_ptr, i), (col_ptr, i), (col_pos, i), (col_src, i),
-               (scratch.dlists, i), (scratch.flists, i), (scratch.counts, i),
-               (scratch.kbuf, f)]
+               (static_ptr, i), (scratch.dlists, i), (scratch.counts, i),
+               (scratch.kph, f), (scratch.spikes, i), (scratch.recent, i),
+               (scratch.last_walk, i)]
     if counters is not None:
         tensors.append((counters, torch.int64))
     device = check_cuda_tensors(op.name, *tensors)
     num, ne, depth = p.num, p.n_exc, p.depth
     n_plastic = p.n_plastic
+    cap = scratch.spikes.shape[-1]
     if (any(x.shape != (num,) for x in (v, i_syn, di, ref, spike_count))
             or ring.shape != (depth, num) or kplus.shape != (ne,)
             or khist.shape != (depth, ne) or spiked.shape != (depth, ne)
             or weights.shape != (n_plastic,)
             or plastic_ptr.shape != (ne + 1,)
-            or static_ptr.shape != (num + 1,) or col_ptr.shape != (ne + 1,)
-            or col_pos.shape != (n_plastic,) or col_src.shape != (n_plastic,)
-            or scratch.dlists.shape != (2, 2 * num, 2)
-            or scratch.flists.shape != (depth, ne, 2)
-            or scratch.counts.shape != (2 + depth,)
-            or scratch.kbuf.shape != (2, ne)
-            or (counters is not None and counters.shape != (2,))):
-        raise ValueError(f'{op.name}: state, rows, columns and scratch do not '
-                         f'match num={num}, NE={ne}, P={n_plastic}, '
-                         f'D={depth}')
+            or static_ptr.shape != (num + 1,)
+            or scratch.dlists.shape != (2, 2 * num, 4)
+            or scratch.counts.shape != (stdp_counts(num, ne),)
+            or scratch.steps % HPC_HTILE
+            or scratch.kph.shape != (scratch.steps // HPC_HTILE, ne,
+                                     HPC_HTILE)
+            or scratch.spikes.shape != (ne, cap)
+            or cap < spike_capacity(n_steps, p.delay, p.ref_steps,
+                                    p.v_reset < p.v_th)
+            or scratch.recent.shape != (ne, 16)
+            or scratch.last_walk.shape != (ne,)
+            or (counters is not None and counters.shape != (3,))):
+        raise ValueError(f'{op.name}: state, rows and scratch do not match '
+                         f'num={num}, NE={ne}, P={n_plastic}, D={depth} and '
+                         f'a launch of {n_steps} steps')
+    if not 0 <= n_steps <= scratch.steps:
+        raise ValueError(f'{op.name}: {n_steps} steps, and the scratch holds '
+                         f'launches of at most {scratch.steps}')
     blocks = stdp_sim_grid(num, device)
-    fn = cuda_build.function('stdp_sim_launch', [ctypes.c_void_p] * 21 + [
-        ctypes.c_int, ctypes.POINTER(StdpParams)] + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p])
+    fn = cuda_build.function('stdp_sim_launch', [ctypes.c_void_p] * 20 + [
+        ctypes.c_int] * 3 + [ctypes.POINTER(StdpParams)] + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p])
     op.launch(fn, v.data_ptr(), i_syn.data_ptr(), di.data_ptr(),
               ref.data_ptr(), ring.data_ptr(), spike_count.data_ptr(),
               weights.data_ptr(), kplus.data_ptr(), khist.data_ptr(),
               spiked.data_ptr(), targets.data_ptr(), plastic_ptr.data_ptr(),
-              static_ptr.data_ptr(), col_ptr.data_ptr(), col_pos.data_ptr(),
-              col_src.data_ptr(), scratch.dlists.data_ptr(),
-              scratch.flists.data_ptr(), scratch.counts.data_ptr(),
-              scratch.kbuf.data_ptr(),
+              static_ptr.data_ptr(), scratch.dlists.data_ptr(),
+              scratch.counts.data_ptr(), scratch.kph.data_ptr(),
+              scratch.spikes.data_ptr(), scratch.recent.data_ptr(),
+              scratch.last_walk.data_ptr(),
               None if counters is None else counters.data_ptr(),
-              int(n_steps), ctypes.byref(p), blocks, device.index or 0,
-              cuda_stream(device))
+              int(n_steps), scratch.steps, cap, ctypes.byref(p), blocks,
+              device.index or 0, cuda_stream(device))
 
 
 stdp_sim = KernelOp('stdp_sim', twin=stdp_loop, cuda=_stdp_sim_cuda,
@@ -526,9 +586,11 @@ class HpcStdpNet:
         weights, which :meth:`init_state` hands to every state.
     device : torch device, default the card (``'cuda'``)
         CUDA tensors run K24; ``device='cpu'`` runs :func:`stdp_loop`.
-
-    The net keeps the given arrays as they are, and beside them ``plan``
-    (:func:`stdp_plan`: the plastic synapses' CSC and K24's scratch).
+    The net keeps the given arrays as they are, and beside them, on a card,
+    ``plan`` (:func:`stdp_plan`: K24's scratch for launches of at most
+    ``launch_steps``, LAUNCH_STEPS: :meth:`run` makes a longer run in
+    launches of at most as many steps; the scratch's K+ history holds 4 B
+    an E neuron a step, 3.7 GB at scale 10), None on the CPU.
     """
     scale: float = 1.0
     params: HpcStdpParams = HpcStdpParams()
@@ -576,10 +638,16 @@ class HpcStdpNet:
             raise ValueError('the delay must be at least one step')
         # the next power of two above the delay
         self.depth = 1 << self.delay.bit_length()
-        self.plan = stdp_plan(self.targets, self.plastic_ptr, self.num,
-                              self.depth)
         self.thresholds = poisson_thresholds(
             prm.poisson_rate() * prm.dt * 1e-3, HPC_KMAX)
+        self.launch_steps = LAUNCH_STEPS
+        self.plan = None
+        if self.device.type == 'cuda':
+            q = self.step_params(0, 0)
+            cap = spike_capacity(self.launch_steps, q.delay, q.ref_steps,
+                                 q.v_reset < q.v_th)
+            self.plan = stdp_plan(self.num, self.n_exc, self.launch_steps,
+                                  cap, self.device)
 
     # -- state -------------------------------------------------------------------
 
@@ -641,45 +709,53 @@ class HpcStdpNet:
     def run(self, n_steps: int, state: Optional[HpcStdpState] = None
             ) -> HpcStdpState:
         """Run *n_steps* from *state* (default :meth:`init_state`) through
-        K24 in one launch, or :func:`stdp_loop` on the CPU; returns the new
-        state, its ``step`` *n_steps* on. *state* is not modified: its
-        arrays, the weights among them, are copied first.
+        K24, or :func:`stdp_loop` on the CPU, in launches of at most
+        ``launch_steps`` steps (one where it is 0), chained through the
+        state; returns the new state, its ``step`` *n_steps* on. *state*
+        is not modified: its arrays, the weights among them, are copied
+        first.
 
         With tracing on (:mod:`~brainevent_torch.ops.tracing`), a call
         records the span ``brainevent_torch.HpcStdpNet.run`` (attributes
         ``num``, ``n_plastic``, ``n_steps``, ``route``: ``sim`` on a card,
         ``loop`` on the CPU, and ``npt``: the most neurons a thread of K24
         owns, 0 on the loop) around ``.copies`` and ``.launch``, and adds
-        the run's depressions and facilitations to the counters
-        ``brainevent_torch.HpcStdpNet.depressions`` and
-        ``.facilitations`` (on the card, read back only when the counters
-        are drained)."""
+        each launch's depressions, facilitations and facilitations made by
+        its flush to the counters ``brainevent_torch.HpcStdpNet.depressions``,
+        ``.facilitations`` and ``.flush_facilitations`` (0 on the loop,
+        which leaves none to a flush; on the card, read back only when the
+        counters are drained)."""
         if state is None:
             state = self.init_state()
+        n_steps = int(n_steps)
         route = 'sim' if state.v.device.type == 'cuda' else 'loop'
         npt = (-(-self.num // (stdp_sim_grid(self.num, state.v.device)
                                * HPC_BLOCK)) if route == 'sim' else 0)
+        sizes = [min(self.launch_steps, n_steps - k)
+                 for k in range(0, n_steps, self.launch_steps)] or [0]
         counting = tracing.enabled()
         with tracing.span('brainevent_torch.HpcStdpNet.run', num=self.num,
-                          n_plastic=self.n_plastic, n_steps=int(n_steps),
+                          n_plastic=self.n_plastic, n_steps=n_steps,
                           route=route, npt=npt):
             p = self.step_params(state.key, state.step)
             with tracing.span('brainevent_torch.HpcStdpNet.copies'):
                 out = [getattr(state, k).clone() for k in STATE_FIELDS]
-            counters = (torch.empty(2, dtype=torch.int64,
+            counters = (torch.empty(len(sizes), 3, dtype=torch.int64,
                                     device=state.v.device)
                         if counting else None)
-            # the twin reads the columns alone
-            extra = (dict(scratch=self.plan) if route == 'sim' else {})
+            extra = dict(scratch=self.plan) if route == 'sim' else {}
             with tracing.span('brainevent_torch.HpcStdpNet.launch'):
-                stdp_sim(*out, self.targets, self.plastic_ptr,
-                         self.static_ptr, self.plan.col_ptr,
-                         self.plan.col_pos, self.plan.col_src, int(n_steps),
-                         p, counters=counters, **extra)
+                step = state.step
+                for c, size in enumerate(sizes):
+                    q = StdpParams.from_buffer_copy(p)
+                    q.step0 = step & M32
+                    stdp_sim(*out, self.targets, self.plastic_ptr,
+                             self.static_ptr, size, q,
+                             counters=None if counters is None
+                             else counters[c], **extra)
+                    step += size
             if counting:
-                tracing.count('brainevent_torch.HpcStdpNet.depressions',
-                              counters[0])
-                tracing.count('brainevent_torch.HpcStdpNet.facilitations',
-                              counters[1])
-        return HpcStdpState(*out, key=state.key,
-                            step=state.step + int(n_steps))
+                for row in counters:
+                    for k, name in enumerate(COUNTERS):
+                        tracing.count(name, row[k])
+        return HpcStdpState(*out, key=state.key, step=state.step + n_steps)

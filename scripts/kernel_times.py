@@ -1304,8 +1304,7 @@ def time_k24(device):
     net = bt.HpcStdpNet(scale=HPC_SCALE, device=device)
     warm = net.run(HPC_WARM, state=net.init_state())
     p = net.step_params(warm.key, warm.step)
-    rows = (net.targets, net.plastic_ptr, net.static_ptr, net.plan.col_ptr,
-            net.plan.col_pos, net.plan.col_src)
+    rows = (net.targets, net.plastic_ptr, net.static_ptr)
     got = [getattr(warm, k).clone() for k in hs.STATE_FIELDS]
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)

@@ -224,24 +224,76 @@ def test_a_network_past_int32_positions_is_refused():
 
 
 def test_the_plan_holds_each_columns_synapses_in_order():
+    """The twin's CSC (:func:`stdp_columns`): each E neuron's incoming
+    plastic synapses, in the order of their positions, with their
+    sources. A net on the CPU keeps no K24 scratch."""
     net, _, _ = setup()
-    plan = net.plan
-    assert plan.col_ptr.dtype == plan.col_pos.dtype == torch.int32
-    assert plan.col_src.dtype == torch.int32
+    col_ptr, col_pos, col_src = hs.stdp_columns(net.targets, net.plastic_ptr)
+    assert net.plan is None
+    assert col_ptr.dtype == col_pos.dtype == col_src.dtype == torch.int32
     ne, n_plastic = net.n_exc, net.n_plastic
     src = torch.repeat_interleave(
         torch.arange(ne), (net.plastic_ptr[1:] - net.plastic_ptr[:-1]).long())
-    cp = plan.col_ptr.tolist()
+    cp = col_ptr.tolist()
     assert cp[0] == 0 and cp[-1] == n_plastic
     for j in range(ne):
-        pos = plan.col_pos[cp[j]:cp[j + 1]].long()
+        pos = col_pos[cp[j]:cp[j + 1]].long()
         want = torch.nonzero(net.targets[:n_plastic] == j).flatten()
         assert torch.equal(pos, want), j
-        assert torch.equal(plan.col_src[cp[j]:cp[j + 1]].long(), src[pos])
-    assert plan.dlists.shape == (2, 2 * net.num, 2)
-    assert plan.flists.shape == (net.depth, ne, 2)
-    assert plan.counts.shape == (2 + net.depth,)
-    assert plan.kbuf.shape == (2, ne) and plan.kbuf.dtype == torch.float32
+        assert torch.equal(col_src[cp[j]:cp[j + 1]].long(), src[pos])
+
+
+def test_the_plan_is_k24s_scratch():
+    """:func:`stdp_plan`: the rows' lists (bounds, source, walk before) by
+    parity, their counters, the K+ history in whole tiles, the spike
+    lists, records and last walks."""
+    plan = hs.stdp_plan(50, 40, 100, 37, CPU)
+    assert plan.steps == 104
+    assert plan.dlists.shape == (2, 100, 4)
+    assert plan.counts.shape == (2 + 2 * 1 + 1,)
+    assert hs.stdp_counts(112_500, 90_000) == 2 + 2 * 879 + 352
+    assert plan.kph.shape == (13, 40, hs.HPC_HTILE)
+    assert plan.kph.dtype == torch.float32
+    assert plan.spikes.shape == (40, 37) and plan.recent.shape == (40, 16)
+    assert plan.last_walk.shape == (40,)
+    for x in (plan.dlists, plan.counts, plan.spikes, plan.recent,
+              plan.last_walk):
+        assert x.dtype == torch.int32
+
+
+@pytest.mark.parametrize('steps, delay, ref_steps', [
+    (1, 15, 5), (14, 15, 5), (15, 15, 5), (10240, 15, 5), (97, 3, 0),
+    (50, 1, 2)])
+def test_the_spike_lists_hold_the_fastest_firing(steps, delay, ref_steps):
+    """A launch's spike list holds an E neuron's spikes of the d steps
+    before it, any of them (a state may be made by hand), and one every
+    ``ref_steps + 1`` steps of the launch from its first, the fastest the
+    refractory period allows; every step where the reset is not below the
+    threshold."""
+    cap = hs.spike_capacity(steps, delay, ref_steps)
+    fastest = delay + len(range(0, steps, ref_steps + 1))
+    assert cap == fastest
+    assert hs.spike_capacity(steps, delay, ref_steps, False) == delay + steps
+    assert hs.spike_capacity(10240, 15, 5) >= math.ceil(
+        (10240 + 15) / 6) + 1
+
+
+def test_a_neuron_driven_hard_fires_once_a_refractory_period():
+    """The twin with a drive far past threshold (JE 1000 mV at the same
+    Poisson rate, no inhibition): every neuron spikes at the launch's first
+    step and then every ``ref_steps + 1`` steps, no faster, so its spikes
+    fill the list's rule exactly."""
+    prm = bt.HpcStdpParams(ce=2, ci=1, je=1000.0, eta=12036.0, g=0.0)
+    net = bt.HpcStdpNet(scale=0.002, params=prm, device='cpu')
+    p = net.step_params(0, 0)
+    s = net.init_state()
+    s = s._replace(v=torch.full((net.num,), 30.0))
+    for steps in (1, 6, 7, 40, 100):
+        out = net.run(steps, state=s)
+        spikes = out.spike_count - s.spike_count
+        assert bool((spikes == len(range(0, steps, p.ref_steps + 1))).all())
+        assert int(spikes.max()) + p.delay <= hs.spike_capacity(
+            steps, p.delay, p.ref_steps)
 
 
 # -- the run ------------------------------------------------------------------------
@@ -281,6 +333,50 @@ def test_chained_runs_continue_the_step_the_stream_and_the_traces():
     assert half.step == whole.step == 130
     for k in hs.STATE_FIELDS:
         assert torch.equal(getattr(half, k), getattr(whole, k)), k
+
+
+@pytest.mark.parametrize('launch_steps, n_steps, sizes', [
+    (7, 30, [7, 7, 7, 7, 2]), (10, 30, [10, 10, 10]), (30, 30, [30]),
+    (64, 30, [30]), (8, 0, [0])])
+def test_run_splits_a_trial_into_launches_of_at_most_launch_steps(
+        monkeypatch, launch_steps, n_steps, sizes):
+    """``run`` makes a trial in launches of at most LAUNCH_STEPS steps,
+    each from the step the one before ended at, chained through the
+    state: bit for bit one twin run of the whole trial, and the counters
+    the launches'."""
+    net0, inputs, _ = setup()
+    monkeypatch.setattr(hs, 'LAUNCH_STEPS', launch_steps)
+    net = bt.HpcStdpNet(scale=SMALL[0], params=net0.params, device='cpu',
+                        **inputs['program'])
+    assert net.launch_steps == launch_steps
+    state = program_state(inputs['states'][1])._replace(step=2 ** 32 - 12)
+    seen = []
+    twin = hs.stdp_sim.twin
+
+    def spy(*args, **kwargs):
+        seen.append((args[13], args[14].step0))
+        return twin(*args, **kwargs)
+    monkeypatch.setattr(hs.stdp_sim, 'twin', spy)
+    tracing.drain()
+    tracing.drain_counts()
+    tracing.enable()
+    try:
+        got = net.run(n_steps, state=state)
+    finally:
+        tracing.disable()
+    tracing.drain()
+    counts = tracing.drain_counts()
+    assert [n for n, _ in seen] == sizes
+    assert [s for _, s in seen] == [(state.step + sum(sizes[:k])) % 2 ** 32
+                                    for k in range(len(sizes))]
+    assert got.step == state.step + n_steps
+    want = [getattr(state, k).clone() for k in hs.STATE_FIELDS]
+    counters = torch.zeros(3, dtype=torch.int64)
+    twin(*want, net.targets, net.plastic_ptr, net.static_ptr, n_steps,
+         net.step_params(state.key, state.step), counters=counters)
+    for k, x in zip(hs.STATE_FIELDS, want):
+        assert torch.equal(getattr(got, k), x), k
+    assert counts == dict(zip(hs.COUNTERS, counters.tolist()))
 
 
 def test_run_leaves_its_state_untouched_and_states_share_the_weights():
@@ -388,13 +484,15 @@ def test_the_run_records_its_spans_and_counts():
     # the counts by hand, from the spikes of the same 60 steps
     steps, _ = _spike_steps(net, state, 60)
     prow = (net.plastic_ptr[1:] - net.plastic_ptr[:-1]).tolist()
-    col = (net.plan.col_ptr[1:] - net.plan.col_ptr[:-1]).tolist()
+    col_ptr = hs.stdp_columns(net.targets, net.plastic_ptr)[0]
+    col = (col_ptr[1:] - col_ptr[:-1]).tolist()
     dep = sum(prow[i] for ids in steps for i in ids if i < net.n_exc)
     fac = sum(col[i] for ids in steps[:60 - net.delay] for i in ids
               if i < net.n_exc)
     assert tracing.drain_counts() == {
         'brainevent_torch.HpcStdpNet.depressions': dep,
-        'brainevent_torch.HpcStdpNet.facilitations': fac}
+        'brainevent_torch.HpcStdpNet.facilitations': fac,
+        'brainevent_torch.HpcStdpNet.flush_facilitations': 0}
     assert dep > 0 and fac > 0
     net.run(5, state=out)
     assert tracing.drain() == [] and tracing.drain_counts() == {}
@@ -436,17 +534,81 @@ def test_the_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
         assert hs.stdp_sim_grid(net.num, CPU) == 1
         before = hs.stdp_sim.launches
         hs._stdp_sim_cuda(hs.stdp_sim, *out, net.targets, net.plastic_ptr,
-                          net.static_ptr, net.plan.col_ptr,
-                          net.plan.col_pos, net.plan.col_src, 10,
-                          net.step_params(1, 0), scratch=net.plan,
-                          counters=torch.zeros(2, dtype=torch.int64))
+                          net.static_ptr, 10, net.step_params(1, 0),
+                          scratch=_plan(net),
+                          counters=torch.zeros(3, dtype=torch.int64))
         assert hs.stdp_sim.launches == before + 1
         x = hs.stdp_pow_cuda(torch.ones(5), 0.4)
         assert x.shape == (5,)
     finally:
         hs._max_blocks.cache_clear()
-    assert seen == {'stdp_sim_max_blocks': 2, 'stdp_sim_launch': 26,
+    assert seen == {'stdp_sim_max_blocks': 2, 'stdp_sim_launch': 27,
                     'stdp_pow_launch': 6}
+
+
+def _plan(net, steps=16):
+    p = net.step_params(1, 0)
+    return hs.stdp_plan(net.num, net.n_exc, steps,
+                        hs.spike_capacity(steps, p.delay, p.ref_steps), CPU)
+
+
+def _bad(field, make):
+    return lambda net, plan: plan._replace(**{field: make(net, plan)})
+
+
+BAD_SCRATCH = {
+    'dlists of two ints': _bad('dlists', lambda net, plan: torch.zeros(
+        2, 2 * net.num, 2, dtype=torch.int32)),
+    'counts without the ranges': _bad('counts', lambda net, plan: torch.zeros(
+        2, dtype=torch.int32)),
+    'a history too short': _bad('kph', lambda net, plan: plan.kph[1:]),
+    'a history not in tiles': _bad('kph', lambda net, plan: plan.kph.view(
+        plan.steps, net.n_exc)),
+    'steps not whole tiles': _bad('steps', lambda net, plan: plan.steps - 1),
+    'spike lists too short': _bad('spikes', lambda net, plan: plan.spikes[
+        :, :-1].contiguous()),
+    'records of four': _bad('recent', lambda net, plan: plan.recent[
+        :, :4].contiguous()),
+    'a last walk short': _bad('last_walk', lambda net, plan: plan.last_walk[
+        1:]),
+}
+
+
+@pytest.mark.parametrize('case', [*BAD_SCRATCH, 'counters of two',
+                                  'more steps than a launch holds'])
+def test_the_wrapper_refuses_scratch_that_does_not_fit(monkeypatch, case):
+    """Each scratch array, the counters and the launch's steps are checked
+    against the network and the launch before K24 is called."""
+    monkeypatch.setattr(cuda_build, 'function', lambda *a, **k: pytest.fail(
+        'K24 was called'))
+    monkeypatch.setattr(hs, 'stdp_sim_grid', lambda num, device: 1)
+    net, inputs, _ = setup()
+    s = program_state(inputs['states'][0])
+    out = [getattr(s, k).clone() for k in hs.STATE_FIELDS]
+    plan, n_steps = _plan(net), 16
+    counters = torch.zeros(3, dtype=torch.int64)
+    if case in BAD_SCRATCH:
+        plan = BAD_SCRATCH[case](net, plan)
+    elif case == 'counters of two':
+        counters = counters[:2]
+    else:
+        n_steps = plan.steps + 1
+    with pytest.raises(ValueError, match='do not match|at most'):
+        hs._stdp_sim_cuda(hs.stdp_sim, *out, net.targets, net.plastic_ptr,
+                          net.static_ptr, n_steps, net.step_params(1, 0),
+                          scratch=plan, counters=counters)
+
+
+def test_a_launch_holds_the_cells_trials():
+    """A net's default launch holds a 1 s trial (10,000 steps), so the
+    benchmark's trials run as one launch each, in whole tiles of the K+
+    history, whose tile is the kernel's."""
+    text = (ROOT / 'brainevent_torch' / 'csrc' / 'stdp_sim.cu').read_text()
+    assert re.search(r'constexpr int STDP_HTILE = (\d+);', text).group(
+        1) == str(hs.HPC_HTILE)
+    assert hs.LAUNCH_STEPS >= 10_000 and hs.LAUNCH_STEPS % hs.HPC_HTILE == 0
+    net, _, _ = setup()
+    assert net.launch_steps == hs.LAUNCH_STEPS
 
 
 def test_the_grid_takes_two_neurons_a_thread_before_it_refuses(monkeypatch):
@@ -476,9 +638,10 @@ def cuda_device():
 
 
 def twin_run(net, state, n_steps, counters=None):
+    """The twin over the net's arrays, on their device: the state arrays
+    after *n_steps* from *state*."""
     out = [getattr(state, k).clone() for k in hs.STATE_FIELDS]
     hs.stdp_loop(*out, net.targets, net.plastic_ptr, net.static_ptr,
-                 net.plan.col_ptr, net.plan.col_pos, net.plan.col_src,
                  n_steps, net.step_params(state.key, state.step),
                  counters=counters)
     return out
@@ -488,31 +651,58 @@ def full_setup(scale, device):
     return setup(scale, PARAMS.ce, PARAMS.ci, device)
 
 
+def traced_run(net, state, n_steps):
+    """``run`` with tracing on: the state and the counters' sums."""
+    tracing.drain()
+    tracing.drain_counts()
+    tracing.enable()
+    try:
+        out = net.run(n_steps, state=state)
+        root = tracing.drain()[0]
+    finally:
+        tracing.disable()
+    return out, root, tracing.drain_counts()
+
+
+def check_counts(counts, counters):
+    """K24's counters against the twin's: the same depressions and
+    facilitations, and a share of the latter made by the flush."""
+    dep, fac, none = counters.tolist()
+    assert none == 0 and dep > 0 and fac > 0
+    flush = counts.pop('brainevent_torch.HpcStdpNet.flush_facilitations')
+    assert 0 < flush < fac
+    assert counts == {'brainevent_torch.HpcStdpNet.depressions': dep,
+                      'brainevent_torch.HpcStdpNet.facilitations': fac}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('scale, warm, n_steps', [(0.1, 0, 1000),
-                                                  (10.0, 0, 200),
+                                                  (10.0, 0, 1000),
                                                   (10.0, 1000, 200)],
                          ids=['0.1', '10', '10-after-1000'])
 def test_k24_is_the_twin_bit_for_bit(cuda_device, scale, warm, n_steps):
-    """``run`` from a drawn state, or *warm* steps on, is one K24 launch
-    and no other kernel, bit for bit the twin (every state array) and a
-    second launch from the same state."""
+    """``run`` from a drawn state (the start-up bursts of its first ~900
+    steps), or *warm* steps on, is one K24 launch and no other kernel, bit
+    for bit the twin (every state array) and a second launch from the same
+    state; its counters are the twin's."""
     net, inputs, _ = full_setup(scale, cuda_device)
     state = program_state(inputs['states'][0])
     if warm:
         state = net.run(warm, state=state)
     core.reset_launch_counts()
-    got = net.run(n_steps, state=state)
+    got, _, counts = traced_run(net, state, n_steps)
     torch.cuda.synchronize()
-    counts = core.launch_counts()
-    assert counts['stdp_sim'] == 1 and sum(counts.values()) == 1, counts
+    launches = core.launch_counts()
+    assert launches['stdp_sim'] == 1 and sum(launches.values()) == 1, launches
     again = net.run(n_steps, state=state)
-    want = twin_run(net, state, n_steps)
+    counters = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    want = twin_run(net, state, n_steps, counters)
     for k, x in zip(hs.STATE_FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
         assert torch.equal(getattr(again, k), x), k
     assert int((got.spike_count - state.spike_count).sum()) > 0
     assert not torch.equal(got.weights, state.weights)
+    check_counts(counts, counters)
 
 
 @pytest.mark.cuda
@@ -526,40 +716,83 @@ def test_k24_takes_two_neurons_a_thread(cuda_device, monkeypatch):
     monkeypatch.setattr(hs, '_max_blocks', lambda device_index: blocks)
     state = program_state(inputs['states'][1])
     assert hs.stdp_sim_grid(net.num, cuda_device) == blocks
-    tracing.drain_counts()
-    tracing.enable()
-    try:
-        got = net.run(500, state=state)
-        root = tracing.drain()[0]
-    finally:
-        tracing.disable()
+    got, root, counts = traced_run(net, state, 500)
     assert root.attrs['npt'] == 2 and root.attrs['route'] == 'sim'
-    counters = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    counters = torch.zeros(3, dtype=torch.int64, device=cuda_device)
     want = twin_run(net, state, 500, counters)
     for k, x in zip(hs.STATE_FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
-    dep, fac = counters.tolist()
-    assert tracing.drain_counts() == {
-        'brainevent_torch.HpcStdpNet.depressions': dep,
-        'brainevent_torch.HpcStdpNet.facilitations': fac}
-    assert dep > 0 and fac > 0
+    check_counts(counts, counters)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n_steps', [1, 2, 16, 17])
+@pytest.mark.parametrize('n_steps', [1, 2, 14, 16, 17, 150])
 def test_k24_chains_and_leaves_its_state(cuda_device, n_steps):
-    """Runs of 1, 2, 16 and 17 steps chained into one of 300 (the column
-    lists rebuilt from ``spiked`` at every launch), and the state given
-    unchanged."""
+    """Runs of 1-150 steps chained into one of 300, a boundary inside the
+    facilitations owed for the E spikes of the d steps before it (the
+    lists seeded from ``spiked`` at every launch, and all but those owed
+    made by the flush), and the state given unchanged."""
     net, inputs, _ = full_setup(0.1, cuda_device)
     state = program_state(inputs['states'][1])
     before = {k: getattr(state, k).clone() for k in hs.STATE_FIELDS}
     whole = net.run(300, state=state)
     part = net.run(n_steps, state=state)
+    owed = part.spiked.sum() - part.spiked[part.step % net.depth].sum()
+    assert int(owed) > 0
     part = net.run(300 - n_steps, state=part)
     for k in hs.STATE_FIELDS:
         assert torch.equal(getattr(part, k), getattr(whole, k)), k
         assert torch.equal(getattr(state, k), before[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scale', [0.1, 10.0])
+def test_k24_splits_a_trial_longer_than_a_launch(cuda_device, monkeypatch,
+                                                 scale):
+    """A net whose launches hold 96 steps makes 300 in four launches, bit
+    for bit the twin's one run and the counters its."""
+    net0, inputs, _ = full_setup(scale, cuda_device)
+    monkeypatch.setattr(hs, 'LAUNCH_STEPS', 96)
+    net = bt.HpcStdpNet(scale=scale, params=net0.params, device=cuda_device,
+                        **inputs['program'])
+    state = program_state(inputs['states'][0])
+    core.reset_launch_counts()
+    got, _, counts = traced_run(net, state, 300)
+    torch.cuda.synchronize()
+    assert core.launch_counts()['stdp_sim'] == 4
+    counters = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    want = twin_run(net0, state, 300, counters)
+    for k, x in zip(hs.STATE_FIELDS, want):
+        assert torch.equal(getattr(got, k), x), k
+    check_counts(counts, counters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('launch_steps', [hs.LAUNCH_STEPS, 256])
+def test_k24_catches_up_rows_silent_for_long(cuda_device, monkeypatch,
+                                            launch_steps):
+    """E neurons held refractory (600 steps, or past the run) while the
+    rest fire every ~11 steps (eta 13, no inhibition): their rows' first
+    walks and the flush owe a synapse dozens of facilitations, more than a
+    record holds, from the spike lists; in one launch and in four, bit for
+    bit the twin, and its counts."""
+    prm = bt.HpcStdpParams(ce=90, ci=22, eta=13.0, g=0.0)
+    monkeypatch.setattr(hs, 'LAUNCH_STEPS', launch_steps)
+    net = bt.HpcStdpNet(scale=0.02, params=prm, device=cuda_device)
+    state = net.init_state()
+    ref = state.ref.clone()
+    ref[:net.n_exc // 2] = 600
+    ref[:net.n_exc // 8] = 10 ** 6
+    state = state._replace(ref=ref, v=torch.where(ref > 0, 0.0, state.v))
+    got, _, counts = traced_run(net, state, 900)
+    counters = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    want = twin_run(net, state, 900, counters)
+    for k, x in zip(hs.STATE_FIELDS, want):
+        assert torch.equal(getattr(got, k), x), k
+    assert int((got.spike_count - state.spike_count)[:net.n_exc // 8].sum(
+    )) == 0
+    assert int(got.spike_count.sum()) > 20 * net.num
+    check_counts(counts, counters)
 
 
 @pytest.mark.cuda
