@@ -22,9 +22,9 @@ has a plain PyTorch twin, which runs for CPU tensors, and a CUDA kernel,
 which runs for CUDA tensors; the kernels are compiled by ``nvcc`` at first
 use (:mod:`brainevent_torch.ops.cuda_build`). Entry points that create
 tensors (``EINet``, ``JITCNet``, ``MicrocircuitNet``, ``HpcStdpNet``,
-``SurrogateSNN``, the JITC matrices, the ``interop`` constructors,
-``dense_from_arrays`` among them) place them on the card unless given
-``device='cpu'``.
+``HHNet``, ``SurrogateSNN``, the JITC matrices, the ``interop``
+constructors, ``dense_from_arrays`` among them) place them on the card
+unless given ``device='cpu'``.
 """
 
 from ._version import __version__, __version_info__
@@ -71,7 +71,7 @@ from .models import (
     SurrogateSNN, snn_loss, train_step, JITCNet, JITCNetState,
     MicrocircuitNet, MicrocircuitParams, MicrocircuitState,
     build_microcircuit, HpcStdpNet, HpcStdpParams, HpcStdpState,
-    build_hpc_network,
+    build_hpc_network, HHNet, HHNetState, HHParams,
 )
 from .jitc import (
     JITCModeView, JITCWalkPlan, JITCScalarMatrix, JITCScalarR, JITCScalarC,
@@ -121,6 +121,7 @@ __all__ = [
     'csc_from_arrays', 'jitc_net_from_arrays', 'JITCNet', 'JITCNetState',
     'MicrocircuitNet', 'MicrocircuitParams', 'MicrocircuitState',
     'build_microcircuit', 'HpcStdpNet', 'HpcStdpParams', 'HpcStdpState',
+    'HHNet', 'HHNetState', 'HHParams',
     'build_hpc_network',
     'JITCModeView', 'JITCWalkPlan', 'JITCScalarMatrix', 'JITCScalarR',
     'JITCScalarC', 'jits', 'jitsmv', 'jitsmm', 'binary_jitsmv',

@@ -59,3 +59,48 @@ __device__ __forceinline__ bool be_einet_update(float& v, float& tl,
     v = vn;
     return spike;
 }
+
+// The LIF neuron of K21's grid instances (einet_sim.cu:be_sim_grid): the
+// registers a thread keeps of one neuron, and the fold and update above.
+// hh_neuron.cuh's BeHhNeuron is the other model.
+struct BeLifNeuron {
+    using Params = EINetParams;
+    static constexpr bool kTimes = true;  // the update reads the step time
+    struct State {
+        float v, tl, ge, gi;
+    };
+
+    // Neuron i's registers from the state arrays (v, t_last, g_e, g_i),
+    // or zeros where the thread owns no neuron i.
+    static __device__ __forceinline__ void load(State& s, const int i,
+                                                const bool own,
+                                                const float* v,
+                                                const float* t_last,
+                                                const float* g_e,
+                                                const float* g_i) {
+        s.v = own ? v[i] : 0.0f;
+        s.tl = own ? t_last[i] : 0.0f;
+        s.ge = own ? g_e[i] : 0.0f;
+        s.gi = own ? g_i[i] : 0.0f;
+    }
+
+    static __device__ __forceinline__ void store(const State& s, const int i,
+                                                 float* v, float* t_last,
+                                                 float* g_e, float* g_i) {
+        v[i] = s.v;
+        t_last[i] = s.tl;
+        g_e[i] = s.ge;
+        g_i[i] = s.gi;
+    }
+
+    static __device__ __forceinline__ void fold(State& s, const int ce,
+                                                const int ci,
+                                                const Params& p) {
+        be_einet_fold(s.ge, s.gi, ce, ci, p);
+    }
+
+    static __device__ __forceinline__ bool update(State& s, const Params& p,
+                                                  const float t) {
+        return be_einet_update(s.v, s.tl, s.ge, s.gi, p, t);
+    }
+};

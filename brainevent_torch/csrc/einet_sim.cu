@@ -62,6 +62,13 @@
 // (__ldcg); conn, the table and times, which nothing writes, go through
 // the read-only path.
 //
+// The grid instance's neuron is a template parameter (be_sim_grid): the
+// LIF neuron of einet_neuron.cuh (einet_sim_kernel), or the Hodgkin-Huxley
+// neuron of hh_neuron.cuh (einet_sim_hh_kernel, over conn rows: Brette et
+// al. 2007's Benchmark 3, COBAHH, models/hh_net.py), whose update of ~10
+// expf/expm1f and 11 divisions makes the step's update bound by operations
+// beside the scatter and the barrier that both models share.
+//
 // Over conn rows, a network that one thread-block cluster holds (~11k
 // neurons of 80 targets on an H100) runs the cluster instance below
 // instead: the counts and the rows in shared memory, the cluster's
@@ -73,6 +80,7 @@
 
 #include "einet_neuron.cuh"
 #include "einet_scatter.cuh"
+#include "hh_neuron.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -178,27 +186,27 @@ __device__ __forceinline__ void be_append(const unsigned mask, const int i,
     if (spike) ids[base + __popc(mask & ((1u << lane) - 1u))] = i;
 }
 
-// NPT = 8 is held to three blocks an SM (78 registers a thread on an
-// H100, no spills): at its free allocation (95) it ran two, and so held
-// no more neurons than NPT = 4. So are the table instances of NPT 2 and
-// 4, which at two blocks an SM held fewer neurons than the largest table
-// that fits an 80 GB card (be_sim_max_npt). SRC: 0 conn rows, 1 a uint8
-// table, 2 an int32 table; vec: the bytes of a table piece (16, 4 or the entry's);
-// grid_walk: the table instances' walk by the whole grid, over a list
-// (2, num) by parity in device memory with its two counters behind it
+// The grid instance's whole run for the neuron model N (einet_neuron.cuh's
+// BeLifNeuron, hh_neuron.cuh's BeHhNeuron): a the model's state arrays
+// beside spike_count (restrict pointers, as the LIF kernel's were before
+// the model became a parameter, so that its instances compile as they
+// did), N::State the registers a thread keeps of one neuron,
+// N::fold the previous step's hits, N::update the step (at time t where
+// N::kTimes). The fold, the update and the scatter of one neuron follow
+// each other as in K1 + K2; the grid's counts, lists and barrier are the
+// model's alike. SRC: 0 conn rows, 1 a uint8 table, 2 an int32 table (the
+// LIF model's alone); vec: the bytes of a table piece (16, 4 or the
+// entry's); grid_walk: the table instances' walk by the whole grid, over a
+// list (2, num) by parity in device memory with its two counters behind it
 // (lists), a second barrier a step, in place of each block's walk of its
 // own spikes.
-template <int NPT, int SRC>
-__global__ void __launch_bounds__(BE_SIM_BLOCK,
-                                  NPT == 8 || (SRC && NPT > 1) ? 3 : 1)
-einet_sim_kernel(float* __restrict__ v, float* __restrict__ t_last,
-                 float* __restrict__ g_e, float* __restrict__ g_i,
-                 int* __restrict__ spike_count,
-                 const void* __restrict__ targets,
-                 const float* __restrict__ times, const int n_steps,
-                 const int n_conn, const int n_exc, int* counts,
-                 int* lists, const int vec, const int grid_walk,
-                 const EINetParams p) {
+template <int NPT, int SRC, class N, class... A>
+__device__ __forceinline__ void be_sim_grid(
+    int* __restrict__ spike_count, const void* __restrict__ targets,
+    const float* __restrict__ times, const int n_steps, const int n_conn,
+    const int n_exc, int* counts, int* lists, const int vec,
+    const int grid_walk, const typename N::Params& p,
+    A* __restrict__... a) {
     using T = typename std::conditional<SRC == 2, int, unsigned char>::type;
     constexpr int U = NPT >= 4 ? 4 : 8;
     // the block's spiking neurons of a step (table instances)
@@ -215,21 +223,19 @@ einet_sim_kernel(float* __restrict__ v, float* __restrict__ t_last,
         __syncthreads();
     }
 
-    float rv[NPT], rt[NPT], re[NPT], ri[NPT];
+    typename N::State st[NPT];
     int rc[NPT];
 #pragma unroll
     for (int s = 0; s < NPT; ++s) {
         const int i = j + s * n_threads;
         const bool own = i < num;
-        rv[s] = own ? v[i] : 0.0f;
-        rt[s] = own ? t_last[i] : 0.0f;
-        re[s] = own ? g_e[i] : 0.0f;
-        ri[s] = own ? g_i[i] : 0.0f;
+        N::load(st[s], i, own, a...);
         rc[s] = own ? spike_count[i] : 0;
     }
 
     for (int k = 0; k < n_steps; ++k) {
-        const float t = __ldg(times + k);
+        float t = 0.0f;
+        if constexpr (N::kTimes) t = __ldg(times + k);
         const int parity = k & 1;
         int* fold_ct = counts + (parity ^ 1) * plane;
         int* add_ct = counts + parity * plane;
@@ -252,13 +258,13 @@ einet_sim_kernel(float* __restrict__ v, float* __restrict__ t_last,
                 if (k > 0) {
                     const int ce = __ldcg(fold_ct + i);
                     const int ci = __ldcg(fold_ct + num + i);
-                    be_einet_fold(re[s], ri[s], ce, ci, p);
+                    N::fold(st[s], ce, ci, p);
                     // zeroed for step k + 1, which adds into this buffer
                     // after the barrier
                     if (ce) fold_ct[i] = 0;
                     if (ci) fold_ct[num + i] = 0;
                 }
-                spike = be_einet_update(rv[s], rt[s], re[s], ri[s], p, t);
+                spike = N::update(st[s], p, t);
                 rc[s] += spike;
             }
             // Every thread reaches the ballot: no early return.
@@ -298,15 +304,67 @@ einet_sim_kernel(float* __restrict__ v, float* __restrict__ t_last,
     for (int s = 0; s < NPT; ++s) {
         const int i = j + s * n_threads;
         if (i >= num) continue;
-        if (n_steps > 0)
-            be_einet_fold(re[s], ri[s], __ldcg(last_ct + i),
-                          __ldcg(last_ct + num + i), p);
-        v[i] = rv[s];
-        t_last[i] = rt[s];
-        g_e[i] = re[s];
-        g_i[i] = ri[s];
+        if (n_steps > 0) {
+            const int ce = __ldcg(last_ct + i);
+            const int ci = __ldcg(last_ct + num + i);
+            N::fold(st[s], ce, ci, p);
+        }
+        N::store(st[s], i, a...);
         spike_count[i] = rc[s];
     }
+}
+
+// K21 over the LIF model. NPT = 8 is held to three blocks an SM (78
+// registers a thread on an H100, no spills): at its free allocation (95)
+// it ran two, and so held no more neurons than NPT = 4. So are the table
+// instances of NPT 2 and 4, which at two blocks an SM held fewer neurons
+// than the largest table that fits an 80 GB card (be_sim_max_npt).
+template <int NPT, int SRC>
+__global__ void __launch_bounds__(BE_SIM_BLOCK,
+                                  NPT == 8 || (SRC && NPT > 1) ? 3 : 1)
+einet_sim_kernel(float* __restrict__ v, float* __restrict__ t_last,
+                 float* __restrict__ g_e, float* __restrict__ g_i,
+                 int* __restrict__ spike_count,
+                 const void* __restrict__ targets,
+                 const float* __restrict__ times, const int n_steps,
+                 const int n_conn, const int n_exc, int* counts,
+                 int* lists, const int vec, const int grid_walk,
+                 const EINetParams p) {
+    be_sim_grid<NPT, SRC, BeLifNeuron>(spike_count, targets, times, n_steps,
+                                       n_conn, n_exc, counts, lists, vec,
+                                       grid_walk, p, v, t_last, g_e, g_i);
+}
+
+// K21 over the HH model, over conn rows. Held to three blocks an SM at NPT
+// 4 and two at NPT 8, so that a co-resident grid holds 400k neurons at NPT
+// 4 (einet_sim_hh_max_blocks; models/hh_net.py:hh_sim_grid picks the
+// fewest neurons a thread).
+template <int NPT>
+__global__ void __launch_bounds__(BE_SIM_BLOCK,
+                                  NPT == 8 ? 2 : (NPT == 4 ? 3 : 1))
+einet_sim_hh_kernel(float* __restrict__ v, float* __restrict__ m,
+                    float* __restrict__ h, float* __restrict__ n,
+                    float* __restrict__ g_e, float* __restrict__ g_i,
+                    unsigned char* __restrict__ armed,
+                    int* __restrict__ spike_count,
+                    const int* __restrict__ conn, const int n_steps,
+                    const int n_conn, const int n_exc, int* counts,
+                    const HHParams p) {
+    be_sim_grid<NPT, 0, BeHhNeuron>(spike_count, conn, nullptr, n_steps,
+                                    n_conn, n_exc, counts, nullptr, 0, 0, p,
+                                    v, m, h, n, g_e, g_i, armed);
+}
+
+// y = expf(x) (fn 0) or expm1f(x) (fn 1) elementwise: the HH update's
+// functions as the library builds them, for the check against torch.exp
+// and torch.expm1 on the card.
+__global__ void einet_sim_hh_math_kernel(const float* __restrict__ x,
+                                         float* __restrict__ y,
+                                         const long long n, const int fn) {
+    for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x;
+         i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
+        y[i] = fn ? expm1f(x[i]) : expf(x[i]);
 }
 
 // The barrier alone: n_syncs grid barriers on the grid K21 would run,
@@ -565,6 +623,17 @@ const void* be_sim_kernel(int npt, int src) {
     }
 }
 
+// K21's HH instances (NPT 1, 2, 4 and 8 over conn rows), or nullptr.
+const void* be_sim_hh_kernel(int npt) {
+    switch (npt) {
+        case 1: return reinterpret_cast<const void*>(einet_sim_hh_kernel<1>);
+        case 2: return reinterpret_cast<const void*>(einet_sim_hh_kernel<2>);
+        case 4: return reinterpret_cast<const void*>(einet_sim_hh_kernel<4>);
+        case 8: return reinterpret_cast<const void*>(einet_sim_hh_kernel<8>);
+        default: return nullptr;
+    }
+}
+
 }  // namespace
 
 // Blocks of BE_SIM_BLOCK threads of the instance (npt, src) that can be
@@ -617,6 +686,58 @@ BE_EXPORT int einet_sim_launch(float* v, float* t_last, float* g_e,
     return be_refused(static_cast<int>(cudaLaunchCooperativeKernel(
         kernel, dim3(blocks), dim3(BE_SIM_BLOCK), args, 0,
         static_cast<cudaStream_t>(stream))));
+}
+
+// Blocks of BE_SIM_BLOCK threads of the HH instance npt that can be
+// co-resident on the device: the largest grid a cooperative launch takes.
+BE_EXPORT int einet_sim_hh_max_blocks(int npt, int device, int* blocks) {
+    int err = be_begin(device);
+    if (err) return err;
+    const void* kernel = be_sim_hh_kernel(npt);
+    if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
+    return be_coresident_blocks(kernel, BE_SIM_BLOCK, device, blocks);
+}
+
+// K21's HH instance npt over conn (num, n_conn) int32 for n_steps steps:
+// v, m, h, n, g_e, g_i (num,) float32, armed (num,) uint8 (0 or 1) and
+// spike_count (num,) int32, read at the start and written at the end;
+// counts: (2, 2, num) int32, zeroed by the caller. blocks * BE_SIM_BLOCK *
+// npt must cover num; a grid larger than can be co-resident is refused
+// (cudaErrorCooperativeLaunchTooLarge).
+BE_EXPORT int einet_sim_hh_launch(float* v, float* m, float* h, float* n,
+                                  float* g_e, float* g_i,
+                                  unsigned char* armed, int* spike_count,
+                                  const int* conn, int n_steps, int n_conn,
+                                  int n_exc, int* counts, const HHParams* p,
+                                  int npt, int blocks, int device,
+                                  void* stream) {
+    int err = be_begin(device);
+    if (err) return err;
+    if (p->num <= 0) return be_end();
+    if (blocks <= 0 ||
+        static_cast<long long>(blocks) * BE_SIM_BLOCK * npt < p->num)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const void* kernel = be_sim_hh_kernel(npt);
+    if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
+    HHParams params = *p;
+    void* args[] = {&v,     &m,      &h,       &n,      &g_e,
+                    &g_i,   &armed,  &spike_count, &conn, &n_steps,
+                    &n_conn, &n_exc, &counts,  &params};
+    return be_refused(static_cast<int>(cudaLaunchCooperativeKernel(
+        kernel, dim3(blocks), dim3(BE_SIM_BLOCK), args, 0,
+        static_cast<cudaStream_t>(stream))));
+}
+
+// y = expf(x) (fn 0) or expm1f(x) (fn 1) of n float32.
+BE_EXPORT int einet_sim_hh_math_launch(const float* x, float* y, long long n,
+                                       int fn, int device, void* stream) {
+    int err = be_begin(device);
+    if (err) return err;
+    if (n <= 0) return be_end();
+    einet_sim_hh_math_kernel<<<BE_MAX_BLOCKS * 2, BE_BLOCK, 0,
+                               static_cast<cudaStream_t>(stream)>>>(x, y, n,
+                                                                     fn);
+    return be_end();
 }
 
 // n_syncs grid barriers on a cooperative grid of blocks x BE_SIM_BLOCK.

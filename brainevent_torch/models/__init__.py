@@ -3,11 +3,13 @@
 
 """SNN model components: LIF neurons, the CUBA/COBA EI networks (stored
 and implicit connectivity), the Potjans-Diesmann cortical microcircuit,
-NEST's HPC benchmark network with STDP and surrogate-gradient training."""
+NEST's HPC benchmark network with STDP, Brette's Hodgkin-Huxley network
+(COBAHH) and surrogate-gradient training."""
 
 from .neurons import (
     LIFRefParams, LIFRefState, lifref_init, lifref_step, surrogate_spike,
 )
+from .hh_net import HHNet, HHNetState, HHParams
 from .hpc_stdp import (HpcStdpNet, HpcStdpParams, HpcStdpState,
                        build_hpc_network)
 from .jitc_net import JITCNet, JITCNetState
@@ -27,7 +29,7 @@ __all__ = [
     'surrogate_spike', 'EINet', 'EINetState', 'JITCNet', 'JITCNetState',
     'MicrocircuitNet', 'MicrocircuitParams', 'MicrocircuitState',
     'build_microcircuit', 'HpcStdpNet', 'HpcStdpParams', 'HpcStdpState',
-    'build_hpc_network',
+    'build_hpc_network', 'HHNet', 'HHNetState', 'HHParams',
     'einet_pallas_sim', 'einet_pallas_sim_mxu', 'einet_pallas_sim_mxu2',
     'einet_pallas_sim_mxu3', 'einet_pallas_sim_mxu4', 'einet_pallas_sim_mxu5',
     'einet_pallas_sim_mxu6', 'einet_pallas_sim_chain',

@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with a card::
     python3 scripts/kernel_times.py
     python3 scripts/kernel_times.py --tree DIR [--parts k10,jitc,...]
 
-With no arguments it times each kernel, K1-K24 and K21's table instance,
-at the shapes of the path that launches it, and prints two JSON lines:
+With no arguments it times each kernel, K1-K24 and K21's table and HH
+instances, at the shapes of the path that launches it, and prints two
+JSON lines:
 ``{"kernels": [...]}``, one entry a kernel (its device ms a call, its
 twin's ms, the least time of the work the call must do and what bounds
 it, and the ms of one PyTorch call computing the same function where one
@@ -77,6 +78,9 @@ DENSE_TIME_WARM = 1000
 # which the L2 cache holds, and the 40k one
 WALK_SCALES = (1.5, 2.0, 2.5, 3.0, 4.0, 5.0, 7.5)
 SHARD_NETS = (('4k', 1.0), ('400k', 100.0))
+HH_SCALE = 100.0    # Brette's HH network at coba_hh.400k's 400,000 neurons
+HH_WARM = 1000
+HH_STEPS = 2000
 MC_SCALE = 1.0      # the microcircuit: 77,169 neurons, 2.99e8 synapses
 MC_WARM, MC_STEPS = 1000, 2000      # its timed launch, after the warm-up
 HPC_SCALE = 10.0    # the HPC benchmark network: 112,500 neurons, 1.27e9 synapses
@@ -1340,6 +1344,44 @@ def time_k24(device):
                           float(new[net.n_exc:].mean()) / seconds])
 
 
+# -- Brette's Hodgkin-Huxley network (K21's HH instance) ----------------------------
+
+def time_k21_hh(device):
+    """K21's HH instance on the COBAHH network at HH_SCALE: one launch of
+    HH_STEPS steps after HH_WARM (device ms, CUDA events), the twin
+    (``hh_loop``) on the card from the same state (bitwise equal), and the
+    work ``benchmark_torch/work/coba_hh.py`` counts for that launch."""
+    import brainevent_torch as bt
+    from brainevent_torch.models import hh_net as hn
+    from benchmark_torch.work import coba_hh as work
+    net = bt.HHNet(scale=HH_SCALE, device=device)
+    warm = net.run(HH_WARM, state=net.init_state())
+    p = net.step_params()
+    got = [x.clone() for x in warm]
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    hn.einet_sim_hh(*got, net.conn_all, HH_STEPS, p, net.n_exc)
+    b.record()
+    torch.cuda.synchronize()
+    want = [x.clone() for x in warm]
+    t0 = time.perf_counter()
+    hn.hh_loop(*want, net.conn_all, HH_STEPS, p, net.n_exc)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(same_bits(got, want), 'K21 HH vs twin')
+    new = got[7] - warm.spike_count
+    total = work.reduce(None, None, dict(spike_count=new))
+    n_ops, n_bytes = work.count(None, dict(conn=net.conn_all), total, 1,
+                                HH_STEPS)
+    npt, blocks = hn.hh_sim_grid(net.num, device)
+    seconds = HH_STEPS * net.params.dt * 1e-3
+    return dict(ms=a.elapsed_time(b), plain_ms=plain_ms, bytes=n_bytes,
+                ops=n_ops, npt=npt, blocks=blocks,
+                rate_hz=float(new.double().mean()) / seconds)
+
+
 # -- the two modes ---------------------------------------------------------------
 
 def device_line():
@@ -1388,6 +1430,8 @@ def time_kernels_line(device):
     k23 = details['k23'] = time_k23(device)
     phase('K24: the HPC benchmark network with STDP')
     k24 = details['k24'] = time_k24(device)
+    phase('K21\'s HH instance: Brette\'s Hodgkin-Huxley network')
+    k21_hh = details['k21_hh'] = time_k21_hh(device)
 
     def entry(op_name, t, **extra):
         op = REGISTRY[op_name]
@@ -1421,7 +1465,8 @@ def time_kernels_line(device):
         dict(entry('einet_sim', dense['table']), name='einet_sim_table',
              replaces='brainevent_tpu/models/pallas_sim.py:532'),
         entry('einet_shard_step', k22['400k']),
-        entry('mc_sim', k23), entry('stdp_sim', k24)]
+        entry('mc_sim', k23), entry('stdp_sim', k24),
+        entry('einet_sim_hh', k21_hh)]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'details': details}, default=str))
     return 0

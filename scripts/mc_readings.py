@@ -1,6 +1,7 @@
-"""The readings the limits of ``pd_microcircuit.77k`` and ``hpc_stdp.112k``
-are set from, on the card: ``benchmark_torch/readings.py`` for the cells
-that run through a driver of their own (``mc_trials``, ``stdp_trials``).
+"""The readings the limits of ``pd_microcircuit.77k``, ``hpc_stdp.112k``
+and ``coba_hh.400k`` are set from, on the card:
+``benchmark_torch/readings.py`` for the cells that run through a driver
+of their own (``mc_trials``, ``stdp_trials``, ``hh_trials``).
 
     python3 scripts/mc_readings.py [--cell pd_microcircuit.77k] \
         --program <seed,...> --control <seed,...>

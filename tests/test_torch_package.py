@@ -200,7 +200,7 @@ def test_cu_sources_ship_as_package_data():
                        'mega_counts.cu', 'csr_rows.cuh', 'einet_sim.cu',
                        'einet_neuron.cuh', 'einet_scatter.cuh',
                        'einet_shard.cu', 'mc_sim.cu', 'sim_grid.cuh',
-                       'stdp_sim.cu'}
+                       'stdp_sim.cu', 'hh_neuron.cuh'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 
@@ -239,15 +239,16 @@ def test_launch_counts_only_successful_launches(monkeypatch):
                            'dense_event_mv', 'dense_event_mm',
                            'dense_stdp_pre', 'dense_stdp_post',
                            'event_row_count', 'einet_dense_hits',
-                           'einet_sim'}
+                           'einet_sim', 'einet_sim_hh'}
     bt.reset_launch_counts()
     assert set(bt.launch_counts().values()) == {0}
 
 
 # kernels of the port's own, which replace no TPU kernel (replaces=None):
-# K23, the microcircuit's trial, and K24, the HPC benchmark network's, have
-# no counterpart in the JAX package
-PORT_ONLY = {'mc_sim', 'stdp_sim'}
+# K23, the microcircuit's trial, K24, the HPC benchmark network's, and
+# K21's HH instance, the Hodgkin-Huxley network's, have no counterpart in
+# the JAX package
+PORT_ONLY = {'mc_sim', 'stdp_sim', 'einet_sim_hh'}
 
 
 def _ported():
@@ -387,6 +388,7 @@ _NO_DEVICE = {
                                             n_conn=4),
     'JITCNet': lambda: bt.JITCNet(scale=0.05),
     'HpcStdpNet': lambda: bt.HpcStdpNet(scale=0.001),
+    'HHNet': lambda: bt.HHNet(scale=0.05),
     'lifref_init': lambda: bt.lifref_init(None, 8, bt.LIFRefParams()),
     'einet_from_arrays': lambda: bt.einet_from_arrays(
         np.zeros((200, 4), np.int32), 160, *(np.zeros(200, np.float32),) * 4,
