@@ -62,7 +62,12 @@ its row and before its depression, oldest first, with K+ of their steps
 from a history of the launch; and the facilitations still owed at its
 last step in one pass over the E rows (the flush). Between two spikes of
 i nothing else writes a synapse i -> j and K+_i only decays, so these are
-the eager rule's facilitations, in its order, on its operands.
+the eager rule's facilitations, in its order, on its operands. K24's
+walk of a step's rows is split by target: each block of its grid owns
+1/G of the E and 1/G of the I neurons and walks the segment of each row
+whose targets it owns, from a split plan of the rows built with the
+network (:func:`stdp_split`), so that it adds their inputs in shared
+memory.
 """
 
 import ctypes
@@ -82,9 +87,9 @@ from .neurons import f32
 
 __all__ = ['HpcStdpNet', 'HpcStdpState', 'HpcStdpParams', 'StdpParams',
            'StdpPlan', 'build_hpc_network', 'stdp_columns',
-           'stdp_plan', 'stdp_counts', 'spike_capacity', 'stdp_sim',
-           'stdp_loop', 'stdp_sim_grid', 'stdp_pow_cuda', 'propagator_31',
-           'propagator_32']
+           'stdp_plan', 'stdp_split', 'stdp_counts', 'spike_capacity',
+           'stdp_sim', 'stdp_loop', 'stdp_sim_grid', 'stdp_pow_cuda',
+           'propagator_31', 'propagator_32']
 
 HPC_BLOCK = 256          # threads a block of K24 (SG_BLOCK in sim_grid.cuh)
 HPC_NPT = 2              # neurons a thread of K24 owns at most (STDP_NPT)
@@ -94,9 +99,11 @@ LAUNCH_STEPS = 10240     # the most steps of one K24 launch, by default
 STATE_FIELDS = ('v', 'i_syn', 'di', 'ref', 'ring', 'spike_count', 'weights',
                 'kplus', 'khist', 'spiked')
 MAX_SYNAPSES = 2 ** 31 - 1  # the rows' positions are int32
-# the counters of a run, in the order of K24's (3,) buffer
+SPLIT_CHUNK = 1 << 25    # positions of the rows stdp_split searches at a time
+# the counters of a run, in the order of K24's (4,) buffer
 COUNTERS = tuple(f'brainevent_torch.HpcStdpNet.{name}' for name in (
-    'depressions', 'facilitations', 'flush_facilitations'))
+    'depressions', 'facilitations', 'flush_facilitations',
+    'walk_busiest_block'))
 
 
 def _lambert_wm1(x: float) -> float:
@@ -319,8 +326,9 @@ def stdp_loop(v, i_syn, di, ref, ring, spike_count, weights, kplus, khist,
     """Plain PyTorch twin of K24, in place: *n_steps* steps from
     ``p.step0`` (see the module's docstring), each facilitation in the
     step d after its post spike, over the columns (:func:`stdp_columns`).
-    *counters* (int64, (3,)), where given, is set to the depressions and
-    facilitations made, and 0: nothing is left to a flush."""
+    *counters* (int64, (4,)), where given, is set to the depressions and
+    facilitations made, and 0 twice: nothing is left to a flush, and the
+    loop has no blocks."""
     col_ptr, col_pos, col_src = stdp_columns(targets, plastic_ptr)
     num, ne, d = p.num, p.n_exc, p.delay
     dmask = p.depth - 1
@@ -383,7 +391,7 @@ def stdp_loop(v, i_syn, di, ref, ring, spike_count, weights, kplus, khist,
             flat.index_add_(0, ((t + d) & dmask) * num + targets[es].long(),
                             units)
         if counters is not None:
-            counters += torch.tensor([ep.numel(), e.numel(), 0],
+            counters += torch.tensor([ep.numel(), e.numel(), 0, 0],
                                      device=counters.device)
         # 3. the spikes of t into the traces
         se = spike[:ne]
@@ -409,16 +417,19 @@ def spike_capacity(launch_steps: int, delay: int, ref_steps: int,
 class StdpPlan(NamedTuple):
     """K24's scratch for launches of at most ``steps`` steps: the lists of
     a step's spiking rows (``dlists`` int32 ``(2, 2 num, 4)``, by parity:
-    each row's bounds, its source and the source's walk before), their
-    counters and those of the grid passes' ranges (``counts`` int32, see
-    :func:`stdp_counts`); the K+ history of a launch (``kph`` float32
-    ``(steps / HPC_HTILE, NE, HPC_HTILE)``: K+ of each E neuron in each
-    step before its spike, in tiles of HPC_HTILE steps);
-    each E neuron's spike steps (``spikes`` int32 ``(NE, cap)``, cap from
-    :func:`spike_capacity`), its record (``recent`` int32 ``(NE, 16)``: the
-    count and the 15 newest, newest first) and its row's last walk (``last_walk``
-    int32 ``(NE,)``). One launch at a time uses a plan's scratch (launches
-    on one stream)."""
+    each row's line of the split plan, its source and the source's walk
+    before; the plastic rows from the front, the static ones from the
+    back), their counters, the busiest block's work by parity and the
+    flush's ranges' counters (``counts`` int32, see :func:`stdp_counts`);
+    the K+ history of a launch (``kph`` float32 ``(steps / HPC_HTILE, NE,
+    HPC_HTILE)``: K+ of each E neuron in each step before its spike, in
+    tiles of HPC_HTILE steps); each E neuron's spike steps (``spikes``
+    int32 ``(NE, cap)``, cap from :func:`spike_capacity`), its record
+    (``recent`` int32 ``(NE, 16)``: the count and the 15 newest, newest
+    first) and its row's last walk (``last_walk`` int32 ``(NE,)``); and
+    the split plan of the network for K24's grid (``split``, from
+    :func:`stdp_split`). One launch at a time uses a plan's scratch
+    (launches on one stream)."""
     steps: int
     dlists: torch.Tensor
     counts: torch.Tensor
@@ -426,31 +437,90 @@ class StdpPlan(NamedTuple):
     spikes: torch.Tensor
     recent: torch.Tensor
     last_walk: torch.Tensor
+    split: torch.Tensor
 
 
-def stdp_counts(num: int, n_exc: int) -> int:
-    """The counters of K24's scratch: the rows' lists' by parity, then a
-    walk's ranges' by parity, one for each chunk of HPC_BLOCK rows of a
-    step's list (at most 2 num rows), then the flush's, one a chunk of E
-    rows."""
-    return 2 + 2 * -(-2 * num // HPC_BLOCK) + -(-n_exc // HPC_BLOCK)
+def stdp_counts(n_exc: int) -> int:
+    """The counters of K24's scratch, by parity: the rows' lists' fronts
+    (their plastic rows), the largest work of a block in a step's walk, the
+    lists' backs (their static rows); then the flush's ranges', one a
+    chunk of HPC_BLOCK E rows."""
+    return 6 + -(-n_exc // HPC_BLOCK)
 
 
 def stdp_plan(num: int, n_exc: int, steps: int, cap: int,
-              device) -> StdpPlan:
+              split: torch.Tensor) -> StdpPlan:
     """K24's :class:`StdpPlan` for *num* neurons, *n_exc* of them E, on
-    *device*: launches of at most *steps* steps (the history rounded up to
-    whole tiles), spike lists of *cap* entries."""
+    the device of *split* (:func:`stdp_split`, kept as it is): launches of
+    at most *steps* steps (the history rounded up to whole tiles), spike
+    lists of *cap* entries."""
     steps = -(-steps // HPC_HTILE) * HPC_HTILE
 
     def scratch(*shape, dtype=torch.int32):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=split.device)
     return StdpPlan(steps=steps, dlists=scratch(2, 2 * num, 4),
-                    counts=scratch(stdp_counts(num, n_exc)),
+                    counts=scratch(stdp_counts(n_exc)),
                     kph=scratch(steps // HPC_HTILE, n_exc, HPC_HTILE,
                                 dtype=torch.float32),
                     spikes=scratch(n_exc, cap), recent=scratch(n_exc, 16),
-                    last_walk=scratch(n_exc))
+                    last_walk=scratch(n_exc), split=split)
+
+
+def _owned(n_exc: int, num: int, blocks: int, device) -> tuple:
+    """The targets that each block of K24's grid of *blocks* owns: block
+    ``b`` the E neurons ``[e[b], e[b + 1])`` and the I neurons ``[i[b],
+    i[b + 1])``, ``e`` and ``i`` int64 ``(blocks + 1,)``."""
+    b = torch.arange(blocks + 1, dtype=torch.int64, device=device)
+    return b * n_exc // blocks, n_exc + b * (num - n_exc) // blocks
+
+
+def stdp_split(targets, plastic_ptr, static_ptr, n_exc: int,
+               blocks: int) -> torch.Tensor:
+    """K24's split plan of the network's rows for a grid of *blocks*, on
+    the network's device: int32 ``(2 num, blocks + 1)``, a line of bounds
+    for each part of a row that K24 walks, ``line[b]`` the first position
+    of the part whose target block ``b`` owns or a later block (so block
+    ``b`` walks ``[line[b], line[b + 1])``; the owners as ``_owned`` gives
+    them). The lines: ``[0, NE)`` the plastic rows (E targets), ``[NE,
+    2 NE)`` the static rows of the E neurons (I targets), ``[2 NE, NE +
+    num)`` the static rows of the I neurons by their E targets, ``[NE +
+    num, 2 num)`` the same rows by their I targets. Lower bounds of the
+    keys ``row * num + target`` by ``torch.searchsorted``, over at most
+    SPLIT_CHUNK positions at a time (or one row). Raises ``ValueError``
+    where a row's targets do not ascend, as K24 needs them
+    (``build_hpc_network``'s rows ascend)."""
+    num = static_ptr.numel() - 1
+    ne, device = n_exc, targets.device
+    bounds = _owned(ne, num, blocks, device)
+    # each row's first position: the plastic rows, then the static ones
+    ptr = torch.cat([plastic_ptr[:-1], static_ptr]).long()
+    host = ptr.cpu()
+    out = torch.empty(2 * num, blocks + 1, dtype=torch.int32, device=device)
+    unsorted = torch.zeros((), dtype=torch.bool, device=device)
+    # (first line, first row, rows, the owners' bounds): see above
+    for line0, row0, rows, bnd in ((0, 0, ne, bounds[0]),
+                                   (ne, ne, ne, bounds[1]),
+                                   (2 * ne, 2 * ne, num - ne, bounds[0]),
+                                   (ne + num, 2 * ne, num - ne, bounds[1])):
+        r, stop = row0, row0 + rows
+        while r < stop:
+            # rows [r, s): at most SPLIT_CHUNK positions, or one row
+            s = int(torch.searchsorted(host, host[r] + SPLIT_CHUNK,
+                                       right=True)) - 1
+            s = min(max(s, r + 1), stop)
+            lo, hi = int(host[r]), int(host[s])
+            local = torch.arange(s - r, dtype=torch.int64, device=device)
+            keys = torch.repeat_interleave(local * num, ptr[r + 1:s + 1]
+                                           - ptr[r:s], output_size=hi - lo)
+            keys += targets[lo:hi]
+            unsorted |= (keys[1:] < keys[:-1]).any()
+            out[line0 + r - row0:line0 + s - row0] = torch.searchsorted(
+                keys, local[:, None] * num + bnd) + lo
+            r = s
+    if bool(unsorted):
+        raise ValueError('K24 walks each row by target: the targets of a '
+                         'row must ascend')
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -486,20 +556,22 @@ def _stdp_sim_cuda(op, v, i_syn, di, ref, ring, spike_count, weights, kplus,
                    p, scratch: StdpPlan,
                    counters: Optional[torch.Tensor] = None):
     """K24's launch of *n_steps*, at most ``scratch.steps``; *scratch* is a
-    :func:`stdp_plan` of the network."""
+    :func:`stdp_plan` of the network, its split plan for K24's grid on the
+    device (:func:`stdp_sim_grid`)."""
     f, i = torch.float32, torch.int32
     tensors = [(v, f), (i_syn, f), (di, f), (ref, i), (ring, i),
                (spike_count, i), (weights, f), (kplus, f), (khist, f),
                (spiked, torch.uint8), (targets, i), (plastic_ptr, i),
-               (static_ptr, i), (scratch.dlists, i), (scratch.counts, i),
-               (scratch.kph, f), (scratch.spikes, i), (scratch.recent, i),
-               (scratch.last_walk, i)]
+               (static_ptr, i), (scratch.split, i), (scratch.dlists, i),
+               (scratch.counts, i), (scratch.kph, f), (scratch.spikes, i),
+               (scratch.recent, i), (scratch.last_walk, i)]
     if counters is not None:
         tensors.append((counters, torch.int64))
     device = check_cuda_tensors(op.name, *tensors)
     num, ne, depth = p.num, p.n_exc, p.depth
     n_plastic = p.n_plastic
     cap = scratch.spikes.shape[-1]
+    blocks = stdp_sim_grid(num, device)
     if (any(x.shape != (num,) for x in (v, i_syn, di, ref, spike_count))
             or ring.shape != (depth, num) or kplus.shape != (ne,)
             or khist.shape != (depth, ne) or spiked.shape != (depth, ne)
@@ -507,7 +579,7 @@ def _stdp_sim_cuda(op, v, i_syn, di, ref, ring, spike_count, weights, kplus,
             or plastic_ptr.shape != (ne + 1,)
             or static_ptr.shape != (num + 1,)
             or scratch.dlists.shape != (2, 2 * num, 4)
-            or scratch.counts.shape != (stdp_counts(num, ne),)
+            or scratch.counts.shape != (stdp_counts(ne),)
             or scratch.steps % HPC_HTILE
             or scratch.kph.shape != (scratch.steps // HPC_HTILE, ne,
                                      HPC_HTILE)
@@ -516,22 +588,24 @@ def _stdp_sim_cuda(op, v, i_syn, di, ref, ring, spike_count, weights, kplus,
                                     p.v_reset < p.v_th)
             or scratch.recent.shape != (ne, 16)
             or scratch.last_walk.shape != (ne,)
-            or (counters is not None and counters.shape != (3,))):
+            or scratch.split.shape != (2 * num, blocks + 1)
+            or (counters is not None and counters.shape != (4,))):
         raise ValueError(f'{op.name}: state, rows and scratch do not match '
-                         f'num={num}, NE={ne}, P={n_plastic}, D={depth} and '
-                         f'a launch of {n_steps} steps')
+                         f'num={num}, NE={ne}, P={n_plastic}, D={depth}, '
+                         f'a launch of {n_steps} steps and a grid of '
+                         f'{blocks} blocks')
     if not 0 <= n_steps <= scratch.steps:
         raise ValueError(f'{op.name}: {n_steps} steps, and the scratch holds '
                          f'launches of at most {scratch.steps}')
-    blocks = stdp_sim_grid(num, device)
-    fn = cuda_build.function('stdp_sim_launch', [ctypes.c_void_p] * 20 + [
+    fn = cuda_build.function('stdp_sim_launch', [ctypes.c_void_p] * 21 + [
         ctypes.c_int] * 3 + [ctypes.POINTER(StdpParams)] + [
         ctypes.c_int] * 2 + [ctypes.c_void_p])
     op.launch(fn, v.data_ptr(), i_syn.data_ptr(), di.data_ptr(),
               ref.data_ptr(), ring.data_ptr(), spike_count.data_ptr(),
               weights.data_ptr(), kplus.data_ptr(), khist.data_ptr(),
               spiked.data_ptr(), targets.data_ptr(), plastic_ptr.data_ptr(),
-              static_ptr.data_ptr(), scratch.dlists.data_ptr(),
+              static_ptr.data_ptr(), scratch.split.data_ptr(),
+              scratch.dlists.data_ptr(),
               scratch.counts.data_ptr(), scratch.kph.data_ptr(),
               scratch.spikes.data_ptr(), scratch.recent.data_ptr(),
               scratch.last_walk.data_ptr(),
@@ -590,7 +664,10 @@ class HpcStdpNet:
     ``plan`` (:func:`stdp_plan`: K24's scratch for launches of at most
     ``launch_steps``, LAUNCH_STEPS: :meth:`run` makes a longer run in
     launches of at most as many steps; the scratch's K+ history holds 4 B
-    an E neuron a step, 3.7 GB at scale 10), None on the CPU.
+    an E neuron a step, 3.7 GB at scale 10; and the split plan of the rows
+    for K24's grid on the device, :func:`stdp_split`, 0.36 GB at scale
+    10), None on the CPU. On a card each row's targets must ascend, as
+    :func:`build_hpc_network` draws them.
     """
     scale: float = 1.0
     params: HpcStdpParams = HpcStdpParams()
@@ -646,8 +723,11 @@ class HpcStdpNet:
             q = self.step_params(0, 0)
             cap = spike_capacity(self.launch_steps, q.delay, q.ref_steps,
                                  q.v_reset < q.v_th)
+            split = stdp_split(self.targets, self.plastic_ptr,
+                               self.static_ptr, self.n_exc,
+                               stdp_sim_grid(self.num, self.device))
             self.plan = stdp_plan(self.num, self.n_exc, self.launch_steps,
-                                  cap, self.device)
+                                  cap, split)
 
     # -- state -------------------------------------------------------------------
 
@@ -723,8 +803,14 @@ class HpcStdpNet:
         each launch's depressions, facilitations and facilitations made by
         its flush to the counters ``brainevent_torch.HpcStdpNet.depressions``,
         ``.facilitations`` and ``.flush_facilitations`` (0 on the loop,
-        which leaves none to a flush; on the card, read back only when the
-        counters are drained)."""
+        which leaves none to a flush), and the sum over its steps of the
+        most work a block of K24's grid did in the step's walk (plastic
+        entries and the facilitations it made) to
+        ``.walk_busiest_block`` (0 on the loop, which has no blocks; its
+        ratio to the blocks' mean, ``busiest * blocks / (depressions +
+        facilitations - flush_facilitations)``, is the walk's balance).
+        On the card the counters are read back only when they are
+        drained."""
         if state is None:
             state = self.init_state()
         n_steps = int(n_steps)
@@ -740,7 +826,7 @@ class HpcStdpNet:
             p = self.step_params(state.key, state.step)
             with tracing.span('brainevent_torch.HpcStdpNet.copies'):
                 out = [getattr(state, k).clone() for k in STATE_FIELDS]
-            counters = (torch.empty(len(sizes), 3, dtype=torch.int64,
+            counters = (torch.empty(len(sizes), 4, dtype=torch.int64,
                                     device=state.v.device)
                         if counting else None)
             extra = dict(scratch=self.plan) if route == 'sim' else {}

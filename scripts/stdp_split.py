@@ -25,7 +25,9 @@ over the steps between them, and ``flush`` (ms a launch) ``whole`` less
 ``step - no_rows``, in µs a step. It also prints the populations' rates
 over the first ``whole`` launch, its spikes, deliveries, depressions and
 facilitations a step (K24's counters), the share of the facilitations the
-flush made, K24's grid and the memory peak.
+flush made, the walk's balance (``walk_balance``: the busiest block's work
+a step, its plastic entries and facilitations, over the blocks' mean),
+K24's grid, the split plan's bytes and the memory peak.
 """
 
 import argparse
@@ -108,7 +110,7 @@ def main(argv=None) -> int:
 
     ms = {'whole': [], 'half': [], 'no_rows': [], 'barrier': []}
     first = None
-    counters = torch.zeros(3, dtype=torch.int64, device=device)
+    counters = torch.zeros(4, dtype=torch.int64, device=device)
     for turn in range(args.turns):
         x, out = launch(net, state, args.steps,
                         counters if turn == 0 else None)
@@ -122,7 +124,8 @@ def main(argv=None) -> int:
     step_us = (med['whole'] - med['half']) * 1e3 / (args.steps - half)
     no_rows_us = med['no_rows'] * 1e3 / args.steps
     barrier_us = med['barrier'] * 1e3 / args.steps
-    dep, fac, flush = counters.tolist()
+    dep, fac, flush, busiest = counters.tolist()
+    walk_work = dep + fac - flush
     spikes = (first['spike_count'] - state.spike_count).to(torch.int64)
     degree = (net.static_ptr[1:] - net.static_ptr[:-1]).to(torch.int64)
     degree[:net.n_exc] += (net.plastic_ptr[1:]
@@ -150,6 +153,9 @@ def main(argv=None) -> int:
         depressions_per_step=dep / args.steps,
         facilitations_per_step=fac / args.steps,
         flush_share=flush / fac if fac else None,
+        walk_busiest_block_per_step=busiest / args.steps,
+        walk_balance=busiest * blocks / walk_work if walk_work else None,
+        split_bytes=net.plan.split.numel() * net.plan.split.element_size(),
         weights_after=dict(mean=float(first['weights'].double().mean()),
                            sd=float(first['weights'].double().std())),
         memory_peak_bytes=torch.cuda.max_memory_allocated(device))))

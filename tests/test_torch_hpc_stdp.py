@@ -244,14 +244,17 @@ def test_the_plan_holds_each_columns_synapses_in_order():
 
 
 def test_the_plan_is_k24s_scratch():
-    """:func:`stdp_plan`: the rows' lists (bounds, source, walk before) by
-    parity, their counters, the K+ history in whole tiles, the spike
-    lists, records and last walks."""
-    plan = hs.stdp_plan(50, 40, 100, 37, CPU)
+    """:func:`stdp_plan`: the rows' lists (line, source, walk before) by
+    parity, their fronts' and backs' counters, the busiest block's work by
+    parity and the flush's counters, the K+ history in whole tiles, the
+    spike lists, records and last walks, and the split plan it is given."""
+    split = torch.zeros(100, 4, dtype=torch.int32)
+    plan = hs.stdp_plan(50, 40, 100, 37, split)
     assert plan.steps == 104
     assert plan.dlists.shape == (2, 100, 4)
-    assert plan.counts.shape == (2 + 2 * 1 + 1,)
-    assert hs.stdp_counts(112_500, 90_000) == 2 + 2 * 879 + 352
+    assert plan.counts.shape == (2 + 2 + 2 + 1,)
+    assert hs.stdp_counts(90_000) == 2 + 2 + 2 + 352
+    assert plan.split is split
     assert plan.kph.shape == (13, 40, hs.HPC_HTILE)
     assert plan.kph.dtype == torch.float32
     assert plan.spikes.shape == (40, 37) and plan.recent.shape == (40, 16)
@@ -259,6 +262,121 @@ def test_the_plan_is_k24s_scratch():
     for x in (plan.dlists, plan.counts, plan.spikes, plan.recent,
               plan.last_walk):
         assert x.dtype == torch.int32
+
+
+def _hand_made():
+    """Six E and three I neurons: empty rows, multapses and rows with no
+    target in some blocks' ranges, each row's targets ascending."""
+    plastic = [[], [0, 0, 5], [3], [1, 2, 2, 4, 5], [], [5]]
+    static = [[6, 8], [], [7, 7], [6], [8], [], [0, 5, 6, 6], [], [2, 8]]
+
+    def ptr(rows, first):
+        return torch.tensor([first] + [first + sum(map(len, rows[:k + 1]))
+                                       for k in range(len(rows))],
+                            dtype=torch.int32)
+    n_plastic = sum(map(len, plastic))
+    return dict(targets=torch.tensor(sum(plastic + static, []),
+                                     dtype=torch.int32),
+                plastic_ptr=ptr(plastic, 0),
+                static_ptr=ptr(static, n_plastic)), 6
+
+
+def _drawn(scale, ce, ci):
+    """A network drawn as :func:`build_hpc_network` draws it, and its NE."""
+    prm = bt.HpcStdpParams(ce=ce, ci=ci)
+    net = bt.build_hpc_network(prm, scale, torch.Generator().manual_seed(5),
+                               CPU)
+    return net, prm.sizes(scale)[0]
+
+
+def _split_by_hand(net, ne, blocks):
+    """Each line's bounds by brute force: for block b, its row's first
+    position plus the targets of the row's part below b's first owned
+    target (the E owners ``floor(b NE / G)``, the I owners ``NE + floor(b
+    NI / G)``)."""
+    tg, pp, sp = (net[k].tolist() for k in ('targets', 'plastic_ptr',
+                                           'static_ptr'))
+    num = len(sp) - 1
+    first_e = [b * ne // blocks for b in range(blocks + 1)]
+    first_i = [ne + b * (num - ne) // blocks for b in range(blocks + 1)]
+    # each line: its row's positions, whether it is the row's part of I
+    # targets, and the owners' first targets
+    lines = ([(pp[i], pp[i + 1], False, first_e) for i in range(ne)]
+             + [(sp[i], sp[i + 1], True, first_i) for i in range(ne)]
+             + [(sp[i], sp[i + 1], False, first_e) for i in range(ne, num)]
+             + [(sp[i], sp[i + 1], True, first_i) for i in range(ne, num)])
+    out = []
+    for beg, end, inh, first in lines:
+        row = tg[beg:end]
+        # the part's first position, and its targets
+        beg += sum(t < ne for t in row) if inh else 0
+        part = [t for t in row if (t >= ne) == inh]
+        out.append([beg + sum(t < f for t in part) for f in first])
+    return torch.tensor(out, dtype=torch.int32)
+
+
+SPLIT_CASES = {
+    # G divides neither NE = 180 nor NI = 45
+    'drawn, 7 blocks': (lambda: _drawn(0.02, 90, 22), 7, hs.SPLIT_CHUNK),
+    'one block': (lambda: _drawn(0.02, 90, 22), 1, hs.SPLIT_CHUNK),
+    # CE 40 sources of 18 E neurons: every row holds multapses
+    'multapses': (lambda: _drawn(0.002, 40, 10), 3, hs.SPLIT_CHUNK),
+    # 5 blocks over NI = 4: a block owns no I neuron
+    'more blocks than I neurons': (lambda: _drawn(0.002, 40, 10), 5,
+                                   hs.SPLIT_CHUNK),
+    'hand-made, empty rows and ranges': (_hand_made, 4, hs.SPLIT_CHUNK),
+    'hand-made, a chunk a row': (_hand_made, 3, 2),
+    'drawn, chunks of 100 positions': (lambda: _drawn(0.02, 90, 22), 11,
+                                       100),
+}
+
+
+@pytest.mark.parametrize('case', list(SPLIT_CASES))
+def test_the_split_plan_is_each_rows_lower_bound_by_block(monkeypatch, case):
+    """:func:`stdp_split`: each line's bound for block b is the first
+    position of the row's part whose target b or a later block owns,
+    against a count by hand: on drawn networks, with multapses, with
+    empty rows, rows with no target in a block's range, G dividing
+    neither NE nor NI and G above NI, one block, and chunks of a row or
+    less."""
+    make, blocks, chunk = SPLIT_CASES[case]
+    monkeypatch.setattr(hs, 'SPLIT_CHUNK', chunk)
+    net, ne = make()
+    num = net['static_ptr'].numel() - 1
+    got = hs.stdp_split(net['targets'], net['plastic_ptr'],
+                        net['static_ptr'], ne, blocks)
+    assert got.dtype == torch.int32 and got.shape == (2 * num, blocks + 1)
+    assert torch.equal(got, _split_by_hand(net, ne, blocks))
+    # block b's parts of the rows are its own targets, and the lines tile
+    # the rows
+    e, i = hs._owned(ne, num, blocks, CPU)
+    tg = net['targets'].long()
+    for line in range(2 * num):
+        bounds = got[line].tolist()
+        assert bounds == sorted(bounds)
+        # the lines by E targets: the plastic rows and the I rows' E parts
+        owners = e if line < ne or 2 * ne <= line < ne + num else i
+        for b in range(blocks):
+            part = tg[bounds[b]:bounds[b + 1]]
+            ok = (part >= owners[b]) & (part < owners[b + 1])
+            assert bool(ok.all()), (line, b)
+    pp, sp = net['plastic_ptr'], net['static_ptr']
+    assert torch.equal(got[:ne, 0], pp[:-1]) and torch.equal(
+        got[:ne, -1], pp[1:])
+    assert torch.equal(got[ne:2 * ne, 0], sp[:ne]) and torch.equal(
+        got[ne:2 * ne, -1], sp[1:ne + 1])
+    assert torch.equal(got[2 * ne:ne + num, 0], sp[ne:-1])
+    assert torch.equal(got[2 * ne:ne + num, -1], got[ne + num:, 0])
+    assert torch.equal(got[ne + num:, -1], sp[ne + 1:])
+
+
+def test_the_split_plan_refuses_rows_whose_targets_do_not_ascend():
+    net, ne = _hand_made()
+    targets = net['targets'].clone()
+    # plastic row 3, [1, 2, 2, 4, 5], as [4, 2, 2, 4, 5]
+    targets[4] = 4
+    with pytest.raises(ValueError, match='must ascend'):
+        hs.stdp_split(targets, net['plastic_ptr'], net['static_ptr'], ne, 2)
 
 
 @pytest.mark.parametrize('steps, delay, ref_steps', [
@@ -371,7 +489,7 @@ def test_run_splits_a_trial_into_launches_of_at_most_launch_steps(
                                     for k in range(len(sizes))]
     assert got.step == state.step + n_steps
     want = [getattr(state, k).clone() for k in hs.STATE_FIELDS]
-    counters = torch.zeros(3, dtype=torch.int64)
+    counters = torch.zeros(4, dtype=torch.int64)
     twin(*want, net.targets, net.plastic_ptr, net.static_ptr, n_steps,
          net.step_params(state.key, state.step), counters=counters)
     for k, x in zip(hs.STATE_FIELDS, want):
@@ -492,7 +610,8 @@ def test_the_run_records_its_spans_and_counts():
     assert tracing.drain_counts() == {
         'brainevent_torch.HpcStdpNet.depressions': dep,
         'brainevent_torch.HpcStdpNet.facilitations': fac,
-        'brainevent_torch.HpcStdpNet.flush_facilitations': 0}
+        'brainevent_torch.HpcStdpNet.flush_facilitations': 0,
+        'brainevent_torch.HpcStdpNet.walk_busiest_block': 0}
     assert dep > 0 and fac > 0
     net.run(5, state=out)
     assert tracing.drain() == [] and tracing.drain_counts() == {}
@@ -510,6 +629,9 @@ def test_the_ctypes_struct_is_the_c_struct():
 
 
 def test_the_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
+    """Each C entry point gets the arguments it declares, K24's the split
+    plan after the rows and the grid's blocks; the C signature's parameter
+    names are the wrapper's pointers in order."""
     text = (ROOT / 'brainevent_torch' / 'csrc' / 'stdp_sim.cu').read_text()
     seen = {}
 
@@ -519,7 +641,7 @@ def test_the_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
 
         def fn(*cargs):
             assert len(cargs) == len(argtypes), name
-            seen[name] = len(cargs)
+            seen[name] = cargs
             if name == 'stdp_sim_max_blocks':
                 cargs[-1]._obj.value = 1000
             return 0
@@ -533,23 +655,42 @@ def test_the_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
         out = [getattr(s, k).clone() for k in hs.STATE_FIELDS]
         assert hs.stdp_sim_grid(net.num, CPU) == 1
         before = hs.stdp_sim.launches
+        plan = _plan(net)
         hs._stdp_sim_cuda(hs.stdp_sim, *out, net.targets, net.plastic_ptr,
                           net.static_ptr, 10, net.step_params(1, 0),
-                          scratch=_plan(net),
-                          counters=torch.zeros(3, dtype=torch.int64))
+                          scratch=plan,
+                          counters=torch.zeros(4, dtype=torch.int64))
         assert hs.stdp_sim.launches == before + 1
         x = hs.stdp_pow_cuda(torch.ones(5), 0.4)
         assert x.shape == (5,)
     finally:
         hs._max_blocks.cache_clear()
-    assert seen == {'stdp_sim_max_blocks': 2, 'stdp_sim_launch': 27,
-                    'stdp_pow_launch': 6}
+    assert {k: len(v) for k, v in seen.items()} == {
+        'stdp_sim_max_blocks': 2, 'stdp_sim_launch': 28,
+        'stdp_pow_launch': 6}
+    sig = text[text.index('BE_EXPORT int stdp_sim_launch('):]
+    names = re.findall(r'(\w+),', sig[:sig.index('{')])
+    cargs = seen['stdp_sim_launch']
+    assert names[names.index('split')] == 'split'
+    assert cargs[names.index('split')] == plan.split.data_ptr()
+    assert cargs[names.index('dlists')] == plan.dlists.data_ptr()
+    assert cargs[names.index('targets')] == net.targets.data_ptr()
+    assert cargs[names.index('blocks')] == 1
 
 
-def _plan(net, steps=16):
+def _plan(net, steps=16, blocks=1):
     p = net.step_params(1, 0)
+    split = hs.stdp_split(net.targets, net.plastic_ptr, net.static_ptr,
+                          net.n_exc, blocks)
     return hs.stdp_plan(net.num, net.n_exc, steps,
-                        hs.spike_capacity(steps, p.delay, p.ref_steps), CPU)
+                        hs.spike_capacity(steps, p.delay, p.ref_steps), split)
+
+
+def _other_network():
+    """A smaller network than :func:`setup`'s."""
+    prm = bt.HpcStdpParams(ce=SMALL[1], ci=SMALL[2])
+    return bt.build_hpc_network(prm, SMALL[0] / 2,
+                                torch.Generator().manual_seed(1), CPU), prm
 
 
 def _bad(field, make):
@@ -571,13 +712,20 @@ BAD_SCRATCH = {
         :, :4].contiguous()),
     'a last walk short': _bad('last_walk', lambda net, plan: plan.last_walk[
         1:]),
+    'a split plan for another grid': _bad('split', lambda net, plan: _plan(
+        net, blocks=2).split),
+    'a split plan of another network': _bad('split', lambda net, plan: (
+        lambda other, prm: hs.stdp_split(
+            other['targets'], other['plastic_ptr'], other['static_ptr'],
+            prm.sizes(SMALL[0] / 2)[0], 1))(*_other_network())),
 }
 
 
 @pytest.mark.parametrize('case', [*BAD_SCRATCH, 'counters of two',
                                   'more steps than a launch holds'])
 def test_the_wrapper_refuses_scratch_that_does_not_fit(monkeypatch, case):
-    """Each scratch array, the counters and the launch's steps are checked
+    """Each scratch array, the split plan (for K24's grid and the
+    network's rows), the counters and the launch's steps are checked
     against the network and the launch before K24 is called."""
     monkeypatch.setattr(cuda_build, 'function', lambda *a, **k: pytest.fail(
         'K24 was called'))
@@ -586,7 +734,7 @@ def test_the_wrapper_refuses_scratch_that_does_not_fit(monkeypatch, case):
     s = program_state(inputs['states'][0])
     out = [getattr(s, k).clone() for k in hs.STATE_FIELDS]
     plan, n_steps = _plan(net), 16
-    counters = torch.zeros(3, dtype=torch.int64)
+    counters = torch.zeros(4, dtype=torch.int64)
     if case in BAD_SCRATCH:
         plan = BAD_SCRATCH[case](net, plan)
     elif case == 'counters of two':
@@ -664,13 +812,20 @@ def traced_run(net, state, n_steps):
     return out, root, tracing.drain_counts()
 
 
-def check_counts(counts, counters):
+def check_counts(counts, counters, net):
     """K24's counters against the twin's: the same depressions and
-    facilitations, and a share of the latter made by the flush."""
-    dep, fac, none = counters.tolist()
-    assert none == 0 and dep > 0 and fac > 0
+    facilitations, a share of the latter made by the flush, and the
+    busiest block's work of the walks (its plastic entries and
+    facilitations, a step's largest, summed over the steps) between the
+    blocks' mean and the grid's whole work."""
+    dep, fac, none, no_blocks = counters.tolist()
+    assert none == 0 and no_blocks == 0 and dep > 0 and fac > 0
     flush = counts.pop('brainevent_torch.HpcStdpNet.flush_facilitations')
     assert 0 < flush < fac
+    busiest = counts.pop('brainevent_torch.HpcStdpNet.walk_busiest_block')
+    work = dep + fac - flush
+    blocks = hs.stdp_sim_grid(net.num, net.device)
+    assert work <= busiest * blocks and busiest <= work, (busiest, work)
     assert counts == {'brainevent_torch.HpcStdpNet.depressions': dep,
                       'brainevent_torch.HpcStdpNet.facilitations': fac}
 
@@ -695,34 +850,64 @@ def test_k24_is_the_twin_bit_for_bit(cuda_device, scale, warm, n_steps):
     launches = core.launch_counts()
     assert launches['stdp_sim'] == 1 and sum(launches.values()) == 1, launches
     again = net.run(n_steps, state=state)
-    counters = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    counters = torch.zeros(4, dtype=torch.int64, device=cuda_device)
     want = twin_run(net, state, n_steps, counters)
     for k, x in zip(hs.STATE_FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
         assert torch.equal(getattr(again, k), x), k
     assert int((got.spike_count - state.spike_count).sum()) > 0
     assert not torch.equal(got.weights, state.weights)
-    check_counts(counts, counters)
+    check_counts(counts, counters, net)
 
 
 @pytest.mark.cuda
 def test_k24_takes_two_neurons_a_thread(cuda_device, monkeypatch):
     """A grid of fewer blocks than one neuron a thread needs (the
-    co-resident limit patched lower): threads own two neurons, bit for
-    bit the twin over 500 steps, and the counts are the twin's."""
-    net, inputs, _ = full_setup(0.1, cuda_device)
-    blocks = -(-net.num // (2 * hs.HPC_BLOCK)) + 1
-    assert blocks * hs.HPC_BLOCK < net.num
+    co-resident limit patched lower, the net and its split plan built
+    for it): threads own two neurons, bit for bit the twin over 500
+    steps, and the counts are the twin's."""
+    net0, inputs, _ = full_setup(0.1, cuda_device)
+    blocks = -(-net0.num // (2 * hs.HPC_BLOCK)) + 1
+    assert blocks * hs.HPC_BLOCK < net0.num
     monkeypatch.setattr(hs, '_max_blocks', lambda device_index: blocks)
+    net = bt.HpcStdpNet(scale=0.1, params=net0.params, device=cuda_device,
+                        **inputs['program'])
     state = program_state(inputs['states'][1])
     assert hs.stdp_sim_grid(net.num, cuda_device) == blocks
+    assert net.plan.split.shape == (2 * net.num, blocks + 1)
     got, root, counts = traced_run(net, state, 500)
     assert root.attrs['npt'] == 2 and root.attrs['route'] == 'sim'
-    counters = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    counters = torch.zeros(4, dtype=torch.int64, device=cuda_device)
     want = twin_run(net, state, 500, counters)
     for k, x in zip(hs.STATE_FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
-    check_counts(counts, counters)
+    check_counts(counts, counters, net)
+
+
+@pytest.mark.cuda
+def test_k24_walks_a_grid_of_more_blocks_than_i_neurons(cuda_device,
+                                                        monkeypatch):
+    """A grid forced to 250 blocks over 900 E and 225 I neurons: each
+    block owns 3 or 4 E neurons and 0 or 1 I neuron, so the walk's
+    ranges are unequal and some empty; bit for bit the twin over 500
+    steps, the counts the twin's, and the net refused at launch where its
+    split plan is for another grid."""
+    net0, inputs, _ = full_setup(0.1, cuda_device)
+    monkeypatch.setattr(hs, 'stdp_sim_grid', lambda num, device: 250)
+    net = bt.HpcStdpNet(scale=0.1, params=net0.params, device=cuda_device,
+                        **inputs['program'])
+    e, i = (x.diff() for x in hs._owned(net.n_exc, net.num, 250, 'cpu'))
+    assert set(e.tolist()) == {3, 4} and set(i.tolist()) == {0, 1}
+    state = program_state(inputs['states'][0])
+    got, root, counts = traced_run(net, state, 500)
+    assert root.attrs['npt'] == 1
+    counters = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    want = twin_run(net, state, 500, counters)
+    for k, x in zip(hs.STATE_FIELDS, want):
+        assert torch.equal(getattr(got, k), x), k
+    check_counts(counts, counters, net)
+    with pytest.raises(ValueError, match='grid of 250 blocks'):
+        net0.run(10, state=state)
 
 
 @pytest.mark.cuda
@@ -760,11 +945,11 @@ def test_k24_splits_a_trial_longer_than_a_launch(cuda_device, monkeypatch,
     got, _, counts = traced_run(net, state, 300)
     torch.cuda.synchronize()
     assert core.launch_counts()['stdp_sim'] == 4
-    counters = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    counters = torch.zeros(4, dtype=torch.int64, device=cuda_device)
     want = twin_run(net0, state, 300, counters)
     for k, x in zip(hs.STATE_FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
-    check_counts(counts, counters)
+    check_counts(counts, counters, net)
 
 
 @pytest.mark.cuda
@@ -785,14 +970,14 @@ def test_k24_catches_up_rows_silent_for_long(cuda_device, monkeypatch,
     ref[:net.n_exc // 8] = 10 ** 6
     state = state._replace(ref=ref, v=torch.where(ref > 0, 0.0, state.v))
     got, _, counts = traced_run(net, state, 900)
-    counters = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    counters = torch.zeros(4, dtype=torch.int64, device=cuda_device)
     want = twin_run(net, state, 900, counters)
     for k, x in zip(hs.STATE_FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
     assert int((got.spike_count - state.spike_count)[:net.n_exc // 8].sum(
     )) == 0
     assert int(got.spike_count.sum()) > 20 * net.num
-    check_counts(counts, counters)
+    check_counts(counts, counters, net)
 
 
 @pytest.mark.cuda
