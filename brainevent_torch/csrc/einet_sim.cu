@@ -67,7 +67,15 @@
 // neuron of hh_neuron.cuh (einet_sim_hh_kernel, over conn rows: Brette et
 // al. 2007's Benchmark 3, COBAHH, models/hh_net.py), whose update of ~10
 // expf/expm1f and 11 divisions makes the step's update bound by operations
-// beside the scatter and the barrier that both models share.
+// beside the scatter and the barrier that both models share. The grid body
+// is also a template on kPhases: its clocked instance (phase_clock.cuh)
+// times each warp's launch in three phases, update (the fold and the
+// update of each of its NPT slices, and the state's load and store),
+// scatter (the ballot and the scatter of each slice's spikes, and the
+// table instances' walk) and barrier (from arriving at a grid.sync() to
+// leaving it); einet_sim_hh_kernel has both instances, the launcher
+// taking the clocked one where it is given a buffer for the phases. Its
+// plain instances compile as they did before the clock.
 //
 // Over conn rows, a network that one thread-block cluster holds (~11k
 // neurons of 80 targets on an H100) runs the cluster instance below
@@ -81,12 +89,16 @@
 #include "einet_neuron.cuh"
 #include "einet_scatter.cuh"
 #include "hh_neuron.cuh"
+#include "phase_clock.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int BE_SIM_BLOCK = 256;
+// The phases of the grid body's clocked instance.
+enum BeSimPhase { BE_SIM_UPDATE, BE_SIM_SCATTER, BE_SIM_BARRIER,
+                  BE_SIM_PHASES };
 
 __device__ __forceinline__ bool be_nonzero(const uint4& b) {
     return (b.x | b.y | b.z | b.w) != 0;
@@ -199,14 +211,18 @@ __device__ __forceinline__ void be_append(const unsigned mask, const int i,
 // entry's); grid_walk: the table instances' walk by the whole grid, over a
 // list (2, num) by parity in device memory with its two counters behind it
 // (lists), a second barrier a step, in place of each block's walk of its
-// own spikes.
-template <int NPT, int SRC, class N, class... A>
+// own spikes. kPhases: the clocked instance, which adds the grid's warps'
+// ns in each phase to phases[0 .. BE_SIM_PHASES) (see the file's comment).
+template <int NPT, int SRC, class N, bool kPhases = false, class... A>
 __device__ __forceinline__ void be_sim_grid(
     int* __restrict__ spike_count, const void* __restrict__ targets,
     const float* __restrict__ times, const int n_steps, const int n_conn,
     const int n_exc, int* counts, int* lists, const int vec,
-    const int grid_walk, const typename N::Params& p,
-    A* __restrict__... a) {
+    const int grid_walk, unsigned long long* phases,
+    const typename N::Params& p, A* __restrict__... a) {
+    constexpr int W = BE_SIM_BLOCK / 32;
+    BePhaseClock<kPhases, BE_SIM_PHASES, W> clk;
+    clk.start();
     using T = typename std::conditional<SRC == 2, int, unsigned char>::type;
     constexpr int U = NPT >= 4 ? 4 : 8;
     // the block's spiking neurons of a step (table instances)
@@ -267,6 +283,7 @@ __device__ __forceinline__ void be_sim_grid(
                 spike = N::update(st[s], p, t);
                 rc[s] += spike;
             }
+            clk.edge(BE_SIM_UPDATE);
             // Every thread reaches the ballot: no early return.
             const unsigned mask = __ballot_sync(0xffffffffu, spike);
             const int first = j - lane + s * n_threads;
@@ -280,11 +297,14 @@ __device__ __forceinline__ void be_sim_grid(
             } else {
                 be_append(mask, i, spike, lane, &s_n[parity], s_ids);
             }
+            if (s + 1 < NPT) clk.edge(BE_SIM_SCATTER);
         }
         if constexpr (SRC != 0) {
             const T* table = static_cast<const T*>(targets);
             if (grid_walk) {
+                clk.edge(BE_SIM_SCATTER);
                 grid.sync();
+                clk.edge(BE_SIM_BARRIER);
                 be_table_walk_vec<T, U, true>(
                     table, list, __ldcg(n_list + parity), num, n_exc, add_ct,
                     j, n_threads, vec);
@@ -295,7 +315,10 @@ __device__ __forceinline__ void be_sim_grid(
                                                threadIdx.x, BE_SIM_BLOCK, vec);
             }
         }
+        clk.edge(BE_SIM_SCATTER);
         grid.sync();
+        clk.edge(BE_SIM_BARRIER);
+        clk.tick(k);
     }
 
     // The last step's counts, folded (the K1 + K2 loop's final fold).
@@ -312,6 +335,8 @@ __device__ __forceinline__ void be_sim_grid(
         N::store(st[s], i, a...);
         spike_count[i] = rc[s];
     }
+    clk.edge(BE_SIM_UPDATE);
+    clk.finish(phases);
 }
 
 // K21 over the LIF model. NPT = 8 is held to three blocks an SM (78
@@ -332,14 +357,16 @@ einet_sim_kernel(float* __restrict__ v, float* __restrict__ t_last,
                  const EINetParams p) {
     be_sim_grid<NPT, SRC, BeLifNeuron>(spike_count, targets, times, n_steps,
                                        n_conn, n_exc, counts, lists, vec,
-                                       grid_walk, p, v, t_last, g_e, g_i);
+                                       grid_walk, nullptr, p, v, t_last, g_e,
+                                       g_i);
 }
 
 // K21 over the HH model, over conn rows. Held to three blocks an SM at NPT
 // 4 and two at NPT 8, so that a co-resident grid holds 400k neurons at NPT
 // 4 (einet_sim_hh_max_blocks; models/hh_net.py:hh_sim_grid picks the
-// fewest neurons a thread).
-template <int NPT>
+// fewest neurons a thread). kPhases: the clocked instance, which adds to
+// phases (the plain one reads it not).
+template <int NPT, bool kPhases>
 __global__ void __launch_bounds__(BE_SIM_BLOCK,
                                   NPT == 8 ? 2 : (NPT == 4 ? 3 : 1))
 einet_sim_hh_kernel(float* __restrict__ v, float* __restrict__ m,
@@ -349,10 +376,10 @@ einet_sim_hh_kernel(float* __restrict__ v, float* __restrict__ m,
                     int* __restrict__ spike_count,
                     const int* __restrict__ conn, const int n_steps,
                     const int n_conn, const int n_exc, int* counts,
-                    const HHParams p) {
-    be_sim_grid<NPT, 0, BeHhNeuron>(spike_count, conn, nullptr, n_steps,
-                                    n_conn, n_exc, counts, nullptr, 0, 0, p,
-                                    v, m, h, n, g_e, g_i, armed);
+                    const HHParams p, unsigned long long* phases) {
+    be_sim_grid<NPT, 0, BeHhNeuron, kPhases>(
+        spike_count, conn, nullptr, n_steps, n_conn, n_exc, counts, nullptr,
+        0, 0, phases, p, v, m, h, n, g_e, g_i, armed);
 }
 
 // y = expf(x) (fn 0) or expm1f(x) (fn 1) elementwise: the HH update's
@@ -623,15 +650,26 @@ const void* be_sim_kernel(int npt, int src) {
     }
 }
 
-// K21's HH instances (NPT 1, 2, 4 and 8 over conn rows), or nullptr.
-const void* be_sim_hh_kernel(int npt) {
+// K21's HH instances (NPT 1, 2, 4 and 8 over conn rows; clocked or
+// plain), or nullptr.
+template <bool kPhases>
+const void* be_sim_hh_kernel_of(int npt) {
     switch (npt) {
-        case 1: return reinterpret_cast<const void*>(einet_sim_hh_kernel<1>);
-        case 2: return reinterpret_cast<const void*>(einet_sim_hh_kernel<2>);
-        case 4: return reinterpret_cast<const void*>(einet_sim_hh_kernel<4>);
-        case 8: return reinterpret_cast<const void*>(einet_sim_hh_kernel<8>);
+        case 1: return reinterpret_cast<const void*>(
+            einet_sim_hh_kernel<1, kPhases>);
+        case 2: return reinterpret_cast<const void*>(
+            einet_sim_hh_kernel<2, kPhases>);
+        case 4: return reinterpret_cast<const void*>(
+            einet_sim_hh_kernel<4, kPhases>);
+        case 8: return reinterpret_cast<const void*>(
+            einet_sim_hh_kernel<8, kPhases>);
         default: return nullptr;
     }
+}
+
+const void* be_sim_hh_kernel(int npt, bool clocked) {
+    return clocked ? be_sim_hh_kernel_of<true>(npt)
+                   : be_sim_hh_kernel_of<false>(npt);
 }
 
 }  // namespace
@@ -693,7 +731,7 @@ BE_EXPORT int einet_sim_launch(float* v, float* t_last, float* g_e,
 BE_EXPORT int einet_sim_hh_max_blocks(int npt, int device, int* blocks) {
     int err = be_begin(device);
     if (err) return err;
-    const void* kernel = be_sim_hh_kernel(npt);
+    const void* kernel = be_sim_hh_kernel(npt, false);
     if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
     return be_coresident_blocks(kernel, BE_SIM_BLOCK, device, blocks);
 }
@@ -701,28 +739,31 @@ BE_EXPORT int einet_sim_hh_max_blocks(int npt, int device, int* blocks) {
 // K21's HH instance npt over conn (num, n_conn) int32 for n_steps steps:
 // v, m, h, n, g_e, g_i (num,) float32, armed (num,) uint8 (0 or 1) and
 // spike_count (num,) int32, read at the start and written at the end;
-// counts: (2, 2, num) int32, zeroed by the caller. blocks * BE_SIM_BLOCK *
-// npt must cover num; a grid larger than can be co-resident is refused
-// (cudaErrorCooperativeLaunchTooLarge).
+// counts: (2, 2, num) int32, zeroed by the caller; phases: null (the plain
+// instance), or (3,) uint64, zeroed by the caller, that the clocked
+// instance adds the grid's warps' ns in update, scatter and barrier to.
+// blocks * BE_SIM_BLOCK * npt must cover num; a grid larger than can be
+// co-resident is refused (cudaErrorCooperativeLaunchTooLarge).
 BE_EXPORT int einet_sim_hh_launch(float* v, float* m, float* h, float* n,
                                   float* g_e, float* g_i,
                                   unsigned char* armed, int* spike_count,
                                   const int* conn, int n_steps, int n_conn,
-                                  int n_exc, int* counts, const HHParams* p,
-                                  int npt, int blocks, int device,
-                                  void* stream) {
+                                  int n_exc, int* counts,
+                                  unsigned long long* phases,
+                                  const HHParams* p, int npt, int blocks,
+                                  int device, void* stream) {
     int err = be_begin(device);
     if (err) return err;
     if (p->num <= 0) return be_end();
     if (blocks <= 0 ||
         static_cast<long long>(blocks) * BE_SIM_BLOCK * npt < p->num)
         return static_cast<int>(cudaErrorInvalidValue);
-    const void* kernel = be_sim_hh_kernel(npt);
+    const void* kernel = be_sim_hh_kernel(npt, phases != nullptr);
     if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
     HHParams params = *p;
     void* args[] = {&v,     &m,      &h,       &n,      &g_e,
                     &g_i,   &armed,  &spike_count, &conn, &n_steps,
-                    &n_conn, &n_exc, &counts,  &params};
+                    &n_conn, &n_exc, &counts,  &params, &phases};
     return be_refused(static_cast<int>(cudaLaunchCooperativeKernel(
         kernel, dim3(blocks), dim3(BE_SIM_BLOCK), args, 0,
         static_cast<cudaStream_t>(stream))));

@@ -65,7 +65,16 @@
 // walk, the list's scan and the rows' loads: 4.6-4.7 us a step.
 // The ring, the Poisson draw, the lists and the grid pass's scan, share
 // and search are sim_grid.cuh's, which K24 (stdp_sim.cu) shares.
+//
+// Two instances (kPhases): the plain one, and the clocked one that the
+// launcher takes where it is given a buffer for the phases. The clocked
+// one times each warp's launch in three phases (phase_clock.cuh): update
+// (the update and the Poisson draw, and the state's load and store),
+// scatter (the delay-1 walk and the grid pass, and the last step's pass
+// after the loop) and barrier (from arriving at the grid.sync() to leaving
+// it); its outputs are the plain one's.
 #include "common.cuh"
+#include "phase_clock.cuh"
 #include "sim_grid.cuh"
 
 // The most populations, and the Poisson table's thresholds a population.
@@ -100,6 +109,8 @@ constexpr int MC_BLOCK = SG_BLOCK;
 constexpr int MC_LISTS = 3;
 // Synapses a thread of the grid pass loads before it adds them.
 constexpr int MC_PASS_UNROLL = 2;
+// The phases of the clocked instance.
+enum McPhase { MC_UPDATE, MC_SCATTER, MC_BARRIER, MC_PHASES };
 
 // Whether a neuron in state (v, i, ref) spikes at its next step: the
 // update's own arithmetic (mc_sim_kernel) on that state.
@@ -180,6 +191,9 @@ __device__ __forceinline__ void mc_pass_chunks(
     }
 }
 
+// kPhases: the clocked instance, which adds to phases (the plain one reads
+// it not).
+template <bool kPhases>
 __global__ void __launch_bounds__(MC_BLOCK, 3)
 mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
               int* __restrict__ ref, int* ring, int* __restrict__ spike_count,
@@ -189,7 +203,11 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
               const int* __restrict__ near_ptr,
               const int* __restrict__ near_targets,
               const short* __restrict__ near_weights, int2* lists,
-              int* counts, const int n_steps, const McParams p) {
+              int* counts, const int n_steps, const McParams p,
+              unsigned long long* phases) {
+    constexpr int W = MC_BLOCK / 32;
+    BePhaseClock<kPhases, MC_PHASES, W> clk;
+    clk.start();
     __shared__ unsigned s_thr[MC_MAX_POPS * MC_KMAX];
     // The delay-1 rows, [beg, end), of the block's spikes of a step, listed
     // in the step before, and their count; by the step's parity, so that
@@ -275,6 +293,7 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
             if (near.y > near.x && mc_spikes_next(rv, ri, rr, p))
                 s_rows[(k + 1) & 1][atomicAdd(s_n + ((k + 1) & 1), 1)] = near;
         }
+        clk.edge(MC_UPDATE);
         // The counter of step k - 2, read in step k - 1, is next added to
         // in step k + 1, after this step's grid.sync().
         if (blockIdx.x == 0 && j == 0) counts[next] = 0;
@@ -310,18 +329,23 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
             mc_pass_chunks(plist, MC_BLOCK, pn, s_off, s_beg, s_wsum, targets,
                            weights, delays, ring, t - 1u, dmask, num);
         }
+        clk.edge(MC_SCATTER);
         grid.sync();
+        clk.edge(MC_BARRIER);
+        clk.tick(k);
         cur = next;
     }
     // The last step's synapses of delay >= 2, so that the ring holds every
     // pending input and the next launch goes on from this state.
     if (n_steps > 0) {
+        clk.edge(MC_UPDATE);
         const int last = cur == 0 ? MC_LISTS - 1 : cur - 1;
         mc_pass_chunks(lists + static_cast<long long>(last) * num, 0,
                        __ldcg(counts + last), s_off, s_beg, s_wsum, targets,
                        weights, delays, ring,
                        p.step0 + static_cast<unsigned>(n_steps - 1), dmask,
                        num);
+        clk.edge(MC_SCATTER);
     }
 
     if (own) {
@@ -330,6 +354,8 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
         ref[i] = rr;
         spike_count[i] = rc;
     }
+    clk.edge(MC_UPDATE);
+    clk.finish(phases);
 }
 
 // The barrier alone: n_syncs grid barriers on the grid K23 would run.
@@ -346,8 +372,9 @@ mc_sim_barriers_kernel(const int n_syncs) {
 BE_EXPORT int mc_sim_max_blocks(int device, int* blocks) {
     int err = be_begin(device);
     if (err) return err;
-    return be_coresident_blocks(reinterpret_cast<const void*>(mc_sim_kernel),
-                                MC_BLOCK, device, blocks);
+    return be_coresident_blocks(
+        reinterpret_cast<const void*>(mc_sim_kernel<false>), MC_BLOCK, device,
+        blocks);
 }
 
 // v, i_syn: (num,) float32; ref, spike_count: (num,) int32, read at the
@@ -356,15 +383,18 @@ BE_EXPORT int mc_sim_max_blocks(int device, int* blocks) {
 // weights: int16, delays: uint8, row_ptr[num] each; near_ptr: (num + 1,)
 // int32, near_targets: int32, near_weights: int16, near_ptr[num] each:
 // the rows' synapses of delay 1, in their order; lists: (MC_LISTS, num)
-// int2 and counts: (MC_LISTS,) int32, scratch (counts zeroed here).
-// blocks * MC_BLOCK must cover num; a grid larger than can be co-resident
-// is refused (cudaErrorCooperativeLaunchTooLarge).
+// int2 and counts: (MC_LISTS,) int32, scratch (counts zeroed here);
+// phases: null (the plain instance), or (3,) uint64, zeroed by the caller,
+// that the clocked instance adds the grid's warps' ns in update, scatter
+// and barrier to. blocks * MC_BLOCK must cover num; a grid larger than can
+// be co-resident is refused (cudaErrorCooperativeLaunchTooLarge).
 BE_EXPORT int mc_sim_launch(float* v, float* i_syn, int* ref, int* ring,
                             int* spike_count, const int* row_ptr,
                             const int* targets, const short* weights,
                             const unsigned char* delays, const int* near_ptr,
                             const int* near_targets, const short* near_weights,
-                            int* lists, int* counts, int n_steps,
+                            int* lists, int* counts,
+                            unsigned long long* phases, int n_steps,
                             const McParams* p, int blocks, int device,
                             void* stream) {
     int err = be_begin(device);
@@ -378,13 +408,16 @@ BE_EXPORT int mc_sim_launch(float* v, float* i_syn, int* ref, int* ring,
     err = static_cast<int>(
         cudaMemsetAsync(counts, 0, MC_LISTS * sizeof(int), s));
     if (err) return err;
-    const void* kernel = reinterpret_cast<const void*>(mc_sim_kernel);
+    const void* kernel =
+        phases ? reinterpret_cast<const void*>(mc_sim_kernel<true>)
+               : reinterpret_cast<const void*>(mc_sim_kernel<false>);
     McParams params = *p;
     int2* list2 = reinterpret_cast<int2*>(lists);
     void* args[] = {&v,           &i_syn,    &ref,          &ring,
                     &spike_count, &row_ptr,  &targets,      &weights,
                     &delays,      &near_ptr, &near_targets, &near_weights,
-                    &list2,       &counts,   &n_steps,      &params};
+                    &list2,       &counts,   &n_steps,      &params,
+                    &phases};
     return be_refused(static_cast<int>(
         cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(MC_BLOCK), args,
                                     0, s)));

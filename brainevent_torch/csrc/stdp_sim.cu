@@ -73,10 +73,11 @@
 // and the loads of its steps' K+, and a warp waits for its longest lane;
 // a step lasts as long as its slowest block's walk. Each block walks a
 // slice of every listed row, so a row that owes many spreads over the
-// whole grid; the counters' fourth (the busiest block's work a step)
-// shows the balance. Within a block the warps take entries 32 at a time
-// from a counter, and an entry that owes its target's whole first record
-// int4 (three or more) waits for the walk's end, where the warps run such
+// whole grid; the rest of the slowest block's walk is the other blocks'
+// wait at the grid barrier, which the clocked instance (below) times.
+// Within a block the warps take entries 32 at a time from a counter, and
+// an entry that owes its target's whole first record int4 (three or more)
+// waits for the walk's end, where the warps run such
 // chains side by side: in place, one lane's chain held the 31 others of
 // its warp in nearly every warp's turn (an H100 at scale 10). The flush
 // shares its entries among the blocks in ranges that each takes from a
@@ -86,7 +87,16 @@
 // The shape is K23's (sim_grid.cuh): a persistent cooperative grid of
 // blocks of SG_BLOCK threads; thread g owns neurons g and g + G (G the
 // grid's threads) and keeps their state in registers for the whole trial.
+//
+// Two instances (kPhases): the plain one, and the clocked one that the
+// launcher takes where it is given a counters buffer. The clocked one also
+// counts the depressions and the facilitations (those of the walks and
+// those of the flush), and times each warp's launch in four phases
+// (phase_clock.cuh): update (phase A, and the state's load and store),
+// walk (phase B), barrier (from arriving at a grid.sync() to leaving it)
+// and flush; its outputs are the plain one's, on the same grid.
 #include "common.cuh"
+#include "phase_clock.cuh"
 #include "sim_grid.cuh"
 
 // The scalars of one network and trial; the same layout as StdpParams in
@@ -143,6 +153,10 @@ constexpr int STDP_OWN = STDP_NPT * SG_BLOCK;
 constexpr int STDP_DEEP = 2 * SG_BLOCK;
 // The step of a record's empty slot: s + d is past no walk.
 constexpr int STDP_NONE = -(1 << 30);
+// The counters of the clocked instance, then its phases (phase_clock.cuh).
+constexpr int STDP_COUNTERS = 3;
+enum StdpPhase { STDP_UPDATE, STDP_WALK, STDP_BARRIER, STDP_FLUSH,
+                 STDP_PHASES };
 
 // w^mu, the one transcendental function of the step (full-accuracy powf).
 __device__ __forceinline__ float stdp_pow(const float w, const float mu) {
@@ -429,14 +443,13 @@ __device__ __forceinline__ int stdp_plastic(
 // entry that owes every spike of its target's record's first int4 waits
 // for the end of the walk (up to STDP_DEEP of them), so that the warps run
 // such chains side by side and not beside entries that owe one or none.
-// *nfac counts the facilitations, *nplastic the plastic entries.
+// *nfac counts the facilitations.
 __device__ __forceinline__ void stdp_walk(
     const int4* list, const int n, const int nf, const long long lcap,
     const int* __restrict__ split, StdpView& v, StdpOwn& o,
     const int* __restrict__ targets, float* weights, const float* kh,
     int* late, const int4* recent, const int* spikes, const int cap,
-    const float* kph, const int tr, int* nfac, int* nplastic,
-    const StdpParams& p) {
+    const float* kph, const int tr, int* nfac, const StdpParams& p) {
     if (n == 0) return;
     const int j = threadIdx.x, lane = j & 31;
     const long long stride = gridDim.x + 1;
@@ -473,7 +486,6 @@ __device__ __forceinline__ void stdp_walk(
             int units;
             if (c < p.n_plastic) {
                 const int q = tg - e_lo, lw = v.lw[r];
-                ++*nplastic;
                 if (o.rec[q].w + p.delay > lw) {
                     const int k = atomicAdd(&o.n_deep, 1);
                     if (k < STDP_DEEP) {
@@ -548,6 +560,9 @@ __device__ __forceinline__ void stdp_flush(
     }
 }
 
+// kPhases: the clocked instance (see the file's comment), which fills
+// counters; the plain one reads no counters.
+template <bool kPhases>
 __global__ void __launch_bounds__(SG_BLOCK, 3)
 stdp_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
                 float* __restrict__ di, int* __restrict__ ref, int* ring,
@@ -560,21 +575,19 @@ stdp_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
                 float* kph, int* spikes, int4* recent, int* last_walk,
                 unsigned long long* counters, const int n_steps,
                 const int cap, const StdpParams p) {
+    BePhaseClock<kPhases, STDP_PHASES, SG_WARPS> clk;
+    clk.start();
     __shared__ unsigned s_thr[SG_KMAX];
     // The walk's and the flush's view of a chunk of rows.
     __shared__ StdpView s_view;
     // The block's targets in the walk.
     __shared__ StdpOwn s_own;
-    // The block's facilitations: in the walks, in the flush.
+    // The block's facilitations (the clocked instance): in the walks, in
+    // the flush.
     __shared__ unsigned long long s_fac[2];
-    // The block's work in a step's walk: plastic entries and facilitations.
-    __shared__ int s_work;
     if (threadIdx.x < SG_KMAX) s_thr[threadIdx.x] = p.thr[threadIdx.x];
-    if (threadIdx.x < 2) s_fac[threadIdx.x] = 0;
-    if (threadIdx.x == 0) {
-        s_work = 0;
-        stdp_own(s_own, p.n_exc, p.num);
-    }
+    if (kPhases && threadIdx.x < 2) s_fac[threadIdx.x] = 0;
+    if (threadIdx.x == 0) stdp_own(s_own, p.n_exc, p.num);
     for (int q = threadIdx.x; q < STDP_OWN + 2; q += SG_BLOCK)
         s_own.acc[q] = 0;
     cg::grid_group grid = cg::this_grid();
@@ -590,17 +603,12 @@ stdp_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
     const long long stride = gridDim.x + 1;
 
     // counts, by parity: the counters of the rows' lists' fronts (the
-    // plastic rows) and the largest work of a block in a step's walk, the
-    // counters of the lists' backs (the static rows); then the flush's
-    // ranges' counters
-    int* wmax = counts + 2;
-    int* backs = counts + 4;
-    int* ftaken = counts + 6;
-    const int n_counts = 6 + (ne + SG_BLOCK - 1) / SG_BLOCK;
+    // plastic rows), the counters of the lists' backs (the static rows);
+    // then the flush's ranges' counters
+    int* backs = counts + 2;
+    int* ftaken = counts + 4;
+    const int n_counts = 4 + (ne + SG_BLOCK - 1) / SG_BLOCK;
     for (int c = g; c < n_counts; c += gsize) counts[c] = 0;
-    if (counters && g < 4) counters[g] = 0;
-    // the busiest blocks' work of the steps before (block 0's thread 0)
-    unsigned long long busiest = 0;
     float rv[STDP_NPT], ri[STDP_NPT], rd[STDP_NPT], kp[STDP_NPT],
         km[STDP_NPT];
     int rr[STDP_NPT], rc[STDP_NPT], lw[STDP_NPT];
@@ -633,7 +641,9 @@ stdp_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
             }
         }
     }
+    clk.edge(STDP_UPDATE);
     grid.sync();  // the counters are zeroed, the lists seeded
+    clk.edge(STDP_BARRIER);
 
     for (int k = 0; k < n_steps; ++k) {
         const unsigned t = t0 + static_cast<unsigned>(k);
@@ -695,7 +705,7 @@ stdp_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
                                     split + (i + 1) * stride);
                         stdp_append(dlist, dcount,
                                     make_int4(i, i, lw[q], 0));
-                        if (counters)
+                        if (kPhases)
                             atomicAdd(counters,
                                       static_cast<unsigned long long>(
                                           pr.y - pr.x));
@@ -721,40 +731,28 @@ stdp_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
                 }
             }
         }
+        clk.edge(STDP_UPDATE);
         grid.sync();
+        clk.edge(STDP_BARRIER);
         // Phase B: the walk of step t's spiking rows.
-        int n = 0, np = 0;
+        int n = 0;
         const int nf = __ldcg(dcount);
         stdp_walk(dlist, nf + __ldcg(dback), nf, dcap, split, s_view, s_own,
                   targets, weights,
                   khist + static_cast<long long>((t - d) & dmask) * ne,
                   sg_slot(ring, t + d, dmask, num), recent, spikes, cap, kph,
-                  k, &n, &np, p);
-        if (counters) {
-            stdp_count(s_fac, n);
-            const int work = __reduce_add_sync(0xffffffffu, n + np);
-            if ((threadIdx.x & 31) == 0 && work) atomicAdd(&s_work, work);
-            __syncthreads();
-            if (threadIdx.x == 0) {
-                if (s_work) atomicMax(wmax + par, s_work);
-                s_work = 0;
-            }
-        }
-        // The rows' counters of step t + 1 and its busiest block's work were
-        // last used in step t - 1.
+                  k, &n, p);
+        if (kPhases) stdp_count(s_fac, n);
+        // The rows' counters of step t + 1 were last used in step t - 1.
         if (blockIdx.x == 0 && threadIdx.x == 0) {
             counts[par ^ 1] = 0;
             backs[par ^ 1] = 0;
-            if (counters) {
-                busiest += static_cast<unsigned>(__ldcg(wmax + (par ^ 1)));
-                wmax[par ^ 1] = 0;
-            }
         }
+        clk.edge(STDP_WALK);
         grid.sync();
+        clk.edge(STDP_BARRIER);
+        clk.tick(k);
     }
-    if (counters && n_steps > 0 && g == 0)
-        counters[3] = busiest + static_cast<unsigned>(
-            __ldcg(wmax + ((t0 + n_steps - 1u) & 1u)));
 
 #pragma unroll
     for (int q = 0; q < STDP_NPT; ++q) {
@@ -771,14 +769,19 @@ stdp_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
         }
     }
     if (n_steps > 0) {
+        clk.edge(STDP_UPDATE);
         grid.sync();  // every row's last walk is written
+        clk.edge(STDP_BARRIER);
         int n = 0;
         stdp_flush(targets, plastic_ptr, weights, ftaken, s_view, recent,
                    spikes, cap, kph, last_walk, n_steps - 1, &n, p);
-        if (counters) stdp_count(s_fac + 1, n);
+        if (kPhases) stdp_count(s_fac + 1, n);
+        clk.edge(STDP_FLUSH);
+    } else {
+        clk.edge(STDP_UPDATE);
     }
-    if (counters) {
-        __syncthreads();
+    if constexpr (kPhases) {
+        clk.finish(counters + STDP_COUNTERS);
         if (threadIdx.x == 0) {
             if (s_fac[0] + s_fac[1])
                 atomicAdd(counters + 1, s_fac[0] + s_fac[1]);
@@ -805,8 +808,9 @@ __global__ void stdp_pow_kernel(const float* __restrict__ x,
 BE_EXPORT int stdp_sim_max_blocks(int device, int* blocks) {
     int err = be_begin(device);
     if (err) return err;
-    return be_coresident_blocks(reinterpret_cast<const void*>(stdp_sim_kernel),
-                                SG_BLOCK, device, blocks);
+    return be_coresident_blocks(
+        reinterpret_cast<const void*>(stdp_sim_kernel<false>), SG_BLOCK,
+        device, blocks);
 }
 
 // v, i_syn, di: (num,) float32; ref, spike_count: (num,) int32; kplus:
@@ -817,14 +821,15 @@ BE_EXPORT int stdp_sim_max_blocks(int device, int* blocks) {
 // static_ptr: (num + 1,) int32 into [P, P + S); split: (2 num, blocks + 1)
 // int32, the split plan of these rows for this grid (models/hpc_stdp.py
 // stdp_split; each row's targets ascending). Scratch: dlists (2, 2 num, 4)
-// int32; counts (6 + ceil(n_exc / SG_BLOCK),) int32; kph: the K+ history of
+// int32; counts (4 + ceil(n_exc / SG_BLOCK),) int32; kph: the K+ history of
 // hist_steps steps (hist_steps / STDP_HTILE, n_exc, STDP_HTILE) float32;
 // spikes (n_exc, cap) int32; recent (n_exc, 16) int32; last_walk (n_exc,)
-// int32. counters: (4,) uint64, set to the launch's depressions,
-// facilitations, the flush's facilitations and the sum over its steps of
-// the largest work of a block in the step's walk (plastic entries and
-// facilitations), or null. n_steps <= hist_steps, and cap must hold an E
-// neuron's spikes of the d steps before the launch and of its n_steps.
+// int32. counters: null (the plain instance), or (7,) uint64, zeroed by
+// the caller, that the clocked instance adds to: the launch's depressions,
+// facilitations and the flush's facilitations, then the grid's warps' ns
+// in update, walk, barrier and flush. n_steps <= hist_steps, and cap must
+// hold an E neuron's spikes of the d steps before the launch and of its
+// n_steps.
 // blocks * SG_BLOCK * STDP_NPT must cover num; a grid larger than can be
 // co-resident is refused (cudaErrorCooperativeLaunchTooLarge).
 BE_EXPORT int stdp_sim_launch(
@@ -846,7 +851,9 @@ BE_EXPORT int stdp_sim_launch(
         n_steps < 0 || n_steps > hist_steps || hist_steps % STDP_HTILE ||
         cap < p->delay || !split)
         return static_cast<int>(cudaErrorInvalidValue);
-    const void* kernel = reinterpret_cast<const void*>(stdp_sim_kernel);
+    const void* kernel =
+        counters ? reinterpret_cast<const void*>(stdp_sim_kernel<true>)
+                 : reinterpret_cast<const void*>(stdp_sim_kernel<false>);
     StdpParams params = *p;
     int4* d4 = reinterpret_cast<int4*>(dlists);
     int4* r4 = reinterpret_cast<int4*>(recent);

@@ -57,6 +57,8 @@ RATES = ('alpha_m', 'beta_m', 'alpha_h', 'beta_h', 'alpha_n', 'beta_n')
 FORMS = ('exprel', 'exprel', 'exp', 'sigmoid', 'exprel', 'exp')
 HH_NPT = (1, 2, 4, 8)    # K21's HH instances: neurons a thread keeps
 NEURON_UPDATES = 'brainevent_torch.HHNet.neuron_updates'
+# the phases of K21's clocked HH instance (BeSimPhase in csrc/einet_sim.cu)
+PHASES = ('update', 'scatter', 'barrier')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,18 +225,23 @@ def hh_sim_grid(num: int, device: torch.device):
 
 
 def _einet_sim_hh_cuda(op, v, m, h, n, g_e, g_i, armed, spike_count, conn,
-                       n_steps, p, n_exc, *, npt=0, blocks=0):
+                       n_steps, p, n_exc, *, npt=0, blocks=0, phases=None):
     """Launch K21's HH instance once for *n_steps* steps over the rows of
     *conn*: the instance :func:`hh_sim_grid` picks, or *npt* on *blocks*
-    (so that tests can run another; no public entry sets them)."""
+    (so that tests can run another; no public entry sets them). Given
+    *phases* (int64 ``(3,)``, zeroed), its clocked instance, which adds
+    the grid's warps' ns in each of :data:`PHASES` to it."""
     f, i = torch.float32, torch.int32
-    device = check_cuda_tensors(op.name, (v, f), (m, f), (h, f), (n, f),
-                                (g_e, f), (g_i, f), (armed, torch.bool),
-                                (spike_count, i), (conn, i))
+    tensors = [(v, f), (m, f), (h, f), (n, f), (g_e, f), (g_i, f),
+               (armed, torch.bool), (spike_count, i), (conn, i)]
+    if phases is not None:
+        tensors.append((phases, torch.int64))
+    device = check_cuda_tensors(op.name, *tensors)
     num = p.num
     if (conn.dim() != 2 or conn.shape[0] != num
             or any(x.shape != (num,) for x in (v, m, h, n, g_e, g_i, armed,
-                                                 spike_count))):
+                                                 spike_count))
+            or (phases is not None and phases.shape != (len(PHASES),))):
         raise ValueError(f'{op.name}: state and conn {tuple(conn.shape)} do '
                          f'not match num={num}')
     if not npt:
@@ -250,12 +257,13 @@ def _einet_sim_hh_cuda(op, v, m, h, n, g_e, g_i, armed, spike_count, conn,
                          f'x {npt} neurons do not cover {num} neurons')
     counts = torch.zeros(2, 2, num, dtype=i, device=device)
     fn = cuda_build.function('einet_sim_hh_launch', [ctypes.c_void_p] * 9 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.POINTER(HHSimParams)] + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p])
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [
+        ctypes.POINTER(HHSimParams)] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     op.launch(fn, v.data_ptr(), m.data_ptr(), h.data_ptr(), n.data_ptr(),
               g_e.data_ptr(), g_i.data_ptr(), armed.data_ptr(),
               spike_count.data_ptr(), conn.data_ptr(), int(n_steps),
-              conn.shape[1], int(n_exc), counts.data_ptr(), ctypes.byref(p),
+              conn.shape[1], int(n_exc), counts.data_ptr(),
+              None if phases is None else phases.data_ptr(), ctypes.byref(p),
               npt, blocks, device.index or 0, cuda_stream(device))
 
 
@@ -387,20 +395,34 @@ class HHNet:
         ``num``, ``n_steps``, ``route``: ``sim`` on a card, ``loop`` on
         the CPU, and ``npt``: the neurons a thread of K21 keeps, 0 on the
         loop) around ``.copies`` and ``.launch``, and adds ``num *
-        n_steps`` to the counter ``brainevent_torch.HHNet.neuron_updates``."""
+        n_steps`` to the counter ``brainevent_torch.HHNet.neuron_updates``.
+        On the card the launch then takes K21's clocked HH instance, and
+        adds its warps' ns in each phase of the step (update, scatter,
+        barrier) and its warps times its steps
+        (:func:`~brainevent_torch.ops.tracing.count_phases`); the loop
+        counts no phase."""
         if state is None:
             state = self.init_state()
         n_steps = int(n_steps)
         device = state.v.device
         route = 'sim' if device.type == 'cuda' else 'loop'
-        npt = hh_sim_grid(self.num, device)[0] if route == 'sim' else 0
+        npt, blocks = (hh_sim_grid(self.num, device) if route == 'sim'
+                       else (0, 0))
+        clocked = route == 'sim' and tracing.enabled()
         with tracing.span('brainevent_torch.HHNet.run', num=self.num,
                           n_steps=n_steps, route=route, npt=npt):
             p = self.step_params()
             with tracing.span('brainevent_torch.HHNet.copies'):
                 out = [x.to(dtype, copy=True) for x, dtype in zip(
                     state, (torch.float32,) * 6 + (torch.bool, torch.int32))]
+            extra = (dict(phases=torch.zeros(len(PHASES), dtype=torch.int64,
+                                             device=device))
+                     if clocked else {})
             with tracing.span('brainevent_torch.HHNet.launch'):
-                einet_sim_hh(*out, self.conn_all, n_steps, p, self.n_exc)
+                einet_sim_hh(*out, self.conn_all, n_steps, p, self.n_exc,
+                             **extra)
             tracing.count(NEURON_UPDATES, self.num * n_steps)
+            if clocked:
+                tracing.count_phases('HHNet', extra['phases'], PHASES,
+                                     blocks * SIM_BLOCK // 32 * n_steps)
         return HHNetState(*out)

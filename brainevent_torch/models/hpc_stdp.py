@@ -100,10 +100,12 @@ STATE_FIELDS = ('v', 'i_syn', 'di', 'ref', 'ring', 'spike_count', 'weights',
                 'kplus', 'khist', 'spiked')
 MAX_SYNAPSES = 2 ** 31 - 1  # the rows' positions are int32
 SPLIT_CHUNK = 1 << 25    # positions of the rows stdp_split searches at a time
-# the counters of a run, in the order of K24's (4,) buffer
+# the counters of a run, in the order of K24's buffer, then the phases of
+# its clocked instance (StdpPhase in csrc/stdp_sim.cu)
 COUNTERS = tuple(f'brainevent_torch.HpcStdpNet.{name}' for name in (
-    'depressions', 'facilitations', 'flush_facilitations',
-    'walk_busiest_block'))
+    'depressions', 'facilitations', 'flush_facilitations'))
+PHASES = ('update', 'walk', 'barrier', 'flush')
+HPC_COUNTS = len(COUNTERS) + len(PHASES)  # words of K24's counters buffer
 
 
 def _lambert_wm1(x: float) -> float:
@@ -326,9 +328,9 @@ def stdp_loop(v, i_syn, di, ref, ring, spike_count, weights, kplus, khist,
     """Plain PyTorch twin of K24, in place: *n_steps* steps from
     ``p.step0`` (see the module's docstring), each facilitation in the
     step d after its post spike, over the columns (:func:`stdp_columns`).
-    *counters* (int64, (4,)), where given, is set to the depressions and
-    facilitations made, and 0 twice: nothing is left to a flush, and the
-    loop has no blocks."""
+    *counters* (int64, ``(HPC_COUNTS,)``), where given, is set to the
+    depressions and facilitations made, and 0 in the rest: nothing is left
+    to a flush, and the loop has no phases."""
     col_ptr, col_pos, col_src = stdp_columns(targets, plastic_ptr)
     num, ne, d = p.num, p.n_exc, p.delay
     dmask = p.depth - 1
@@ -391,8 +393,8 @@ def stdp_loop(v, i_syn, di, ref, ring, spike_count, weights, kplus, khist,
             flat.index_add_(0, ((t + d) & dmask) * num + targets[es].long(),
                             units)
         if counters is not None:
-            counters += torch.tensor([ep.numel(), e.numel(), 0, 0],
-                                     device=counters.device)
+            counters[:2] += torch.tensor([ep.numel(), e.numel()],
+                                         device=counters.device)
         # 3. the spikes of t into the traces
         se = spike[:ne]
         kplus.copy_(torch.where(se, kp + 1.0, kp))
@@ -419,8 +421,8 @@ class StdpPlan(NamedTuple):
     a step's spiking rows (``dlists`` int32 ``(2, 2 num, 4)``, by parity:
     each row's line of the split plan, its source and the source's walk
     before; the plastic rows from the front, the static ones from the
-    back), their counters, the busiest block's work by parity and the
-    flush's ranges' counters (``counts`` int32, see :func:`stdp_counts`);
+    back), their counters by parity and the flush's ranges' counters
+    (``counts`` int32, see :func:`stdp_counts`);
     the K+ history of a launch (``kph`` float32 ``(steps / HPC_HTILE, NE,
     HPC_HTILE)``: K+ of each E neuron in each step before its spike, in
     tiles of HPC_HTILE steps); each E neuron's spike steps (``spikes``
@@ -442,10 +444,9 @@ class StdpPlan(NamedTuple):
 
 def stdp_counts(n_exc: int) -> int:
     """The counters of K24's scratch, by parity: the rows' lists' fronts
-    (their plastic rows), the largest work of a block in a step's walk, the
-    lists' backs (their static rows); then the flush's ranges', one a
-    chunk of HPC_BLOCK E rows."""
-    return 6 + -(-n_exc // HPC_BLOCK)
+    (their plastic rows), the lists' backs (their static rows); then the
+    flush's ranges', one a chunk of HPC_BLOCK E rows."""
+    return 4 + -(-n_exc // HPC_BLOCK)
 
 
 def stdp_plan(num: int, n_exc: int, steps: int, cap: int,
@@ -557,7 +558,11 @@ def _stdp_sim_cuda(op, v, i_syn, di, ref, ring, spike_count, weights, kplus,
                    counters: Optional[torch.Tensor] = None):
     """K24's launch of *n_steps*, at most ``scratch.steps``; *scratch* is a
     :func:`stdp_plan` of the network, its split plan for K24's grid on the
-    device (:func:`stdp_sim_grid`)."""
+    device (:func:`stdp_sim_grid`). Given *counters* (int64
+    ``(HPC_COUNTS,)``, zeroed), the launch takes K24's clocked instance,
+    which adds the launch's depressions, facilitations and the flush's
+    facilitations (:data:`COUNTERS`) and the grid's warps' ns in each of
+    :data:`PHASES` to it; without, the plain one, which counts nothing."""
     f, i = torch.float32, torch.int32
     tensors = [(v, f), (i_syn, f), (di, f), (ref, i), (ring, i),
                (spike_count, i), (weights, f), (kplus, f), (khist, f),
@@ -589,7 +594,8 @@ def _stdp_sim_cuda(op, v, i_syn, di, ref, ring, spike_count, weights, kplus,
             or scratch.recent.shape != (ne, 16)
             or scratch.last_walk.shape != (ne,)
             or scratch.split.shape != (2 * num, blocks + 1)
-            or (counters is not None and counters.shape != (4,))):
+            or (counters is not None
+                and counters.shape != (HPC_COUNTS,))):
         raise ValueError(f'{op.name}: state, rows and scratch do not match '
                          f'num={num}, NE={ne}, P={n_plastic}, D={depth}, '
                          f'a launch of {n_steps} steps and a grid of '
@@ -803,20 +809,19 @@ class HpcStdpNet:
         each launch's depressions, facilitations and facilitations made by
         its flush to the counters ``brainevent_torch.HpcStdpNet.depressions``,
         ``.facilitations`` and ``.flush_facilitations`` (0 on the loop,
-        which leaves none to a flush), and the sum over its steps of the
-        most work a block of K24's grid did in the step's walk (plastic
-        entries and the facilitations it made) to
-        ``.walk_busiest_block`` (0 on the loop, which has no blocks; its
-        ratio to the blocks' mean, ``busiest * blocks / (depressions +
-        facilitations - flush_facilitations)``, is the walk's balance).
-        On the card the counters are read back only when they are
-        drained."""
+        which leaves none to a flush). On the card the launches then take
+        K24's clocked instance, and each adds its warps' ns in each phase
+        of the step (update, walk, barrier, flush) and its warps times its
+        steps (:func:`~brainevent_torch.ops.tracing.count_phases`); the
+        loop counts no phase. The counters are read back from the card
+        only when they are drained."""
         if state is None:
             state = self.init_state()
         n_steps = int(n_steps)
         route = 'sim' if state.v.device.type == 'cuda' else 'loop'
-        npt = (-(-self.num // (stdp_sim_grid(self.num, state.v.device)
-                               * HPC_BLOCK)) if route == 'sim' else 0)
+        threads = (stdp_sim_grid(self.num, state.v.device) * HPC_BLOCK
+                   if route == 'sim' else 0)
+        npt = -(-self.num // threads) if threads else 0
         sizes = [min(self.launch_steps, n_steps - k)
                  for k in range(0, n_steps, self.launch_steps)] or [0]
         counting = tracing.enabled()
@@ -826,8 +831,8 @@ class HpcStdpNet:
             p = self.step_params(state.key, state.step)
             with tracing.span('brainevent_torch.HpcStdpNet.copies'):
                 out = [getattr(state, k).clone() for k in STATE_FIELDS]
-            counters = (torch.empty(len(sizes), 4, dtype=torch.int64,
-                                    device=state.v.device)
+            counters = (torch.zeros(len(sizes), HPC_COUNTS,
+                                    dtype=torch.int64, device=state.v.device)
                         if counting else None)
             extra = dict(scratch=self.plan) if route == 'sim' else {}
             with tracing.span('brainevent_torch.HpcStdpNet.launch'):
@@ -841,7 +846,11 @@ class HpcStdpNet:
                              else counters[c], **extra)
                     step += size
             if counting:
-                for row in counters:
+                for row, size in zip(counters, sizes):
                     for k, name in enumerate(COUNTERS):
                         tracing.count(name, row[k])
+                    if route == 'sim':
+                        tracing.count_phases(
+                            'HpcStdpNet', row[len(COUNTERS):], PHASES,
+                            threads // 32 * size)
         return HpcStdpState(*out, key=state.key, step=state.step + n_steps)

@@ -72,6 +72,8 @@ MC_MAX_POPS = 8          # populations K23 takes (MC_MAX_POPS in mc_sim.cu)
 MC_KMAX = 16             # Poisson thresholds a population (MC_KMAX)
 MC_BLOCK = 256           # threads a block of K23, one neuron each (MC_BLOCK)
 MC_LISTS = 3             # K23's lists of spiking rows, by step mod 3 (MC_LISTS)
+# the phases of K23's clocked instance (McPhase in csrc/mc_sim.cu)
+PHASES = ('update', 'scatter', 'barrier')
 T_MUL = 0x9E3779B9       # the hash's step and neuron multipliers
 I_MUL = 0x85EBCA6B
 
@@ -363,16 +365,19 @@ def mc_sim_grid(num: int, device: torch.device) -> int:
 
 
 def _mc_sim_cuda(op, v, i_syn, ref, ring, spike_count, row_ptr, targets,
-                 weights, delays, n_steps, p, plan: McPlan):
-    """K23's launch; *plan* is :func:`mc_plan` of the rows."""
+                 weights, delays, n_steps, p, plan: McPlan, phases=None):
+    """K23's launch; *plan* is :func:`mc_plan` of the rows. Given *phases*
+    (int64 ``(3,)``, zeroed), its clocked instance, which adds the grid's
+    warps' ns in each of :data:`PHASES` to it."""
     f, i = torch.float32, torch.int32
-    device = check_cuda_tensors(op.name, (v, f), (i_syn, f), (ref, i),
-                                (ring, i), (spike_count, i), (row_ptr, i),
-                                (targets, i), (weights, torch.int16),
-                                (delays, torch.uint8), (plan.near_ptr, i),
-                                (plan.near_targets, i),
-                                (plan.near_weights, torch.int16),
-                                (plan.lists, i), (plan.counts, i))
+    tensors = [(v, f), (i_syn, f), (ref, i), (ring, i), (spike_count, i),
+               (row_ptr, i), (targets, i), (weights, torch.int16),
+               (delays, torch.uint8), (plan.near_ptr, i),
+               (plan.near_targets, i), (plan.near_weights, torch.int16),
+               (plan.lists, i), (plan.counts, i)]
+    if phases is not None:
+        tensors.append((phases, torch.int64))
+    device = check_cuda_tensors(op.name, *tensors)
     num = p.num
     n_syn = targets.numel()
     n_near = plan.near_targets.numel()
@@ -382,11 +387,12 @@ def _mc_sim_cuda(op, v, i_syn, ref, ring, spike_count, row_ptr, targets,
             or plan.near_ptr.shape != (num + 1,)
             or plan.near_weights.numel() != n_near
             or plan.lists.shape != (MC_LISTS, num, 2)
-            or plan.counts.shape != (MC_LISTS,)):
+            or plan.counts.shape != (MC_LISTS,)
+            or (phases is not None and phases.shape != (len(PHASES),))):
         raise ValueError(f'{op.name}: state, ring {tuple(ring.shape)}, rows '
                          f'and plan do not match num={num}, D={p.depth}')
     blocks = mc_sim_grid(num, device)
-    fn = cuda_build.function('mc_sim_launch', [ctypes.c_void_p] * 14 + [
+    fn = cuda_build.function('mc_sim_launch', [ctypes.c_void_p] * 15 + [
         ctypes.c_int, ctypes.POINTER(McParams)] + [ctypes.c_int] * 2 + [
         ctypes.c_void_p])
     op.launch(fn, v.data_ptr(), i_syn.data_ptr(), ref.data_ptr(),
@@ -394,8 +400,9 @@ def _mc_sim_cuda(op, v, i_syn, ref, ring, spike_count, row_ptr, targets,
               targets.data_ptr(), weights.data_ptr(), delays.data_ptr(),
               plan.near_ptr.data_ptr(), plan.near_targets.data_ptr(),
               plan.near_weights.data_ptr(), plan.lists.data_ptr(),
-              plan.counts.data_ptr(), int(n_steps), ctypes.byref(p), blocks,
-              device.index or 0, cuda_stream(device))
+              plan.counts.data_ptr(),
+              None if phases is None else phases.data_ptr(), int(n_steps),
+              ctypes.byref(p), blocks, device.index or 0, cuda_stream(device))
 
 
 mc_sim = KernelOp('mc_sim', twin=mc_loop, cuda=_mc_sim_cuda,
@@ -544,12 +551,20 @@ class MicrocircuitNet:
         (attributes ``num``, ``n_steps``, ``route``: ``sim`` on a card,
         ``loop`` on the CPU, and ``grid_share``: the share of the synapses
         that K23's grid pass adds, those of delay >= 2) around ``.copies``
-        and ``.launch``."""
+        and ``.launch``. On the card the launch then takes K23's clocked
+        instance, and adds its warps' ns in each phase of the step (update,
+        scatter, barrier) and its warps times its steps
+        (:func:`~brainevent_torch.ops.tracing.count_phases`); the loop
+        counts no phase."""
         if state is None:
             state = self.init_state()
         route = 'sim' if state.v.device.type == 'cuda' else 'loop'
         # the twin reads the rows alone
         extra = dict(plan=self.plan) if route == 'sim' else {}
+        clocked = route == 'sim' and tracing.enabled()
+        if clocked:
+            extra['phases'] = torch.zeros(len(PHASES), dtype=torch.int64,
+                                          device=state.v.device)
         with tracing.span('brainevent_torch.MicrocircuitNet.run',
                           num=self.num, n_steps=int(n_steps), route=route,
                           grid_share=self.grid_share):
@@ -562,5 +577,9 @@ class MicrocircuitNet:
             with tracing.span('brainevent_torch.MicrocircuitNet.launch'):
                 mc_sim(*out, self.row_ptr, self.targets, self.weights,
                        self.delays, int(n_steps), p, **extra)
+            if clocked:
+                warps = mc_sim_grid(self.num, state.v.device) * MC_BLOCK // 32
+                tracing.count_phases('MicrocircuitNet', extra['phases'],
+                                     PHASES, warps * int(n_steps))
         return MicrocircuitState(*out, key=state.key,
                                  step=state.step + int(n_steps))

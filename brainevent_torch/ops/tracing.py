@@ -34,7 +34,18 @@ Beside the spans, an entry may add what its kernels counted to a named
 counter (:func:`count`), only while tracing is on (:func:`enabled`): a
 number, or a one-element tensor that stays where it is, so that the entry
 does not wait for the card. :func:`drain_counts` reads them back, returns
-the sums and forgets them.
+the sums and forgets them. :func:`session_counts` returns the sums of
+every value counted since the last :func:`enable`, whether or not they
+were drained since: the benchmark's metric readers read a traced run's
+counters there (``benchmark_torch/metrics``), whatever the run drained.
+
+The whole-trial kernels (K21's HH instance, K23, K24) have a clocked
+instance, which their entries launch exactly while tracing is on: each
+warp times its launch in the phases of the step, and the entry adds the
+grid's warps' ns in each phase to ``brainevent_torch.<Entry>.phase_ns.
+<phase>`` and the grid's warps times the launch's steps to
+``brainevent_torch.<Entry>.phase_warp_steps`` (:func:`count_phases`), so
+that their ratio is the mean warp's ns a step in the phase.
 """
 
 import itertools
@@ -44,7 +55,7 @@ from typing import NamedTuple, Optional
 import torch
 
 __all__ = ['Span', 'span', 'enable', 'disable', 'enabled', 'drain',
-           'count', 'drain_counts']
+           'count', 'drain_counts', 'session_counts', 'count_phases']
 
 
 class Span(NamedTuple):
@@ -61,6 +72,7 @@ class Span(NamedTuple):
 _enabled = False
 _finished = []
 _counts = {}
+_session = {}                   # every value counted since enable()
 _open = []                      # (span id, run id) of the open spans
 _ids = itertools.count()
 
@@ -92,13 +104,19 @@ class _Span:
         self.ids = (span_id, parent, run)
         _open.append((span_id, run))
         self.range = torch.profiler.record_function(self.name)
+        # Under the profiler the range's entry and exit take up to tens of
+        # µs, and the profiler stamps the range inside them: the span
+        # starts at the middle of the entry and ends after the exit, within
+        # a few µs of the profiler's stamps (the exit's stamp comes late
+        # in it).
+        before = time.time_ns()
         self.range.__enter__()
-        self.start_ns = time.time_ns()
+        self.start_ns = (before + time.time_ns()) // 2
         return self
 
     def __exit__(self, *exc):
-        end_ns = time.time_ns()
         self.range.__exit__(*exc)
+        end_ns = time.time_ns()
         _open.pop()
         _finished.append(Span(self.name, self.start_ns, end_ns, *self.ids,
                               self.attrs))
@@ -114,9 +132,11 @@ def span(name: str, **attrs):
 
 
 def enable() -> None:
-    """Record spans from now on."""
+    """Record spans from now on, and start a new session of counts
+    (:func:`session_counts`)."""
     global _enabled
     _enabled = True
+    _session.clear()
 
 
 def disable() -> None:
@@ -142,11 +162,33 @@ def count(name: str, value) -> None:
     :func:`drain_counts`) to the counter *name* while tracing is on."""
     if _enabled:
         _counts.setdefault(name, []).append(value)
+        _session.setdefault(name, []).append(value)
+
+
+def _sums(counts: dict) -> dict:
+    return {name: sum(int(v) for v in values)
+            for name, values in counts.items()}
 
 
 def drain_counts() -> dict:
     """``{counter: sum}`` (ints) since the last call, and forget them."""
-    out = {name: sum(int(v) for v in values)
-           for name, values in _counts.items()}
+    out = _sums(_counts)
     _counts.clear()
     return out
+
+
+def session_counts() -> dict:
+    """``{counter: sum}`` (ints) of every value counted since the last
+    :func:`enable`; :func:`drain_counts` does not clear them."""
+    return _sums(_session)
+
+
+def count_phases(entry: str, phases, names, warp_steps: int) -> None:
+    """Count a clocked launch of *entry*'s kernel: ``phases[k]`` (the
+    grid's warps' ns in the phase ``names[k]``) to
+    ``brainevent_torch.<entry>.phase_ns.<name>``, and *warp_steps* (the
+    grid's warps times the launch's steps) to
+    ``brainevent_torch.<entry>.phase_warp_steps``."""
+    for k, name in enumerate(names):
+        count(f'brainevent_torch.{entry}.phase_ns.{name}', phases[k])
+    count(f'brainevent_torch.{entry}.phase_warp_steps', warp_steps)

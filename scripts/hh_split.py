@@ -17,10 +17,16 @@ around one launch of ``--steps`` steps each:
   update costs the same whatever its input);
 - ``barrier``: ``--steps`` grid barriers alone on the same grid;
 - ``npt8``: ``whole`` on the instance of eight neurons a thread (two
-  blocks an SM), the variant the co-resident grid would take next.
+  blocks an SM), the variant the co-resident grid would take next;
+- ``clocked``: ``whole`` with the program's tracing on, so on the clocked
+  instance, whose warps time their update, scatter and barrier.
 
 ``update`` is ``no_rows - barrier`` and ``scatter`` is ``whole -
-no_rows``, in µs a step. It also prints the instance's grid, the E and I
+no_rows``, in µs a step. ``phases_us`` is the clocked launches' mean
+warp's time a step in each phase (their median), to compare with the
+subtraction (the in-kernel barrier holds the wait for the slowest block),
+and ``clocked_cost_pct`` the clocked launch's time over ``whole``'s. It
+also prints the instance's grid, the E and I
 rates and the spikes and hits a step over the timed steps of the first
 ``whole`` launch, and the memory peak.
 """
@@ -55,7 +61,7 @@ def main(argv=None) -> int:
     import torch
     import brainevent_torch as bt
     from brainevent_torch.models import hh_net as hn
-    from brainevent_torch.ops import cuda_build
+    from brainevent_torch.ops import cuda_build, tracing
     from brainevent_torch.ops.core import cuda_stream
 
     device = torch.device('cuda')
@@ -93,12 +99,27 @@ def main(argv=None) -> int:
         hn.einet_sim_hh(*out, net.conn_all, args.steps, p, net.n_exc, npt=8)
         return out
 
-    times = {'whole': [], 'no_rows': [], 'barrier': [], 'npt8': []}
-    first = None
+    def clocked():
+        tracing.enable()
+        try:
+            return net.run(args.steps, state=state)
+        finally:
+            tracing.disable()
+            tracing.drain()
+
+    times = {'whole': [], 'clocked': [], 'no_rows': [], 'barrier': [],
+             'npt8': []}
+    first, sessions = None, []
     for _ in range(args.turns):
         us, out = timed(lambda: net.run(args.steps, state=state))
         times['whole'].append(us)
         first = first or out
+        us, out_c = timed(clocked)
+        times['clocked'].append(us)
+        sessions.append(tracing.session_counts())
+        if not all(torch.equal(x, y) for x, y in zip(out_c, out)):
+            raise RuntimeError('the clocked instance differs from the plain '
+                               'one')
         times['no_rows'].append(timed(
             lambda: empty.run(args.steps, state=state))[0])
         times['barrier'].append(timed(barrier)[0])
@@ -111,6 +132,10 @@ def main(argv=None) -> int:
     seconds = args.steps * net.params.dt * 1e-3
     med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
     spikes = float(counts.sum()) / args.steps
+    warp_steps = blocks * hn.SIM_BLOCK // 32 * args.steps
+    phases_us = {name: sorted(c[f'brainevent_torch.HHNet.phase_ns.{name}']
+                              for c in sessions)[len(sessions) // 2]
+                 / warp_steps * 1e-3 for name in hn.PHASES}
     print(json.dumps(dict(
         device=torch.cuda.get_device_name(device), nvidia_smi=power_limit(),
         torch=torch.__version__, cuda=torch.version.cuda, scale=args.scale,
@@ -120,6 +145,8 @@ def main(argv=None) -> int:
         split_us=dict(update=med['no_rows'] - med['barrier'],
                       scatter=med['whole'] - med['no_rows'],
                       barrier=med['barrier']),
+        phases_us=phases_us, phases_sum_us=sum(phases_us.values()),
+        clocked_cost_pct=100 * (med['clocked'] / med['whole'] - 1),
         rates_hz=[float(counts[:net.n_exc].double().mean()) / seconds,
                   float(counts[net.n_exc:].double().mean()) / seconds],
         spikes_per_step=spikes, hits_per_step=spikes * net.conn_all.shape[1],

@@ -14,12 +14,18 @@ transient, then times in turns, by CUDA events around one launch of
 - ``no_rows``: K23 from the same state over the same neurons with every
   row empty, and so an empty delay-1 CSR and no row in the grid's lists:
   the same update, draw and barrier, no scatter;
-- ``barrier``: ``--steps`` grid barriers alone on K23's grid.
+- ``barrier``: ``--steps`` grid barriers alone on K23's grid;
+- ``clocked``: ``whole`` with the program's tracing on, so on K23's
+  clocked instance, whose warps time their update, scatter and barrier.
 
 ``update`` is ``no_rows - barrier`` and ``scatter`` is ``whole -
 no_rows``, in µs a step: the owner's walk of its spikes' delay-1 rows and
 the grid pass over the last step's list (its read, scan, loads and
-atomics). It also prints the populations' rates over the timed steps of
+atomics). ``phases_us`` is the clocked launches' mean warp's time a step
+in each phase (their median), to compare with the subtraction (the
+in-kernel barrier holds the wait for the slowest block), and
+``clocked_cost_pct`` the clocked launch's time over ``whole``'s. It also
+prints the populations' rates over the timed steps of
 the first ``whole`` launch, the spikes and synapse events a step, K23's
 grid and the memory peak.
 
@@ -105,7 +111,7 @@ def main(argv=None) -> int:
     import torch
     import brainevent_torch as bt
     from brainevent_torch.models import microcircuit as mc
-    from brainevent_torch.ops import cuda_build
+    from brainevent_torch.ops import cuda_build, tracing
     from brainevent_torch.ops.core import cuda_stream
 
     device = torch.device('cuda')
@@ -142,12 +148,27 @@ def main(argv=None) -> int:
         if err:
             raise RuntimeError(f'mc_sim_barriers_launch: CUDA error {err}')
 
-    times = {'whole': [], 'no_rows': [], 'barrier': []}
-    first = None
+    def clocked():
+        tracing.enable()
+        try:
+            return net.run(args.steps, state=state)
+        finally:
+            tracing.disable()
+            tracing.drain()
+
+    times = {'whole': [], 'clocked': [], 'no_rows': [], 'barrier': []}
+    first, sessions = None, []
     for _ in range(args.turns):
         us, out = timed(lambda: net.run(args.steps, state=state))
         times['whole'].append(us)
         first = first or out
+        us, out_c = timed(clocked)
+        times['clocked'].append(us)
+        sessions.append(tracing.session_counts())
+        if not all(torch.equal(getattr(out_c, k), getattr(out, k))
+                   for k in ('v', 'i_syn', 'ref', 'ring', 'spike_count')):
+            raise RuntimeError('the clocked instance differs from the plain '
+                               'one')
         times['no_rows'].append(timed(
             lambda: empty.run(args.steps, state=state))[0])
         times['barrier'].append(timed(barrier)[0])
@@ -155,6 +176,11 @@ def main(argv=None) -> int:
     degree = (net.row_ptr[1:] - net.row_ptr[:-1]).to(torch.int64)
     seconds = args.steps * net.params.dt * 1e-3
     med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    warp_steps = blocks * mc.MC_BLOCK // 32 * args.steps
+    phases_us = {
+        name: sorted(c[f'brainevent_torch.MicrocircuitNet.phase_ns.{name}']
+                     for c in sessions)[len(sessions) // 2]
+        / warp_steps * 1e-3 for name in mc.PHASES}
     print(json.dumps(dict(
         device=torch.cuda.get_device_name(device), nvidia_smi=power_limit(),
         torch=torch.__version__, cuda=torch.version.cuda, scale=args.scale,
@@ -164,6 +190,8 @@ def main(argv=None) -> int:
         split_us=dict(update=med['no_rows'] - med['barrier'],
                       scatter=med['whole'] - med['no_rows'],
                       barrier=med['barrier']),
+        phases_us=phases_us, phases_sum_us=sum(phases_us.values()),
+        clocked_cost_pct=100 * (med['clocked'] / med['whole'] - 1),
         rates_hz=[float(counts[a:b].double().mean()) / seconds for a, b in
                   zip(net.pop_start[:-1], net.pop_start[1:])],
         spikes_per_step=float(counts.sum()) / args.steps,

@@ -1,6 +1,7 @@
 """K24's step on the card, split into its parts: the step with its walk,
 the update with the Poisson draw (and the barriers), the two grid barriers
-alone, and the launch's flush.
+alone, and the launch's flush; beside it, the clocked instance's own
+phases of the same launch.
 
     python3 scripts/stdp_split.py [--scale 10] [--steps 5000] [--warm 2000] \\
         [--seed 7] [--turns 3]
@@ -13,6 +14,8 @@ launch each (``stdp_sim`` on copies of the state, so not ``run``'s copy
 of the weights), from that state:
 
 - ``whole``: K24 over the network, ``--steps`` steps;
+- ``clocked``: the same launch of K24's clocked instance (the one a traced
+  ``run`` takes), whose warps time their update, walk, barriers and flush;
 - ``half``: the same over half as many steps;
 - ``no_rows``: K24 over the same neurons with every row empty: the same
   update, draw, traces and barriers, no walk and nothing to flush (the
@@ -22,12 +25,15 @@ of the weights), from that state:
 A launch is its steps and one flush, so ``step`` is ``(whole - half)``
 over the steps between them, and ``flush`` (ms a launch) ``whole`` less
 ``--steps`` of them. ``update`` is ``no_rows - barrier`` and ``row_walk``
-``step - no_rows``, in µs a step. It also prints the populations' rates
-over the first ``whole`` launch, its spikes, deliveries, depressions and
-facilitations a step (K24's counters), the share of the facilitations the
-flush made, the walk's balance (``walk_balance``: the busiest block's work
-a step, its plastic entries and facilitations, over the blocks' mean),
-K24's grid, the split plan's bytes and the memory peak.
+``step - no_rows``, in µs a step. ``phases_us`` is the clocked launches'
+mean warp's time a step in each phase (their median), to compare with the
+subtraction (the in-kernel barrier holds the wait for the slowest block,
+which the subtraction puts in the walk), and ``clocked_cost_pct`` the
+clocked launch's time over ``whole``'s. It also prints the populations'
+rates over the first ``whole`` launch, its spikes, deliveries,
+depressions and facilitations a step (the clocked instance's counters),
+the share of the facilitations the flush made, K24's grid, the split
+plan's bytes and the memory peak.
 """
 
 import argparse
@@ -108,15 +114,21 @@ def main(argv=None) -> int:
         if err:
             raise RuntimeError(f'mc_sim_barriers_launch: CUDA error {err}')
 
-    ms = {'whole': [], 'half': [], 'no_rows': [], 'barrier': []}
-    first = None
-    counters = torch.zeros(4, dtype=torch.int64, device=device)
+    ms = {'whole': [], 'clocked': [], 'half': [], 'no_rows': [],
+          'barrier': []}
+    first, counters = None, []
     for turn in range(args.turns):
-        x, out = launch(net, state, args.steps,
-                        counters if turn == 0 else None)
+        x, out = launch(net, state, args.steps)
         if turn == 0:
             first = out
         ms['whole'].append(x)
+        counters.append(torch.zeros(hs.HPC_COUNTS, dtype=torch.int64,
+                                    device=device))
+        x, clocked = launch(net, state, args.steps, counters[-1])
+        ms['clocked'].append(x)
+        if not all(torch.equal(clocked[k], out[k]) for k in out):
+            raise RuntimeError('the clocked instance differs from the plain '
+                               'one')
         ms['half'].append(launch(net, state, half)[0])
         ms['no_rows'].append(launch(empty, bare, args.steps)[0])
         ms['barrier'].append(timed(barrier)[0])
@@ -124,8 +136,11 @@ def main(argv=None) -> int:
     step_us = (med['whole'] - med['half']) * 1e3 / (args.steps - half)
     no_rows_us = med['no_rows'] * 1e3 / args.steps
     barrier_us = med['barrier'] * 1e3 / args.steps
-    dep, fac, flush, busiest = counters.tolist()
-    walk_work = dep + fac - flush
+    dep, fac, flush = counters[0][:len(hs.COUNTERS)].tolist()
+    warp_steps = blocks * hs.HPC_BLOCK // 32 * args.steps
+    phases_us = {name: sorted(int(c[len(hs.COUNTERS) + k]) for c in counters)[
+        len(counters) // 2] / warp_steps * 1e-3
+        for k, name in enumerate(hs.PHASES)}
     spikes = (first['spike_count'] - state.spike_count).to(torch.int64)
     degree = (net.static_ptr[1:] - net.static_ptr[:-1]).to(torch.int64)
     degree[:net.n_exc] += (net.plastic_ptr[1:]
@@ -140,12 +155,15 @@ def main(argv=None) -> int:
         half=half, warm=args.warm, build_s=build_s,
         launch_ms=ms, us_per_step=dict(
             whole=med['whole'] * 1e3 / args.steps, step=step_us,
-            no_rows=no_rows_us, barrier=barrier_us),
+            no_rows=no_rows_us, barrier=barrier_us,
+            clocked=med['clocked'] * 1e3 / args.steps),
         split_us=dict(update=no_rows_us - barrier_us,
                       row_walk=step_us - no_rows_us, barrier=barrier_us,
                       flush_amortized=(med['whole'] * 1e3
                                        - args.steps * step_us) / args.steps),
         flush_ms=med['whole'] - args.steps * step_us * 1e-3,
+        phases_us=phases_us, phases_sum_us=sum(phases_us.values()),
+        clocked_cost_pct=100 * (med['clocked'] / med['whole'] - 1),
         rates_hz=dict(e=float(spikes[:net.n_exc].double().mean()) / seconds,
                       i=float(spikes[net.n_exc:].double().mean()) / seconds),
         spikes_per_step=float(spikes.sum()) / args.steps,
@@ -153,8 +171,6 @@ def main(argv=None) -> int:
         depressions_per_step=dep / args.steps,
         facilitations_per_step=fac / args.steps,
         flush_share=flush / fac if fac else None,
-        walk_busiest_block_per_step=busiest / args.steps,
-        walk_balance=busiest * blocks / walk_work if walk_work else None,
         split_bytes=net.plan.split.numel() * net.plan.split.element_size(),
         weights_after=dict(mean=float(first['weights'].double().mean()),
                            sd=float(first['weights'].double().std())),

@@ -594,3 +594,40 @@ def parent_sharded_run(snet, state, n_steps, inp=20.0):
     return nw.einet_loop(*(x.to_local() for x in state),
                          snet.times(n_steps), snet.step_params(inp),
                          propagate)
+
+
+def clocked_run(run, device, kernel):
+    """``run()`` with the program's tracing on (so its whole-trial kernel
+    takes its clocked instance), under the profiler: ``(its result, the
+    session's counts, kernel's device seconds in the trace)``, the kernel
+    found by the start of its name."""
+    from benchmark_torch.harness import trace
+    from brainevent_torch.ops import tracing
+    tracing.drain()
+    tracing.drain_counts()
+    tracing.enable()
+    try:
+        out, profile = trace.profile(run, device)
+    finally:
+        tracing.disable()
+    tracing.drain()
+    seconds = sum(s for name, s in profile.device_ops
+                  if name.startswith(kernel))
+    return out, tracing.session_counts(), seconds
+
+
+def check_phases(counts, entry, phases, warp_steps, seconds, n_steps):
+    """The clocked launches' counts of *entry*: its phases and the grid's
+    warps times the steps (*warp_steps*), each phase a positive time, and
+    the phases of the mean warp a step within 3% of the kernel's device
+    time a step (*seconds* over *n_steps*): the phase clocks tile the
+    launch on the device trace's clock. Returns the phases' µs a step."""
+    prefix = f'brainevent_torch.{entry}.phase_'
+    assert counts[prefix + 'warp_steps'] == warp_steps
+    us = {name: counts[f'{prefix}ns.{name}'] / warp_steps * 1e-3
+          for name in phases}
+    assert all(x > 0 for x in us.values()), us
+    device_us = seconds * 1e6 / n_steps
+    assert abs(sum(us.values()) - device_us) <= 0.03 * device_us, (
+        us, device_us)
+    return us

@@ -313,8 +313,43 @@ def test_the_wrappers_pass_what_the_c_entry_points_take(monkeypatch):
         assert hn.hh_math_cuda(torch.ones(5), 'expm1').shape == (5,)
     finally:
         hn._max_blocks.cache_clear()
-    assert seen == {'einet_sim_hh_max_blocks': 3, 'einet_sim_hh_launch': 18,
+    assert seen == {'einet_sim_hh_max_blocks': 3, 'einet_sim_hh_launch': 19,
                     'einet_sim_hh_math_launch': 6}
+
+
+@pytest.mark.parametrize('phases', [None, 3, 2])
+def test_the_wrapper_takes_the_clocked_instance_with_phases(monkeypatch,
+                                                            phases):
+    """Given a buffer of the three phases, the wrapper passes it as the C
+    entry's ``phases`` (the clocked instance); without, null (the plain
+    one); a buffer of another size is refused before K21 is called."""
+    sig = SIM[SIM.index('BE_EXPORT int einet_sim_hh_launch('):]
+    names = re.findall(r'(\w+)[,)]', sig[:sig.index('{')])
+    seen = []
+
+    def function(name, argtypes, restype=ctypes.c_int):
+        def fn(*cargs):
+            seen.append(cargs)
+            return 0
+        return fn
+    monkeypatch.setattr(cuda_build, 'function', function)
+    monkeypatch.setattr(hn, 'cuda_stream', lambda device: None)
+    net, inputs = setup(0.05)
+    out = [x.clone() for x in program_state(inputs['states'][0])]
+    buf = (None if phases is None
+           else torch.zeros(phases, dtype=torch.int64))
+    call = lambda: hn._einet_sim_hh_cuda(  # noqa: E731
+        hn.einet_sim_hh, *out, net.conn_all, 10, net.step_params(),
+        net.n_exc, npt=1, blocks=1, phases=buf)
+    if phases == 2:
+        with pytest.raises(ValueError, match='do not match'):
+            call()
+        assert seen == []
+        return
+    call()
+    assert len(hn.PHASES) == 3
+    assert seen[0][names.index('phases')] == (
+        None if buf is None else buf.data_ptr())
 
 
 @pytest.mark.parametrize('case', ['npt', 'blocks', 'conn', 'armed'])
@@ -388,6 +423,27 @@ def twin_run(net, state, n_steps):
 def assert_same(got, want):
     for k in bt.HHNetState._fields:
         assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scale', [1.0, 100.0], ids=['4k', '400k'])
+def test_k21_hh_clocked_instance_is_the_plain_one_and_tiles_its_time(
+        cuda_device, scale):
+    """With tracing on, ``run`` takes K21's clocked HH instance on the same
+    grid: bit for bit the plain instance's state from the same state over
+    2,000 steps, and its warps' phases a step (update, scatter, barrier)
+    within 3% of the kernel's device time a step in the profiler's trace
+    of the same launch."""
+    from _torch_card import check_phases, clocked_run
+    net, inputs = setup(scale, cuda_device)
+    state = program_state(inputs['states'][1])
+    plain = net.run(2000, state=state)
+    got, counts, seconds = clocked_run(lambda: net.run(2000, state=state),
+                                       cuda_device, 'einet_sim_hh_kernel')
+    assert_same(got, plain)
+    npt, blocks = hn.hh_sim_grid(net.num, cuda_device)
+    check_phases(counts, 'HHNet', hn.PHASES, blocks * hn.SIM_BLOCK // 32
+                 * 2000, seconds, 2000)
 
 
 @pytest.mark.cuda

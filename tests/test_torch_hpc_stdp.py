@@ -245,15 +245,15 @@ def test_the_plan_holds_each_columns_synapses_in_order():
 
 def test_the_plan_is_k24s_scratch():
     """:func:`stdp_plan`: the rows' lists (line, source, walk before) by
-    parity, their fronts' and backs' counters, the busiest block's work by
-    parity and the flush's counters, the K+ history in whole tiles, the
+    parity, their fronts' and backs' counters by parity and the flush's
+    counters, the K+ history in whole tiles, the
     spike lists, records and last walks, and the split plan it is given."""
     split = torch.zeros(100, 4, dtype=torch.int32)
     plan = hs.stdp_plan(50, 40, 100, 37, split)
     assert plan.steps == 104
     assert plan.dlists.shape == (2, 100, 4)
-    assert plan.counts.shape == (2 + 2 + 2 + 1,)
-    assert hs.stdp_counts(90_000) == 2 + 2 + 2 + 352
+    assert plan.counts.shape == (2 + 2 + 1,)
+    assert hs.stdp_counts(90_000) == 2 + 2 + 352
     assert plan.split is split
     assert plan.kph.shape == (13, 40, hs.HPC_HTILE)
     assert plan.kph.dtype == torch.float32
@@ -489,7 +489,7 @@ def test_run_splits_a_trial_into_launches_of_at_most_launch_steps(
                                     for k in range(len(sizes))]
     assert got.step == state.step + n_steps
     want = [getattr(state, k).clone() for k in hs.STATE_FIELDS]
-    counters = torch.zeros(4, dtype=torch.int64)
+    counters = torch.zeros(hs.HPC_COUNTS, dtype=torch.int64)
     twin(*want, net.targets, net.plastic_ptr, net.static_ptr, n_steps,
          net.step_params(state.key, state.step), counters=counters)
     for k, x in zip(hs.STATE_FIELDS, want):
@@ -610,8 +610,7 @@ def test_the_run_records_its_spans_and_counts():
     assert tracing.drain_counts() == {
         'brainevent_torch.HpcStdpNet.depressions': dep,
         'brainevent_torch.HpcStdpNet.facilitations': fac,
-        'brainevent_torch.HpcStdpNet.flush_facilitations': 0,
-        'brainevent_torch.HpcStdpNet.walk_busiest_block': 0}
+        'brainevent_torch.HpcStdpNet.flush_facilitations': 0}
     assert dep > 0 and fac > 0
     net.run(5, state=out)
     assert tracing.drain() == [] and tracing.drain_counts() == {}
@@ -659,7 +658,8 @@ def test_the_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
         hs._stdp_sim_cuda(hs.stdp_sim, *out, net.targets, net.plastic_ptr,
                           net.static_ptr, 10, net.step_params(1, 0),
                           scratch=plan,
-                          counters=torch.zeros(4, dtype=torch.int64))
+                          counters=torch.zeros(hs.HPC_COUNTS,
+                                               dtype=torch.int64))
         assert hs.stdp_sim.launches == before + 1
         x = hs.stdp_pow_cuda(torch.ones(5), 0.4)
         assert x.shape == (5,)
@@ -734,7 +734,7 @@ def test_the_wrapper_refuses_scratch_that_does_not_fit(monkeypatch, case):
     s = program_state(inputs['states'][0])
     out = [getattr(s, k).clone() for k in hs.STATE_FIELDS]
     plan, n_steps = _plan(net), 16
-    counters = torch.zeros(4, dtype=torch.int64)
+    counters = torch.zeros(hs.HPC_COUNTS, dtype=torch.int64)
     if case in BAD_SCRATCH:
         plan = BAD_SCRATCH[case](net, plan)
     elif case == 'counters of two':
@@ -814,18 +814,18 @@ def traced_run(net, state, n_steps):
 
 def check_counts(counts, counters, net):
     """K24's counters against the twin's: the same depressions and
-    facilitations, a share of the latter made by the flush, and the
-    busiest block's work of the walks (its plastic entries and
-    facilitations, a step's largest, summed over the steps) between the
-    blocks' mean and the grid's whole work."""
-    dep, fac, none, no_blocks = counters.tolist()
-    assert none == 0 and no_blocks == 0 and dep > 0 and fac > 0
+    facilitations, a share of the latter made by the flush; and each
+    phase of the clocked launches' warps a positive time, over the grid's
+    warps times the run's steps."""
+    dep, fac, *rest = counters.tolist()
+    assert rest == [0] * len(rest) and dep > 0 and fac > 0
     flush = counts.pop('brainevent_torch.HpcStdpNet.flush_facilitations')
     assert 0 < flush < fac
-    busiest = counts.pop('brainevent_torch.HpcStdpNet.walk_busiest_block')
-    work = dep + fac - flush
-    blocks = hs.stdp_sim_grid(net.num, net.device)
-    assert work <= busiest * blocks and busiest <= work, (busiest, work)
+    prefix = 'brainevent_torch.HpcStdpNet.phase_'
+    phases = {k: counts.pop(k) for k in list(counts) if k.startswith(prefix)}
+    assert set(phases) == {prefix + 'warp_steps'} | {
+        f'{prefix}ns.{name}' for name in hs.PHASES}
+    assert all(v > 0 for v in phases.values()), phases
     assert counts == {'brainevent_torch.HpcStdpNet.depressions': dep,
                       'brainevent_torch.HpcStdpNet.facilitations': fac}
 
@@ -850,7 +850,8 @@ def test_k24_is_the_twin_bit_for_bit(cuda_device, scale, warm, n_steps):
     launches = core.launch_counts()
     assert launches['stdp_sim'] == 1 and sum(launches.values()) == 1, launches
     again = net.run(n_steps, state=state)
-    counters = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    counters = torch.zeros(hs.HPC_COUNTS, dtype=torch.int64,
+                           device=cuda_device)
     want = twin_run(net, state, n_steps, counters)
     for k, x in zip(hs.STATE_FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
@@ -858,6 +859,28 @@ def test_k24_is_the_twin_bit_for_bit(cuda_device, scale, warm, n_steps):
     assert int((got.spike_count - state.spike_count).sum()) > 0
     assert not torch.equal(got.weights, state.weights)
     check_counts(counts, counters, net)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scale', [0.1, 10.0], ids=['0.1', '10'])
+def test_k24_clocked_instance_is_the_plain_one_and_tiles_its_time(
+        cuda_device, scale):
+    """With tracing on, ``run`` takes K24's clocked instance on the same
+    grid: bit for bit the plain instance's state from the same state over
+    1,000 steps, and its warps' phases a step (update, walk, barrier,
+    flush) within 3% of K24's device time a step in the profiler's trace
+    of the same launch."""
+    from _torch_card import check_phases, clocked_run
+    net, inputs, _ = full_setup(scale, cuda_device)
+    state = program_state(inputs['states'][1])
+    plain = net.run(1000, state=state)
+    got, counts, seconds = clocked_run(lambda: net.run(1000, state=state),
+                                       cuda_device, 'stdp_sim_kernel')
+    for k in hs.STATE_FIELDS:
+        assert torch.equal(getattr(got, k), getattr(plain, k)), k
+    warps = hs.stdp_sim_grid(net.num, cuda_device) * hs.HPC_BLOCK // 32
+    check_phases(counts, 'HpcStdpNet', hs.PHASES, warps * 1000, seconds,
+                 1000)
 
 
 @pytest.mark.cuda
@@ -877,7 +900,8 @@ def test_k24_takes_two_neurons_a_thread(cuda_device, monkeypatch):
     assert net.plan.split.shape == (2 * net.num, blocks + 1)
     got, root, counts = traced_run(net, state, 500)
     assert root.attrs['npt'] == 2 and root.attrs['route'] == 'sim'
-    counters = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    counters = torch.zeros(hs.HPC_COUNTS, dtype=torch.int64,
+                           device=cuda_device)
     want = twin_run(net, state, 500, counters)
     for k, x in zip(hs.STATE_FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
@@ -901,7 +925,8 @@ def test_k24_walks_a_grid_of_more_blocks_than_i_neurons(cuda_device,
     state = program_state(inputs['states'][0])
     got, root, counts = traced_run(net, state, 500)
     assert root.attrs['npt'] == 1
-    counters = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    counters = torch.zeros(hs.HPC_COUNTS, dtype=torch.int64,
+                           device=cuda_device)
     want = twin_run(net, state, 500, counters)
     for k, x in zip(hs.STATE_FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
@@ -945,7 +970,8 @@ def test_k24_splits_a_trial_longer_than_a_launch(cuda_device, monkeypatch,
     got, _, counts = traced_run(net, state, 300)
     torch.cuda.synchronize()
     assert core.launch_counts()['stdp_sim'] == 4
-    counters = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    counters = torch.zeros(hs.HPC_COUNTS, dtype=torch.int64,
+                           device=cuda_device)
     want = twin_run(net0, state, 300, counters)
     for k, x in zip(hs.STATE_FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
@@ -970,7 +996,8 @@ def test_k24_catches_up_rows_silent_for_long(cuda_device, monkeypatch,
     ref[:net.n_exc // 8] = 10 ** 6
     state = state._replace(ref=ref, v=torch.where(ref > 0, 0.0, state.v))
     got, _, counts = traced_run(net, state, 900)
-    counters = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    counters = torch.zeros(hs.HPC_COUNTS, dtype=torch.int64,
+                           device=cuda_device)
     want = twin_run(net, state, 900, counters)
     for k, x in zip(hs.STATE_FIELDS, want):
         assert torch.equal(getattr(got, k), x), k

@@ -402,7 +402,45 @@ def test_the_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
         assert mc.mc_sim.launches == before + 1
     finally:
         mc._max_blocks.cache_clear()
-    assert seen == {'mc_sim_max_blocks': 2, 'mc_sim_launch': 19}
+    assert seen == {'mc_sim_max_blocks': 2, 'mc_sim_launch': 20}
+
+
+@pytest.mark.parametrize('phases', [None, 3, 4])
+def test_the_wrapper_takes_the_clocked_instance_with_phases(monkeypatch,
+                                                            phases):
+    """Given a buffer of the three phases, the wrapper passes it as the C
+    entry's ``phases`` (the clocked instance); without, null (the plain
+    one); a buffer of another size is refused before K23 is called."""
+    text = (ROOT / 'brainevent_torch' / 'csrc' / 'mc_sim.cu').read_text()
+    sig = text[text.index('BE_EXPORT int mc_sim_launch('):]
+    names = re.findall(r'(\w+)[,)]', sig[:sig.index('{')])
+    seen = []
+
+    def function(name, argtypes, restype=ctypes.c_int):
+        def fn(*cargs):
+            seen.append(cargs)
+            return 0
+        return fn
+    monkeypatch.setattr(cuda_build, 'function', function)
+    monkeypatch.setattr(mc, 'cuda_stream', lambda device: None)
+    monkeypatch.setattr(mc, 'mc_sim_grid', lambda num, device: 7)
+    net, inputs = setup(0.02)
+    s = program_state(inputs['states'][0])
+    out = [x.clone() for x in (s.v, s.i_syn, s.ref, s.ring, s.spike_count)]
+    buf = (None if phases is None
+           else torch.zeros(phases, dtype=torch.int64))
+    call = lambda: mc._mc_sim_cuda(  # noqa: E731
+        mc.mc_sim, *out, net.row_ptr, net.targets, net.weights, net.delays,
+        10, net.step_params(1, 0), plan=net.plan, phases=buf)
+    if phases == 4:
+        with pytest.raises(ValueError, match='do not match'):
+            call()
+        assert seen == []
+        return
+    call()
+    assert len(mc.PHASES) == 3
+    assert seen[0][names.index('phases')] == (
+        None if buf is None else buf.data_ptr())
 
 
 def test_a_grid_that_cannot_be_co_resident_is_refused(monkeypatch):
@@ -452,6 +490,27 @@ def test_k23_is_the_twin_bit_for_bit(cuda_device, scale, warm):
         assert torch.equal(getattr(got, k), want), k
         assert torch.equal(getattr(again, k), want), k
     assert int((got.spike_count - state.spike_count).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_k23_clocked_instance_is_the_plain_one_and_tiles_its_time(
+        cuda_device):
+    """With tracing on, ``run`` takes K23's clocked instance on the same
+    grid, at full scale: bit for bit the plain instance's state from the
+    same state over 2,000 steps, and its warps' phases a step (update,
+    scatter, barrier) within 3% of K23's device time a step in the
+    profiler's trace of the same launch."""
+    from _torch_card import check_phases, clocked_run
+    net, inputs = setup(1.0, cuda_device)
+    state = program_state(inputs['states'][1])
+    plain = net.run(2000, state=state)
+    got, counts, seconds = clocked_run(lambda: net.run(2000, state=state),
+                                       cuda_device, 'mc_sim_kernel')
+    for k in ref.FIELDS:
+        assert torch.equal(getattr(got, k), getattr(plain, k)), k
+    warps = mc.mc_sim_grid(net.num, cuda_device) * mc.MC_BLOCK // 32
+    check_phases(counts, 'MicrocircuitNet', mc.PHASES, warps * 2000,
+                 seconds, 2000)
 
 
 @pytest.mark.cuda

@@ -200,7 +200,7 @@ def test_cu_sources_ship_as_package_data():
                        'mega_counts.cu', 'csr_rows.cuh', 'einet_sim.cu',
                        'einet_neuron.cuh', 'einet_scatter.cuh',
                        'einet_shard.cu', 'mc_sim.cu', 'sim_grid.cuh',
-                       'stdp_sim.cu', 'hh_neuron.cuh'}
+                       'stdp_sim.cu', 'hh_neuron.cuh', 'phase_clock.cuh'}
     assert cfg['project']['optional-dependencies']['torch'] == ['torch']
 
 

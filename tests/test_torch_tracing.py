@@ -138,6 +138,115 @@ def test_spans_on_the_profilers_clock(net):
         assert abs(s.end_ns - e.end_ns()) < 200_000, s.name
 
 
+def test_session_counts_survive_drain_counts_until_enable():
+    """``session_counts`` sums every value counted since the last
+    ``enable``: ``drain_counts`` does not clear it, the next ``enable``
+    does, and nothing is counted while tracing is off."""
+    tracing.drain_counts()
+    tracing.count('brainevent_torch.off', 5)
+    tracing.enable()
+    assert tracing.session_counts() == {}
+    tracing.count('brainevent_torch.a', 2)
+    tracing.count('brainevent_torch.a', torch.tensor([3]))
+    assert tracing.drain_counts() == {'brainevent_torch.a': 5}
+    tracing.count('brainevent_torch.b', torch.tensor(7))
+    tracing.disable()
+    tracing.count('brainevent_torch.a', 100)
+    assert tracing.drain_counts() == {'brainevent_torch.b': 7}
+    assert tracing.session_counts() == {'brainevent_torch.a': 5,
+                                        'brainevent_torch.b': 7}
+    assert tracing.session_counts() == {'brainevent_torch.a': 5,
+                                        'brainevent_torch.b': 7}
+    tracing.enable()
+    assert tracing.session_counts() == {}
+    tracing.disable()
+
+
+def test_count_phases_names_each_phase_and_the_warps_steps():
+    tracing.drain_counts()
+    tracing.enable()
+    tracing.count_phases('Net', torch.tensor([10, 20, 30]),
+                         ('update', 'scatter', 'barrier'), 64)
+    tracing.count_phases('Net', [1, 2, 3], ('update', 'scatter', 'barrier'),
+                         16)
+    tracing.disable()
+    assert tracing.drain_counts() == {
+        'brainevent_torch.Net.phase_ns.update': 11,
+        'brainevent_torch.Net.phase_ns.scatter': 22,
+        'brainevent_torch.Net.phase_ns.barrier': 33,
+        'brainevent_torch.Net.phase_warp_steps': 80}
+
+
+def _tiny(entry):
+    """A small network of *entry* on the CPU (its twin loop)."""
+    import brainevent_torch as bt
+    if entry == 'HpcStdpNet':
+        return bt.HpcStdpNet(scale=0.02, device='cpu',
+                             params=bt.HpcStdpParams(ce=90, ci=22))
+    if entry == 'HHNet':
+        return bt.HHNet(scale=0.05, device='cpu')
+    return bt.MicrocircuitNet(scale=0.02, device='cpu')
+
+
+WHOLE_TRIAL = ['HpcStdpNet', 'HHNet', 'MicrocircuitNet']
+
+
+@pytest.mark.parametrize('entry', WHOLE_TRIAL)
+def test_the_cpu_loops_count_no_phase(entry):
+    """The whole-trial entries' loops on the CPU have no phase clocks:
+    traced, they count nothing under ``phase_``."""
+    net = _tiny(entry)
+    tracing.enable()
+    try:
+        net.run(30)
+    finally:
+        tracing.disable()
+    tracing.drain()
+    counts = tracing.session_counts()
+    assert not [k for k in counts if '.phase_' in k], counts
+    assert tracing.drain_counts() == counts
+
+
+@pytest.mark.parametrize('entry', WHOLE_TRIAL)
+def test_whole_trial_spans_on_the_profilers_clock(entry):
+    """Each span of a whole-trial entry starts and ends within 50 µs of the
+    profiler's ``record_function`` event of the same name: the spans read
+    the clock of the profiler's host events. A run's events are compared
+    after a first profiled run (the profiler's set-up) with the garbage
+    collector off; of three runs the closest counts, so that a stall of
+    this host between a clock read and its range is no offset of the
+    clocks, which every run would show."""
+    net = _tiny(entry)
+
+    def run():
+        tracing.enable()
+        try:
+            net.run(20)
+        finally:
+            tracing.disable()
+    _profiled(run)
+    tracing.drain()
+    worst = []
+    for _ in range(3):
+        gc.collect()
+        gc.disable()
+        try:
+            events = _profiled(run)
+        finally:
+            gc.enable()
+        spans = tracing.drain()
+        names = [PREFIX + entry + '.' + n for n in ('run', 'copies',
+                                                     'launch')]
+        assert [s.name for s in spans] == names
+        by_name = {e.name(): e for e in events
+                   if e.name().startswith(PREFIX)}
+        assert set(by_name) == set(names)
+        worst.append(max(max(abs(s.start_ns - by_name[s.name].start_ns()),
+                             abs(s.end_ns - by_name[s.name].end_ns()))
+                         for s in spans))
+    assert min(worst) < 50_000, worst
+
+
 def test_span_left_by_an_exception_is_closed():
     tracing.enable()
     with pytest.raises(ValueError):
