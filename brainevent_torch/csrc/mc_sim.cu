@@ -26,53 +26,57 @@
 // thread: a persistent, cooperative grid (every block co-resident, or the
 // launch is refused) crossed by one grid.sync() a step; thread i owns
 // neuron i and keeps its V, I, ref, spike count and row bounds in
-// registers for the whole trial. The launch bounds (three blocks an SM)
-// cap a thread at 80 registers, so that at least 396 blocks of MC_BLOCK
-// (101,376 neurons, scale 1.31) are co-resident on an H100's 132 SMs;
-// mc_sim_max_blocks reads how many (528 at its 56). One barrier a step
-// is enough: since d >= 1 and D > d, no scatter of step t writes the slot
-// step t reads and clears, and every write into that slot came before the
-// previous barrier. The ring, which other blocks' atomics wrote in this
-// launch, is read past L1 (__ldcg); the rows through the read-only path.
+// registers for the whole trial. The launch bounds (four blocks an SM)
+// cap a thread at 64 registers, so that 528 blocks of MC_BLOCK (135,168
+// neurons, scale 1.75) are co-resident on an H100's 132 SMs, as
+// mc_sim_max_blocks reads (396 at the 72 that three blocks an SM let the
+// compiler take, and ran no faster). The ring, which other
+// blocks' atomics wrote in this launch, is read past L1 (__ldcg); the rows
+// through the read-only path.
 //
 // Rows are long (~3.9k synapses a neuron at full scale, 6.5k from L4I,
 // against K21's 80), and the rows (2.09 GB) lie past L2; ~25 spikes and
 // 97k synapse events a step move ~680 KB. When a spike's block added its
 // whole row in the step of the spike, the step waited for one SM's
 // atomics over the busiest block's rows (~6.7k synapses, ~1 atomic a ns:
-// 7.9 us a step on an H100). So a spike's synapses are split by delay:
-// - delay 1 (~0.75% of them, a CSR of their own that MicrocircuitNet
-//   builds once, models/microcircuit.py:mc_plan): the spike's block adds
-//   them in the step of the spike, as they are read in the next one. The spike is known a step ahead (the update's own
-//   arithmetic on the state the last step left, mc_spikes_next), so the
-//   block lists its next step's delay-1 rows in shared memory in the step
-//   before, and loads its first round of them before the update;
-// - delay >= 2: the spiking thread appends its row's bounds to the step's
-//   list in global memory (a slot from the list's counter) and brings the
-//   row into L2 (a bulk prefetch); in the next step, every block reads
-//   the list (its count and first rows before the update), scans the
-//   rows' lengths in shared memory and adds its contiguous 1/B of their
-//   synapses. A synapse of delay d >= 2 from step t is read in step t + d
-//   >= t + 2, so adding it in step t + 1 keeps one grid.sync() a step; and
-//   the last step's are added after the loop, so the ring a launch
-//   returns holds every pending input, as before.
-// Three lists and counters, by step mod 3: list k is appended in step k,
-// read in step k + 1, and its counter cleared in step k + 2, between two
-// barriers from both; the launcher zeroes the counters. What bounds the
-// step now (H100, full scale): the barrier (1.36 us), the update (0.73),
-// and the grid's ~97k atomics a step into the L2-resident ring (adding
-// each twice costs ~1.0 us more), behind the latencies of the delay-1
-// walk, the list's scan and the rows' loads: 4.6-4.7 us a step.
-// The ring, the Poisson draw, the lists and the grid pass's scan, share
-// and search are sim_grid.cuh's, which K24 (stdp_sim.cu) shares.
+// 7.9 us a step on an H100). So the whole grid adds every row in the step
+// of the spike, each block a contiguous 1/B of each row (mc_row_part).
+// That needs the step's rows before its update: a spike at step t is
+// known at the end of step t - 1, since the update reads only the state
+// the last step left (mc_spikes_next, the update's own arithmetic).
+// - Step t - 1, after its update: a thread whose neuron will spike at t
+//   appends its row's bounds to step t's list in global memory (a slot
+//   from the list's counter) and brings the row into L2 (a bulk prefetch).
+//   The list of a launch's first step is made from its initial state
+//   before the loop, behind one more grid.sync().
+// - Step t, from its top: one warp of each block reads step t's list,
+//   complete since the last grid.sync(), MC_CHUNK rows at a time, and each
+//   warp takes rows warp, warp + SG_WARPS, ... of the chunk, its lanes over
+//   the block's part of each row. The first chunk's first synapse a lane
+//   is loaded before the update, and added after it: each synapse of delay
+//   d into slot (t + d) mod D. Since 1 <= d < D, no add of step t writes
+//   the slot step t reads and clears, and every write into that slot came
+//   before the previous barrier: one grid.sync() a step is enough; and the
+//   ring a launch returns holds every pending input, the launch's last
+//   step's too.
+// Three lists and counters, by step mod 3: list k is appended in step
+// k - 1 (or before the loop), read in step k, and its counter cleared in
+// step k + 1, between two barriers from both; the launcher zeroes the
+// counters. The ring, the Poisson draw and the lists are sim_grid.cuh's,
+// which K24 (stdp_sim.cu) shares. What bounds the step (H100, full scale):
+// the barrier (1.36 us), the two round trips to L2 after it (the list,
+// then the rows' synapses), and the grid's ~97k atomics a step into the
+// L2-resident ring, which the barrier waits for.
 //
 // Two instances (kPhases): the plain one, and the clocked one that the
 // launcher takes where it is given a buffer for the phases. The clocked
 // one times each warp's launch in three phases (phase_clock.cuh): update
-// (the update and the Poisson draw, and the state's load and store),
-// scatter (the delay-1 walk and the grid pass, and the last step's pass
-// after the loop) and barrier (from arriving at the grid.sync() to leaving
-// it); its outputs are the plain one's.
+// (the update and the Poisson draw, the listing of the next step's rows,
+// the state's load and store and the first step's list), scatter (the
+// grid pass: the list's read and the first loads before the update, the
+// adds and the rest after it) and barrier (from arriving at a grid.sync()
+// to leaving it); and counts the rows it lists ahead. Its outputs are the
+// plain one's.
 #include "common.cuh"
 #include "phase_clock.cuh"
 #include "sim_grid.cuh"
@@ -107,9 +111,12 @@ namespace {
 constexpr int MC_BLOCK = SG_BLOCK;
 // The spiking-row lists (and their counters) K23 keeps, by step mod 3.
 constexpr int MC_LISTS = 3;
-// Synapses a thread of the grid pass loads before it adds them.
-constexpr int MC_PASS_UNROLL = 2;
-// The phases of the clocked instance.
+// A list is read a warp's width of rows at a time, and each warp takes
+// MC_ROUNDS rows of such a chunk: rows warp, warp + SG_WARPS, ...
+constexpr int MC_CHUNK = 32;
+constexpr int MC_ROUNDS = MC_CHUNK / SG_WARPS;
+// The phases of the clocked instance, and the slot of its count of the
+// rows listed ahead after them.
 enum McPhase { MC_UPDATE, MC_SCATTER, MC_BARRIER, MC_PHASES };
 
 // Whether a neuron in state (v, i, ref) spikes at its next step: the
@@ -120,112 +127,105 @@ __device__ __forceinline__ bool mc_spikes_next(const float v, const float i,
     return (ref == 0 ? __fmaf_rn(i, p.p21, __fmul_rn(v, p.p22)) : v) >= p.v_th;
 }
 
-// One round of a thread's share of a chunk: the chunk's synapses e0 +
-// MC_BLOCK u below hi, each found in its row by sg_find over the chunk's
-// m rows; a synapse past hi reads as delay 0.
-__device__ __forceinline__ void mc_pass_load(
-    const int e0, const int hi, const int m, const int* s_off,
-    const int* s_beg, const int* __restrict__ targets,
+// Lists the row [row.x, row.y) of a neuron that spikes at the list's step
+// and brings it into L2, where the grid pass of that step reads it.
+__device__ __forceinline__ void mc_list_ahead(
+    int2* list, int* count, const int2 row, const int* __restrict__ targets,
+    const short* __restrict__ weights,
+    const unsigned char* __restrict__ delays) {
+    sg_prefetch(targets + row.x, targets + row.y);
+    sg_prefetch(weights + row.x, weights + row.y);
+    sg_prefetch(delays + row.x, delays + row.y);
+    sg_append(list, count, row);
+}
+
+// This block's contiguous part [*lo, *hi) of the row [row.x, row.y), empty
+// where the row is not listed. Block b's part of a row of len synapses
+// starts at umulhi(len, f_lo), f_lo = floor(2^32 b / B), and ends where
+// block b + 1's starts (the row's end at the last block, last), so that the
+// blocks' parts tile the row.
+__device__ __forceinline__ void mc_row_part(const int2 row, const bool listed,
+                                            const unsigned f_lo,
+                                            const unsigned f_hi,
+                                            const bool last, int* lo,
+                                            int* hi) {
+    const unsigned len = listed ? static_cast<unsigned>(row.y - row.x) : 0u;
+    *lo = row.x + static_cast<int>(__umulhi(len, f_lo));
+    *hi = row.x + static_cast<int>(last ? len : __umulhi(len, f_hi));
+}
+
+// Synapse e of the rows if e < hi; else delay 0.
+__device__ __forceinline__ void mc_syn_load(
+    const int e, const int hi, const int* __restrict__ targets,
     const short* __restrict__ weights, const unsigned char* __restrict__ delays,
     int* tg, int* w, unsigned* d) {
-#pragma unroll
-    for (int u = 0; u < MC_PASS_UNROLL; ++u) {
-        const int e = e0 + MC_BLOCK * u;
-        tg[u] = 0;
-        w[u] = 0;
-        d[u] = 0u;
-        if (e < hi) {
-            const int r = sg_find(e, m, s_off);
-            const int c = s_beg[r] + (e - s_off[r]);
-            tg[u] = __ldg(targets + c);
-            w[u] = __ldg(weights + c);
-            d[u] = __ldg(delays + c);
-        }
+    *tg = 0;
+    *w = 0;
+    *d = 0u;
+    if (e < hi) {
+        *tg = __ldg(targets + e);
+        *w = __ldg(weights + e);
+        *d = __ldg(delays + e);
     }
 }
 
-// The round's synapses of delay >= 2 from a spike at step ts, into their
-// slots (ts + d) mod D.
-__device__ __forceinline__ void mc_pass_add(
-    const int* tg, const int* w, const unsigned* d, int* ring,
-    const unsigned ts, const unsigned dmask, const int num) {
-#pragma unroll
-    for (int u = 0; u < MC_PASS_UNROLL; ++u)
-        if (d[u] >= 2u)
-            atomicAdd(ring + static_cast<long long>((ts + d[u]) & dmask) * num +
-                          tg[u],
-                      w[u]);
+// A synapse from a spike at step ts into its slot (ts + d) mod D (none of
+// delay 0: past its part's end).
+__device__ __forceinline__ void mc_syn_add(const int tg, const int w,
+                                           const unsigned d, int* ring,
+                                           const unsigned ts,
+                                           const unsigned dmask,
+                                           const int num) {
+    if (d)
+        atomicAdd(ring + static_cast<long long>((ts + d) & dmask) * num + tg,
+                  w);
 }
 
-// The rest of a thread's share of a chunk, from round e0 on.
-__device__ __forceinline__ void mc_pass_rounds(
-    int e0, const int hi, const int m, const int* s_off, const int* s_beg,
-    const int* __restrict__ targets, const short* __restrict__ weights,
-    const unsigned char* __restrict__ delays, int* ring, const unsigned ts,
-    const unsigned dmask, const int num) {
-    for (; e0 < hi; e0 += MC_BLOCK * MC_PASS_UNROLL) {
-        int tg[MC_PASS_UNROLL], w[MC_PASS_UNROLL];
-        unsigned d[MC_PASS_UNROLL];
-        mc_pass_load(e0, hi, m, s_off, s_beg, targets, weights, delays, tg, w,
-                     d);
-        mc_pass_add(tg, w, d, ring, ts, dmask, num);
-    }
-}
-
-// The grid pass over a step's list of n spiking rows from row c0 on, in
-// chunks of MC_BLOCK rows: each block adds its share of each chunk's
-// synapses of delay >= 2 from a spike at step ts.
-__device__ __forceinline__ void mc_pass_chunks(
-    const int2* list, int c0, const int n, int* s_off, int* s_beg,
-    int* s_wsum, const int* __restrict__ targets,
+// A warp's lanes over the synapses [e, hi), a warp's width apart.
+__device__ __forceinline__ void mc_syn_walk(
+    int e, const int hi, const int* __restrict__ targets,
     const short* __restrict__ weights, const unsigned char* __restrict__ delays,
     int* ring, const unsigned ts, const unsigned dmask, const int num) {
-    const int j = threadIdx.x;
-    for (; c0 < n; c0 += MC_BLOCK) {
-        const int m = min(n - c0, MC_BLOCK);
-        const int2 row = j < m ? __ldcg(list + c0 + j) : make_int2(0, 0);
-        int lo, hi;
-        sg_share(sg_scan(row, m, s_off, s_beg, s_wsum), &lo, &hi);
-        mc_pass_rounds(lo + j, hi, m, s_off, s_beg, targets, weights, delays,
-                       ring, ts, dmask, num);
+    for (; e < hi; e += MC_CHUNK) {
+        int tg, w;
+        unsigned d;
+        mc_syn_load(e, hi, targets, weights, delays, &tg, &w, &d);
+        mc_syn_add(tg, w, d, ring, ts, dmask, num);
     }
 }
 
 // kPhases: the clocked instance, which adds to phases (the plain one reads
 // it not).
 template <bool kPhases>
-__global__ void __launch_bounds__(MC_BLOCK, 3)
+__global__ void __launch_bounds__(MC_BLOCK, 4)
 mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
               int* __restrict__ ref, int* ring, int* __restrict__ spike_count,
               const int* __restrict__ row_ptr, const int* __restrict__ targets,
               const short* __restrict__ weights,
-              const unsigned char* __restrict__ delays,
-              const int* __restrict__ near_ptr,
-              const int* __restrict__ near_targets,
-              const short* __restrict__ near_weights, int2* lists,
+              const unsigned char* __restrict__ delays, int2* lists,
               int* counts, const int n_steps, const McParams p,
               unsigned long long* phases) {
     constexpr int W = MC_BLOCK / 32;
     BePhaseClock<kPhases, MC_PHASES, W> clk;
     clk.start();
     __shared__ unsigned s_thr[MC_MAX_POPS * MC_KMAX];
-    // The delay-1 rows, [beg, end), of the block's spikes of a step, listed
-    // in the step before, and their count; by the step's parity, so that
-    // one step's list is walked while the next one's is made.
-    __shared__ int2 s_rows[2][MC_BLOCK];
-    __shared__ int s_n[2];
-    // The grid pass's view of a chunk of the last step's list (sg_scan).
-    __shared__ int s_off[MC_BLOCK + 1];
-    __shared__ int s_beg[MC_BLOCK];
-    __shared__ int s_wsum[SG_WARPS];
+    // The first chunk of the step's list and its count, read by warp 0.
+    __shared__ int2 s_rows[MC_CHUNK];
+    __shared__ int s_n;
     for (int q = threadIdx.x; q < MC_MAX_POPS * MC_KMAX; q += blockDim.x)
         s_thr[q] = p.thr[q];
-    if (threadIdx.x < 2) s_n[threadIdx.x] = 0;
     __syncthreads();
     cg::grid_group grid = cg::this_grid();
     const int num = p.num;
     const unsigned dmask = static_cast<unsigned>(p.depth) - 1u;
+    // the block's part of each row (mc_row_part)
+    const unsigned f_lo = static_cast<unsigned>(
+        (static_cast<unsigned long long>(blockIdx.x) << 32) / gridDim.x);
+    const unsigned f_hi = static_cast<unsigned>(
+        (static_cast<unsigned long long>(blockIdx.x + 1u) << 32) / gridDim.x);
+    const bool last = blockIdx.x + 1u == gridDim.x;
     const int j = threadIdx.x;
+    const int lane = j & 31, warp = j >> 5;
     const int i = blockIdx.x * blockDim.x + j;
     const bool own = i < num;
 
@@ -236,40 +236,57 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
     const int2 row =
         own ? make_int2(__ldg(row_ptr + i), __ldg(row_ptr + i + 1))
             : make_int2(0, 0);
-    const int2 near =
-        own ? make_int2(__ldg(near_ptr + i), __ldg(near_ptr + i + 1))
-            : make_int2(0, 0);
+    const bool sends = row.y > row.x;
     // the offset of the neuron's population in the threshold table
     int pop = 0;
     while (pop + 1 < p.n_pops && i >= p.pop_start[pop + 1]) ++pop;
     const int rp = pop * MC_KMAX;
-    if (own && near.y > near.x && mc_spikes_next(rv, ri, rr, p))
-        s_rows[0][atomicAdd(s_n, 1)] = near;
-    __syncthreads();
+    [[maybe_unused]] int ahead = 0;  // rows listed (the clocked instance)
+    // The list of the launch's first step, from its initial state.
+    if (n_steps > 0) {
+        if (sends && mc_spikes_next(rv, ri, rr, p)) {
+            mc_list_ahead(lists, counts, row, targets, weights, delays);
+            if constexpr (kPhases) ++ahead;
+        }
+        clk.edge(MC_UPDATE);
+        grid.sync();
+        clk.edge(MC_BARRIER);
+    }
 
     int cur = 0;  // k mod MC_LISTS
     for (int k = 0; k < n_steps; ++k) {
         const unsigned t = p.step0 + static_cast<unsigned>(k);
-        const int last = cur == 0 ? MC_LISTS - 1 : cur - 1;
         const int next = cur == MC_LISTS - 1 ? 0 : cur + 1;
-        // The last step's list, complete since the last grid.sync(): its
-        // count and its first MC_BLOCK rows, read before the update.
-        const int2* plist = lists + static_cast<long long>(last) * num;
-        const int2 prow =
-            j < min(num, MC_BLOCK) ? __ldcg(plist + j) : make_int2(0, 0);
-        const int pn = __ldcg(counts + last);
-        // The delay-1 rows of the block's spikes of this step: this
-        // thread's first synapse of the first, loaded before the update.
-        const int n = s_n[k & 1];
-        const int2 q0 = n ? s_rows[k & 1][0] : make_int2(0, 0);
-        const int c0 = q0.x + j;
-        const int tg0 = c0 < q0.y ? __ldg(near_targets + c0) : 0;
-        const int w0 = c0 < q0.y ? __ldg(near_weights + c0) : 0;
-
+        const int after = next == MC_LISTS - 1 ? 0 : next + 1;
+        // The step's input and its list, complete since the last
+        // grid.sync(): the list's count and its first chunk, read together
+        // before the update, by one warp of the block (every block reads
+        // them: a warp each put 8x the requests on their lines).
         int* now = sg_slot(ring, t, dmask, num);
+        int in = own ? __ldcg(now + i) : 0;
+        const int2* list = lists + static_cast<long long>(cur) * num;
+        if (warp == 0) {
+            s_rows[lane] = lane < min(num, MC_CHUNK) ? __ldcg(list + lane)
+                                                     : make_int2(0, 0);
+            if (lane == 0) s_n = __ldcg(counts + cur);
+        }
+        __syncthreads();
+        const int n = s_n;
+        // The grid pass: each warp's rows of the first chunk, the block's
+        // part of each, the first synapse a lane loaded before the update.
+        int lo[MC_ROUNDS], hi[MC_ROUNDS], tg[MC_ROUNDS], w[MC_ROUNDS];
+        unsigned d[MC_ROUNDS];
+#pragma unroll
+        for (int q = 0; q < MC_ROUNDS; ++q) {
+            const int r = warp + SG_WARPS * q;
+            mc_row_part(s_rows[r], r < n, f_lo, f_hi, last, lo + q, hi + q);
+            mc_syn_load(lo[q] + lane, hi[q], targets, weights, delays, tg + q,
+                        w + q, d + q);
+        }
+        clk.edge(MC_SCATTER);
+
         const unsigned h = sg_step_hash(p.key, t);
         if (own) {
-            int in = __ldcg(now + i);
             if (in) now[i] = 0;
             in += sg_poisson(h, i, s_thr + rp) * p.w_ext;
             if (rr == 0)
@@ -277,75 +294,52 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
             else
                 rr -= 1;
             ri = __fmaf_rn(ri, p.p11, __fmul_rn(p.q, __int2float_rn(in)));
+            // a spike of this step, listed in the last one
             if (rv >= p.v_th) {
                 rv = p.v_reset;
                 rr = p.ref_steps;
                 rc += 1;
-                if (row.y > row.x) {
-                    // read by the grid pass in the next step
-                    sg_prefetch(targets + row.x, targets + row.y);
-                    sg_prefetch(weights + row.x, weights + row.y);
-                    sg_prefetch(delays + row.x, delays + row.y);
-                    sg_append(lists + static_cast<long long>(cur) * num,
-                              counts + cur, row);
-                }
             }
-            if (near.y > near.x && mc_spikes_next(rv, ri, rr, p))
-                s_rows[(k + 1) & 1][atomicAdd(s_n + ((k + 1) & 1), 1)] = near;
+            // a spike of the next step, added by the grid pass there
+            if (k + 1 < n_steps && sends && mc_spikes_next(rv, ri, rr, p)) {
+                mc_list_ahead(lists + static_cast<long long>(next) * num,
+                              counts + next, row, targets, weights, delays);
+                if constexpr (kPhases) ++ahead;
+            }
         }
         clk.edge(MC_UPDATE);
-        // The counter of step k - 2, read in step k - 1, is next added to
+        // The counter of step k - 1, read in step k - 1, is next added to
         // in step k + 1, after this step's grid.sync().
-        if (blockIdx.x == 0 && j == 0) counts[next] = 0;
-        __syncthreads();
-        // This step's count was read by every thread before the update.
-        if (j == 0) s_n[k & 1] = 0;
-        // The block's spikes' delay-1 synapses, read by step k + 1.
-        int* soon = sg_slot(ring, t + 1u, dmask, num);
-        if (c0 < q0.y) atomicAdd(soon + tg0, w0);
-        for (int c = c0 + MC_BLOCK; c < q0.y; c += MC_BLOCK)
-            atomicAdd(soon + __ldg(near_targets + c),
-                      static_cast<int>(__ldg(near_weights + c)));
-        for (int r = 1; r < n; ++r) {
-            const int2 q = s_rows[k & 1][r];
-            for (int c = q.x + j; c < q.y; c += MC_BLOCK)
-                atomicAdd(soon + __ldg(near_targets + c),
-                          static_cast<int>(__ldg(near_weights + c)));
-        }
-        // The grid pass: the last step's synapses of delay >= 2, the first
-        // round of the first chunk loaded before any is added.
-        if (pn) {
-            const int pm = min(pn, MC_BLOCK);
-            int lo, hi;
-            sg_share(sg_scan(prow, pm, s_off, s_beg, s_wsum), &lo, &hi);
-            int tg[MC_PASS_UNROLL], w[MC_PASS_UNROLL];
-            unsigned d[MC_PASS_UNROLL];
-            mc_pass_load(lo + j, hi, pm, s_off, s_beg, targets, weights,
-                         delays, tg, w, d);
-            mc_pass_add(tg, w, d, ring, t - 1u, dmask, num);
-            mc_pass_rounds(lo + j + MC_BLOCK * MC_PASS_UNROLL, hi, pm, s_off,
-                           s_beg, targets, weights, delays, ring, t - 1u,
-                           dmask, num);
-            mc_pass_chunks(plist, MC_BLOCK, pn, s_off, s_beg, s_wsum, targets,
-                           weights, delays, ring, t - 1u, dmask, num);
+        if (blockIdx.x == 0 && j == 0) counts[after] = 0;
+        // The rest of the grid pass: the step's synapses, all delays, into
+        // the slots of the steps to come.
+#pragma unroll
+        for (int q = 0; q < MC_ROUNDS; ++q)
+            mc_syn_add(tg[q], w[q], d[q], ring, t, dmask, num);
+#pragma unroll
+        for (int q = 0; q < MC_ROUNDS; ++q)
+            mc_syn_walk(lo[q] + lane + MC_CHUNK, hi[q], targets, weights,
+                        delays, ring, t, dmask, num);
+        for (int c0 = MC_CHUNK; c0 < n; c0 += MC_CHUNK) {
+            const int2 crow = lane < min(n - c0, MC_CHUNK)
+                                  ? __ldcg(list + c0 + lane)
+                                  : make_int2(0, 0);
+#pragma unroll
+            for (int q = 0; q < MC_ROUNDS; ++q) {
+                const int r = warp + SG_WARPS * q;
+                const int2 rw = make_int2(__shfl_sync(0xffffffffu, crow.x, r),
+                                          __shfl_sync(0xffffffffu, crow.y, r));
+                int clo, chi;
+                mc_row_part(rw, c0 + r < n, f_lo, f_hi, last, &clo, &chi);
+                mc_syn_walk(clo + lane, chi, targets, weights, delays, ring, t,
+                            dmask, num);
+            }
         }
         clk.edge(MC_SCATTER);
         grid.sync();
         clk.edge(MC_BARRIER);
         clk.tick(k);
         cur = next;
-    }
-    // The last step's synapses of delay >= 2, so that the ring holds every
-    // pending input and the next launch goes on from this state.
-    if (n_steps > 0) {
-        clk.edge(MC_UPDATE);
-        const int last = cur == 0 ? MC_LISTS - 1 : cur - 1;
-        mc_pass_chunks(lists + static_cast<long long>(last) * num, 0,
-                       __ldcg(counts + last), s_off, s_beg, s_wsum, targets,
-                       weights, delays, ring,
-                       p.step0 + static_cast<unsigned>(n_steps - 1), dmask,
-                       num);
-        clk.edge(MC_SCATTER);
     }
 
     if (own) {
@@ -355,6 +349,12 @@ mc_sim_kernel(float* __restrict__ v, float* __restrict__ i_syn,
         spike_count[i] = rc;
     }
     clk.edge(MC_UPDATE);
+    if constexpr (kPhases) {
+        const int warp_ahead = __reduce_add_sync(0xffffffffu, ahead);
+        if (lane == 0 && warp_ahead)
+            atomicAdd(phases + MC_PHASES,
+                      static_cast<unsigned long long>(warp_ahead));
+    }
     clk.finish(phases);
 }
 
@@ -380,23 +380,20 @@ BE_EXPORT int mc_sim_max_blocks(int device, int* blocks) {
 // v, i_syn: (num,) float32; ref, spike_count: (num,) int32, read at the
 // start and written at the end; ring: (depth, num) int32, read, cleared
 // and added into in place; row_ptr: (num + 1,) int32; targets: int32,
-// weights: int16, delays: uint8, row_ptr[num] each; near_ptr: (num + 1,)
-// int32, near_targets: int32, near_weights: int16, near_ptr[num] each:
-// the rows' synapses of delay 1, in their order; lists: (MC_LISTS, num)
+// weights: int16, delays: uint8, row_ptr[num] each; lists: (MC_LISTS, num)
 // int2 and counts: (MC_LISTS,) int32, scratch (counts zeroed here);
-// phases: null (the plain instance), or (3,) uint64, zeroed by the caller,
+// phases: null (the plain instance), or (4,) uint64, zeroed by the caller,
 // that the clocked instance adds the grid's warps' ns in update, scatter
-// and barrier to. blocks * MC_BLOCK must cover num; a grid larger than can
-// be co-resident is refused (cudaErrorCooperativeLaunchTooLarge).
+// and barrier to, and then the rows it listed ahead (the launch's spikes
+// of non-empty rows). blocks * MC_BLOCK must cover num; a grid larger than
+// can be co-resident is refused (cudaErrorCooperativeLaunchTooLarge).
 BE_EXPORT int mc_sim_launch(float* v, float* i_syn, int* ref, int* ring,
                             int* spike_count, const int* row_ptr,
                             const int* targets, const short* weights,
-                            const unsigned char* delays, const int* near_ptr,
-                            const int* near_targets, const short* near_weights,
-                            int* lists, int* counts,
-                            unsigned long long* phases, int n_steps,
-                            const McParams* p, int blocks, int device,
-                            void* stream) {
+                            const unsigned char* delays, int* lists,
+                            int* counts, unsigned long long* phases,
+                            int n_steps, const McParams* p, int blocks,
+                            int device, void* stream) {
     int err = be_begin(device);
     if (err) return err;
     if (p->num <= 0) return be_end();
@@ -413,11 +410,9 @@ BE_EXPORT int mc_sim_launch(float* v, float* i_syn, int* ref, int* ring,
                : reinterpret_cast<const void*>(mc_sim_kernel<false>);
     McParams params = *p;
     int2* list2 = reinterpret_cast<int2*>(lists);
-    void* args[] = {&v,           &i_syn,    &ref,          &ring,
-                    &spike_count, &row_ptr,  &targets,      &weights,
-                    &delays,      &near_ptr, &near_targets, &near_weights,
-                    &list2,       &counts,   &n_steps,      &params,
-                    &phases};
+    void* args[] = {&v,       &i_syn,   &ref,     &ring,   &spike_count,
+                    &row_ptr, &targets, &weights, &delays, &list2,
+                    &counts,  &n_steps, &params,  &phases};
     return be_refused(static_cast<int>(
         cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(MC_BLOCK), args,
                                     0, s)));

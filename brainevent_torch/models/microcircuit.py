@@ -74,6 +74,8 @@ MC_BLOCK = 256           # threads a block of K23, one neuron each (MC_BLOCK)
 MC_LISTS = 3             # K23's lists of spiking rows, by step mod 3 (MC_LISTS)
 # the phases of K23's clocked instance (McPhase in csrc/mc_sim.cu)
 PHASES = ('update', 'scatter', 'barrier')
+# the counter of the rows K23's clocked instance lists a step ahead
+ROWS_AHEAD = 'brainevent_torch.MicrocircuitNet.rows_ahead'
 T_MUL = 0x9E3779B9       # the hash's step and neuron multipliers
 I_MUL = 0x85EBCA6B
 
@@ -306,36 +308,20 @@ def mc_loop(v, i_syn, ref, ring, spike_count, row_ptr, targets, weights,
 # -- K23: the whole trial in one launch ------------------------------------------------
 
 class McPlan(NamedTuple):
-    """What K23 reads besides the network: the rows' synapses of delay 1
-    as a CSR of their own (``near_ptr`` int32 ``(num + 1,)``,
-    ``near_targets`` int32, ``near_weights`` int16, in the rows' order),
-    which the spiking neuron's block adds in the step of the spike, and
-    the scratch of the grid's lists of spiking rows (``lists`` int32
-    ``(MC_LISTS, num, 2)``, ``counts`` int32 ``(MC_LISTS,)``), whose
-    synapses of delay >= 2 every block adds a share of one step later.
-    One launch at a time uses a plan's scratch (launches on one stream)."""
-    near_ptr: torch.Tensor
-    near_targets: torch.Tensor
-    near_weights: torch.Tensor
+    """K23's scratch beside the network: the grid's lists of the rows of
+    the neurons that spike at a step (``lists`` int32 ``(MC_LISTS, num,
+    2)``, each row's ``[beg, end)``, made a step ahead) and their counters
+    (``counts`` int32 ``(MC_LISTS,)``). One launch at a time uses a plan's
+    scratch (launches on one stream)."""
     lists: torch.Tensor
     counts: torch.Tensor
 
 
-def mc_plan(row_ptr, targets, weights, delays) -> McPlan:
-    """The :class:`McPlan` of a network, CSR by source (int32 targets,
-    int16 weights, uint8 delays), on its device: the delay-1 synapses'
-    positions (``nonzero``), each row's first of them counted at
-    ``row_ptr`` (``searchsorted``); the arrays are not copied or
-    changed."""
-    near = torch.nonzero(delays == 1).flatten()
-    near_ptr = torch.searchsorted(near, row_ptr.to(near.dtype))
-    num = row_ptr.numel() - 1
-
+def mc_plan(num: int, device) -> McPlan:
+    """The :class:`McPlan` of a network of *num* neurons on *device*."""
     def scratch(*shape):
-        return torch.zeros(shape, dtype=torch.int32, device=row_ptr.device)
-    return McPlan(near_ptr=near_ptr.to(torch.int32),
-                  near_targets=targets[near], near_weights=weights[near],
-                  lists=scratch(MC_LISTS, num, 2), counts=scratch(MC_LISTS))
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+    return McPlan(lists=scratch(MC_LISTS, num, 2), counts=scratch(MC_LISTS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -366,41 +352,36 @@ def mc_sim_grid(num: int, device: torch.device) -> int:
 
 def _mc_sim_cuda(op, v, i_syn, ref, ring, spike_count, row_ptr, targets,
                  weights, delays, n_steps, p, plan: McPlan, phases=None):
-    """K23's launch; *plan* is :func:`mc_plan` of the rows. Given *phases*
-    (int64 ``(3,)``, zeroed), its clocked instance, which adds the grid's
-    warps' ns in each of :data:`PHASES` to it."""
+    """K23's launch; *plan* is :func:`mc_plan` of the network. Given
+    *phases* (int64 ``(4,)``, zeroed), its clocked instance, which adds the
+    grid's warps' ns in each of :data:`PHASES` to its first three, and the
+    rows it listed ahead (the launch's spikes of non-empty rows) to the
+    last."""
     f, i = torch.float32, torch.int32
     tensors = [(v, f), (i_syn, f), (ref, i), (ring, i), (spike_count, i),
                (row_ptr, i), (targets, i), (weights, torch.int16),
-               (delays, torch.uint8), (plan.near_ptr, i),
-               (plan.near_targets, i), (plan.near_weights, torch.int16),
-               (plan.lists, i), (plan.counts, i)]
+               (delays, torch.uint8), (plan.lists, i), (plan.counts, i)]
     if phases is not None:
         tensors.append((phases, torch.int64))
     device = check_cuda_tensors(op.name, *tensors)
     num = p.num
     n_syn = targets.numel()
-    n_near = plan.near_targets.numel()
     if (any(x.shape != (num,) for x in (v, i_syn, ref, spike_count))
             or ring.shape != (p.depth, num) or row_ptr.shape != (num + 1,)
             or weights.numel() != n_syn or delays.numel() != n_syn
-            or plan.near_ptr.shape != (num + 1,)
-            or plan.near_weights.numel() != n_near
             or plan.lists.shape != (MC_LISTS, num, 2)
             or plan.counts.shape != (MC_LISTS,)
-            or (phases is not None and phases.shape != (len(PHASES),))):
+            or (phases is not None and phases.shape != (len(PHASES) + 1,))):
         raise ValueError(f'{op.name}: state, ring {tuple(ring.shape)}, rows '
                          f'and plan do not match num={num}, D={p.depth}')
     blocks = mc_sim_grid(num, device)
-    fn = cuda_build.function('mc_sim_launch', [ctypes.c_void_p] * 15 + [
+    fn = cuda_build.function('mc_sim_launch', [ctypes.c_void_p] * 12 + [
         ctypes.c_int, ctypes.POINTER(McParams)] + [ctypes.c_int] * 2 + [
         ctypes.c_void_p])
     op.launch(fn, v.data_ptr(), i_syn.data_ptr(), ref.data_ptr(),
               ring.data_ptr(), spike_count.data_ptr(), row_ptr.data_ptr(),
               targets.data_ptr(), weights.data_ptr(), delays.data_ptr(),
-              plan.near_ptr.data_ptr(), plan.near_targets.data_ptr(),
-              plan.near_weights.data_ptr(), plan.lists.data_ptr(),
-              plan.counts.data_ptr(),
+              plan.lists.data_ptr(), plan.counts.data_ptr(),
               None if phases is None else phases.data_ptr(), int(n_steps),
               ctypes.byref(p), blocks, device.index or 0, cuda_stream(device))
 
@@ -433,9 +414,7 @@ class MicrocircuitNet:
         CUDA tensors run K23; ``device='cpu'`` runs :func:`mc_loop`.
 
     The net keeps the given arrays as they are, and beside them ``plan``
-    (:func:`mc_plan`: the delay-1 synapses as a CSR of their own and K23's
-    scratch) and ``grid_share``, the share of the synapses of delay >= 2,
-    which K23's grid pass adds.
+    (:func:`mc_plan`: K23's scratch).
     """
     scale: float = 1.0
     params: MicrocircuitParams = MicrocircuitParams()
@@ -483,11 +462,7 @@ class MicrocircuitNet:
             raise ValueError('every delay must be at least one step')
         # the next power of two above the largest delay
         self.depth = 1 << max_delay.bit_length()
-        self.plan = mc_plan(self.row_ptr, self.targets, self.weights,
-                            self.delays)
-        # the share of the synapses K23's grid pass adds (delay >= 2)
-        n_near = self.plan.near_targets.numel()
-        self.grid_share = (n_syn - n_near) / n_syn if n_syn else 0.0
+        self.plan = mc_plan(self.num, self.device)
         lam = [k * prm.bg_rate * prm.dt * 1e-3 for k in prm.k_ext]
         self.thresholds = [poisson_thresholds(x) for x in lam]
 
@@ -548,14 +523,14 @@ class MicrocircuitNet:
 
         With tracing on (:mod:`~brainevent_torch.ops.tracing`), a call
         records the span ``brainevent_torch.MicrocircuitNet.run``
-        (attributes ``num``, ``n_steps``, ``route``: ``sim`` on a card,
-        ``loop`` on the CPU, and ``grid_share``: the share of the synapses
-        that K23's grid pass adds, those of delay >= 2) around ``.copies``
-        and ``.launch``. On the card the launch then takes K23's clocked
-        instance, and adds its warps' ns in each phase of the step (update,
-        scatter, barrier) and its warps times its steps
-        (:func:`~brainevent_torch.ops.tracing.count_phases`); the loop
-        counts no phase."""
+        (attributes ``num``, ``n_steps`` and ``route``: ``sim`` on a card,
+        ``loop`` on the CPU) around ``.copies`` and ``.launch``. On the card
+        the launch then takes K23's clocked instance, and adds its warps' ns
+        in each phase of the step (update, scatter, barrier) and its warps
+        times its steps (:func:`~brainevent_torch.ops.tracing.count_phases`),
+        and the rows it listed a step ahead (its spikes of non-empty rows)
+        to the counter ``brainevent_torch.MicrocircuitNet.rows_ahead``; the
+        loop counts neither."""
         if state is None:
             state = self.init_state()
         route = 'sim' if state.v.device.type == 'cuda' else 'loop'
@@ -563,11 +538,10 @@ class MicrocircuitNet:
         extra = dict(plan=self.plan) if route == 'sim' else {}
         clocked = route == 'sim' and tracing.enabled()
         if clocked:
-            extra['phases'] = torch.zeros(len(PHASES), dtype=torch.int64,
+            extra['phases'] = torch.zeros(len(PHASES) + 1, dtype=torch.int64,
                                           device=state.v.device)
         with tracing.span('brainevent_torch.MicrocircuitNet.run',
-                          num=self.num, n_steps=int(n_steps), route=route,
-                          grid_share=self.grid_share):
+                          num=self.num, n_steps=int(n_steps), route=route):
             p = self.step_params(state.key, state.step)
             with tracing.span('brainevent_torch.MicrocircuitNet.copies'):
                 out = [x.to(dtype, copy=True) for x, dtype in (
@@ -581,5 +555,6 @@ class MicrocircuitNet:
                 warps = mc_sim_grid(self.num, state.v.device) * MC_BLOCK // 32
                 tracing.count_phases('MicrocircuitNet', extra['phases'],
                                      PHASES, warps * int(n_steps))
+                tracing.count(ROWS_AHEAD, extra['phases'][len(PHASES)])
         return MicrocircuitState(*out, key=state.key,
                                  step=state.step + int(n_steps))

@@ -12,16 +12,15 @@ transient, then times in turns, by CUDA events around one launch of
 
 - ``whole``: K23 over the network, from the warm state;
 - ``no_rows``: K23 from the same state over the same neurons with every
-  row empty, and so an empty delay-1 CSR and no row in the grid's lists:
-  the same update, draw and barrier, no scatter;
+  row empty, and so no row in the grid's lists: the same update, draw and
+  barrier, no scatter;
 - ``barrier``: ``--steps`` grid barriers alone on K23's grid;
 - ``clocked``: ``whole`` with the program's tracing on, so on K23's
   clocked instance, whose warps time their update, scatter and barrier.
 
 ``update`` is ``no_rows - barrier`` and ``scatter`` is ``whole -
-no_rows``, in µs a step: the owner's walk of its spikes' delay-1 rows and
-the grid pass over the last step's list (its read, scan, loads and
-atomics). ``phases_us`` is the clocked launches' mean warp's time a step
+no_rows``, in µs a step: the grid pass over the step's list (its read,
+loads and atomics). ``phases_us`` is the clocked launches' mean warp's time a step
 in each phase (their median), to compare with the subtraction (the
 in-kernel barrier holds the wait for the slowest block), and
 ``clocked_cost_pct`` the clocked launch's time over ``whole``'s. It also
@@ -33,10 +32,7 @@ Then, from the warm state, :data:`LAUNCHES` one-step K23 launches, each
 from the last one's state, give each step's spikes (the ``spike_count``
 differences) and so what K23's blocks add (``engagement``): the median and
 99th percentile over steps of the grid pass's synapses a block (its
-contiguous 1/B of the step's spiking rows, all delays loaded, those of
-delay >= 2 added) and of the delay-1 synapses of the step's busiest
-block's own spikes, the most spikes a step, and the share of the synapse
-events that the grid pass added (delay >= 2), weighted by the events.
+contiguous 1/B of the step's spiking rows), and the most spikes a step.
 """
 
 import argparse
@@ -62,26 +58,13 @@ def engagement(net, state, blocks: int, launches: int = LAUNCHES) -> dict:
     """What K23's blocks add over *launches* one-step launches from
     *state* (see the module's docstring)."""
     import torch
-    from brainevent_torch.models import microcircuit as mc
-
-    def by_block(x):
-        return torch.nn.functional.pad(
-            x.to(torch.int64), (0, blocks * mc.MC_BLOCK - net.num)).view(
-                blocks, mc.MC_BLOCK)
     degree = (net.row_ptr[1:] - net.row_ptr[:-1]).to(torch.int64)
-    near = (net.plan.near_ptr[1:] - net.plan.near_ptr[:-1]).to(torch.int64)
-    near_by_block = by_block(near)
-    spikes, grid, owner, events, grid_events = [], [], [], 0, 0
+    spikes, grid = [], []
     for _ in range(launches):
         out = net.run(1, state=state)
         spiked = (out.spike_count - state.spike_count).to(torch.int64)
-        total = int((spiked * degree).sum())
-        d1 = int((spiked * near).sum())
         spikes.append(int(spiked.sum()))
-        grid.append(-(-total // blocks))
-        owner.append(int((by_block(spiked) * near_by_block).sum(1).max()))
-        events += total
-        grid_events += total - d1
+        grid.append(-(-int((spiked * degree).sum()) // blocks))
         state = out
 
     def median_p99(xs):
@@ -90,13 +73,9 @@ def engagement(net, state, blocks: int, launches: int = LAUNCHES) -> dict:
             [0.5, 0.99], dtype=torch.float64)).tolist()
         return median, p99
     g50, g99 = median_p99(grid)
-    o50, o99 = median_p99(owner)
     return dict(launches=launches, max_spikes=max(spikes),
                 grid_block_synapses_median=g50,
-                grid_block_synapses_p99=g99,
-                busiest_block_delay1_synapses_median=o50,
-                busiest_block_delay1_synapses_p99=o99,
-                grid_event_share=grid_events / max(events, 1))
+                grid_block_synapses_p99=g99)
 
 
 def main(argv=None) -> int:
@@ -186,7 +165,7 @@ def main(argv=None) -> int:
         torch=torch.__version__, cuda=torch.version.cuda, scale=args.scale,
         num=net.num, synapses=net.targets.numel(), depth=net.depth,
         blocks=blocks, steps=args.steps, warm=args.warm,
-        build_s=build_s, grid_share=net.grid_share, us_per_step=times,
+        build_s=build_s, us_per_step=times,
         split_us=dict(update=med['no_rows'] - med['barrier'],
                       scatter=med['whole'] - med['no_rows'],
                       barrier=med['barrier']),

@@ -256,10 +256,7 @@ def test_the_run_records_its_spans():
     root = spans[0]
     assert root.name == 'brainevent_torch.MicrocircuitNet.run'
     assert root.parent_id is None
-    share = float((net.delays >= 2).double().mean())
-    assert root.attrs == dict(num=net.num, n_steps=5, route='loop',
-                              grid_share=pytest.approx(share, abs=1e-12))
-    assert 0.98 < share < 1
+    assert root.attrs == dict(num=net.num, n_steps=5, route='loop')
     assert [s.name for s in spans[1:]] == [
         'brainevent_torch.MicrocircuitNet.copies',
         'brainevent_torch.MicrocircuitNet.launch']
@@ -268,7 +265,7 @@ def test_the_run_records_its_spans():
     assert tracing.drain() == []
 
 
-# -- the plan: the delay-1 CSR and the grid's scratch ------------------------------
+# -- the plan: the grid's scratch ---------------------------------------------------
 
 def hand_made_rows(num: int) -> dict:
     """A network of *num* neurons whose every third row is empty, the
@@ -291,41 +288,42 @@ def network_arrays(kind: str) -> dict:
     return hand_made_rows(sum(PARAMS.sizes(0.02)))
 
 
-@pytest.mark.parametrize('kind', ['drawn', 'hand-made'])
-def test_the_plan_holds_each_rows_delay_1_synapses_in_order(kind):
-    arrays = network_arrays(kind)
-    given = {k: x.clone() for k, x in arrays.items()}
-    net = bt.MicrocircuitNet(scale=0.02, device='cpu', **arrays)
+def check_plan(net):
+    """The plan is K23's scratch alone, the lists of spiking rows and their
+    counters, zeroed: no part of the network, whatever its delays."""
     plan = net.plan
-    assert plan.near_ptr.dtype == plan.near_targets.dtype == torch.int32
-    assert plan.near_weights.dtype == torch.int16
-    rp = net.row_ptr.tolist()
-    near = plan.near_ptr.tolist()
-    d, tg, w = net.delays, net.targets, net.weights
-    for i in range(net.num):
-        one = torch.nonzero(d[rp[i]:rp[i + 1]] == 1).flatten() + rp[i]
-        assert near[i + 1] - near[i] == one.numel(), i
-        assert torch.equal(plan.near_targets[near[i]:near[i + 1]], tg[one])
-        assert torch.equal(plan.near_weights[near[i]:near[i + 1]], w[one])
-    assert near[0] == 0 and near[-1] == int((d == 1).sum()) > 0
-    if kind == 'hand-made':
-        assert (net.row_ptr[1:] == net.row_ptr[:-1]).sum() > net.num // 4
-    # the given arrays are the net's, unchanged and not copied
-    for k, x in given.items():
-        assert torch.equal(arrays[k], x), k
-        assert getattr(net, k).data_ptr() == arrays[k].data_ptr(), k
+    assert plan._fields == ('lists', 'counts')
     assert plan.lists.shape == (mc.MC_LISTS, net.num, 2)
     assert plan.counts.shape == (mc.MC_LISTS,)
     assert plan.lists.dtype == plan.counts.dtype == torch.int32
+    assert not plan.lists.any() and not plan.counts.any()
+    assert not hasattr(net, 'grid_share')
+
+
+@pytest.mark.parametrize('kind', ['drawn', 'hand-made'])
+def test_the_plan_holds_each_rows_delay_1_synapses_in_order(kind):
+    """A row's synapses of delay 1 have no copy of their own: the plan
+    holds the grid's scratch only, and the net the given arrays, unchanged
+    and not copied."""
+    arrays = network_arrays(kind)
+    given = {k: x.clone() for k, x in arrays.items()}
+    net = bt.MicrocircuitNet(scale=0.02, device='cpu', **arrays)
+    check_plan(net)
+    assert int((net.delays == 1).sum()) > 0
+    if kind == 'hand-made':
+        assert (net.row_ptr[1:] == net.row_ptr[:-1]).sum() > net.num // 4
+    for k, x in given.items():
+        assert torch.equal(arrays[k], x), k
+        assert getattr(net, k).data_ptr() == arrays[k].data_ptr(), k
 
 
 @pytest.mark.parametrize('kind', ['drawn', 'hand-made'])
 def test_grid_share_is_the_share_of_delays_of_two_or_more(kind):
+    """The grid adds every synapse, of any delay, so the run's span carries
+    no share of them: its attributes are the net's size, the steps and the
+    route."""
     arrays = network_arrays(kind)
-    n_syn = arrays['delays'].numel()
-    want = int((arrays['delays'] >= 2).sum()) / n_syn
     net = bt.MicrocircuitNet(scale=0.02, device='cpu', **arrays)
-    assert net.grid_share == want
     tracing.drain()
     tracing.enable()
     try:
@@ -334,17 +332,17 @@ def test_grid_share_is_the_share_of_delays_of_two_or_more(kind):
         tracing.disable()
     root = tracing.drain()[0]
     assert root.name == 'brainevent_torch.MicrocircuitNet.run'
-    assert root.attrs['grid_share'] == want
+    assert root.attrs == dict(num=net.num, n_steps=3, route='loop')
 
 
 @pytest.mark.parametrize('delay', [1, 2])
 def test_grid_share_of_one_delay_everywhere(delay):
+    """A network of one delay everywhere has the plan of any other, and
+    its ring the next power of two above the delay."""
     arrays = network_arrays('hand-made')
     arrays['delays'] = torch.full_like(arrays['delays'], delay)
     net = bt.MicrocircuitNet(scale=0.02, device='cpu', **arrays)
-    assert net.grid_share == (0.0 if delay == 1 else 1.0)
-    n_near = net.plan.near_targets.numel()
-    assert n_near == (arrays['delays'].numel() if delay == 1 else 0)
+    check_plan(net)
     assert net.depth == 1 << delay.bit_length()
 
 
@@ -356,8 +354,8 @@ def test_an_empty_network_has_an_empty_plan():
         targets=torch.zeros(0, dtype=torch.int32),
         weights=torch.zeros(0, dtype=torch.int16),
         delays=torch.zeros(0, dtype=torch.uint8))
-    assert net.grid_share == 0.0
-    assert not net.plan.near_ptr.any() and net.plan.near_targets.numel() == 0
+    check_plan(net)
+    assert net.depth == 2
 
 
 # -- the kernel's interface, without a card ---------------------------------------
@@ -402,15 +400,16 @@ def test_the_wrapper_passes_what_the_c_entry_point_takes(monkeypatch):
         assert mc.mc_sim.launches == before + 1
     finally:
         mc._max_blocks.cache_clear()
-    assert seen == {'mc_sim_max_blocks': 2, 'mc_sim_launch': 20}
+    assert seen == {'mc_sim_max_blocks': 2, 'mc_sim_launch': 17}
 
 
 @pytest.mark.parametrize('phases', [None, 3, 4])
 def test_the_wrapper_takes_the_clocked_instance_with_phases(monkeypatch,
                                                             phases):
-    """Given a buffer of the three phases, the wrapper passes it as the C
-    entry's ``phases`` (the clocked instance); without, null (the plain
-    one); a buffer of another size is refused before K23 is called."""
+    """Given a buffer of the three phases and the rows listed ahead, the
+    wrapper passes it as the C entry's ``phases`` (the clocked instance);
+    without, null (the plain one); a buffer of another size is refused
+    before K23 is called."""
     text = (ROOT / 'brainevent_torch' / 'csrc' / 'mc_sim.cu').read_text()
     sig = text[text.index('BE_EXPORT int mc_sim_launch('):]
     names = re.findall(r'(\w+)[,)]', sig[:sig.index('{')])
@@ -432,7 +431,7 @@ def test_the_wrapper_takes_the_clocked_instance_with_phases(monkeypatch,
     call = lambda: mc._mc_sim_cuda(  # noqa: E731
         mc.mc_sim, *out, net.row_ptr, net.targets, net.weights, net.delays,
         10, net.step_params(1, 0), plan=net.plan, phases=buf)
-    if phases == 4:
+    if phases == 3:
         with pytest.raises(ValueError, match='do not match'):
             call()
         assert seen == []
@@ -526,26 +525,30 @@ def test_k23_chains_and_leaves_its_state(cuda_device):
     assert mc.mc_sim_grid(net.num, cuda_device) == -(-net.num // mc.MC_BLOCK)
 
 
+def every_third_row_emptied(net):
+    """*net*'s network on its device with every third row emptied."""
+    degree = (net.row_ptr[1:] - net.row_ptr[:-1]).long()
+    kept = torch.arange(net.num, device=net.device) % 3 != 0
+    keep = torch.repeat_interleave(kept, degree)
+    row_ptr = torch.zeros(net.num + 1, dtype=torch.int64, device=net.device)
+    torch.cumsum(degree * kept, 0, out=row_ptr[1:])
+    return bt.MicrocircuitNet(
+        scale=net.scale, device=net.device, row_ptr=row_ptr,
+        targets=net.targets[keep], weights=net.weights[keep],
+        delays=net.delays[keep])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('empty_rows', [False, True])
 def test_k23_walks_a_full_list_bit_for_bit(cuda_device, empty_rows):
     """The first three blocks' 3 MC_BLOCK neurons all spike at the first
-    step, so their blocks' lists of delay-1 rows are full and the grid's
-    list of the step holds more than one chunk of MC_BLOCK rows; with
-    *empty_rows*, every third row of the network holds no synapse, some of
-    those blocks' among them."""
+    step, so the grid's list of that step, made before the loop, holds
+    many chunks of a warp's width of rows; with *empty_rows*, every third
+    row of the network holds no synapse, some of those blocks' among
+    them."""
     net, inputs = setup(0.02, cuda_device)
     if empty_rows:
-        degree = (net.row_ptr[1:] - net.row_ptr[:-1]).long()
-        kept = torch.arange(net.num, device=cuda_device) % 3 != 0
-        keep = torch.repeat_interleave(kept, degree)
-        row_ptr = torch.zeros(net.num + 1, dtype=torch.int64,
-                              device=cuda_device)
-        torch.cumsum(degree * kept, 0, out=row_ptr[1:])
-        net = bt.MicrocircuitNet(
-            scale=0.02, device=cuda_device, row_ptr=row_ptr,
-            targets=net.targets[keep], weights=net.weights[keep],
-            delays=net.delays[keep])
+        net = every_third_row_emptied(net)
         assert net.depth == inputs['depth']
     state = program_state(inputs['states'][0])
     block = slice(0, 3 * mc.MC_BLOCK)
@@ -561,6 +564,34 @@ def test_k23_walks_a_full_list_bit_for_bit(cuda_device, empty_rows):
     mc.mc_loop(*want, *rows, 50, net.step_params(state.key, state.step))
     for k, x in zip(ref.FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
+
+
+@pytest.mark.cuda
+def test_k23_adds_parts_of_rows_longer_than_a_warp(cuda_device):
+    """Each row of the drawn network at 0.02 five times over (~385
+    synapses, so a block's part of a row is more than a warp's width on
+    its 7 blocks): bit for bit the twin over 100 steps."""
+    base, inputs = setup(0.02, cuda_device)
+    degree = (base.row_ptr[1:] - base.row_ptr[:-1]).long()
+    row_ptr = torch.zeros(base.num + 1, dtype=torch.int64,
+                          device=cuda_device)
+    torch.cumsum(5 * degree, 0, out=row_ptr[1:])
+    rows = torch.repeat_interleave(
+        torch.arange(base.num, device=cuda_device), 5 * degree)
+    at = torch.arange(int(row_ptr[-1]), device=cuda_device) - row_ptr[rows]
+    old = base.row_ptr[rows].long() + at % degree[rows]
+    net = bt.MicrocircuitNet(scale=0.02, device=cuda_device, row_ptr=row_ptr,
+                             targets=base.targets[old],
+                             weights=base.weights[old],
+                             delays=base.delays[old])
+    blocks = mc.mc_sim_grid(net.num, cuda_device)
+    assert int(degree.max()) * 5 // blocks > 32
+    state = program_state(inputs['states'][1])
+    got = net.run(100, state=state)
+    want = twin_run(net, state, 100)
+    for k, x in zip(ref.FIELDS, want):
+        assert torch.equal(getattr(got, k), x), k
+    assert int((got.spike_count - state.spike_count).sum()) > 0
 
 
 def twin_run(net, state, n_steps):
@@ -595,15 +626,14 @@ def test_k23_adds_its_last_steps_spikes_before_it_returns(cuda_device, scale,
 @pytest.mark.cuda
 @pytest.mark.parametrize('delays', ['all 1', 'none 1'])
 def test_k23_takes_networks_of_one_kind_of_delay(cuda_device, delays):
-    """Every delay 1 (D = 2: the grid pass adds nothing), or none (the
-    owner's walk adds nothing): bit for bit the twin over 200 steps."""
+    """Every delay 1 (D = 2: each spike's whole row into the next step's
+    slot), or none: bit for bit the twin over 200 steps."""
     base, inputs = setup(0.02, cuda_device)
     d = (torch.ones_like(base.delays) if delays == 'all 1'
          else base.delays.clamp(min=2))
     net = bt.MicrocircuitNet(scale=0.02, device=cuda_device,
                              row_ptr=base.row_ptr, targets=base.targets,
                              weights=base.weights, delays=d)
-    assert net.grid_share == (0.0 if delays == 'all 1' else 1.0)
     assert net.depth == (2 if delays == 'all 1' else base.depth)
     state = program_state(inputs['states'][1])
     state = state._replace(ring=torch.zeros(net.depth, net.num,
@@ -614,3 +644,64 @@ def test_k23_takes_networks_of_one_kind_of_delay(cuda_device, delays):
     for k, x in zip(ref.FIELDS, want):
         assert torch.equal(getattr(got, k), x), k
     assert int((got.spike_count - state.spike_count).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scale', [0.02, 1.0])
+def test_k23_lists_a_launchs_first_step_before_its_loop(cuda_device, scale):
+    """Launches of one step, each chained on from the last one's state:
+    each launch's only step adds the rows that K23 listed before its loop,
+    from its initial state. Bit for bit one launch of as many steps and the
+    twin: at 0.02 from a drawn state, a fifth of the neurons above
+    threshold at the first launch's step; at full scale from 1,000 steps
+    on, past the start's burst and the silence after it, neurons spiking
+    at every launch's step."""
+    net, inputs = setup(scale, cuda_device)
+    state = program_state(inputs['states'][1])
+    if scale == 1.0:
+        state = net.run(1000, state=state)
+    n_steps = 12
+    chained, spikes = state, []
+    for _ in range(n_steps):
+        out = net.run(1, state=chained)
+        spikes.append(int((out.spike_count - chained.spike_count).sum()))
+        chained = out
+    whole = net.run(n_steps, state=state)
+    want = twin_run(net, state, n_steps)
+    for k, x in zip(ref.FIELDS, want):
+        assert torch.equal(getattr(chained, k), x), k
+        assert torch.equal(getattr(whole, k), x), k
+    if scale == 1.0:
+        assert min(spikes) > 0, spikes
+    else:
+        assert spikes[0] > net.num // 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scale', [0.02, 1.0])
+def test_k23_counts_the_rows_it_lists_ahead(cuda_device, scale):
+    """With tracing on, the clocked instance counts the rows it listed a
+    step ahead to ``brainevent_torch.MicrocircuitNet.rows_ahead``: the
+    launches' spikes of non-empty rows, over two chained launches (every
+    third row emptied at 0.02), bit for bit the plain instance."""
+    net, inputs = setup(scale, cuda_device)
+    if scale == 0.02:
+        net = every_third_row_emptied(net)
+    state = program_state(inputs['states'][0])
+    plain = net.run(300, state=net.run(200, state=state))
+    tracing.drain_counts()
+    tracing.enable()
+    try:
+        got = net.run(300, state=net.run(200, state=state))
+    finally:
+        tracing.disable()
+        tracing.drain()
+    counts = tracing.drain_counts()
+    for k in ref.FIELDS:
+        assert torch.equal(getattr(got, k), getattr(plain, k)), k
+    sends = (net.row_ptr[1:] > net.row_ptr[:-1]).to(torch.int64)
+    spiked = (got.spike_count - state.spike_count).to(torch.int64)
+    want = int((spiked * sends).sum())
+    assert counts[mc.ROWS_AHEAD] == want > 0
+    if scale == 0.02:  # spikes of empty rows are listed not
+        assert want < int(spiked.sum())
