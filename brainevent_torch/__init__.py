@@ -22,7 +22,7 @@ has a plain PyTorch twin, which runs for CPU tensors, and a CUDA kernel,
 which runs for CUDA tensors; the kernels are compiled by ``nvcc`` at first
 use (:mod:`brainevent_torch.ops.cuda_build`). Entry points that create
 tensors (``EINet``, ``JITCNet``, ``MicrocircuitNet``, ``HpcStdpNet``,
-``HHNet``, ``SurrogateSNN``, the JITC matrices, the ``interop``
+``HHNet``, ``IstdpNet``, ``SurrogateSNN``, the JITC matrices, the ``interop``
 constructors, ``dense_from_arrays`` among them) place them on the card
 unless given ``device='cpu'``.
 """
@@ -71,7 +71,8 @@ from .models import (
     SurrogateSNN, snn_loss, train_step, JITCNet, JITCNetState,
     MicrocircuitNet, MicrocircuitParams, MicrocircuitState,
     build_microcircuit, HpcStdpNet, HpcStdpParams, HpcStdpState,
-    build_hpc_network, HHNet, HHNetState, HHParams,
+    build_hpc_network, HHNet, HHNetState, HHParams, IstdpNet, IstdpParams,
+    IstdpState, build_istdp_network,
 )
 from .jitc import (
     JITCModeView, JITCWalkPlan, JITCScalarMatrix, JITCScalarR, JITCScalarC,
@@ -122,7 +123,8 @@ __all__ = [
     'MicrocircuitNet', 'MicrocircuitParams', 'MicrocircuitState',
     'build_microcircuit', 'HpcStdpNet', 'HpcStdpParams', 'HpcStdpState',
     'HHNet', 'HHNetState', 'HHParams',
-    'build_hpc_network',
+    'build_hpc_network', 'IstdpNet', 'IstdpParams', 'IstdpState',
+    'build_istdp_network',
     'JITCModeView', 'JITCWalkPlan', 'JITCScalarMatrix', 'JITCScalarR',
     'JITCScalarC', 'jits', 'jitsmv', 'jitsmm', 'binary_jitsmv',
     'binary_jitsmm', 'jitsmv_plan', 'jitsmm_plan', 'JITCNormalMatrix',

@@ -4,7 +4,10 @@
 // K24 `stdp_sim`: a whole trial of NEST's HPC benchmark network with
 // power-law STDP (Morrison, Aertsen & Diesmann 2007; models/hpc_stdp.py),
 // n steps, in one launch. No TPU kernel precedes it: the JAX package has no
-// network whose synapses change while it runs.
+// network whose synapses change while it runs. The file's second half is
+// K24's iSTDP instance `istdp_sim` (Vogels et al. 2011's inhibitory
+// plasticity; models/istdp_net.py), on the same grid, rows' lists, split
+// plan and walk by target (see its own comment).
 //
 // The network: NE excitatory and NI inhibitory iaf_psc_alpha neurons (one
 // current channel), every synapse of one delay d (steps), in two CSRs by
@@ -877,4 +880,507 @@ BE_EXPORT int stdp_pow_launch(const float* x, float* y, long long n,
     stdp_pow_kernel<<<BE_MAX_BLOCKS * 2, BE_BLOCK, 0,
                       static_cast<cudaStream_t>(stream)>>>(x, y, n, mu);
     return be_end();
+}
+
+// ---------------------------------------------------------------------------
+// K24's iSTDP instance `istdp_sim`: a whole trial of Vogels, Sprekeler,
+// Zenke, Clopath & Gerstner 2011's recurrent network with inhibitory
+// plasticity (models/istdp_net.py), n steps, in one launch, on K24's grid
+// with its rows' lists and its walk by target over a split plan.
+//
+// The network: NE excitatory and NI inhibitory conductance-based LIF
+// neurons, every synapse of delay 1 step (a ring of D = 2 slots, two
+// channels: AMPA and GABA), in two CSRs by source over one targets array:
+// the plastic I->E synapses first (positions [0, P), rows plastic_ptr, one
+// a row of an I neuron, float32 weights w in nS), then the static ones
+// (positions [P, P + S), rows static_ptr: each E neuron's row onto E and I
+// targets, w_e units of AMPA, then each I neuron's row onto I targets, w_ii
+// units of GABA). A row's targets ascend.
+//
+// Step t, neuron i, every product and sum rounded once (Euler, as Brian's
+// method='euler', in float32):
+//   ga = ga + float(ring[t mod D][AMPA][i]) q;  gg likewise (GABA); the
+//   slots cleared
+//   if ref > 0: ref -= 1;  live = ref == 0
+//   if live: v = v + dt_c (((i_bg - g_l (v - e_l)) - ga v) - gg (v - e_r))
+//   ga = da ga;  gg = dg gg
+//   if live and v > v_t: v = e_l, ref = ref_steps, count += 1
+//   E: A_post = kd A_post (before the spike);  I: A_pre = kd A_pre, + 1
+//   at a spike
+// then Brian's synapses, the pre pathway before the post one:
+//   1. each I neuron i that spikes at t, each I -> E synapse i -> j:
+//      w = min(max(w + eta (A_post_j - alpha), 0), g_max), and rint(w
+//      units) units into ring[(t + 1) mod D][GABA][j]; every static
+//      synapse of a spike adds its units into its channel's slot;
+//   2. each E neuron j that spikes at t, each I -> E synapse i -> j:
+//      w = min(max(w + eta A_pre_i, 0), g_max), A_pre_i counting i's
+//      spike at t;
+//   3. the E spikes of t add 1 to their A_post.
+// Every update is eager: a synapse's pre and post updates are made in the
+// step of their spikes, in that order.
+//
+// A step is two phases between grid barriers, as the HPC instance's. Phase
+// A: each thread's neurons' update; an E neuron writes its A_post before
+// its spike and whether it spiked (fired), an I neuron its A_pre; a
+// spiking neuron lists its static row, and an I neuron its plastic row, on
+// the step's two lists, a block's rows at one place of each list that the
+// block takes with one atomic. Phase B: the grid's warps scatter the
+// static rows whole, a warp a row, with global atomics into the ring's
+// next slot (AMPA from an E source, GABA onto I targets from an I one):
+// a row of ~200 targets over the grid's ~400 blocks is too short to split
+// by target, where each block would read a row's two bounds for ~0.5 of
+// its entries. The plastic rows go by target, as the HPC instance's walk:
+// block b owns the E neurons [b NE / G, (b + 1) NE / G), stages eta
+// (A_post - alpha) of them and lists those that spiked, walks its part of
+// each plastic row ([line[b], line[b + 1]) of the row's line in the split
+// plan, models/istdp_net.py istdp_split), making the pre updates and
+// summing the units into shared sums of its targets, adds the sums into the
+// GABA slot of its E targets with plain stores (no other writer: the
+// static GABA rows have I targets), and then walks the columns (the I -> E
+// synapses by target: col_ptr, col_pos, col_src) of its spiking E targets
+// (post updates). A synapse i -> j is written only by j's block, so the
+// block's barrier between the walk and the columns orders its pre and
+// post updates.
+//
+// Two instances (kPhases), as the HPC instance's: the clocked one counts the
+// pre and the post updates and times each warp's launch in five phases:
+// update (phase A, and the state's load and store), scatter (the static
+// rows), walk (the staging, the plastic rows and the sums), post (the
+// columns) and barrier.
+
+// The scalars of one network and trial; the same layout as IstdpParams in
+// brainevent_torch/models/istdp_net.py (ctypes), the floats rounded to
+// float32 on the host.
+struct IstdpParams {
+    float dt_c;        // float32(dt / C_m): mV a pA a step
+    float g_l;         // leak conductance (nS)
+    float e_l;         // leak reversal and reset (mV)
+    float e_r;         // GABA reversal (mV)
+    float i_bg;        // the constant drive (pA)
+    float v_t;         // threshold (mV)
+    float da;          // float32(1 - dt / tau_ampa)
+    float dg;          // float32(1 - dt / tau_gaba)
+    float q;           // float32(1 / weight_units): nS of a unit
+    float kd;          // float32(exp(-dt / tau_stdp))
+    float eta;         // learning rate
+    float alpha;       // float32(2 rho0 tau_stdp)
+    float g_max;       // the weights' ceiling
+    float units;       // float32(weight_units): units of a nS
+    int num;           // neurons
+    int n_exc;         // excitatory neurons, the first n_exc
+    int n_plastic;     // P: positions below it are plastic
+    int static_e_end;  // static positions below it have an E source
+    int depth;         // D: the ring's slots
+    int ref_steps;     // refractory steps
+    int w_e;           // units of an E synapse (AMPA)
+    int w_ii;          // units of an I -> I synapse (GABA)
+    unsigned step0;    // the trial's first step, modulo 2^32
+};
+
+namespace {
+
+// The counters of the clocked instance, then its phases (phase_clock.cuh).
+constexpr int ISTDP_COUNTERS = 2;
+enum IstdpPhase { ISTDP_UPDATE, ISTDP_SCATTER, ISTDP_WALK, ISTDP_POST,
+                  ISTDP_BARRIER, ISTDP_PHASES };
+
+// A block's E targets in phase B, [e_lo, e_lo + n_e): eta (A_post - alpha)
+// of each (staged at the phase's start), those that spiked in the step
+// (n_post of them), and the units of the plastic walk into each (zero
+// between walks). n_lines and base: the rows its threads list in phase A on
+// the plastic and the static list, and their first slots there.
+struct IstdpOwn {
+    int acc[STDP_OWN];
+    float dpre[STDP_OWN];
+    int post[STDP_OWN];
+    int e_lo, n_e, n_post;
+    int n_lines[2], base[2];
+};
+
+// One update of a plastic weight: min(max(w + x, 0), g_max).
+__device__ __forceinline__ float istdp_clip(const float w, const float x,
+                                            const float g_max) {
+    float y = __fadd_rn(w, x);
+    y = y > 0.0f ? y : 0.0f;
+    return y < g_max ? y : g_max;
+}
+
+// The grid's scatter of step t's static rows (the n neurons of list): a
+// warp a row, its lanes over the row's entries, each adding its units with
+// a global atomic into the ring's slot late, AMPA from an E source, GABA
+// (num on) from an I one.
+__device__ __forceinline__ void istdp_scatter(
+    const int* list, const int n, const int* __restrict__ static_ptr,
+    const int* __restrict__ targets, int* late, const IstdpParams& p) {
+    const int lane = threadIdx.x & 31;
+    const int warps = gridDim.x * SG_WARPS;
+    for (int k = blockIdx.x * SG_WARPS + (threadIdx.x >> 5); k < n;
+         k += warps) {
+        const int i = __ldcg(list + k);
+        const int beg = __ldg(static_ptr + i), end = __ldg(static_ptr + i + 1);
+        const bool exc = i < p.n_exc;
+        int* slot = exc ? late : late + p.num;
+        const int units = exc ? p.w_e : p.w_ii;
+        for (int c = beg + lane; c < end; c += 32)
+            atomicAdd(slot + __ldg(targets + c), units);
+    }
+}
+
+// The block's walk of step t's plastic rows (n, from list: I neurons less
+// NE) by target: each row's part [line[b], line[b + 1]) whose targets the
+// block owns; each entry makes its pre update with its target's staged eta
+// (A_post - alpha) and adds rint(w units) into its target's shared sum;
+// then the block adds its sums into the GABA slot of its E targets (late).
+// *npre counts the pre updates.
+__device__ __forceinline__ void istdp_walk(
+    const int* list, const int n, const int* __restrict__ split,
+    StdpView& v, IstdpOwn& o, const int* __restrict__ targets,
+    float* weights, int* late, int* npre, const IstdpParams& p) {
+    const int j = threadIdx.x;
+    const long long stride = gridDim.x + 1;
+    const int e_lo = o.e_lo;
+    for (int c0 = 0; c0 < n; c0 += SG_BLOCK) {
+        const int m = min(n - c0, SG_BLOCK);
+        int beg = 0, end = 0;
+        if (j < m) {
+            const int* line = split + __ldcg(list + c0 + j) * stride +
+                              blockIdx.x;
+            beg = __ldg(line);
+            end = __ldg(line + 1);
+        }
+        const int total = sg_scan(make_int2(beg, end), m, v.off, v.beg,
+                                  v.wsum);
+        for (int e = j; e < total; e += SG_BLOCK) {
+            const int r = sg_find(e, m, v.off);
+            const int c = v.beg[r] + (e - v.off[r]);
+            const int q = __ldg(targets + c) - e_lo;
+            const float x = istdp_clip(__ldcg(weights + c), o.dpre[q],
+                                       p.g_max);
+            weights[c] = x;
+            atomicAdd(o.acc + q, __float2int_rn(__fmul_rn(x, p.units)));
+            ++*npre;
+        }
+    }
+    __syncthreads();  // the block's sums are whole
+    for (int q = j; q < o.n_e; q += SG_BLOCK) {
+        const int x = o.acc[q];
+        if (x) {
+            o.acc[q] = 0;
+            int* a = late + e_lo + q;
+            *a = __ldcg(a) + x;
+        }
+    }
+}
+
+// The block's post updates of step t: the columns of its E targets that
+// spiked (o.post, o.n_post of them), each entry w = clip(w + eta A_pre_i)
+// with A_pre_i of the step (its spike counted). *npost counts them.
+__device__ __forceinline__ void istdp_post(
+    StdpView& v, IstdpOwn& o, const int* __restrict__ col_ptr,
+    const int* __restrict__ col_pos, const int* __restrict__ col_src,
+    float* weights, const float* apre, int* npost, const IstdpParams& p) {
+    const int j = threadIdx.x, n = o.n_post;
+    for (int c0 = 0; c0 < n; c0 += SG_BLOCK) {
+        const int m = min(n - c0, SG_BLOCK);
+        int beg = 0, end = 0;
+        if (j < m) {
+            const int jj = o.post[c0 + j];
+            beg = __ldg(col_ptr + jj);
+            end = __ldg(col_ptr + jj + 1);
+        }
+        const int total = sg_scan(make_int2(beg, end), m, v.off, v.beg,
+                                  v.wsum);
+        for (int e = j; e < total; e += SG_BLOCK) {
+            const int r = sg_find(e, m, v.off);
+            const int c = v.beg[r] + (e - v.off[r]);
+            const int pos = __ldg(col_pos + c);
+            // a plain load: the block's walk may have written it before
+            // the block's barrier, which orders it for the block alone
+            const float x = istdp_clip(
+                weights[pos],
+                __fmul_rn(p.eta, __ldcg(apre + __ldg(col_src + c))),
+                p.g_max);
+            weights[pos] = x;
+            ++*npost;
+        }
+    }
+}
+
+template <bool kPhases>
+__global__ void __launch_bounds__(SG_BLOCK, 3)
+istdp_sim_kernel(float* __restrict__ v, float* __restrict__ g_ampa,
+                 float* __restrict__ g_gaba, int* __restrict__ ref, int* ring,
+                 int* __restrict__ spike_count, float* weights, float* apre,
+                 float* apost, const int* __restrict__ targets,
+                 const int* __restrict__ plastic_ptr,
+                 const int* __restrict__ static_ptr,
+                 const int* __restrict__ col_ptr,
+                 const int* __restrict__ col_pos,
+                 const int* __restrict__ col_src,
+                 const int* __restrict__ split, int* lists, int* counts,
+                 unsigned char* fired, unsigned long long* counters,
+                 const int n_steps, const IstdpParams p) {
+    BePhaseClock<kPhases, ISTDP_PHASES, SG_WARPS> clk;
+    clk.start();
+    // The walk's and the columns' view of a chunk of rows.
+    __shared__ StdpView s_view;
+    // The block's E targets in phase B.
+    __shared__ IstdpOwn s_own;
+    // The block's pre and post updates (the clocked instance).
+    __shared__ unsigned long long s_upd[ISTDP_COUNTERS];
+    if (kPhases && threadIdx.x < ISTDP_COUNTERS) s_upd[threadIdx.x] = 0;
+    const int num = p.num, ne = p.n_exc, ni = num - ne;
+    if (threadIdx.x == 0) {
+        const long long b = blockIdx.x, nb = gridDim.x;
+        s_own.e_lo = static_cast<int>(b * ne / nb);
+        s_own.n_e = static_cast<int>((b + 1) * ne / nb) - s_own.e_lo;
+        s_own.n_post = s_own.n_lines[0] = s_own.n_lines[1] = 0;
+    }
+    for (int q = threadIdx.x; q < STDP_OWN; q += SG_BLOCK) s_own.acc[q] = 0;
+    cg::grid_group grid = cg::this_grid();
+    const unsigned dmask = static_cast<unsigned>(p.depth) - 1u;
+    const int g = blockIdx.x * SG_BLOCK + threadIdx.x;
+    const int gsize = gridDim.x * SG_BLOCK;
+    // a parity's lists: the plastic rows (I neurons less NE, ni slots),
+    // then the static rows (neurons, num slots)
+    const long long lcap = static_cast<long long>(ni) + num;
+    const long long stride = gridDim.x + 1;
+    if (g < 4) counts[g] = 0;
+    float rv[STDP_NPT], ra[STDP_NPT], rg[STDP_NPT], tr[STDP_NPT];
+    int rr[STDP_NPT], rc[STDP_NPT];
+#pragma unroll
+    for (int q = 0; q < STDP_NPT; ++q) {
+        const int i = g + q * gsize;
+        const bool own = i < num;
+        rv[q] = own ? v[i] : 0.0f;
+        ra[q] = own ? g_ampa[i] : 0.0f;
+        rg[q] = own ? g_gaba[i] : 0.0f;
+        rr[q] = own ? ref[i] : 0;
+        rc[q] = own ? spike_count[i] : 0;
+        tr[q] = !own ? 0.0f : i < ne ? apost[i] : apre[i - ne];
+    }
+    clk.edge(ISTDP_UPDATE);
+    grid.sync();  // the lists' counters are zeroed
+    clk.edge(ISTDP_BARRIER);
+
+    for (int k = 0; k < n_steps; ++k) {
+        const unsigned t = p.step0 + static_cast<unsigned>(k);
+        const int par = static_cast<int>(t & 1u);
+        int* plist = lists + par * lcap;
+        int* slist = plist + ni;
+        int* pcount = counts + 2 * par;
+        // Phase A: the update of the thread's neurons.
+        int* now = ring + static_cast<long long>(t & dmask) * 2 * num;
+        int rp[STDP_NPT], rs[STDP_NPT];
+        int np = 0, ns = 0;
+#pragma unroll
+        for (int q = 0; q < STDP_NPT; ++q) {
+            const int i = g + q * gsize;
+            rp[q] = rs[q] = -1;
+            if (i >= num) continue;
+            const int sa = __ldcg(now + i), sg = __ldcg(now + num + i);
+            if (sa) now[i] = 0;
+            if (sg) now[num + i] = 0;
+            const float ga = __fadd_rn(ra[q], __fmul_rn(__int2float_rn(sa),
+                                                         p.q));
+            const float gg = __fadd_rn(rg[q], __fmul_rn(__int2float_rn(sg),
+                                                         p.q));
+            if (rr[q] > 0) rr[q] -= 1;
+            const bool live = rr[q] == 0;
+            if (live) {
+                const float x = rv[q];
+                const float cur = __fsub_rn(
+                    __fsub_rn(__fsub_rn(p.i_bg,
+                                        __fmul_rn(p.g_l, __fsub_rn(x, p.e_l))),
+                              __fmul_rn(ga, x)),
+                    __fmul_rn(gg, __fsub_rn(x, p.e_r)));
+                rv[q] = __fadd_rn(x, __fmul_rn(p.dt_c, cur));
+            }
+            ra[q] = __fmul_rn(p.da, ga);
+            rg[q] = __fmul_rn(p.dg, gg);
+            const bool spike = live && rv[q] > p.v_t;
+            if (spike) {
+                rv[q] = p.e_l;
+                rr[q] = p.ref_steps;
+                rc[q] += 1;
+            }
+            tr[q] = __fmul_rn(p.kd, tr[q]);
+            if (i < ne) {
+                apost[i] = tr[q];
+                fired[i] = spike;
+                if (spike) tr[q] = __fadd_rn(tr[q], 1.0f);
+            } else {
+                const int ii = i - ne;
+                if (spike) tr[q] = __fadd_rn(tr[q], 1.0f);
+                apre[ii] = tr[q];
+                if (spike) {
+                    const int2 pr = make_int2(__ldg(plastic_ptr + ii),
+                                              __ldg(plastic_ptr + ii + 1));
+                    if (pr.y > pr.x) {
+                        // read by phase B's walk, after the barrier
+                        sg_prefetch(targets + pr.x, targets + pr.y);
+                        sg_prefetch(weights + pr.x, weights + pr.y);
+                        sg_prefetch(split + ii * stride,
+                                    split + (ii + 1) * stride);
+                        rp[q] = ii;
+                        np += 1;
+                    }
+                }
+            }
+            if (spike) {
+                const int2 sr = make_int2(__ldg(static_ptr + i),
+                                          __ldg(static_ptr + i + 1));
+                if (sr.y > sr.x) {
+                    sg_prefetch(targets + sr.x, targets + sr.y);
+                    rs[q] = i;
+                    ns += 1;
+                }
+            }
+        }
+        // the block's rows at one place of each of the step's lists
+        const int op = np ? atomicAdd(&s_own.n_lines[0], np) : 0;
+        const int os = ns ? atomicAdd(&s_own.n_lines[1], ns) : 0;
+        __syncthreads();
+        if (threadIdx.x < 2) {
+            const int c = s_own.n_lines[threadIdx.x];
+            s_own.base[threadIdx.x] = c ? atomicAdd(pcount + threadIdx.x, c)
+                                        : 0;
+            s_own.n_lines[threadIdx.x] = 0;
+        }
+        __syncthreads();
+        if (np | ns) {
+            int* at_p = plist + s_own.base[0] + op;
+            int* at_s = slist + s_own.base[1] + os;
+#pragma unroll
+            for (int q = 0; q < STDP_NPT; ++q) {
+                if (rp[q] >= 0) *at_p++ = rp[q];
+                if (rs[q] >= 0) *at_s++ = rs[q];
+            }
+        }
+        clk.edge(ISTDP_UPDATE);
+        grid.sync();
+        clk.edge(ISTDP_BARRIER);
+        // Phase B: the static rows' scatter, the plastic rows' walk by
+        // target, then the columns.
+        int* late = ring + static_cast<long long>((t + 1u) & dmask) * 2 * num;
+        for (int q = threadIdx.x; q < s_own.n_e; q += SG_BLOCK) {
+            const int i = s_own.e_lo + q;
+            s_own.dpre[q] = __fmul_rn(p.eta,
+                                      __fsub_rn(__ldcg(apost + i), p.alpha));
+            if (__ldcg(fired + i))
+                s_own.post[atomicAdd(&s_own.n_post, 1)] = i;
+        }
+        clk.edge(ISTDP_WALK);
+        istdp_scatter(slist, __ldcg(pcount + 1), static_ptr, targets, late, p);
+        clk.edge(ISTDP_SCATTER);
+        __syncthreads();  // the block's targets are staged
+        int npre = 0, npost = 0;
+        istdp_walk(plist, __ldcg(pcount), split, s_view, s_own, targets,
+                   weights, late + num, &npre, p);
+        clk.edge(ISTDP_WALK);
+        istdp_post(s_view, s_own, col_ptr, col_pos, col_src, weights, apre,
+                   &npost, p);
+        if (kPhases) {
+            stdp_count(s_upd, npre);
+            stdp_count(s_upd + 1, npost);
+        }
+        __syncthreads();  // every thread has read n_post
+        if (threadIdx.x == 0) s_own.n_post = 0;
+        // The lists' counters of step t + 1 were last used in step t - 1.
+        if (blockIdx.x == 0 && threadIdx.x < 2)
+            counts[2 * (par ^ 1) + threadIdx.x] = 0;
+        clk.edge(ISTDP_POST);
+        grid.sync();
+        clk.edge(ISTDP_BARRIER);
+        clk.tick(k);
+    }
+
+#pragma unroll
+    for (int q = 0; q < STDP_NPT; ++q) {
+        const int i = g + q * gsize;
+        if (i >= num) continue;
+        v[i] = rv[q];
+        g_ampa[i] = ra[q];
+        g_gaba[i] = rg[q];
+        ref[i] = rr[q];
+        spike_count[i] = rc[q];
+        if (i < ne)
+            apost[i] = tr[q];
+        else
+            apre[i - ne] = tr[q];
+    }
+    clk.edge(ISTDP_UPDATE);
+    if constexpr (kPhases) {
+        clk.finish(counters + ISTDP_COUNTERS);
+        if (threadIdx.x < ISTDP_COUNTERS && s_upd[threadIdx.x])
+            atomicAdd(counters + threadIdx.x, s_upd[threadIdx.x]);
+    }
+}
+
+}  // namespace
+
+// Blocks of SG_BLOCK threads of K24's iSTDP instance that can be
+// co-resident on the device: the largest grid a cooperative launch of
+// either instance takes (the clocked one may hold more registers), so that
+// both run on one grid.
+BE_EXPORT int istdp_sim_max_blocks(int device, int* blocks) {
+    int err = be_begin(device);
+    if (err) return err;
+    int plain = 0, clocked = 0;
+    err = be_coresident_blocks(
+        reinterpret_cast<const void*>(istdp_sim_kernel<false>), SG_BLOCK,
+        device, &plain);
+    if (err) return err;
+    err = be_coresident_blocks(
+        reinterpret_cast<const void*>(istdp_sim_kernel<true>), SG_BLOCK,
+        device, &clocked);
+    if (err) return err;
+    *blocks = plain < clocked ? plain : clocked;
+    return 0;
+}
+
+// v, g_ampa, g_gaba: (num,) float32; ref, spike_count: (num,) int32; apre:
+// (num - n_exc,) and apost: (n_exc,) float32; all read at the start and
+// written at the end. ring: (depth, 2, num) int32 and weights: (n_plastic,)
+// float32, read and written in place. targets: int32 (P + S); plastic_ptr:
+// (num - n_exc + 1,) int32 into [0, P); static_ptr: (num + 1,) int32 into
+// [P, P + S); col_ptr (n_exc + 1,), col_pos and col_src (P,) int32: the
+// plastic synapses by target (their positions and I sources); split:
+// (num - n_exc, blocks + 1) int32, the split plan of the plastic rows for
+// this grid (models/istdp_net.py istdp_split). Scratch: lists (2, 2 num -
+// n_exc) int32, counts (4,) int32, fired (n_exc,) uint8. counters: null
+// (the plain instance), or (7,) uint64, zeroed by the caller, that the
+// clocked instance adds to: the launch's pre and post updates, then the
+// grid's warps' ns in update, scatter, walk, post and barrier.
+// blocks * SG_BLOCK * STDP_NPT must cover num; a grid larger than can be
+// co-resident is refused (cudaErrorCooperativeLaunchTooLarge).
+BE_EXPORT int istdp_sim_launch(
+    float* v, float* g_ampa, float* g_gaba, int* ref, int* ring,
+    int* spike_count, float* weights, float* apre, float* apost,
+    const int* targets, const int* plastic_ptr, const int* static_ptr,
+    const int* col_ptr, const int* col_pos, const int* col_src,
+    const int* split, int* lists, int* counts, unsigned char* fired,
+    unsigned long long* counters, int n_steps, const IstdpParams* p,
+    int blocks, int device, void* stream) {
+    int err = be_begin(device);
+    if (err) return err;
+    if (p->num <= 0) return be_end();
+    if (blocks <= 0 ||
+        static_cast<long long>(blocks) * SG_BLOCK * STDP_NPT < p->num ||
+        p->n_exc < 0 || p->n_exc > p->num || p->depth < 2 ||
+        (p->depth & (p->depth - 1)) || n_steps < 0 || !split)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const void* kernel =
+        counters ? reinterpret_cast<const void*>(istdp_sim_kernel<true>)
+                 : reinterpret_cast<const void*>(istdp_sim_kernel<false>);
+    IstdpParams params = *p;
+    void* args[] = {&v,          &g_ampa,      &g_gaba,     &ref,
+                    &ring,       &spike_count, &weights,    &apre,
+                    &apost,      &targets,     &plastic_ptr, &static_ptr,
+                    &col_ptr,    &col_pos,     &col_src,    &split,
+                    &lists,      &counts,      &fired,      &counters,
+                    &n_steps,    &params};
+    return be_refused(static_cast<int>(cudaLaunchCooperativeKernel(
+        kernel, dim3(blocks), dim3(SG_BLOCK), args, 0,
+        static_cast<cudaStream_t>(stream))));
 }

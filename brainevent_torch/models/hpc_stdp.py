@@ -86,9 +86,10 @@ from .microcircuit import I_MUL, T_MUL, poisson_thresholds
 from .neurons import f32
 
 __all__ = ['HpcStdpNet', 'HpcStdpState', 'HpcStdpParams', 'StdpParams',
-           'StdpPlan', 'build_hpc_network', 'stdp_columns',
-           'stdp_plan', 'stdp_split', 'stdp_counts', 'spike_capacity',
-           'stdp_sim', 'stdp_loop', 'stdp_sim_grid', 'stdp_pow_cuda',
+           'StdpPlan', 'build_hpc_network', 'stdp_columns', 'stdp_plan',
+           'split_lines', 'stdp_split', 'stdp_counts', 'spike_capacity',
+           'stdp_sim', 'stdp_loop', 'stdp_sim_grid', 'grid_blocks',
+           'coresident_blocks', 'stdp_pow_cuda',
            'propagator_31', 'propagator_32']
 
 HPC_BLOCK = 256          # threads a block of K24 (SG_BLOCK in sim_grid.cuh)
@@ -304,22 +305,26 @@ def _segments(ptr: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
             + torch.arange(int(lens.sum()), device=ptr.device))
 
 
-def stdp_columns(targets, plastic_ptr) -> tuple:
+def stdp_columns(targets, plastic_ptr, n_targets: Optional[int] = None
+                 ) -> tuple:
     """The plastic synapses by target, which :func:`stdp_loop` reads, on
-    the network's device: each E neuron's column ``col_ptr`` (int32 ``(NE
-    + 1,)``), and each entry's position ``col_pos`` and source ``col_src``
-    (int32 ``(P,)``), a column's entries in the order of their position (a
-    stable sort)."""
-    ne = plastic_ptr.numel() - 1
+    the network's device: each target's column ``col_ptr`` (int32
+    ``(n_targets + 1,)``, by default one a plastic row: the E neurons of
+    the HPC network), and each entry's position ``col_pos`` and source row
+    ``col_src`` (int32 ``(P,)``), a column's entries in the order of their
+    position (a stable sort)."""
+    rows = plastic_ptr.numel() - 1
+    n_cols = rows if n_targets is None else n_targets
     tp = targets[:int(plastic_ptr[-1])]
     order = torch.sort(tp, stable=True).indices.to(torch.int32)
-    col_ptr = torch.zeros(ne + 1, dtype=torch.int64, device=targets.device)
-    torch.cumsum(torch.bincount(tp, minlength=ne), 0, out=col_ptr[1:])
-    rows = torch.repeat_interleave(
-        torch.arange(ne, dtype=torch.int32, device=targets.device),
+    col_ptr = torch.zeros(n_cols + 1, dtype=torch.int64,
+                          device=targets.device)
+    torch.cumsum(torch.bincount(tp, minlength=n_cols), 0, out=col_ptr[1:])
+    src = torch.repeat_interleave(
+        torch.arange(rows, dtype=torch.int32, device=targets.device),
         (plastic_ptr[1:] - plastic_ptr[:-1]).long())
     return (col_ptr.to(torch.int32), order,
-            torch.index_select(rows, 0, order))
+            torch.index_select(src, 0, order))
 
 
 def stdp_loop(v, i_syn, di, ref, ring, spike_count, weights, kplus, khist,
@@ -475,34 +480,24 @@ def _owned(n_exc: int, num: int, blocks: int, device) -> tuple:
     return b * n_exc // blocks, n_exc + b * (num - n_exc) // blocks
 
 
-def stdp_split(targets, plastic_ptr, static_ptr, n_exc: int,
-               blocks: int) -> torch.Tensor:
-    """K24's split plan of the network's rows for a grid of *blocks*, on
-    the network's device: int32 ``(2 num, blocks + 1)``, a line of bounds
-    for each part of a row that K24 walks, ``line[b]`` the first position
-    of the part whose target block ``b`` owns or a later block (so block
-    ``b`` walks ``[line[b], line[b + 1])``; the owners as ``_owned`` gives
-    them). The lines: ``[0, NE)`` the plastic rows (E targets), ``[NE,
-    2 NE)`` the static rows of the E neurons (I targets), ``[2 NE, NE +
-    num)`` the static rows of the I neurons by their E targets, ``[NE +
-    num, 2 num)`` the same rows by their I targets. Lower bounds of the
+def split_lines(targets, ptr: torch.Tensor, groups, num: int,
+                blocks: int) -> torch.Tensor:
+    """The split plan of the rows whose first positions are *ptr* (int64,
+    one a row and the end) for a grid of *blocks*, on the network's
+    device: int32 ``(lines, blocks + 1)``, for each group ``(first line,
+    first row, rows, the owners' bounds)`` of *groups* a line of bounds for
+    each of its rows, ``line[b]`` the first position of the row's part whose
+    target block ``b`` owns or a later block (the owners' bounds int64
+    ``(blocks + 1,)``, as :func:`_owned` gives them). Lower bounds of the
     keys ``row * num + target`` by ``torch.searchsorted``, over at most
     SPLIT_CHUNK positions at a time (or one row). Raises ``ValueError``
-    where a row's targets do not ascend, as K24 needs them
-    (``build_hpc_network``'s rows ascend)."""
-    num = static_ptr.numel() - 1
-    ne, device = n_exc, targets.device
-    bounds = _owned(ne, num, blocks, device)
-    # each row's first position: the plastic rows, then the static ones
-    ptr = torch.cat([plastic_ptr[:-1], static_ptr]).long()
+    where a row's targets do not ascend, as K24 needs them."""
+    device = targets.device
     host = ptr.cpu()
-    out = torch.empty(2 * num, blocks + 1, dtype=torch.int32, device=device)
+    out = torch.empty(sum(g[2] for g in groups), blocks + 1,
+                      dtype=torch.int32, device=device)
     unsorted = torch.zeros((), dtype=torch.bool, device=device)
-    # (first line, first row, rows, the owners' bounds): see above
-    for line0, row0, rows, bnd in ((0, 0, ne, bounds[0]),
-                                   (ne, ne, ne, bounds[1]),
-                                   (2 * ne, 2 * ne, num - ne, bounds[0]),
-                                   (ne + num, 2 * ne, num - ne, bounds[1])):
+    for line0, row0, rows, bnd in groups:
         r, stop = row0, row0 + rows
         while r < stop:
             # rows [r, s): at most SPLIT_CHUNK positions, or one row
@@ -524,32 +519,66 @@ def stdp_split(targets, plastic_ptr, static_ptr, n_exc: int,
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _max_blocks(device_index: int) -> int:
-    fn = cuda_build.function('stdp_sim_max_blocks', [
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+def stdp_split(targets, plastic_ptr, static_ptr, n_exc: int,
+               blocks: int) -> torch.Tensor:
+    """K24's split plan of the network's rows for a grid of *blocks*, on
+    the network's device (:func:`split_lines`): int32 ``(2 num, blocks +
+    1)``, a line of bounds for each part of a row that K24 walks, so block
+    ``b`` walks ``[line[b], line[b + 1])``. The lines: ``[0, NE)`` the
+    plastic rows (E targets), ``[NE, 2 NE)`` the static rows of the E
+    neurons (I targets), ``[2 NE, NE + num)`` the static rows of the I
+    neurons by their E targets, ``[NE + num, 2 num)`` the same rows by
+    their I targets. Raises ``ValueError`` where a row's targets do not
+    ascend (``build_hpc_network``'s rows ascend)."""
+    num = static_ptr.numel() - 1
+    ne = n_exc
+    e, i = _owned(ne, num, blocks, targets.device)
+    # each row's first position: the plastic rows, then the static ones
+    ptr = torch.cat([plastic_ptr[:-1], static_ptr]).long()
+    return split_lines(targets, ptr, ((0, 0, ne, e), (ne, ne, ne, i),
+                                      (2 * ne, 2 * ne, num - ne, e),
+                                      (ne + num, 2 * ne, num - ne, i)),
+                       num, blocks)
+
+
+def coresident_blocks(entry: str, device_index: int) -> int:
+    """Blocks of HPC_BLOCK threads of a K24 instance that can be co-resident
+    on the card *device_index*, from its C entry point *entry*."""
+    fn = cuda_build.function(entry, [ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)])
     out = ctypes.c_int(0)
     err = fn(device_index, ctypes.byref(out))
     if err:
         raise KernelExecutionError(
-            f'stdp_sim: occupancy failed with CUDA error {err} '
+            f'{entry}: occupancy failed with CUDA error {err} '
             f'({cuda_build.error_string(err)})')
     return out.value
 
 
-def stdp_sim_grid(num: int, device: torch.device) -> int:
-    """The blocks of K24's grid for *num* neurons: one a thread where the
-    grid can be co-resident on *device*, else the co-resident grid with
-    two a thread (HPC_NPT). Raises ``ValueError`` where even that is too
-    small."""
-    most = _max_blocks(device.index or 0)
+@functools.lru_cache(maxsize=None)
+def _max_blocks(device_index: int) -> int:
+    return coresident_blocks('stdp_sim_max_blocks', device_index)
+
+
+def grid_blocks(name: str, num: int, most: int, device) -> int:
+    """The blocks of a K24 instance's grid for *num* neurons where *most*
+    can be co-resident on *device*: one neuron a thread where they cover
+    it, else the co-resident grid with two a thread (HPC_NPT). Raises
+    ``ValueError`` where even that is too small."""
     blocks = min(-(-num // HPC_BLOCK), most)
     if blocks * HPC_BLOCK * HPC_NPT < num:
-        raise ValueError(f'stdp_sim: {num} neurons need more than the {most} '
+        raise ValueError(f'{name}: {num} neurons need more than the {most} '
                          f'blocks of {HPC_BLOCK} threads that can be '
                          f'co-resident on {device} at {HPC_NPT} neurons a '
                          f'thread')
     return blocks
+
+
+def stdp_sim_grid(num: int, device: torch.device) -> int:
+    """The blocks of K24's grid for *num* neurons on *device*
+    (:func:`grid_blocks`)."""
+    return grid_blocks('stdp_sim', num, _max_blocks(device.index or 0),
+                       device)
 
 
 def _stdp_sim_cuda(op, v, i_syn, di, ref, ring, spike_count, weights, kplus,

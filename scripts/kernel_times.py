@@ -8,8 +8,8 @@ Run from the root of a checkout, on a machine with a card::
     python3 scripts/kernel_times.py
     python3 scripts/kernel_times.py --tree DIR [--parts k10,jitc,...]
 
-With no arguments it times each kernel, K1-K24 and K21's table and HH
-instances, at the shapes of the path that launches it, and prints two
+With no arguments it times each kernel, K1-K24, K24's iSTDP instance and
+K21's table and HH instances, at the shapes of the path that launches it, and prints two
 JSON lines:
 ``{"kernels": [...]}``, one entry a kernel (its device ms a call, its
 twin's ms, the least time of the work the call must do and what bounds
@@ -85,6 +85,8 @@ MC_SCALE = 1.0      # the microcircuit: 77,169 neurons, 2.99e8 synapses
 MC_WARM, MC_STEPS = 1000, 2000      # its timed launch, after the warm-up
 HPC_SCALE = 10.0    # the HPC benchmark network: 112,500 neurons, 1.27e9 synapses
 HPC_WARM, HPC_STEPS = 1000, 1000    # its timed launch, after the warm-up
+ISTDP_SCALE = 20.0  # Vogels et al. 2011's network: 200,000 neurons
+ISTDP_WARM, ISTDP_STEPS = 1000, 1000    # its timed launch, after the warm-up
 TREE_PARTS = ('k10', 'jitc', 'k15', 'train', 'dense', 'ei', 'ei_dense')
 
 
@@ -1344,6 +1346,50 @@ def time_k24(device):
                           float(new[net.n_exc:].mean()) / seconds])
 
 
+def time_k24_istdp(device):
+    """K24's iSTDP instance on Vogels et al. 2011's network at ISTDP_SCALE:
+    one launch of ISTDP_STEPS steps after ISTDP_WARM (device ms, CUDA
+    events), the twin (``istdp_loop``) on the card from the same state
+    (bitwise equal), and the work ``benchmark_torch/work/vogels_istdp.py``
+    counts for that launch (the state read and written once; not the
+    weights' copy, which ``run`` makes)."""
+    import brainevent_torch as bt
+    from brainevent_torch.models import istdp_net as isn
+    from benchmark_torch.work import vogels_istdp as work
+    net = bt.IstdpNet(scale=ISTDP_SCALE, device=device)
+    warm = net.run(ISTDP_WARM, state=net.init_state())
+    p = net.step_params(warm.step)
+    rows = (net.targets, net.plastic_ptr, net.static_ptr)
+    got = [getattr(warm, k).clone() for k in isn.STATE_FIELDS]
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    isn.istdp_sim(*got, *rows, ISTDP_STEPS, p, scratch=net.plan)
+    b.record()
+    torch.cuda.synchronize()
+    want = [getattr(warm, k).clone() for k in isn.STATE_FIELDS]
+    t0 = time.perf_counter()
+    isn.istdp_loop(*want, *rows, ISTDP_STEPS, p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(same_bits(got, want), 'K24 iSTDP vs twin')
+    out = dict(zip(isn.STATE_FIELDS, got))
+    out['spike_count'] = out['spike_count'] - warm.spike_count
+    inputs = dict(num=net.num, ne=net.n_exc,
+                  net=dict(targets=net.targets, plastic_ptr=net.plastic_ptr,
+                           static_ptr=net.static_ptr, weights=net.weights))
+    total = work.reduce(None, inputs, out)
+    n_ops, n_bytes = work.count(None, inputs, total, 1, ISTDP_STEPS)
+    n_bytes -= 8 * net.n_plastic  # the trial's copy of the weights: run's
+    seconds = ISTDP_STEPS * net.params.dt * 1e-3
+    new = out['spike_count'].double()
+    return dict(ms=a.elapsed_time(b), plain_ms=plain_ms, bytes=n_bytes,
+                ops=n_ops, blocks=isn.istdp_sim_grid(net.num, device),
+                rates_hz=[float(new[:net.n_exc].mean()) / seconds,
+                          float(new[net.n_exc:].mean()) / seconds])
+
+
 # -- Brette's Hodgkin-Huxley network (K21's HH instance) ----------------------------
 
 def time_k21_hh(device):
@@ -1430,6 +1476,8 @@ def time_kernels_line(device):
     k23 = details['k23'] = time_k23(device)
     phase('K24: the HPC benchmark network with STDP')
     k24 = details['k24'] = time_k24(device)
+    phase('K24\'s iSTDP instance: Vogels et al. 2011\'s network')
+    k24_istdp = details['k24_istdp'] = time_k24_istdp(device)
     phase('K21\'s HH instance: Brette\'s Hodgkin-Huxley network')
     k21_hh = details['k21_hh'] = time_k21_hh(device)
 
@@ -1466,7 +1514,7 @@ def time_kernels_line(device):
              replaces='brainevent_tpu/models/pallas_sim.py:532'),
         entry('einet_shard_step', k22['400k']),
         entry('mc_sim', k23), entry('stdp_sim', k24),
-        entry('einet_sim_hh', k21_hh)]
+        entry('istdp_sim', k24_istdp), entry('einet_sim_hh', k21_hh)]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'details': details}, default=str))
     return 0

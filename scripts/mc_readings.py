@@ -1,7 +1,8 @@
-"""The readings the limits of ``pd_microcircuit.77k``, ``hpc_stdp.112k``
-and ``coba_hh.400k`` are set from, on the card:
+"""The readings the limits of ``pd_microcircuit.77k``, ``hpc_stdp.112k``,
+``coba_hh.400k`` and ``vogels_istdp.200k`` are set from, on the card:
 ``benchmark_torch/readings.py`` for the cells that run through a driver
-of their own (``mc_trials``, ``stdp_trials``, ``hh_trials``).
+of their own (``mc_trials``, ``stdp_trials``, ``hh_trials``,
+``istdp_trials``).
 
     python3 scripts/mc_readings.py [--cell pd_microcircuit.77k] \
         --program <seed,...> --control <seed,...>

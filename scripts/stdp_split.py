@@ -3,8 +3,13 @@ the update with the Poisson draw (and the barriers), the two grid barriers
 alone, and the launch's flush; beside it, the clocked instance's own
 phases of the same launch.
 
-    python3 scripts/stdp_split.py [--scale 10] [--steps 5000] [--warm 2000] \\
-        [--seed 7] [--turns 3]
+    python3 scripts/stdp_split.py [--model hpc] [--scale 10] [--steps 5000] \\
+        [--warm 2000] [--seed 7] [--turns 3]
+
+``--model istdp`` splits K24's iSTDP instance on Vogels et al. 2011's
+network (``IstdpNet``, scale 20 by default) alike: it has no Poisson draw
+and no flush (every update eager), so ``flush`` is the launch's fixed
+cost, and its counters are the pre and post updates.
 
 On a card, from the root of a checkout; prints one JSON line. It draws
 NEST's HPC benchmark network at *scale* on the card
@@ -56,7 +61,8 @@ def power_limit() -> str:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--scale', type=float, default=10.0)
+    parser.add_argument('--model', choices=('hpc', 'istdp'), default='hpc')
+    parser.add_argument('--scale', type=float, default=None)
     parser.add_argument('--steps', type=int, default=5000)
     parser.add_argument('--warm', type=int, default=2000)
     parser.add_argument('--seed', type=int, default=7)
@@ -70,20 +76,30 @@ def main(argv=None) -> int:
     from brainevent_torch.ops.core import cuda_stream
 
     device = torch.device('cuda')
+    hpc = args.model == 'hpc'
+    if hpc:
+        m, entry, op, grid = hs, bt.HpcStdpNet, hs.stdp_sim, hs.stdp_sim_grid
+        n_counts = hs.HPC_COUNTS
+    else:
+        from brainevent_torch.models import istdp_net as m
+        entry, op, grid = bt.IstdpNet, m.istdp_sim, m.istdp_sim_grid
+        n_counts = m.ISTDP_COUNTS
+    scale = args.scale or (10.0 if hpc else 20.0)
     t0 = time.perf_counter()
-    net = bt.HpcStdpNet(scale=args.scale, seed=args.seed, device=device)
+    net = entry(scale=scale, seed=args.seed, device=device)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    empty = bt.HpcStdpNet(
-        scale=args.scale, device=device,
+    n_rows = net.plastic_ptr.numel()
+    empty = entry(
+        scale=scale, device=device,
         targets=torch.zeros(0, dtype=torch.int32),
-        plastic_ptr=torch.zeros(net.n_exc + 1, dtype=torch.int32),
+        plastic_ptr=torch.zeros(n_rows, dtype=torch.int32),
         static_ptr=torch.zeros(net.num + 1, dtype=torch.int32),
         weights=torch.zeros(0))
     state = net.run(args.warm, state=net.init_state(
         torch.Generator().manual_seed(args.seed + 1)))
     bare = state._replace(weights=empty.weights)
-    blocks = hs.stdp_sim_grid(net.num, device)
+    blocks = grid(net.num, device)
     barriers = cuda_build.function('mc_sim_barriers_launch', [
         ctypes.c_int] * 3 + [ctypes.c_void_p])
     half = args.steps // 2
@@ -101,12 +117,13 @@ def main(argv=None) -> int:
 
     def launch(on, st, n_steps, counters=None):
         """One K24 launch of n_steps from st: its ms and its state."""
-        out = [getattr(st, k).clone() for k in hs.STATE_FIELDS]
-        p = on.step_params(st.key, st.step)
-        ms, _ = timed(lambda: hs.stdp_sim(
+        out = [getattr(st, k).clone() for k in m.STATE_FIELDS]
+        p = (on.step_params(st.key, st.step) if hpc
+             else on.step_params(st.step))
+        ms, _ = timed(lambda: op(
             *out, on.targets, on.plastic_ptr, on.static_ptr, n_steps, p,
             scratch=on.plan, counters=counters))
-        return ms, dict(zip(hs.STATE_FIELDS, out))
+        return ms, dict(zip(m.STATE_FIELDS, out))
 
     def barrier():
         err = barriers(2 * args.steps, blocks, device.index or 0,
@@ -122,7 +139,7 @@ def main(argv=None) -> int:
         if turn == 0:
             first = out
         ms['whole'].append(x)
-        counters.append(torch.zeros(hs.HPC_COUNTS, dtype=torch.int64,
+        counters.append(torch.zeros(n_counts, dtype=torch.int64,
                                     device=device))
         x, clocked = launch(net, state, args.steps, counters[-1])
         ms['clocked'].append(x)
@@ -136,21 +153,36 @@ def main(argv=None) -> int:
     step_us = (med['whole'] - med['half']) * 1e3 / (args.steps - half)
     no_rows_us = med['no_rows'] * 1e3 / args.steps
     barrier_us = med['barrier'] * 1e3 / args.steps
-    dep, fac, flush = counters[0][:len(hs.COUNTERS)].tolist()
+    updates = dict(zip((k.rsplit('.', 1)[1] for k in m.COUNTERS),
+                       counters[0][:len(m.COUNTERS)].tolist()))
     warp_steps = blocks * hs.HPC_BLOCK // 32 * args.steps
-    phases_us = {name: sorted(int(c[len(hs.COUNTERS) + k]) for c in counters)[
+    phases_us = {name: sorted(int(c[len(m.COUNTERS) + k]) for c in counters)[
         len(counters) // 2] / warp_steps * 1e-3
-        for k, name in enumerate(hs.PHASES)}
+        for k, name in enumerate(m.PHASES)}
     spikes = (first['spike_count'] - state.spike_count).to(torch.int64)
     degree = (net.static_ptr[1:] - net.static_ptr[:-1]).to(torch.int64)
-    degree[:net.n_exc] += (net.plastic_ptr[1:]
-                           - net.plastic_ptr[:-1]).to(torch.int64)
+    plastic_rows = (net.plastic_ptr[1:] - net.plastic_ptr[:-1]).to(
+        torch.int64)
+    if hpc:
+        degree[:net.n_exc] += plastic_rows
+    else:
+        degree[net.n_exc:] += plastic_rows
     seconds = args.steps * net.params.dt * 1e-3
+    extra = (dict(depressions_per_step=updates['depressions'] / args.steps,
+                  facilitations_per_step=updates['facilitations']
+                  / args.steps,
+                  flush_share=(updates['flush_facilitations']
+                               / updates['facilitations']
+                               if updates['facilitations'] else None))
+             if hpc else
+             dict(pre_updates_per_step=updates['pre_updates'] / args.steps,
+                  post_updates_per_step=updates['post_updates']
+                  / args.steps))
     print(json.dumps(dict(
         device=torch.cuda.get_device_name(device), nvidia_smi=power_limit(),
-        torch=torch.__version__, cuda=torch.version.cuda, scale=args.scale,
-        num=net.num, n_exc=net.n_exc, synapses=net.targets.numel(),
-        plastic=net.n_plastic, blocks=blocks,
+        torch=torch.__version__, cuda=torch.version.cuda, model=args.model,
+        scale=scale, num=net.num, n_exc=net.n_exc,
+        synapses=net.targets.numel(), plastic=net.n_plastic, blocks=blocks,
         npt=-(-net.num // (blocks * hs.HPC_BLOCK)), steps=args.steps,
         half=half, warm=args.warm, build_s=build_s,
         launch_ms=ms, us_per_step=dict(
@@ -168,9 +200,7 @@ def main(argv=None) -> int:
                       i=float(spikes[net.n_exc:].double().mean()) / seconds),
         spikes_per_step=float(spikes.sum()) / args.steps,
         deliveries_per_step=float((spikes * degree).sum()) / args.steps,
-        depressions_per_step=dep / args.steps,
-        facilitations_per_step=fac / args.steps,
-        flush_share=flush / fac if fac else None,
+        **extra,
         split_bytes=net.plan.split.numel() * net.plan.split.element_size(),
         weights_after=dict(mean=float(first['weights'].double().mean()),
                            sd=float(first['weights'].double().std())),

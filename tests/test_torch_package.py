@@ -245,10 +245,10 @@ def test_launch_counts_only_successful_launches(monkeypatch):
 
 
 # kernels of the port's own, which replace no TPU kernel (replaces=None):
-# K23, the microcircuit's trial, K24, the HPC benchmark network's, and
-# K21's HH instance, the Hodgkin-Huxley network's, have no counterpart in
-# the JAX package
-PORT_ONLY = {'mc_sim', 'stdp_sim', 'einet_sim_hh'}
+# K23, the microcircuit's trial, K24, the HPC benchmark network's, its
+# iSTDP instance, Vogels et al. 2011's network's, and K21's HH instance,
+# the Hodgkin-Huxley network's, have no counterpart in the JAX package
+PORT_ONLY = {'mc_sim', 'stdp_sim', 'istdp_sim', 'einet_sim_hh'}
 
 
 def _ported():
@@ -389,6 +389,7 @@ _NO_DEVICE = {
     'JITCNet': lambda: bt.JITCNet(scale=0.05),
     'HpcStdpNet': lambda: bt.HpcStdpNet(scale=0.001),
     'HHNet': lambda: bt.HHNet(scale=0.05),
+    'IstdpNet': lambda: bt.IstdpNet(scale=0.1),
     'lifref_init': lambda: bt.lifref_init(None, 8, bt.LIFRefParams()),
     'einet_from_arrays': lambda: bt.einet_from_arrays(
         np.zeros((200, 4), np.int32), 160, *(np.zeros(200, np.float32),) * 4,

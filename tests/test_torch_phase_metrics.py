@@ -16,9 +16,11 @@ from _torch_one_thread import one_torch_thread  # noqa: F401
 
 PHASES = {'stdp': ('HpcStdpNet', ('update', 'walk', 'barrier', 'flush')),
           'hh': ('HHNet', ('update', 'scatter', 'barrier')),
-          'mc': ('MicrocircuitNet', ('update', 'scatter', 'barrier'))}
+          'mc': ('MicrocircuitNet', ('update', 'scatter', 'barrier')),
+          'istdp': ('IstdpNet', ('update', 'scatter', 'walk', 'post',
+                                'barrier'))}
 CELLS = {'stdp': 'hpc_stdp.112k', 'hh': 'coba_hh.400k',
-         'mc': 'pd_microcircuit.77k'}
+         'mc': 'pd_microcircuit.77k', 'istdp': 'vogels_istdp.200k'}
 METRICS = [(f'{phase}_us_per_step.{kernel}', kernel, k)
            for kernel, (_, phases) in PHASES.items()
            for k, phase in enumerate(phases)]

@@ -185,10 +185,12 @@ def _tiny(entry):
                              params=bt.HpcStdpParams(ce=90, ci=22))
     if entry == 'HHNet':
         return bt.HHNet(scale=0.05, device='cpu')
+    if entry == 'IstdpNet':
+        return bt.IstdpNet(scale=0.1, device='cpu')
     return bt.MicrocircuitNet(scale=0.02, device='cpu')
 
 
-WHOLE_TRIAL = ['HpcStdpNet', 'HHNet', 'MicrocircuitNet']
+WHOLE_TRIAL = ['HpcStdpNet', 'HHNet', 'MicrocircuitNet', 'IstdpNet']
 
 
 @pytest.mark.parametrize('entry', WHOLE_TRIAL)
